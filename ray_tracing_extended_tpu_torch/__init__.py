@@ -1,0 +1,66 @@
+"""ray_tracing_extended_tpu_torch: the progressive path tracer in PyTorch,
+with a hand-written CUDA kernel for NVIDIA Hopper.
+
+A port of ``ray_tracing_extended_tpu`` (JAX, TPU), which stays the
+reference it is tested against. It imports torch and numpy, never JAX.
+Tensors on the CPU take the plain PyTorch path; tensors on a CUDA device
+take the CUDA kernel.
+
+Quick start::
+
+    import torch
+    import ray_tracing_extended_tpu_torch as rtt
+    from ray_tracing_extended_tpu_torch.models.presets import rtiow_final_scene
+
+    scene, cam, cfg = rtiow_final_scene(width=320, height=180, spp=4)
+    dev = "cuda" if torch.cuda.is_available() else "cpu"
+    img = rtt.render_frame(scene.to(dev), cam.to(dev), cfg, frame=0)
+"""
+
+from .models.geometry import (
+    FLAG_CHECKER,
+    FLAG_DIELECTRIC,
+    FLAG_INVISIBLE_LIGHT,
+    FLAG_NONE,
+    Environment,
+    Materials,
+    MeshChunks,
+    Scene,
+    Spheres,
+    Triangles,
+)
+from .models.scene import Material, SceneBuilder
+from .ops.accumulate import accumulate
+from .ops.camera import Camera, look_at
+from .render import (
+    render_and_accumulate,
+    render_frame,
+    render_frame_with_stats,
+    render_frames_and_accumulate,
+)
+from .utils.config import RenderConfig
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "Camera",
+    "Environment",
+    "FLAG_CHECKER",
+    "FLAG_DIELECTRIC",
+    "FLAG_INVISIBLE_LIGHT",
+    "FLAG_NONE",
+    "Material",
+    "Materials",
+    "MeshChunks",
+    "RenderConfig",
+    "Scene",
+    "SceneBuilder",
+    "Spheres",
+    "Triangles",
+    "accumulate",
+    "look_at",
+    "render_and_accumulate",
+    "render_frame",
+    "render_frame_with_stats",
+    "render_frames_and_accumulate",
+]

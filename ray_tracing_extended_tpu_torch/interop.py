@@ -1,0 +1,53 @@
+"""Hand-off from the JAX package's scene and camera to the port's tensors.
+
+The JAX package (``ray_tracing_extended_tpu``) keeps its scene as
+dataclasses of arrays. These functions read each leaf once with
+``np.asarray`` and wrap it as a CPU tensor, so both packages can render the
+same scene and the port can be held against the reference. They use only
+attribute access and numpy: nothing here imports JAX.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .models.geometry import (
+    Environment,
+    Materials,
+    MeshChunks,
+    Scene,
+    Spheres,
+    Triangles,
+)
+from .ops.camera import Camera, camera_from_numpy
+
+
+def _copy(cls, src):
+    """``cls`` with every field read from the same-named attribute of
+    ``src`` (a JAX-package dataclass with array leaves)."""
+    return cls(
+        **{
+            name: torch.from_numpy(np.array(np.asarray(getattr(src, name))))
+            for name in cls.__dataclass_fields__
+        }
+    )
+
+
+def scene_from_arrays(scene) -> Scene:
+    """A port ``Scene`` on the CPU from a JAX-package ``Scene``. Its BVHs and
+    packed TPU tables are left behind: the port does not use them."""
+    return Scene(
+        spheres=_copy(Spheres, scene.spheres),
+        triangles=_copy(Triangles, scene.triangles),
+        chunks=_copy(MeshChunks, scene.chunks),
+        materials=_copy(Materials, scene.materials),
+        env=_copy(Environment, scene.env),
+    )
+
+
+def camera_from_arrays(cam) -> Camera:
+    """A port ``Camera`` on the CPU from a JAX-package ``Camera``."""
+    return camera_from_numpy(
+        *(np.asarray(getattr(cam, name)) for name in Camera.__dataclass_fields__)
+    )

@@ -1,0 +1,398 @@
+"""The whole path trace of a sphere scene as one kernel, and its plain
+PyTorch version.
+
+Port of ``ray_tracing_extended_tpu/kernels/megakernel.py``: its Pallas
+kernel ``_render_kernel`` traces a tile of pixels start to finish; here
+``csrc/megakernel.cu`` traces one pixel per CUDA thread (see the source's
+header for what it computes, what bounds it and what it does about that).
+
+``render_frames_mega`` is the wrapper the renderer calls. Given a scene on
+the CPU it runs ``render_frames_plain``, the same function built from the
+plain modules in ``ops/`` (the JAX package's XLA path, op for op). Given a
+scene on a CUDA device it launches the kernel, or raises for what the
+kernel does not do; it never falls back.
+
+The kernel is compiled with ``nvcc`` from the package's own source at
+first use, into ``build/`` beside this package, and loaded with ctypes.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from ..models.geometry import Scene
+from ..ops import rng as rng_ops
+from ..ops import vecmath as vm
+from ..ops.accumulate import accumulate
+from ..ops.camera import Camera, camera_params, focus_points, generate_rays
+from ..ops.trace import trace
+from ..utils.config import RenderConfig
+
+_PKG = Path(__file__).resolve().parent.parent
+SOURCE = _PKG / "csrc" / "megakernel.cu"
+BUILD_DIR = _PKG / "build"
+
+# Flags of the one build. No --use_fast_math: it would swap logf, cosf,
+# sinf, powf and sqrtf for approximations the plain version does not use.
+# -fmad=false keeps every multiply and add separately rounded, as in the
+# plain version.
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+# Dynamic shared memory one block may use on Hopper (227 KB).
+MAX_SHARED_BYTES = 232448
+
+
+# ------------------------------ plain version -------------------------------
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _padded_pixel_blocks(cfg: RenderConfig, start: int, stop: int) -> np.ndarray:
+    """(nb, block) pixel indices covering pixels ``start .. stop - 1``;
+    padding lanes repeat the last pixel (they are traced and counted, then
+    dropped), as the JAX package's XLA path lays out the whole image."""
+    n = stop - start
+    block = min(cfg.block_size, _round_up(n, 256))
+    idx = start + np.minimum(np.arange(_round_up(n, block)), n - 1)
+    return idx.reshape(-1, block)
+
+
+def render_block(
+    scene: Scene,
+    camera: Camera,
+    cfg: RenderConfig,
+    frame,
+    pix_idx: torch.Tensor,
+    intersect_fn=None,
+    with_bounce_counts: bool = False,
+):
+    """One flat block of pixels -> ``(mean radiance (B, 3), segments (B,))``
+    plus, with ``with_bounce_counts``, the (max_bounce + 1,) live counts.
+
+    ``pix_idx`` holds global pixel indices ``y * width + x``. The spp loop
+    is sequential: one PCG state runs through all of a pixel's samples
+    (RayTracing.shader:374-385)."""
+    x = pix_idx % cfg.width
+    y = pix_idx // cfg.width
+    state = rng_ops.seed(pix_idx, frame)
+    fp = focus_points(camera, x, y, cfg.width, cfg.height)
+    dev = pix_idx.device
+    total = torch.zeros((pix_idx.shape[0], 3), dtype=torch.float32, device=dev)
+    segs = torch.zeros(pix_idx.shape[0], dtype=torch.int32, device=dev)
+    counts = torch.zeros(cfg.max_bounce + 1, dtype=torch.int32, device=dev)
+    for _ in range(cfg.spp):
+        state, origin, direction = generate_rays(state, camera, fp, cfg.width)
+        state, light, s, c = trace(
+            state, origin, direction, scene, cfg.max_bounce,
+            intersect_fn=intersect_fn, with_bounce_counts=True,
+        )
+        total = total + light
+        segs = segs + s
+        counts = counts + c
+    mean = vm.div(total, float(cfg.spp))
+    if with_bounce_counts:
+        return mean, segs, counts
+    return mean, segs
+
+
+def _render_frame_plain(scene, camera, cfg, frame, y0, y1):
+    dev = scene.device
+    imgs, segs, counts = [], [], []
+    for block in _padded_pixel_blocks(cfg, y0 * cfg.width, y1 * cfg.width):
+        pix = torch.from_numpy(block).to(dev)
+        img, s, c = render_block(scene, camera, cfg, frame, pix,
+                                 with_bounce_counts=True)
+        imgs.append(img)
+        segs.append(s)
+        counts.append(c)
+    n = (y1 - y0) * cfg.width
+    segs = torch.cat(segs)
+    img = torch.cat(imgs)[:n].reshape(y1 - y0, cfg.width, 3)
+    return (
+        img,
+        segs.sum(dtype=torch.int64),
+        segs[:n].reshape(y1 - y0, cfg.width),
+        torch.stack(counts).sum(0, dtype=torch.int32),
+    )
+
+
+def render_frames_plain(
+    scene: Scene,
+    camera: Camera,
+    cfg: RenderConfig,
+    frame0,
+    n_frames: int = 1,
+    accum: torch.Tensor | None = None,
+    collect_stats: bool = False,
+    rows: tuple[int, int] | None = None,
+):
+    """The plain PyTorch version of the kernel, on the scene's device.
+
+    Renders frames ``frame0 .. frame0 + n_frames - 1``. Without ``accum``
+    (then ``n_frames`` must be 1) the image is the frame's mean radiance;
+    with it, each frame folds into the running average
+    (``ops/accumulate.py``). Returns ``(image (H, W, 3) f32, total segments
+    (int64 0-d), per-pixel segments (H, W) int32, per-bounce live counts
+    (max_bounce + 1,) int32 or None)``. Like the JAX package's XLA path,
+    the total and the histogram include the padding lanes of the last
+    pixel block; the per-pixel map does not.
+
+    ``rows=(y0, y1)`` renders only rows ``y0 .. y1 - 1`` of the full frame,
+    with the same pixels and random streams; ``accum``, the image and the
+    per-pixel map then hold ``y1 - y0`` rows. This makes a full-width
+    check of the kernel affordable at large sizes.
+    """
+    _check_frames(n_frames, accum)
+    y0, y1 = (0, cfg.height) if rows is None else rows
+    if not 0 <= y0 < y1 <= cfg.height:
+        raise ValueError(f"rows {rows} outside 0..{cfg.height}")
+    total = 0
+    segs_map = 0
+    hist = 0
+    for k in range(n_frames):
+        frame = (int(frame0) + k) & 0xFFFFFFFF
+        img, s, m, h = _render_frame_plain(scene, camera, cfg, frame, y0, y1)
+        if accum is not None:
+            img = accum = accumulate(accum, img, frame, clamp=cfg.clamp_accumulate)
+        total = total + s
+        segs_map = segs_map + m
+        hist = hist + h
+    return img, total, segs_map, (hist if collect_stats else None)
+
+
+def _check_frames(n_frames: int, accum) -> None:
+    if n_frames < 1:
+        raise ValueError(f"n_frames must be >= 1, got {n_frames}")
+    if n_frames > 1 and accum is None:
+        raise ValueError("n_frames > 1 requires an accumulator image")
+
+
+# --------------------------------- kernel -----------------------------------
+
+
+def find_nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    candidate = os.path.join(cuda_home, "bin", "nvcc")
+    if os.path.exists(candidate):
+        return candidate
+    raise RuntimeError(
+        "nvcc not found (PATH, $CUDA_HOME/bin): the CUDA kernel is built "
+        "from csrc/megakernel.cu at first use and needs the CUDA toolkit"
+    )
+
+
+@dataclasses.dataclass
+class BuildInfo:
+    library: Path
+    seconds: float  # 0.0 when an up-to-date library was already there
+    log: str  # nvcc's output, including ptxas's register report
+
+
+class PathTraceKernel:
+    """Builds, loads and launches ``csrc/megakernel.cu``.
+
+    ``launches`` counts the kernel launches this object made; nothing else
+    changes it."""
+
+    def __init__(self):
+        self.launches = 0
+        self.build_info: BuildInfo | None = None
+        self._lib = None
+
+    def build(self) -> BuildInfo:
+        """Compile the source (if its library is not built yet) and load
+        it. Raises if nvcc is missing or fails."""
+        if self._lib is not None:
+            return self.build_info
+        digest = hashlib.sha256(
+            SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        ).hexdigest()[:16]
+        lib_path = BUILD_DIR / f"libmegakernel_{digest}.so"
+        seconds, log = 0.0, ""
+        if not lib_path.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            seconds = time.perf_counter() - t0
+            log = proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}"
+                )
+            os.replace(tmp, lib_path)
+        lib = ctypes.CDLL(str(lib_path))
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.rtx_render_spheres.argtypes = [
+            vp, vp, ci, vp, vp, ci, ci, ci, ci, ctypes.c_uint, ci, vp, ci,
+            vp, vp, vp, vp,
+        ]
+        lib.rtx_render_spheres.restype = ci
+        lib.rtx_shared_bytes.argtypes = [ci, ci]
+        lib.rtx_shared_bytes.restype = ctypes.c_size_t
+        lib.rtx_error_string.argtypes = [ci]
+        lib.rtx_error_string.restype = ctypes.c_char_p
+        self._lib = lib
+        self.build_info = BuildInfo(lib_path, seconds, log)
+        return self.build_info
+
+    def launch(
+        self,
+        scene: Scene,
+        camera: Camera,
+        cfg: RenderConfig,
+        frame0,
+        n_frames: int,
+        accum: torch.Tensor | None,
+        collect_stats: bool,
+    ):
+        """One launch over the whole image; returns the same tuple as
+        ``render_frames_plain`` (the total and the histogram count real
+        pixels only). Reads nothing back from the device and does not
+        synchronise."""
+        _check_frames(n_frames, accum)
+        dev = scene.device
+        if dev.type != "cuda":
+            raise ValueError(f"the CUDA kernel needs a CUDA scene, got {dev}")
+        if scene.has_triangles:
+            raise NotImplementedError(
+                "the CUDA kernel traces spheres only; triangle scenes wait "
+                "for the triangle test and winner fetch (ROADMAP.md Queue A "
+                "item 10); render them on the CPU meanwhile"
+            )
+        if cfg.adaptive_spp or cfg.fast_scatter:
+            raise NotImplementedError(
+                "adaptive_spp and fast_scatter are not in the CUDA kernel "
+                "yet (ROADMAP.md Queue A item 11)"
+            )
+        h, w = cfg.height, cfg.width
+        if accum is not None and (
+            accum.device != dev
+            or accum.dtype != torch.float32
+            or tuple(accum.shape) != (h, w, 3)
+            or not accum.is_contiguous()
+        ):
+            raise ValueError(
+                "accum must be a contiguous (H, W, 3) float32 tensor on "
+                f"{dev}, got {tuple(accum.shape)} {accum.dtype} on {accum.device}"
+            )
+        if camera.position.device != dev:
+            raise ValueError(
+                f"camera on {camera.position.device}, scene on {dev}"
+            )
+        self.build()
+        n_sph = scene.spheres.count
+        shared = self._lib.rtx_shared_bytes(n_sph, cfg.max_bounce)
+        if shared > MAX_SHARED_BYTES:
+            raise NotImplementedError(
+                f"{n_sph} spheres need {shared} bytes of shared memory, over "
+                f"{MAX_SHARED_BYTES}; larger sphere scenes wait for the "
+                "BVH kernel (ROADMAP.md Queue B item 4)"
+            )
+
+        out = torch.empty((h, w, 3), dtype=torch.float32, device=dev)
+        segs = torch.empty((h, w), dtype=torch.int32, device=dev)
+        hist = (
+            torch.zeros(cfg.max_bounce + 1, dtype=torch.int32, device=dev)
+            if collect_stats else None
+        )
+        sph_tab, sph_mat, mats, params = sphere_tables(scene, camera, cfg)
+        with torch.cuda.device(dev):
+            rc = self._lib.rtx_render_spheres(
+                sph_tab.data_ptr(), sph_mat.data_ptr(), n_sph,
+                mats.data_ptr(), params.data_ptr(), w, h, cfg.spp,
+                cfg.max_bounce, int(frame0) & 0xFFFFFFFF, n_frames,
+                None if accum is None else accum.data_ptr(),
+                int(cfg.clamp_accumulate),
+                out.data_ptr(), segs.data_ptr(),
+                None if hist is None else hist.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream,
+            )
+        if rc != 0:
+            raise RuntimeError(
+                "megakernel launch failed: "
+                + self._lib.rtx_error_string(rc).decode()
+            )
+        self.launches += 1
+        return out, segs.sum(dtype=torch.int64), segs, hist
+
+
+def sphere_tables(scene: Scene, camera: Camera, cfg: RenderConfig):
+    """The kernel's inputs on the scene's device: the sphere table
+    (S, 5) f32 ``cx, cy, cz, r^2, r``, the sphere material indices (S,)
+    int32, the material table (M, 16) f32 and the (32,) f32 parameter
+    block (layouts in ``csrc/megakernel.cu``)."""
+    dev = scene.device
+    sph, mat, env = scene.spheres, scene.materials, scene.env
+    r = sph.radius[:, None]
+    sph_tab = torch.cat([sph.center, r * r, r], dim=1).contiguous()
+    m = mat.count
+    mats = torch.cat(
+        [
+            mat.colour, mat.emission_colour, mat.specular_colour,
+            mat.emission_strength[:, None], mat.smoothness[:, None],
+            mat.specular_probability[:, None], mat.ior[:, None],
+            mat.flag.to(torch.float32)[:, None],
+            torch.zeros((m, 2), dtype=torch.float32, device=dev),
+        ],
+        dim=1,
+    ).contiguous()
+    params = torch.cat(
+        [
+            camera.position, camera.rotation.reshape(-1),
+            camera_params(camera, cfg.width, cfg.height),
+            env.enabled.reshape(1), env.ground_colour, env.sky_colour_horizon,
+            env.sky_colour_zenith, env.sun_focus.reshape(1),
+            env.sun_intensity.reshape(1), env.sun_dir,
+        ]
+    ).to(torch.float32)
+    return sph_tab, sph.mat_idx.to(torch.int32).contiguous(), mats, params
+
+
+KERNEL = PathTraceKernel()
+
+
+def render_frames_mega(
+    scene: Scene,
+    camera: Camera,
+    cfg: RenderConfig,
+    frame0,
+    n_frames: int = 1,
+    accum: torch.Tensor | None = None,
+    collect_stats: bool = False,
+):
+    """Render ``n_frames`` frames from ``frame0`` (folded into ``accum``
+    when given) -> ``(image, total segments, per-pixel segments, bounce
+    histogram or None)``.
+
+    A scene on the CPU takes the plain version; a scene on a CUDA device
+    takes the kernel (one launch for all frames)."""
+    dev = scene.device
+    if dev.type == "cpu":
+        return render_frames_plain(
+            scene, camera, cfg, frame0, n_frames, accum, collect_stats
+        )
+    if dev.type == "cuda":
+        return KERNEL.launch(
+            scene, camera, cfg, frame0, n_frames, accum, collect_stats
+        )
+    raise ValueError(f"no render path for device {dev}")

@@ -1,0 +1,262 @@
+"""Host-side scene construction (RayTracingManager.CreateSpheres /
+CreateMeshes, RayTracingManager.cs:135-187).
+
+Mirrors ``ray_tracing_extended_tpu/models/scene.py``. ``build()`` flattens
+the builder into SoA tensors on the CPU with the JAX package's padding and
+order rules, so both packages build identical arrays from the same calls:
+
+  * spheres padded to a multiple of 128 with radius -1 (never hit), at
+    least one padding slot;
+  * one flat triangle buffer padded the same way with all-zero triangles
+    (determinant 0, never hit);
+  * one flat material table: sphere materials first, then one per triangle
+    chunk, in insertion order (the spheres-then-triangles tie-break order).
+
+Octree mesh chunking, BVH builds, the TPU kernel's packed tables and the
+content hash are not part of the port yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from .geometry import (
+    FLAG_DIELECTRIC,
+    FLAG_NONE,
+    Environment,
+    Materials,
+    MeshChunks,
+    Scene,
+    Spheres,
+    Triangles,
+)
+
+_LANE = 128  # primitive counts pad to a multiple of this
+
+
+@dataclasses.dataclass
+class Material:
+    """Host material with the reference's defaults
+    (RayTracingMaterial.SetDefaultValues, RayTracingMaterial.cs:21-28). The
+    default specularProbability is 1, so throughput multiplies
+    specularColour for default materials (SURVEY.md section 5 quirk 5)."""
+
+    colour: tuple = (1.0, 1.0, 1.0)
+    emission_colour: tuple = (1.0, 1.0, 1.0)
+    specular_colour: tuple = (1.0, 1.0, 1.0)
+    emission_strength: float = 0.0
+    smoothness: float = 0.0
+    specular_probability: float = 1.0
+    flag: int = FLAG_NONE
+    ior: float = 1.0  # dielectric extension (flag 3)
+
+    @staticmethod
+    def lambertian(colour, smoothness: float = 0.0):
+        """Plain diffuse: the specular lottery never fires."""
+        return Material(
+            colour=tuple(colour), specular_probability=0.0, smoothness=smoothness
+        )
+
+    @staticmethod
+    def metal(colour, smoothness: float = 1.0, specular_colour=None):
+        return Material(
+            colour=tuple(colour),
+            specular_colour=tuple(specular_colour or colour),
+            specular_probability=1.0,
+            smoothness=smoothness,
+        )
+
+    @staticmethod
+    def emissive(colour, strength: float):
+        return Material(
+            colour=(0.0, 0.0, 0.0),
+            emission_colour=tuple(colour),
+            emission_strength=strength,
+            specular_probability=0.0,
+        )
+
+    @staticmethod
+    def dielectric(ior: float = 1.5, colour=(1.0, 1.0, 1.0)):
+        return Material(colour=tuple(colour), flag=FLAG_DIELECTRIC, ior=ior)
+
+
+def _round_up(x: int, m: int) -> int:
+    return max(m, -(-x // m) * m)
+
+
+def _t(a: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+class SceneBuilder:
+    """Mutable host scene; ``build()`` may run once for a static scene or
+    once per frame for animation (``set_sphere`` between builds)."""
+
+    def __init__(self, env: Environment | None = None):
+        self._sphere_center: list = []
+        self._sphere_radius: list = []
+        self._sphere_mat: list[Material] = []
+        # pre-chunked triangle soups in insertion order:
+        # (tri_pos, tri_normal, bounds_min, bounds_max, Material)
+        self._chunks: list = []
+        self.env = env if env is not None else Environment.disabled()
+
+    def add_sphere(self, center, radius: float, material: Material):
+        """One sphere record (Sphere.cs:3-8)."""
+        self._sphere_center.append(np.asarray(center, np.float32))
+        self._sphere_radius.append(np.float32(radius))
+        self._sphere_mat.append(material)
+        return self
+
+    def set_sphere(self, index: int, center=None, radius=None, material=None):
+        """Move, resize or re-skin sphere ``index`` (in ``add_sphere``
+        order) before the next ``build()``."""
+        if not 0 <= index < len(self._sphere_center):
+            raise IndexError(
+                f"sphere index {index} out of range "
+                f"[0, {len(self._sphere_center)})"
+            )
+        if center is not None:
+            self._sphere_center[index] = np.asarray(center, np.float32)
+        if radius is not None:
+            self._sphere_radius[index] = np.float32(radius)
+        if material is not None:
+            self._sphere_mat[index] = material
+        return self
+
+    def add_mesh(self, vertices, indices, material, normals=None,
+                 transform=None, max_tris_per_chunk=None, chunked=True):
+        """Indexed meshes need the octree chunker (``accel/chunks.py``),
+        which the port does not have yet."""
+        raise NotImplementedError(
+            "SceneBuilder.add_mesh needs the mesh chunker; see ROADMAP.md "
+            "Queue A item 10 (triangle and big-mesh scenes). Use "
+            "add_triangles for a pre-chunked soup."
+        )
+
+    def add_triangles(self, tri_pos, tri_normal, material: Material):
+        """A raw triangle soup, (F, 3, 3) positions and normals, as one
+        chunk."""
+        tri_pos = np.asarray(tri_pos, np.float32)
+        tri_normal = np.asarray(tri_normal, np.float32)
+        bmin = tri_pos.reshape(-1, 3).min(axis=0)
+        bmax = tri_pos.reshape(-1, 3).max(axis=0)
+        self._chunks.append((tri_pos, tri_normal, bmin, bmax, material))
+        return self
+
+    def build(self) -> Scene:
+        """Flatten into a CPU ``Scene``; move it with ``.to(device)``."""
+        s = len(self._sphere_center)
+        s_pad = _round_up(s + 1, _LANE)
+        centers = np.zeros((s_pad, 3), np.float32)
+        radii = np.full((s_pad,), -1.0, np.float32)
+        if s:
+            centers[:s] = np.stack(self._sphere_center)
+            radii[:s] = np.array(self._sphere_radius, np.float32)
+
+        mats: list[Material] = list(self._sphere_mat)
+        sphere_mat_idx = np.arange(s, dtype=np.int32)
+
+        chunk_first, chunk_count, chunk_bmin, chunk_bmax = [], [], [], []
+        chunk_mat_idx, tri_pos_all, tri_nrm_all, tri_mat_idx = [], [], [], []
+        cursor = 0
+        for tri_pos, tri_nrm, bmin, bmax, mat in self._chunks:
+            mats.append(mat)
+            midx = len(mats) - 1
+            n = tri_pos.shape[0]
+            chunk_first.append(cursor)
+            chunk_count.append(n)
+            chunk_bmin.append(bmin)
+            chunk_bmax.append(bmax)
+            chunk_mat_idx.append(midx)
+            tri_pos_all.append(tri_pos)
+            tri_nrm_all.append(tri_nrm)
+            tri_mat_idx.append(np.full((n,), midx, np.int32))
+            cursor += n
+
+        t = cursor
+        t_pad = _round_up(t + 1, _LANE)
+        pos = np.zeros((t_pad, 3, 3), np.float32)
+        nrm = np.zeros((t_pad, 3, 3), np.float32)
+        tmat = np.zeros((t_pad,), np.int32)
+        if t:
+            pos[:t] = np.concatenate(tri_pos_all)
+            nrm[:t] = np.concatenate(tri_nrm_all)
+            tmat[:t] = np.concatenate(tri_mat_idx)
+
+        c = len(chunk_first)
+        c_pad = max(1, c)
+        chunks = MeshChunks(
+            first_tri=_t(np.array(chunk_first + [0] * (c_pad - c), np.int32)),
+            num_tris=_t(np.array(chunk_count + [0] * (c_pad - c), np.int32)),
+            bounds_min=_t(np.array(
+                chunk_bmin + [[1e30] * 3] * (c_pad - c), np.float32
+            )),
+            bounds_max=_t(np.array(
+                chunk_bmax + [[1e30] * 3] * (c_pad - c), np.float32
+            )),
+            mat_idx=_t(np.array(chunk_mat_idx + [0] * (c_pad - c), np.int32)),
+        )
+
+        if not mats:
+            mats = [Material()]
+            sphere_mat_idx = np.zeros((0,), np.int32)
+        smat = np.zeros((s_pad,), np.int32)
+        if s:
+            smat[:s] = sphere_mat_idx
+
+        # every index the renderer gathers must be a real material row
+        n_mats = len(mats)
+        if not (0 <= smat.min() and smat.max() < n_mats
+                and 0 <= tmat.min() and tmat.max() < n_mats):
+            raise ValueError(f"material index out of range [0, {n_mats})")
+
+        return Scene(
+            spheres=Spheres(center=_t(centers), radius=_t(radii), mat_idx=_t(smat)),
+            triangles=_triangles_soa(pos, nrm, tmat),
+            chunks=chunks,
+            materials=_materials_soa(mats),
+            env=self.env,
+        )
+
+
+def _materials_soa(mats: Sequence[Material]) -> Materials:
+    def arr(get):
+        return _t(np.array([get(m) for m in mats], np.float32))
+
+    return Materials(
+        colour=arr(lambda m: m.colour[:3]),
+        emission_colour=arr(lambda m: m.emission_colour[:3]),
+        specular_colour=arr(lambda m: m.specular_colour[:3]),
+        emission_strength=arr(lambda m: m.emission_strength),
+        smoothness=arr(lambda m: m.smoothness),
+        specular_probability=arr(lambda m: m.specular_probability),
+        flag=_t(np.array([m.flag for m in mats], np.int32)),
+        ior=arr(lambda m: m.ior),
+    )
+
+
+def _triangles_soa(pos: np.ndarray, nrm: np.ndarray, mat_idx: np.ndarray) -> Triangles:
+    """The per-triangle Moller-Trumbore constants (see ``Triangles``),
+    computed in numpy exactly as the JAX package computes them."""
+    a, b, c = pos[:, 0], pos[:, 1], pos[:, 2]
+    e_ab = b - a
+    e_ac = c - a
+    n = np.cross(e_ab, e_ac)
+    return Triangles(
+        pos_a=_t(a),
+        edge_ab=_t(e_ab),
+        edge_ac=_t(e_ac),
+        normal_a=_t(nrm[:, 0]),
+        normal_b=_t(nrm[:, 1]),
+        normal_c=_t(nrm[:, 2]),
+        n=_t(n),
+        n_dot_a=_t(np.sum(n * a, axis=1)),
+        cross_eac_a=_t(np.cross(e_ac, a)),
+        cross_eab_a=_t(np.cross(e_ab, a)),
+        mat_idx=_t(mat_idx),
+    )

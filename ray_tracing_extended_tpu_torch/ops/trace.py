@@ -1,0 +1,113 @@
+"""The path-tracing bounce loop: a masked, fixed-shape rewrite of the
+reference's per-thread loop (Trace, RayTracing.shader:300-352).
+
+Mirrors ``ray_tracing_extended_tpu/ops/trace.py``. Every lane iterates
+under an ``alive`` mask and its state (origin, direction, throughput, PCG
+state) advances only where the mask allows; the PCG state advances only on
+scattering lanes, so a finished lane's stream is frozen like a returned
+HLSL thread's. The loop stops early once every lane is dead.
+
+Per bounce, in reference order: closest hit; checker / invisible-light
+flags; the specular-lottery scatter (7 draws); emission and throughput;
+Russian roulette (1 draw, survive iff ``U < max(rgb)``, boost by ``1/p``);
+on a miss, the environment light and death.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..models.geometry import Scene
+from . import rng as rng_ops
+from . import vecmath as vm
+from .environment import environment_light
+from .intersect import closest_hit_bruteforce
+from .materials import checker_colour, passthrough_mask, scatter
+
+# Invisible-light passthrough origin advance (RayTracing.shader:320).
+PASSTHROUGH_EPS = 0.001
+
+
+def trace(
+    state: torch.Tensor,
+    origin: torch.Tensor,
+    direction: torch.Tensor,
+    scene: Scene,
+    max_bounce: int,
+    intersect_fn=None,
+    with_bounce_counts: bool = False,
+):
+    """Trace a batch of rays to completion.
+
+    ``state`` (B,) PCG states; ``origin``/``direction`` (B, 3) with unit
+    directions. Bounces run ``0..max_bounce`` inclusive. ``intersect_fn``
+    ``(o, d, scene) -> HitRecord`` defaults to the brute-force scan.
+
+    Returns ``(state, incoming_light (B, 3), segments (B,) int32)``: a
+    segment is one scene intersection of a live lane. With
+    ``with_bounce_counts`` a fourth element holds the (max_bounce + 1,)
+    int32 live-lane counts per bounce index.
+    """
+    if intersect_fn is None:
+        intersect_fn = closest_hit_bruteforce
+    b = origin.shape[0]
+    dev = origin.device
+    incoming = torch.zeros((b, 3), dtype=torch.float32, device=dev)
+    colour = torch.ones((b, 3), dtype=torch.float32, device=dev)
+    alive = torch.ones((b,), dtype=torch.bool, device=dev)
+    segments = torch.zeros((b,), dtype=torch.int32, device=dev)
+    counts = torch.zeros((max_bounce + 1,), dtype=torch.int32, device=dev)
+    parked_dir = torch.tensor([1.0, 0.0, 0.0], device=dev)
+    o, d = origin, direction
+
+    for bounce_idx in range(max_bounce + 1):
+        if not bool(alive.any()):
+            break
+        segments = segments + alive.to(torch.int32)
+        if with_bounce_counts:
+            counts[bounce_idx] += alive.sum().to(torch.int32)
+        # dead lanes are parked far away, pointing away from the scene
+        o_live = torch.where(alive[..., None], o, 1.0e9)
+        d_live = torch.where(alive[..., None], d, parked_dir)
+        hit = intersect_fn(o_live, d_live, scene)
+        did_hit = hit.hit & alive
+        mat = scene.materials.take(hit.mat_idx)
+
+        base_colour = checker_colour(mat, hit.point)
+        passthru = passthrough_mask(mat, bounce_idx, did_hit)
+        scattering = did_hit & ~passthru
+
+        new_state, new_o, new_d, is_spec = scatter(
+            state, d, hit.point, hit.normal, mat
+        )
+        emitted = mat.emission_colour * mat.emission_strength[..., None]
+        inc_hit = incoming + emitted * colour
+        col_hit = colour * vm.lerp(
+            base_colour, mat.specular_colour, is_spec[..., None]
+        )
+        # Russian roulette; the clamped 1/p only keeps dead lanes finite
+        p = torch.amax(col_hit, dim=-1)
+        new_state, u_rr = rng_ops.random_value(new_state)
+        survive = u_rr < p
+        col_boosted = col_hit * (1.0 / torch.clamp(p, min=1e-30))[..., None]
+
+        missed = alive & ~hit.hit
+        inc_miss = incoming + environment_light(d, scene.env) * colour
+
+        sc3 = scattering[..., None]
+        o = torch.where(
+            passthru[..., None],
+            hit.point + d * PASSTHROUGH_EPS,
+            torch.where(sc3, new_o, o),
+        )
+        d = torch.where(sc3, new_d, d)
+        incoming = torch.where(
+            sc3, inc_hit, torch.where(missed[..., None], inc_miss, incoming)
+        )
+        colour = torch.where(sc3 & survive[..., None], col_boosted, colour)
+        state = torch.where(scattering, new_state, state)
+        alive = passthru | (scattering & survive)
+
+    if with_bounce_counts:
+        return state, incoming, segments, counts
+    return state, incoming, segments

@@ -1,0 +1,106 @@
+"""Frame rendering entry points (RayTracingManager.OnRenderImage).
+
+Mirrors ``ray_tracing_extended_tpu/render.py``: the same public functions
+with the same signatures and return shapes (``render_block``, the plain
+path's pixel-block step, lives beside the kernel it mirrors). Row 0 of an image is the
+BOTTOM and the pixel index is ``y * width + x``. Segment totals are int64
+0-d tensors (the JAX package returns uint32).
+
+The scene's device picks the path: on the CPU the plain PyTorch path
+(``ops/``, the counterpart of the JAX package's XLA path), on a CUDA device
+the hand-written kernel (``kernels/megakernel.py``), with no other route.
+On CUDA, what the kernel does not do yet (triangles, ``adaptive_spp``,
+``fast_scatter``) raises ``NotImplementedError`` naming the ROADMAP.md
+item that adds it, as does ``intersector="bvh"`` on either device.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .kernels.megakernel import render_block, render_frames_mega
+from .models.geometry import Scene
+from .ops.camera import Camera
+from .utils.config import RenderConfig
+
+__all__ = [
+    "render_and_accumulate",
+    "render_block",
+    "render_frame",
+    "render_frame_with_stats",
+    "render_frames_and_accumulate",
+]
+
+
+def _check_supported(cfg: RenderConfig) -> None:
+    if cfg.intersector not in ("auto", "bruteforce", "mega", "bvh"):
+        raise ValueError(f"unknown intersector {cfg.intersector!r}")
+    if cfg.intersector == "bvh":
+        raise NotImplementedError(
+            "intersector='bvh' needs the BVH traversal kernel "
+            "(ROADMAP.md Queue A item 10)"
+        )
+
+
+def render_frame_with_stats(
+    scene: Scene,
+    camera: Camera,
+    cfg: RenderConfig,
+    frame,
+    bounce_stats: bool = False,
+):
+    """Render one frame -> ``((H, W, 3) f32 linear radiance, total live ray
+    segments)``, the Mrays/s numerator. With ``bounce_stats`` a third
+    element holds the (max_bounce + 1,) int32 live-path counts per bounce
+    index. On CUDA the counts cover real pixels only; the plain path, like
+    the JAX package's XLA path, also counts its padding lanes."""
+    _check_supported(cfg)
+    img, segs, _, hist = render_frames_mega(
+        scene, camera, cfg, frame, collect_stats=bounce_stats
+    )
+    if bounce_stats:
+        return img, segs, hist
+    return img, segs
+
+
+def render_frame(scene: Scene, camera: Camera, cfg: RenderConfig, frame):
+    """Render one frame -> (H, W, 3) f32 linear radiance."""
+    img, _ = render_frame_with_stats(scene, camera, cfg, frame)
+    return img
+
+
+def render_frames_and_accumulate(
+    scene: Scene,
+    camera: Camera,
+    cfg: RenderConfig,
+    accum: torch.Tensor,
+    frame0,
+    n_frames: int = 1,
+    pair_costs=None,
+    segs_map: bool = False,
+):
+    """``n_frames`` progressive steps -> ``(accum', total segments)``, plus
+    the (H, W) int32 per-pixel segment counts when ``segs_map`` (real
+    counts on both paths; the JAX package's XLA path returns zeros there).
+
+    Frame ``frame0 + k`` folds into the running average with weight
+    ``1 / (frame0 + k + 1)``, clamped per ``cfg.clamp_accumulate``. On CUDA
+    all frames are one kernel launch. ``pair_costs`` is accepted and not
+    used: on the TPU it only reorders lanes, and the image is identical for
+    any cost map."""
+    del pair_costs
+    _check_supported(cfg)
+    img, segs, seg_map, _ = render_frames_mega(
+        scene, camera, cfg, frame0, n_frames, accum=accum
+    )
+    if segs_map:
+        return img, segs, seg_map
+    return img, segs
+
+
+def render_and_accumulate(
+    scene: Scene, camera: Camera, cfg: RenderConfig, accum, frame
+):
+    """One progressive step: render frame ``frame`` and fold it into the
+    running average (RayTracingManager.cs:69-84)."""
+    return render_frames_and_accumulate(scene, camera, cfg, accum, frame)[0]

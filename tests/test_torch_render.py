@@ -1,0 +1,220 @@
+"""The port's whole render slice on the CPU against the JAX package.
+
+Both packages render the same scene (handed over with ``interop``); the
+port takes its plain PyTorch path, the JAX package its XLA path or, once,
+the Pallas kernel in interpret mode. The tolerances are the JAX package's
+own: the rule of ``tests/test_megakernel.py`` (over 99.5% of pixels within
+1e-3 on every channel, mean abs difference under 1e-3) and, for RTIOW,
+whose many small silhouettes can flip more pixels than that rule allows,
+the tight gates of ``bench.py``.
+"""
+
+import ast
+import dataclasses
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+import ray_tracing_extended_tpu as rte
+from ray_tracing_extended_tpu.kernels.megakernel import render_frame_mega
+from ray_tracing_extended_tpu.models import presets as jpresets
+from ray_tracing_extended_tpu.render import render_block as j_block
+import ray_tracing_extended_tpu_torch as rtt
+from ray_tracing_extended_tpu_torch.interop import (
+    camera_from_arrays,
+    scene_from_arrays,
+)
+from ray_tracing_extended_tpu_torch.kernels import megakernel as tmk
+from ray_tracing_extended_tpu_torch.models import presets as tpresets
+from ray_tracing_extended_tpu_torch.render import render_block as t_block
+
+PORT = pathlib.Path(rtt.__file__).parent
+
+
+def _port(j_scene, j_cam):
+    return scene_from_arrays(j_scene), camera_from_arrays(j_cam)
+
+
+def _tight(a, b):
+    """tests/test_megakernel.py's whole-frame rule."""
+    d = np.abs(a - b).max(axis=-1)
+    assert (d < 1e-3).mean() > 0.995, f"frac tight {(d < 1e-3).mean()}"
+    assert np.abs(a - b).mean() < 1e-3
+
+
+def _channel_mean_rel(a, b):
+    return max(abs(float(a[..., c].mean()) - float(b[..., c].mean()))
+               / max(float(b[..., c].mean()), 1e-9) for c in range(3))
+
+
+def test_three_sphere_matches_xla():
+    js, jc, cfg = jpresets.three_sphere_scene(width=64, height=32, spp=2)
+    a, a_segs = rte.render_frame_with_stats(js, jc, cfg, jnp.uint32(3))
+    b, b_segs = rtt.render_frame_with_stats(*_port(js, jc), cfg, 3)
+    _tight(np.asarray(a), b.numpy())
+    assert abs(int(b_segs) - int(a_segs)) <= 0.005 * int(a_segs)
+
+
+def test_render_block_matches_xla():
+    js, jc, cfg = jpresets.three_sphere_scene(width=48, height=32, spp=2)
+    pix = np.random.RandomState(0).randint(0, 48 * 32, 256).astype(np.int32)
+    a, a_segs, a_counts = j_block(js, jc, cfg, jnp.uint32(1), jnp.asarray(pix),
+                                  with_bounce_counts=True)
+    b, b_segs, b_counts = t_block(*_port(js, jc), cfg, 1, torch.from_numpy(pix),
+                                  with_bounce_counts=True)
+    _tight(np.asarray(a), b.numpy())
+    assert (b_segs.numpy() == np.asarray(a_segs)).mean() > 0.99
+    assert int(b_counts[0]) == int(a_counts[0]) == 256 * 2
+
+
+def test_rtiow_matches_xla_gates():
+    js, jc, _ = jpresets.rtiow_final_scene(width=48, height=27)
+    ts, tc = _port(js, jc)
+    for mb, limit in ((1, 5e-3), (4, 2e-2)):
+        cfg = rte.RenderConfig(width=48, height=27, max_bounce=mb, spp=2,
+                               clamp_accumulate=False)
+        a = np.asarray(rte.render_frame(js, jc, cfg, jnp.uint32(5)))
+        b = rtt.render_frame(ts, tc, cfg, 5).numpy()
+        assert _channel_mean_rel(b, a) < limit, mb
+        if mb == 1:
+            rel = (np.abs(a - b) / (1.0 + np.abs(a))).max(axis=-1)
+            assert float(np.median(rel)) < 2e-3
+
+
+def test_rtiow_mb0_no_defocus_matches_xla():
+    js, jc, cfg = jpresets.rtiow_final_scene(width=48, height=27, max_bounce=0,
+                                             spp=2)
+    jc = dataclasses.replace(jc, defocus_strength=np.float32(0.0))
+    a = np.asarray(rte.render_frame(js, jc, cfg, jnp.uint32(5)))
+    b = rtt.render_frame(*_port(js, jc), cfg, 5).numpy()
+    assert (np.abs(a - b).max(axis=-1) < 1e-5).mean() >= 0.98
+
+
+def test_cornell_plain_matches_xla():
+    js, jc, cfg = jpresets.cornell_box_scene(width=32, height=32, spp=1)
+    a = np.asarray(rte.render_frame(js, jc, cfg, jnp.uint32(2)))
+    b = rtt.render_frame(*_port(js, jc), cfg, 2).numpy()
+    _tight(a, b)
+
+
+def test_matches_tpu_kernel_interpret():
+    """Against the kernel being replaced, run as the JAX package's tests run
+    it on the CPU."""
+    js, jc, cfg = jpresets.three_sphere_scene(width=32, height=32, spp=1,
+                                              max_bounce=2)
+    a, _ = render_frame_mega(js, jc, cfg, jnp.uint32(3), interpret=True)
+    b = rtt.render_frame(*_port(js, jc), cfg, 3).numpy()
+    _tight(np.asarray(a), b)
+
+
+def test_bounce_stats_match_xla():
+    js, jc, cfg = jpresets.three_sphere_scene(width=64, height=32, spp=2)
+    _, _, a = rte.render_frame_with_stats(js, jc, cfg, jnp.uint32(0),
+                                          bounce_stats=True)
+    _, segs, b = rtt.render_frame_with_stats(*_port(js, jc), cfg, 0,
+                                             bounce_stats=True)
+    a, b = np.asarray(a), b.numpy()
+    assert b.shape == (cfg.max_bounce + 1,) and b.dtype == np.int32
+    assert b[0] == 64 * 32 * 2  # every path is alive at bounce 0
+    assert int(b.sum()) == int(segs)
+    np.testing.assert_allclose(b, a, rtol=0.01, atol=2)
+
+
+@pytest.mark.parametrize("clamp", [True, False])
+def test_accumulation_matches_xla(clamp):
+    js, jc, cfg = jpresets.three_sphere_scene(width=32, height=16, spp=1)
+    cfg = dataclasses.replace(cfg, clamp_accumulate=clamp)
+    ts, tc = _port(js, jc)
+    prev = np.random.RandomState(0).uniform(0, 1.5, (16, 32, 3)).astype(np.float32)
+
+    a, a_segs = rte.render_frames_and_accumulate(
+        js, jc, cfg, jnp.asarray(prev), jnp.uint32(2), n_frames=3
+    )
+    b, b_segs, b_map = rtt.render_frames_and_accumulate(
+        ts, tc, cfg, torch.from_numpy(prev), 2, n_frames=3, segs_map=True
+    )
+    _tight(np.asarray(a), b.numpy())
+    assert abs(int(b_segs) - int(a_segs)) <= 0.005 * int(a_segs)
+    assert b_map.shape == (16, 32) and int(b_map.sum()) == int(b_segs)
+
+    a1 = rte.render_and_accumulate(js, jc, cfg, jnp.asarray(prev), jnp.uint32(4))
+    b1 = rtt.render_and_accumulate(ts, tc, cfg, torch.from_numpy(prev), 4)
+    _tight(np.asarray(a1), b1.numpy())
+
+
+def test_batched_fold_equals_sequential_steps():
+    scene, cam, cfg = tpresets.three_sphere_scene(width=24, height=16, spp=1)
+    acc0 = torch.zeros((16, 24, 3))
+    batched, _ = rtt.render_frames_and_accumulate(scene, cam, cfg, acc0, 0, 3)
+    seq = acc0
+    for f in range(3):
+        seq = rtt.render_and_accumulate(scene, cam, cfg, seq, f)
+    assert torch.equal(batched, seq)
+
+
+def test_plain_band_of_rows_equals_full_frame_rows():
+    scene, cam, cfg = tpresets.rtiow_final_scene(width=40, height=24, spp=1,
+                                                 max_bounce=2)
+    acc0 = torch.from_numpy(
+        np.random.RandomState(1).uniform(0, 2, (24, 40, 3)).astype(np.float32))
+    full, _, full_map, _ = tmk.render_frames_plain(scene, cam, cfg, 1, 2,
+                                                   accum=acc0)
+    band, _, band_map, _ = tmk.render_frames_plain(
+        scene, cam, cfg, 1, 2, accum=acc0[9:14].contiguous(), rows=(9, 14))
+    assert band.shape == (5, 40, 3)
+    assert torch.equal(band, full[9:14])
+    assert torch.equal(band_map, full_map[9:14])
+    with pytest.raises(ValueError):
+        tmk.render_frames_plain(scene, cam, cfg, 1, rows=(20, 30))
+
+
+def test_cpu_path_never_launches_the_kernel():
+    scene, cam, cfg = tpresets.three_sphere_scene(width=16, height=8, spp=1)
+    before = tmk.KERNEL.launches
+    img, segs, seg_map, hist = tmk.render_frames_mega(scene, cam, cfg, 0)
+    assert tmk.KERNEL.launches == before
+    assert img.shape == (8, 16, 3) and hist is None
+    assert int(seg_map.sum()) <= int(segs)  # the total has padding lanes
+    with pytest.raises(ValueError):
+        tmk.render_frames_mega(scene, cam, cfg, 0, n_frames=2)
+    with pytest.raises(ValueError):
+        tmk.render_frames_mega(scene.to("meta"), cam, cfg, 0)
+
+
+def test_unported_options_raise():
+    scene, cam, cfg = tpresets.three_sphere_scene(width=16, height=8, spp=1)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        rtt.render_frame(scene, cam, dataclasses.replace(cfg, intersector="bvh"), 0)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        rtt.SceneBuilder().add_mesh(np.zeros((3, 3)), np.array([[0, 1, 2]]),
+                                    rtt.Material())
+
+
+def _imports(path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            yield node.module
+
+
+def test_port_imports_no_jax():
+    files = sorted(PORT.rglob("*.py"))
+    assert len(files) >= 15
+    for path in files:
+        for name in _imports(path):
+            assert name.split(".")[0] not in ("jax", "jaxlib"), (path, name)
+            assert not name.startswith("ray_tracing_extended_tpu."), (path, name)
+            assert name != "ray_tracing_extended_tpu", (path, name)
+    code = ("import sys, ray_tracing_extended_tpu_torch as m; "
+            "m.render_frame; print(sorted(k for k in sys.modules "
+            "if k.split('.')[0] in ('jax', 'jaxlib', 'ray_tracing_extended_tpu')))")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, check=True, cwd=PORT.parent)
+    assert out.stdout.strip() == "[]", out.stdout
