@@ -15,6 +15,8 @@ Quick start::
     scene, cam, cfg = rtiow_final_scene(width=320, height=180, spp=4)
     dev = "cuda" if torch.cuda.is_available() else "cpu"
     img = rtt.render_frame(scene.to(dev), cam.to(dev), cfg, frame=0)
+
+    scene, cam, cfg = rtt.load_json_scene("scenes/chess.json")
 """
 
 from .models.geometry import (
@@ -31,13 +33,14 @@ from .models.geometry import (
 )
 from .models.scene import Material, SceneBuilder
 from .ops.accumulate import accumulate
-from .ops.camera import Camera, look_at
+from .ops.camera import Camera, camera_from_matrix, look_at
 from .render import (
     render_and_accumulate,
     render_frame,
     render_frame_with_stats,
     render_frames_and_accumulate,
 )
+from .scene.json_scene import load_json_scene
 from .utils.config import RenderConfig
 
 __version__ = "0.1.0"
@@ -58,6 +61,8 @@ __all__ = [
     "Spheres",
     "Triangles",
     "accumulate",
+    "camera_from_matrix",
+    "load_json_scene",
     "look_at",
     "render_and_accumulate",
     "render_frame",

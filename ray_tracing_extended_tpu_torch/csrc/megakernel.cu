@@ -1,32 +1,46 @@
-// Path trace of a sphere scene on Hopper (sm_90a): one thread per pixel.
+// Path trace of a scene of spheres and triangle chunks on Hopper (sm_90a):
+// one thread per pixel.
 //
 // Replaces the TPU kernel
 //   ray_tracing_extended_tpu/kernels/megakernel.py::_render_kernel
-// for sphere-only scenes with exactly spp samples per pixel. It computes
-// what that kernel computes: per pixel and frame, the PCG stream seeded
+// for scenes rendered with exactly spp samples per pixel. It computes what
+// that kernel computes: per pixel and frame, the PCG stream seeded
 // pix + frame * 719393, the thin-lens camera ray (4 draws), the bounce loop
-// (closest sphere hit, checker / invisible-light flags, the specular-lottery
-// scatter with the dielectric extension, 7 draws, and Russian roulette,
-// 1 draw; the environment light on a miss), the mean over spp, and the fold
-// into a running average with weight 1 / (f32(frame) + 1). It also counts
-// each pixel's live path segments and, on request, the live paths per
-// bounce index. The arithmetic follows the plain PyTorch version
-// (ops/*.py) operation for operation; built with -fmad=false, no multiply
-// and add fuse, so the two differ only where the sphere test's form does
-// (this kernel tests in the direct o - c form, as the TPU kernel does) and
-// where the device's transcendentals round differently.
+// (closest hit over spheres, then triangles; checker / invisible-light
+// flags, the specular-lottery scatter with the dielectric extension,
+// 7 draws, and Russian roulette, 1 draw; the environment light on a miss),
+// the mean over spp, and the fold into a running average with weight
+// 1 / (f32(frame) + 1). It also counts each pixel's live path segments and,
+// on request, the live paths per bounce index. The arithmetic follows the
+// plain PyTorch version (ops/*.py) operation for operation; built with
+// -fmad=false, no multiply and add fuse, so the two differ only where the
+// sphere and triangle tests' forms do (this kernel tests in the direct
+// o - c and o - a forms, as the TPU kernel does; the plain version in the
+// expanded forms) and where the device's transcendentals round differently.
 //
-// What bounds it on this card: FP32 ALU throughput of the brute-force
-// sphere scan, about pixels x spp x ~1.7 segments x spheres pair tests
-// (RTIOW at 1080p, 16 spp: ~2.7e10 tests a frame), plus warp divergence
-// between long and short paths in one warp.
-// What this first version does about it: nothing yet beyond keeping the
-// sphere table in shared memory, loaded once per block and read as
-// warp-wide broadcasts. No culling, no BVH, no path regeneration.
+// One kernel, two instantiations, render_kernel<kTris>:
+//   kTris = false, sphere scenes: the sphere table in shared memory.
+//   kTris = true, scenes with triangles: the chunk table (each chunk's AABB
+//   and triangle range) in shared memory too. Each thread loops over the
+//   chunks; a chunk whose box the ray's line misses (the reference's slab
+//   test, RayTracing.shader:177-187, applied at :279-281) is skipped, and
+//   the others' triangles run the backface-culled Moller-Trumbore test on
+//   12-float rows (a, b - a, c - a, geometric normal) read through the
+//   read-only cache. Only the winner's vertex normals and material are read.
+//
+// What bounds it on this card: FP32 ALU throughput of the brute-force scans,
+// about pixels x spp x segments x (spheres + chunks + the triangles of the
+// chunks the ray's line passes) tests, plus warp divergence between long
+// and short paths in one warp.
+// What this version does about it: it keeps the sphere and chunk tables in
+// shared memory, loaded once per block and read as warp-wide broadcasts,
+// and gates triangles by chunk. No BVH, no front-to-back chunk order, no
+// path regeneration.
 //
 // C interface, loaded with ctypes (kernels/megakernel.py):
-//   rtx_render_spheres(...) launches on the given stream and returns
-//   cudaGetLastError(); rtx_error_string(code) names an error.
+//   rtx_render(...) launches on the given stream and returns
+//   cudaGetLastError(); rtx_shared_bytes(...) is a launch's dynamic shared
+//   memory; rtx_error_string(code) names an error.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -49,10 +63,22 @@ constexpr int kSph = 5;
 // 6-8, emission strength 9, smoothness 10, specular probability 11,
 // ior 12, flag 13, pad 14-15
 constexpr int kMat = 16;
+// chunk table row: bounds min 0-2, bounds max 3-5, then the first
+// triangle 6 and the triangle count 7 as int32 bits
+constexpr int kChunk = 8;
+// triangle row: a 0-2, b - a 3-5, c - a 6-8, cross(b - a, c - a) 9-11
+constexpr int kTri = 12;
+constexpr int kTri4 = kTri / 4;  // the row in float4s
+// vertex-normal row: the normal at a 0-2, at b 3-5, at c 6-8
+constexpr int kTriNrm = 9;
 
 constexpr int kFlagChecker = 1;
 constexpr int kFlagInvisibleLight = 2;
 constexpr int kFlagDielectric = 3;
+
+// Moller-Trumbore backface cull / degeneracy threshold
+// (RayTracing.shader:169).
+constexpr float kDetEps = 1e-6f;
 
 // f32(1) / f32(2^32 - 1): the f32 literal rounds to 2^32, as in HLSL.
 constexpr float kInvU32Max = 1.0f / 4294967296.0f;
@@ -87,6 +113,9 @@ __device__ __forceinline__ Vec3 lerp(Vec3 a, Vec3 b, float t) {
 }
 __device__ __forceinline__ Vec3 mul(Vec3 a, Vec3 b) {
   return {a.x * b.x, a.y * b.y, a.z * b.z};
+}
+__device__ __forceinline__ Vec3 cross(Vec3 a, Vec3 b) {
+  return {a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z, a.x * b.y - a.y * b.x};
 }
 
 // ---- PCG (RayTracing.shader:193-230) ----
@@ -170,11 +199,111 @@ __device__ Vec3 refract_dir(Vec3 d, Vec3 n, float ior, float u_fresnel) {
   return sub(r_perp, scale(ne, sqrtf(k)));
 }
 
+// ---- triangles (kTris = true only) ----
+
+// The scene's triangles in global memory, and the chunk table the kernel
+// stages in shared memory.
+struct Triangles {
+  const float4* __restrict__ rows;  // kTri floats (kTri4 float4s) a triangle
+  const float* __restrict__ normals;  // kTriNrm floats a triangle
+  const int* __restrict__ mat;  // material index a triangle
+  const float* chunks;  // shared memory, kChunk floats a chunk
+  int n_chunks;
+};
+
+// The reference's slab test (RayBoundingBox, RayTracing.shader:177-187):
+// the box passes iff tNear <= tFar, with no tFar >= 0 requirement. An axis
+// whose t0 or t1 is NaN (a zero direction component, the origin on the
+// box's face) leaves tNear and tFar as they are, so it never rejects the
+// box: the ray's line lies in that face's plane.
+__device__ __forceinline__ void slab(float lo, float hi, float o, float inv_d,
+                                     float& t_near, float& t_far) {
+  const float t0 = (lo - o) * inv_d;
+  const float t1 = (hi - o) * inv_d;
+  if (t0 == t0 && t1 == t1) {
+    t_near = fmaxf(t_near, fminf(t0, t1));
+    t_far = fminf(t_far, fmaxf(t0, t1));
+  }
+}
+
+__device__ __forceinline__ bool ray_box(const float* box, Vec3 o, Vec3 inv_d) {
+  float t_near = -__int_as_float(0x7f800000);
+  float t_far = __int_as_float(0x7f800000);
+  slab(box[0], box[3], o.x, inv_d.x, t_near, t_far);
+  slab(box[1], box[4], o.y, inv_d.y, t_near, t_far);
+  slab(box[2], box[5], o.z, inv_d.z, t_near, t_far);
+  return t_near <= t_far;
+}
+
+// Closest triangle of the chunks whose boxes pass, in index order; a
+// strictly nearer hit wins, so the lower index wins a tie and a triangle
+// never takes a tie from a sphere (tested before). Moller-Trumbore in the
+// direct form: a hit iff det >= 1e-6 and t, u, v, w >= 0.
+__device__ __forceinline__ void closest_triangle(Triangles tri, Vec3 o,
+                                                 Vec3 d, float& best_t,
+                                                 int& best_tri) {
+  const Vec3 inv_d = {1.0f / d.x, 1.0f / d.y, 1.0f / d.z};
+  for (int c = 0; c < tri.n_chunks; ++c) {
+    const float* ch = tri.chunks + kChunk * c;
+    if (!ray_box(ch, o, inv_d)) continue;
+    const int first = __float_as_int(ch[6]);
+    const int end = first + __float_as_int(ch[7]);
+    for (int i = first; i < end; ++i) {
+      // r0 = a.x a.y a.z ab.x   r1 = ab.y ab.z ac.x ac.y
+      // r2 = ac.z n.x n.y n.z
+      const float4 r0 = __ldg(tri.rows + kTri4 * i);
+      const float4 r1 = __ldg(tri.rows + kTri4 * i + 1);
+      const float4 r2 = __ldg(tri.rows + kTri4 * i + 2);
+      const Vec3 ao = {o.x - r0.x, o.y - r0.y, o.z - r0.z};
+      const Vec3 dao = cross(ao, d);
+      const float det = -(d.x * r2.y + d.y * r2.z + d.z * r2.w);
+      const float t_det = ao.x * r2.y + ao.y * r2.z + ao.z * r2.w;
+      const float u_det = r1.z * dao.x + r1.w * dao.y + r2.x * dao.z;
+      const float v_det = -(r0.w * dao.x + r1.x * dao.y + r1.y * dao.z);
+      const float w_det = det - u_det - v_det;
+      if (det >= kDetEps && t_det >= 0.0f && u_det >= 0.0f &&
+          v_det >= 0.0f && w_det >= 0.0f) {
+        const float t = t_det / det;
+        if (t < best_t) {
+          best_t = t;
+          best_tri = i;
+        }
+      }
+    }
+  }
+}
+
+// Shading normal of triangle i where the ray hits it (ops/intersect.py
+// _triangle_normal_at): barycentrics in the direct form, the vertex normals
+// interpolated and normalised.
+__device__ __forceinline__ Vec3 triangle_normal(Triangles tri, int i,
+                                                Vec3 o, Vec3 d) {
+  const float4 r0 = __ldg(tri.rows + kTri4 * i);
+  const float4 r1 = __ldg(tri.rows + kTri4 * i + 1);
+  const float4 r2 = __ldg(tri.rows + kTri4 * i + 2);
+  const Vec3 ao = {o.x - r0.x, o.y - r0.y, o.z - r0.z};
+  const Vec3 dao = cross(ao, d);
+  const float det = -(d.x * r2.y + d.y * r2.z + d.z * r2.w);
+  const float inv_det = 1.0f / (det == 0.0f ? 1.0f : det);
+  const float u = (r1.z * dao.x + r1.w * dao.y + r2.x * dao.z) * inv_det;
+  const float v = -(r0.w * dao.x + r1.x * dao.y + r1.y * dao.z) * inv_det;
+  const float w = 1.0f - u - v;
+  const float* n = tri.normals + kTriNrm * i;
+  const Vec3 raw = {
+      __ldg(n + 0) * w + __ldg(n + 3) * u + __ldg(n + 6) * v,
+      __ldg(n + 1) * w + __ldg(n + 4) * u + __ldg(n + 7) * v,
+      __ldg(n + 2) * w + __ldg(n + 5) * u + __ldg(n + 8) * v,
+  };
+  return normalize(raw);
+}
+
 // One camera sample's path (ops/trace.py). Returns its incoming light.
+template <bool kTris>
 __device__ Vec3 trace_path(const float* p, const float* sph, const int* sph_mat,
-                           int n_sph, const float* __restrict__ mats,
-                           int max_bounce, uint32_t& state, Vec3 o, Vec3 d,
-                           int& segs, int* s_hist) {
+                           int n_sph, Triangles tri,
+                           const float* __restrict__ mats, int max_bounce,
+                           uint32_t& state, Vec3 o, Vec3 d, int& segs,
+                           int* s_hist) {
   Vec3 incoming = {0.0f, 0.0f, 0.0f};
   Vec3 colour = {1.0f, 1.0f, 1.0f};
   for (int bounce = 0; bounce <= max_bounce; ++bounce) {
@@ -199,15 +328,25 @@ __device__ Vec3 trace_path(const float* p, const float* sph, const int* sph_mat,
         }
       }
     }
-    if (best < 0) {
+    int best_tri = -1;
+    if constexpr (kTris) closest_triangle(tri, o, d, best_t, best_tri);
+    if (best < 0 && best_tri < 0) {
       incoming = add(incoming, mul(environment(p, d), colour));
       break;
     }
 
-    const float* s = sph + kSph * best;
     const Vec3 point = add(o, scale(d, best_t));
-    const Vec3 normal = normalize(sub(point, Vec3{s[0], s[1], s[2]}));
-    const float* m = mats + kMat * sph_mat[best];
+    Vec3 normal;
+    int mat_idx;
+    if (kTris && best_tri >= 0) {
+      normal = triangle_normal(tri, best_tri, o, d);
+      mat_idx = __ldg(tri.mat + best_tri);
+    } else {
+      const float* s = sph + kSph * best;
+      normal = normalize(sub(point, Vec3{s[0], s[1], s[2]}));
+      mat_idx = sph_mat[best];
+    }
+    const float* m = mats + kMat * mat_idx;
     const int flag = static_cast<int>(__ldg(m + 13));
 
     if (flag == kFlagInvisibleLight && bounce == 0) {
@@ -258,28 +397,48 @@ __device__ Vec3 trace_path(const float* p, const float* sph, const int* sph_mat,
   return incoming;
 }
 
+// Dynamic shared memory, in floats: the chunk table first (16-byte
+// aligned), then the parameters, the sphere table, the sphere materials and
+// the block's bounce histogram.
+size_t shared_floats(int n_sph, int n_chunks, int max_bounce) {
+  return static_cast<size_t>(kChunk) * n_chunks + kParams +
+         (kSph + 1) * static_cast<size_t>(n_sph) +
+         static_cast<size_t>(max_bounce) + 1;
+}
+
+template <bool kTris>
 __global__ void __launch_bounds__(kBlockX * kBlockY)
-render_spheres_kernel(const float* __restrict__ sph_in,
-                      const int* __restrict__ sph_mat_in, int n_sph,
-                      const float* __restrict__ mats,
-                      const float* __restrict__ params_in, int width,
-                      int height, int spp, int max_bounce, uint32_t frame0,
-                      int n_frames, const float* __restrict__ accum_in,
-                      int clamp_accum, float* __restrict__ out,
-                      int* __restrict__ segs_out, int* __restrict__ hist) {
-  extern __shared__ float smem[];
-  float* p = smem;
+render_kernel(const float* __restrict__ sph_in,
+              const int* __restrict__ sph_mat_in, int n_sph,
+              const float4* __restrict__ tri_rows,
+              const float* __restrict__ tri_normals,
+              const int* __restrict__ tri_mat,
+              const float* __restrict__ chunks_in, int n_chunks,
+              const float* __restrict__ mats,
+              const float* __restrict__ params_in, int width, int height,
+              int spp, int max_bounce, uint32_t frame0, int n_frames,
+              const float* __restrict__ accum_in, int clamp_accum,
+              float* __restrict__ out, int* __restrict__ segs_out,
+              int* __restrict__ hist) {
+  extern __shared__ float4 smem4[];
+  float* chunks = reinterpret_cast<float*>(smem4);
+  float* p = chunks + (kTris ? kChunk * n_chunks : 0);
   float* sph = p + kParams;
   int* sph_mat = reinterpret_cast<int*>(sph + kSph * n_sph);
   int* s_hist = sph_mat + n_sph;
 
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   const int n_threads = blockDim.x * blockDim.y;
+  if constexpr (kTris) {
+    for (int i = tid; i < kChunk * n_chunks; i += n_threads) chunks[i] = chunks_in[i];
+  }
   for (int i = tid; i < kParams; i += n_threads) p[i] = params_in[i];
   for (int i = tid; i < kSph * n_sph; i += n_threads) sph[i] = sph_in[i];
   for (int i = tid; i < n_sph; i += n_threads) sph_mat[i] = sph_mat_in[i];
   for (int i = tid; i <= max_bounce; i += n_threads) s_hist[i] = 0;
   __syncthreads();
+  const Triangles tri = {tri_rows, tri_normals, tri_mat, chunks,
+                         kTris ? n_chunks : 0};
 
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const int y = blockIdx.y * blockDim.y + threadIdx.y;
@@ -319,9 +478,10 @@ render_spheres_kernel(const float* __restrict__ sph_in,
         random_point_in_circle(state, p[16], jx, jy);
         const Vec3 target = add(add(fp, scale(right, jx)), scale(up, jy));
         const Vec3 dir = normalize(sub(target, origin));
-        total = add(total, trace_path(p, sph, sph_mat, n_sph, mats, max_bounce,
-                                      state, origin, dir, segs,
-                                      hist != nullptr ? s_hist : nullptr));
+        total = add(total, trace_path<kTris>(p, sph, sph_mat, n_sph, tri, mats,
+                                             max_bounce, state, origin, dir,
+                                             segs,
+                                             hist != nullptr ? s_hist : nullptr));
       }
       const float n = static_cast<float>(spp);
       const Vec3 mean = {total.x / n, total.y / n, total.z / n};
@@ -353,36 +513,66 @@ render_spheres_kernel(const float* __restrict__ sph_in,
   }
 }
 
-}  // namespace
-
-extern "C" size_t rtx_shared_bytes(int n_sph, int max_bounce) {
-  return sizeof(float) * (kParams + (kSph + 1) * static_cast<size_t>(n_sph) +
-                          static_cast<size_t>(max_bounce) + 1);
-}
-
-extern "C" int rtx_render_spheres(
-    const void* sph, const void* sph_mat, int n_sph, const void* mats,
-    const void* params, int width, int height, int spp, int max_bounce,
-    unsigned int frame0, int n_frames, const void* accum_in, int clamp_accum,
-    void* out, void* segs, void* hist, void* stream) {
-  const size_t smem = rtx_shared_bytes(n_sph, max_bounce);
+template <bool kTris>
+cudaError_t launch(const void* sph, const void* sph_mat, int n_sph,
+                   const void* tri_rows, const void* tri_normals,
+                   const void* tri_mat, const void* chunks, int n_chunks,
+                   const void* mats, const void* params, int width, int height,
+                   int spp, int max_bounce, unsigned int frame0, int n_frames,
+                   const void* accum_in, int clamp_accum, void* out, void* segs,
+                   void* hist, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * shared_floats(n_sph, n_chunks, max_bounce);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        render_spheres_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        render_kernel<kTris>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
+    if (err != cudaSuccess) return err;
   }
   const dim3 block(kBlockX, kBlockY);
   const dim3 grid((width + kBlockX - 1) / kBlockX,
                   (height + kBlockY - 1) / kBlockY);
-  render_spheres_kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
+  render_kernel<kTris><<<grid, block, smem, stream>>>(
       static_cast<const float*>(sph), static_cast<const int*>(sph_mat), n_sph,
+      static_cast<const float4*>(tri_rows),
+      static_cast<const float*>(tri_normals), static_cast<const int*>(tri_mat),
+      static_cast<const float*>(chunks), n_chunks,
       static_cast<const float*>(mats), static_cast<const float*>(params), width,
       height, spp, max_bounce, frame0, n_frames,
       static_cast<const float*>(accum_in), clamp_accum,
       static_cast<float*>(out), static_cast<int*>(segs),
       static_cast<int*>(hist));
-  return static_cast<int>(cudaGetLastError());
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// n_chunks is 0 for a sphere scene.
+extern "C" size_t rtx_shared_bytes(int n_sph, int n_chunks, int max_bounce) {
+  return sizeof(float) * shared_floats(n_sph, n_chunks, max_bounce);
+}
+
+// A scene with triangles (n_chunks > 0) launches render_kernel<true>, with
+// tri_rows 16-byte aligned; a sphere scene passes null triangle pointers and
+// n_chunks = 0, and launches render_kernel<false>.
+extern "C" int rtx_render(
+    const void* sph, const void* sph_mat, int n_sph, const void* tri_rows,
+    const void* tri_normals, const void* tri_mat, const void* chunks,
+    int n_chunks, const void* mats, const void* params, int width, int height,
+    int spp, int max_bounce, unsigned int frame0, int n_frames,
+    const void* accum_in, int clamp_accum, void* out, void* segs, void* hist,
+    void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      n_chunks > 0
+          ? launch<true>(sph, sph_mat, n_sph, tri_rows, tri_normals, tri_mat,
+                         chunks, n_chunks, mats, params, width, height, spp,
+                         max_bounce, frame0, n_frames, accum_in, clamp_accum,
+                         out, segs, hist, s)
+          : launch<false>(sph, sph_mat, n_sph, nullptr, nullptr, nullptr,
+                          nullptr, 0, mats, params, width, height, spp,
+                          max_bounce, frame0, n_frames, accum_in, clamp_accum,
+                          out, segs, hist, s);
+  return static_cast<int>(err);
 }
 
 extern "C" const char* rtx_error_string(int code) {

@@ -1,10 +1,12 @@
-"""The whole path trace of a sphere scene as one kernel, and its plain
-PyTorch version.
+"""The whole path trace of a scene of spheres and triangles as one kernel,
+and its plain PyTorch version.
 
 Port of ``ray_tracing_extended_tpu/kernels/megakernel.py``: its Pallas
 kernel ``_render_kernel`` traces a tile of pixels start to finish; here
 ``csrc/megakernel.cu`` traces one pixel per CUDA thread (see the source's
 header for what it computes, what bounds it and what it does about that).
+The kernel has two variants: ``render_kernel<false>`` for sphere scenes and
+``render_kernel<true>``, which also scans the scene's triangle chunks.
 
 ``render_frames_mega`` is the wrapper the renderer calls. Given a scene on
 the CPU it runs ``render_frames_plain``, the same function built from the
@@ -18,6 +20,7 @@ first use, into ``build/`` beside this package, and loaded with ctypes.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import dataclasses
 import hashlib
@@ -54,6 +57,15 @@ NVCC_FLAGS = (
 # Dynamic shared memory one block may use on Hopper (227 KB).
 MAX_SHARED_BYTES = 232448
 
+# The plain path's (pixels x primitives) temporaries hold at most this many
+# elements each (128 MB in f32): its pixel block shrinks for scenes with
+# many triangles. Images do not depend on the block size.
+MAX_PAIR_ELEMENTS = 1 << 25
+
+# The kernel's two variants, as the source instantiates them.
+VARIANT_SPHERES = "render_kernel<false>"
+VARIANT_TRIANGLES = "render_kernel<true>"
+
 
 # ------------------------------ plain version -------------------------------
 
@@ -62,12 +74,21 @@ def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-def _padded_pixel_blocks(cfg: RenderConfig, start: int, stop: int) -> np.ndarray:
+def plain_block_size(cfg: RenderConfig, scene: Scene, n: int) -> int:
+    """Pixels per block of the plain path for ``n`` pixels: ``cfg.block_size``
+    (as in the JAX package's XLA path), cut to a multiple of 256 that keeps
+    each (pixels x (spheres + triangles)) temporary within
+    ``MAX_PAIR_ELEMENTS``."""
+    prims = scene.spheres.count + scene.triangles.count
+    cap = max(256, MAX_PAIR_ELEMENTS // prims // 256 * 256)
+    return min(cfg.block_size, cap, _round_up(n, 256))
+
+
+def _padded_pixel_blocks(block: int, start: int, stop: int) -> np.ndarray:
     """(nb, block) pixel indices covering pixels ``start .. stop - 1``;
     padding lanes repeat the last pixel (they are traced and counted, then
     dropped), as the JAX package's XLA path lays out the whole image."""
     n = stop - start
-    block = min(cfg.block_size, _round_up(n, 256))
     idx = start + np.minimum(np.arange(_round_up(n, block)), n - 1)
     return idx.reshape(-1, block)
 
@@ -113,7 +134,9 @@ def render_block(
 def _render_frame_plain(scene, camera, cfg, frame, y0, y1):
     dev = scene.device
     imgs, segs, counts = [], [], []
-    for block in _padded_pixel_blocks(cfg, y0 * cfg.width, y1 * cfg.width):
+    start, stop = y0 * cfg.width, y1 * cfg.width
+    block_size = plain_block_size(cfg, scene, stop - start)
+    for block in _padded_pixel_blocks(block_size, start, stop):
         pix = torch.from_numpy(block).to(dev)
         img, s, c = render_block(scene, camera, cfg, frame, pix,
                                  with_bounce_counts=True)
@@ -150,7 +173,9 @@ def render_frames_plain(
     (int64 0-d), per-pixel segments (H, W) int32, per-bounce live counts
     (max_bounce + 1,) int32 or None)``. Like the JAX package's XLA path,
     the total and the histogram include the padding lanes of the last
-    pixel block; the per-pixel map does not.
+    pixel block; the per-pixel map does not. A block holds at most
+    ``plain_block_size`` pixels, so where many triangles cut it, the
+    padding and the total can be smaller than the XLA path's.
 
     ``rows=(y0, y1)`` renders only rows ``y0 .. y1 - 1`` of the full frame,
     with the same pixels and random streams; ``accum``, the image and the
@@ -209,13 +234,21 @@ class BuildInfo:
 class PathTraceKernel:
     """Builds, loads and launches ``csrc/megakernel.cu``.
 
-    ``launches`` counts the kernel launches this object made; nothing else
-    changes it."""
+    ``variant_launches`` counts the kernel launches this object made, by
+    variant (``VARIANT_*``); only ``launch`` adds to it."""
 
     def __init__(self):
-        self.launches = 0
+        self.variant_launches: collections.Counter = collections.Counter()
         self.build_info: BuildInfo | None = None
         self._lib = None
+
+    @property
+    def launches(self) -> int:
+        """Launches of either variant."""
+        return sum(self.variant_launches.values())
+
+    def reset_counts(self) -> None:
+        self.variant_launches.clear()
 
     def build(self) -> BuildInfo:
         """Compile the source (if its library is not built yet) and load
@@ -242,12 +275,12 @@ class PathTraceKernel:
             os.replace(tmp, lib_path)
         lib = ctypes.CDLL(str(lib_path))
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.rtx_render_spheres.argtypes = [
-            vp, vp, ci, vp, vp, ci, ci, ci, ci, ctypes.c_uint, ci, vp, ci,
-            vp, vp, vp, vp,
+        lib.rtx_render.argtypes = [
+            vp, vp, ci, vp, vp, vp, vp, ci, vp, vp, ci, ci, ci, ci,
+            ctypes.c_uint, ci, vp, ci, vp, vp, vp, vp,
         ]
-        lib.rtx_render_spheres.restype = ci
-        lib.rtx_shared_bytes.argtypes = [ci, ci]
+        lib.rtx_render.restype = ci
+        lib.rtx_shared_bytes.argtypes = [ci, ci, ci]
         lib.rtx_shared_bytes.restype = ctypes.c_size_t
         lib.rtx_error_string.argtypes = [ci]
         lib.rtx_error_string.restype = ctypes.c_char_p
@@ -273,16 +306,11 @@ class PathTraceKernel:
         dev = scene.device
         if dev.type != "cuda":
             raise ValueError(f"the CUDA kernel needs a CUDA scene, got {dev}")
-        if scene.has_triangles:
-            raise NotImplementedError(
-                "the CUDA kernel traces spheres only; triangle scenes wait "
-                "for the triangle test and winner fetch (ROADMAP.md Queue A "
-                "item 10); render them on the CPU meanwhile"
-            )
         if cfg.adaptive_spp or cfg.fast_scatter:
             raise NotImplementedError(
                 "adaptive_spp and fast_scatter are not in the CUDA kernel "
-                "yet (ROADMAP.md Queue A item 11)"
+                "yet; they are the next slice (ROADMAP.md Queue A item 11, "
+                "Queue B item 2)"
             )
         h, w = cfg.height, cfg.width
         if accum is not None and (
@@ -300,13 +328,16 @@ class PathTraceKernel:
                 f"camera on {camera.position.device}, scene on {dev}"
             )
         self.build()
+        tab = scene_tables(scene, camera, cfg)
         n_sph = scene.spheres.count
-        shared = self._lib.rtx_shared_bytes(n_sph, cfg.max_bounce)
+        n_chunks = 0 if tab.chunks is None else tab.chunks.shape[0]
+        shared = self._lib.rtx_shared_bytes(n_sph, n_chunks, cfg.max_bounce)
         if shared > MAX_SHARED_BYTES:
             raise NotImplementedError(
-                f"{n_sph} spheres need {shared} bytes of shared memory, over "
-                f"{MAX_SHARED_BYTES}; larger sphere scenes wait for the "
-                "BVH kernel (ROADMAP.md Queue B item 4)"
+                f"{n_sph} spheres and {n_chunks} triangle chunks need "
+                f"{shared} bytes of shared memory, over {MAX_SHARED_BYTES}; "
+                "larger scenes wait for the BVH kernel (ROADMAP.md Queue B "
+                "item 4)"
             )
 
         out = torch.empty((h, w, 3), dtype=torch.float32, device=dev)
@@ -315,16 +346,18 @@ class PathTraceKernel:
             torch.zeros(cfg.max_bounce + 1, dtype=torch.int32, device=dev)
             if collect_stats else None
         )
-        sph_tab, sph_mat, mats, params = sphere_tables(scene, camera, cfg)
+
+        def ptr(t):
+            return None if t is None else t.data_ptr()
+
         with torch.cuda.device(dev):
-            rc = self._lib.rtx_render_spheres(
-                sph_tab.data_ptr(), sph_mat.data_ptr(), n_sph,
-                mats.data_ptr(), params.data_ptr(), w, h, cfg.spp,
-                cfg.max_bounce, int(frame0) & 0xFFFFFFFF, n_frames,
-                None if accum is None else accum.data_ptr(),
-                int(cfg.clamp_accumulate),
-                out.data_ptr(), segs.data_ptr(),
-                None if hist is None else hist.data_ptr(),
+            rc = self._lib.rtx_render(
+                ptr(tab.spheres), ptr(tab.sphere_mat), n_sph,
+                ptr(tab.tri_rows), ptr(tab.tri_normals), ptr(tab.tri_mat),
+                ptr(tab.chunks), n_chunks, ptr(tab.materials),
+                ptr(tab.params), w, h, cfg.spp, cfg.max_bounce,
+                int(frame0) & 0xFFFFFFFF, n_frames, ptr(accum),
+                int(cfg.clamp_accumulate), ptr(out), ptr(segs), ptr(hist),
                 torch.cuda.current_stream(dev).cuda_stream,
             )
         if rc != 0:
@@ -332,40 +365,79 @@ class PathTraceKernel:
                 "megakernel launch failed: "
                 + self._lib.rtx_error_string(rc).decode()
             )
-        self.launches += 1
+        self.variant_launches[
+            VARIANT_SPHERES if tab.chunks is None else VARIANT_TRIANGLES
+        ] += 1
         return out, segs.sum(dtype=torch.int64), segs, hist
 
 
-def sphere_tables(scene: Scene, camera: Camera, cfg: RenderConfig):
-    """The kernel's inputs on the scene's device: the sphere table
-    (S, 5) f32 ``cx, cy, cz, r^2, r``, the sphere material indices (S,)
-    int32, the material table (M, 16) f32 and the (32,) f32 parameter
-    block (layouts in ``csrc/megakernel.cu``)."""
+@dataclasses.dataclass
+class KernelTables:
+    """The kernel's inputs on the scene's device (layouts in
+    ``csrc/megakernel.cu``). The triangle fields are None for a scene
+    without triangles, which launches the sphere variant."""
+
+    spheres: torch.Tensor  # (S, 5) f32: cx, cy, cz, r^2, r
+    sphere_mat: torch.Tensor  # (S,) int32
+    materials: torch.Tensor  # (M, 16) f32
+    params: torch.Tensor  # (32,) f32
+    tri_rows: torch.Tensor | None = None  # (T, 12) f32: a, b - a, c - a, n
+    tri_normals: torch.Tensor | None = None  # (T, 9) f32: at a, b, c
+    tri_mat: torch.Tensor | None = None  # (T,) int32
+    chunks: torch.Tensor | None = None  # (C, 8) f32: min, max, first, count
+
+
+def scene_tables(scene: Scene, camera: Camera, cfg: RenderConfig) -> KernelTables:
+    """The scene, camera and config flattened into the kernel's tables.
+    The chunk table holds each chunk's first triangle and triangle count as
+    int32 bits in its f32 columns 6 and 7."""
     dev = scene.device
     sph, mat, env = scene.spheres, scene.materials, scene.env
     r = sph.radius[:, None]
-    sph_tab = torch.cat([sph.center, r * r, r], dim=1).contiguous()
     m = mat.count
-    mats = torch.cat(
-        [
-            mat.colour, mat.emission_colour, mat.specular_colour,
-            mat.emission_strength[:, None], mat.smoothness[:, None],
-            mat.specular_probability[:, None], mat.ior[:, None],
-            mat.flag.to(torch.float32)[:, None],
-            torch.zeros((m, 2), dtype=torch.float32, device=dev),
-        ],
-        dim=1,
-    ).contiguous()
-    params = torch.cat(
-        [
-            camera.position, camera.rotation.reshape(-1),
-            camera_params(camera, cfg.width, cfg.height),
-            env.enabled.reshape(1), env.ground_colour, env.sky_colour_horizon,
-            env.sky_colour_zenith, env.sun_focus.reshape(1),
-            env.sun_intensity.reshape(1), env.sun_dir,
-        ]
-    ).to(torch.float32)
-    return sph_tab, sph.mat_idx.to(torch.int32).contiguous(), mats, params
+    tab = KernelTables(
+        spheres=torch.cat([sph.center, r * r, r], dim=1).contiguous(),
+        sphere_mat=sph.mat_idx.to(torch.int32).contiguous(),
+        materials=torch.cat(
+            [
+                mat.colour, mat.emission_colour, mat.specular_colour,
+                mat.emission_strength[:, None], mat.smoothness[:, None],
+                mat.specular_probability[:, None], mat.ior[:, None],
+                mat.flag.to(torch.float32)[:, None],
+                torch.zeros((m, 2), dtype=torch.float32, device=dev),
+            ],
+            dim=1,
+        ).contiguous(),
+        params=torch.cat(
+            [
+                camera.position, camera.rotation.reshape(-1),
+                camera_params(camera, cfg.width, cfg.height),
+                env.enabled.reshape(1), env.ground_colour,
+                env.sky_colour_horizon, env.sky_colour_zenith,
+                env.sun_focus.reshape(1), env.sun_intensity.reshape(1),
+                env.sun_dir,
+            ]
+        ).to(torch.float32),
+    )
+    if scene.has_triangles:
+        tri, ch = scene.triangles, scene.chunks
+
+        def int_bits(x):
+            return x.to(torch.int32)[:, None].view(torch.float32)
+
+        tab.tri_rows = torch.cat(
+            [tri.pos_a, tri.edge_ab, tri.edge_ac, tri.n], dim=1
+        ).contiguous()
+        tab.tri_normals = torch.cat(
+            [tri.normal_a, tri.normal_b, tri.normal_c], dim=1
+        ).contiguous()
+        tab.tri_mat = tri.mat_idx.to(torch.int32).contiguous()
+        tab.chunks = torch.cat(
+            [ch.bounds_min, ch.bounds_max, int_bits(ch.first_tri),
+             int_bits(ch.num_tris)],
+            dim=1,
+        ).contiguous()
+    return tab
 
 
 KERNEL = PathTraceKernel()
@@ -385,7 +457,8 @@ def render_frames_mega(
     histogram or None)``.
 
     A scene on the CPU takes the plain version; a scene on a CUDA device
-    takes the kernel (one launch for all frames)."""
+    takes the kernel (one launch for all frames), its triangle variant when
+    the scene has triangles."""
     dev = scene.device
     if dev.type == "cpu":
         return render_frames_plain(

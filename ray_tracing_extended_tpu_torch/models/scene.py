@@ -12,8 +12,10 @@ order rules, so both packages build identical arrays from the same calls:
   * one flat material table: sphere materials first, then one per triangle
     chunk, in insertion order (the spheres-then-triangles tie-break order).
 
-Octree mesh chunking, BVH builds, the TPU kernel's packed tables and the
-content hash are not part of the port yet.
+Meshes added with ``add_mesh`` are octree-chunked once in local space
+(``accel/chunks.py``) and re-posed per build, as in the JAX package. BVH
+builds, the TPU kernel's packed tables and the content hash are not part
+of the port.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from ..accel.chunks import MAX_TRIS_PER_CHUNK, create_chunks
 from .geometry import (
     FLAG_DIELECTRIC,
     FLAG_NONE,
@@ -94,15 +97,21 @@ def _t(a: np.ndarray) -> torch.Tensor:
 
 class SceneBuilder:
     """Mutable host scene; ``build()`` may run once for a static scene or
-    once per frame for animation (``set_sphere`` between builds)."""
+    once per frame for animation (``set_sphere`` and
+    ``set_mesh_transform`` between builds)."""
 
     def __init__(self, env: Environment | None = None):
         self._sphere_center: list = []
         self._sphere_radius: list = []
         self._sphere_mat: list[Material] = []
-        # pre-chunked triangle soups in insertion order:
-        # (tri_pos, tri_normal, bounds_min, bounds_max, Material)
-        self._chunks: list = []
+        # triangle sources in insertion order (the material table and the
+        # spheres-then-chunks tie-break order follow it):
+        # ("raw", tri_pos, tri_normal, bmin, bmax, Material) for a soup,
+        # ("mesh", i) for self._meshes[i]
+        self._sources: list = []
+        # meshes keep their LOCAL geometry, so a transform can change
+        # between builds; "cache" holds the world chunks of one transform
+        self._meshes: list[dict] = []
         self.env = env if env is not None else Environment.disabled()
 
     def add_sphere(self, center, radius: float, material: Material):
@@ -128,15 +137,97 @@ class SceneBuilder:
             self._sphere_mat[index] = material
         return self
 
-    def add_mesh(self, vertices, indices, material, normals=None,
-                 transform=None, max_tris_per_chunk=None, chunked=True):
-        """Indexed meshes need the octree chunker (``accel/chunks.py``),
-        which the port does not have yet."""
-        raise NotImplementedError(
-            "SceneBuilder.add_mesh needs the mesh chunker; see ROADMAP.md "
-            "Queue A item 10 (triangle and big-mesh scenes). Use "
-            "add_triangles for a pre-chunked soup."
+    def add_mesh(
+        self,
+        vertices,
+        indices,
+        material: Material,
+        normals=None,
+        transform=None,
+        max_tris_per_chunk: int = MAX_TRIS_PER_CHUNK,
+        chunked: bool = True,
+    ):
+        """A triangle mesh, octree-chunked and placed in the world.
+
+        ``vertices`` (V, 3); ``indices`` (F, 3) ints; ``normals`` (V, 3), or
+        None for area-weighted vertex normals; ``transform`` an optional
+        (4, 4) local-to-world matrix. ``chunked=False`` keeps the mesh as one
+        chunk."""
+        vertices = np.asarray(vertices, np.float32)
+        indices = np.asarray(indices, np.int64).reshape(-1, 3)
+        if normals is None:
+            normals = _vertex_normals(vertices, indices)
+        self._meshes.append({
+            "vertices": vertices,
+            "indices": indices,
+            "normals": np.asarray(normals, np.float32),
+            "material": material,
+            "transform": None if transform is None
+            else np.asarray(transform, np.float32),
+            "max_tris": max_tris_per_chunk,
+            "chunked": chunked,
+            "local_chunks": None,  # [(tri_pos, tri_normal)] in local space
+            "cache": None,  # (transform bytes, [chunk tuples])
+        })
+        self._sources.append(("mesh", len(self._meshes) - 1))
+        return self
+
+    def set_mesh_transform(self, index: int, transform):
+        """Re-pose mesh ``index`` (in ``add_mesh`` order) before the next
+        ``build()``, as moving a mesh's Transform does in the reference
+        (RayTracedMesh.cs:42-51)."""
+        if not 0 <= index < len(self._meshes):
+            raise IndexError(
+                f"mesh index {index} out of range [0, {len(self._meshes)})"
+            )
+        self._meshes[index]["transform"] = (
+            None if transform is None else np.asarray(transform, np.float32)
         )
+        return self
+
+    def _mesh_chunks(self, rec: dict) -> list:
+        """World-space chunk tuples of one mesh.
+
+        The octree split runs once, in local space; each build re-transforms
+        the cached chunks and takes tight world bounds from the transformed
+        vertices (RayTracedMesh.cs:24-29,60-84). So the chunk count and
+        membership do not change with the pose."""
+        transform = rec["transform"]
+        key = b"id" if transform is None else transform.tobytes()
+        if rec["cache"] is not None and rec["cache"][0] == key:
+            return rec["cache"][1]
+        if rec["local_chunks"] is None:
+            tri_pos_l = rec["vertices"][rec["indices"]]  # (F, 3, 3)
+            tri_nrm_l = rec["normals"][rec["indices"]]
+            if rec["chunked"]:
+                rec["local_chunks"] = [
+                    (ch.tri_pos, ch.tri_normal)
+                    for ch in create_chunks(
+                        tri_pos_l, tri_nrm_l, max_tris=rec["max_tris"]
+                    )
+                ]
+            else:
+                rec["local_chunks"] = [(tri_pos_l, tri_nrm_l)]
+        if transform is not None:
+            r = transform[:3, :3]
+            t = transform[:3, 3]
+            # normals take the inverse transpose of the linear part
+            n_mat = np.linalg.inv(r).T
+        out = []
+        for tri_pos, tri_normal in rec["local_chunks"]:
+            if transform is not None:
+                tri_pos = tri_pos @ r.T + t
+                tri_normal = tri_normal @ n_mat.T
+                tri_normal = tri_normal / np.maximum(
+                    np.linalg.norm(tri_normal, axis=2, keepdims=True), 1e-20
+                )
+                tri_pos = np.ascontiguousarray(tri_pos, np.float32)
+                tri_normal = np.ascontiguousarray(tri_normal, np.float32)
+            flat = tri_pos.reshape(-1, 3)
+            out.append((tri_pos, tri_normal, flat.min(axis=0),
+                        flat.max(axis=0), rec["material"]))
+        rec["cache"] = (key, out)
+        return out
 
     def add_triangles(self, tri_pos, tri_normal, material: Material):
         """A raw triangle soup, (F, 3, 3) positions and normals, as one
@@ -145,11 +236,28 @@ class SceneBuilder:
         tri_normal = np.asarray(tri_normal, np.float32)
         bmin = tri_pos.reshape(-1, 3).min(axis=0)
         bmax = tri_pos.reshape(-1, 3).max(axis=0)
-        self._chunks.append((tri_pos, tri_normal, bmin, bmax, material))
+        self._sources.append(("raw", tri_pos, tri_normal, bmin, bmax, material))
         return self
 
-    def build(self) -> Scene:
-        """Flatten into a CPU ``Scene``; move it with ``.to(device)``."""
+    def _iter_chunks(self):
+        """Every chunk tuple in insertion order (soups and mesh chunks)."""
+        for src in self._sources:
+            if src[0] == "raw":
+                yield src[1:]
+            else:
+                yield from self._mesh_chunks(self._meshes[src[1]])
+
+    def build(self, build_bvh: str | None = None) -> Scene:
+        """Flatten into a CPU ``Scene``; move it with ``.to(device)``.
+
+        ``build_bvh`` must be None: BVHs wait for the BVH traversal kernel.
+        Without one a scene renders by chunk scan, which gives the same
+        image."""
+        if build_bvh is not None:
+            raise NotImplementedError(
+                f"build_bvh={build_bvh!r}: BVH builds come with the BVH "
+                "traversal kernel (ROADMAP.md Queue B item 4)"
+            )
         s = len(self._sphere_center)
         s_pad = _round_up(s + 1, _LANE)
         centers = np.zeros((s_pad, 3), np.float32)
@@ -164,7 +272,7 @@ class SceneBuilder:
         chunk_first, chunk_count, chunk_bmin, chunk_bmax = [], [], [], []
         chunk_mat_idx, tri_pos_all, tri_nrm_all, tri_mat_idx = [], [], [], []
         cursor = 0
-        for tri_pos, tri_nrm, bmin, bmax, mat in self._chunks:
+        for tri_pos, tri_nrm, bmin, bmax, mat in self._iter_chunks():
             mats.append(mat)
             midx = len(mats) - 1
             n = tri_pos.shape[0]
@@ -222,6 +330,17 @@ class SceneBuilder:
             materials=_materials_soa(mats),
             env=self.env,
         )
+
+
+def _vertex_normals(vertices: np.ndarray, indices: np.ndarray) -> np.ndarray:
+    """Area-weighted vertex normals for meshes that ship without them."""
+    v0, v1, v2 = (vertices[indices[:, i]] for i in range(3))
+    face_n = np.cross(v1 - v0, v2 - v0)
+    out = np.zeros_like(vertices)
+    for i in range(3):
+        np.add.at(out, indices[:, i], face_n)
+    norm = np.linalg.norm(out, axis=1, keepdims=True)
+    return (out / np.maximum(norm, 1e-20)).astype(np.float32)
 
 
 def _materials_soa(mats: Sequence[Material]) -> Materials:

@@ -105,6 +105,22 @@ def look_at(
     )
 
 
+def camera_from_matrix(
+    position,
+    rotation,
+    fov_y_deg=60.0,
+    focus_distance=1.0,
+    defocus_strength=0.0,
+    diverge_strength=0.3,
+) -> Camera:
+    """A camera from an explicit local-to-world rotation (columns right,
+    up, forward), as scene files store it."""
+    return camera_from_numpy(
+        position, rotation, fov_y_deg, focus_distance, defocus_strength,
+        diverge_strength,
+    )
+
+
 def camera_params(cam: Camera, width: int, height: int) -> torch.Tensor:
     """The per-frame camera scalars, (5,) f32 on the camera's device:
     ``[plane_w, plane_h, focus_distance, defocus_scale, diverge_scale]``.

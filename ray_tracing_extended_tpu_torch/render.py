@@ -8,10 +8,12 @@ BOTTOM and the pixel index is ``y * width + x``. Segment totals are int64
 
 The scene's device picks the path: on the CPU the plain PyTorch path
 (``ops/``, the counterpart of the JAX package's XLA path), on a CUDA device
-the hand-written kernel (``kernels/megakernel.py``), with no other route.
-On CUDA, what the kernel does not do yet (triangles, ``adaptive_spp``,
-``fast_scatter``) raises ``NotImplementedError`` naming the ROADMAP.md
-item that adds it, as does ``intersector="bvh"`` on either device.
+the hand-written kernel (``kernels/megakernel.py``) for scenes of spheres
+and triangle chunks, with no other route. On CUDA, what the kernel does not
+do yet (``adaptive_spp``, ``fast_scatter``) raises ``NotImplementedError``
+naming the ROADMAP.md item that adds it, as does ``intersector="bvh"`` on
+either device. Scenes load from JSON files with
+``scene.json_scene.load_json_scene``.
 """
 
 from __future__ import annotations
@@ -38,7 +40,7 @@ def _check_supported(cfg: RenderConfig) -> None:
     if cfg.intersector == "bvh":
         raise NotImplementedError(
             "intersector='bvh' needs the BVH traversal kernel "
-            "(ROADMAP.md Queue A item 10)"
+            "(ROADMAP.md Queue B item 4)"
         )
 
 

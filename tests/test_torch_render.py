@@ -24,6 +24,7 @@ import ray_tracing_extended_tpu as rte
 from ray_tracing_extended_tpu.kernels.megakernel import render_frame_mega
 from ray_tracing_extended_tpu.models import presets as jpresets
 from ray_tracing_extended_tpu.render import render_block as j_block
+from ray_tracing_extended_tpu.scene.json_scene import load_json_scene as j_load
 import ray_tracing_extended_tpu_torch as rtt
 from ray_tracing_extended_tpu_torch.interop import (
     camera_from_arrays,
@@ -34,6 +35,7 @@ from ray_tracing_extended_tpu_torch.models import presets as tpresets
 from ray_tracing_extended_tpu_torch.render import render_block as t_block
 
 PORT = pathlib.Path(rtt.__file__).parent
+SCENES = PORT.parent / "scenes"
 
 
 def _port(j_scene, j_cam):
@@ -100,6 +102,55 @@ def test_cornell_plain_matches_xla():
     a = np.asarray(rte.render_frame(js, jc, cfg, jnp.uint32(2)))
     b = rtt.render_frame(*_port(js, jc), cfg, 2).numpy()
     _tight(a, b)
+
+
+@pytest.mark.parametrize("defocus", [True, False])
+@pytest.mark.parametrize("name", ["chess", "knight"])
+def test_shipped_triangle_scene_plain_matches_xla(name, defocus):
+    """A shipped mirror through both packages' load_json_scene, at a small
+    size, with its shipped defocus and without."""
+    small = dict(width=48, height=27, spp=1, max_bounce=3)
+    js, jc, cfg = j_load(SCENES / f"{name}.json", overrides=small)
+    ts, tc, tcfg = rtt.load_json_scene(SCENES / f"{name}.json", overrides=small)
+    assert dataclasses.asdict(tcfg) == dataclasses.asdict(cfg)
+    assert ts.has_triangles
+    if not defocus:
+        jc = dataclasses.replace(jc, defocus_strength=np.float32(0.0))
+        tc = tc.replace(defocus_strength=0.0)
+    a, a_segs = rte.render_frame_with_stats(js, jc, cfg, jnp.uint32(3))
+    b, b_segs = rtt.render_frame_with_stats(ts, tc, cfg, 3)
+    _tight(np.asarray(a), b.numpy())
+    assert abs(int(b_segs) - int(a_segs)) <= 0.005 * int(a_segs)
+
+
+def test_triangle_scene_matches_tpu_kernel_interpret():
+    """Cornell's walls are triangles: against the Pallas kernel in interpret
+    mode, as the JAX package's own tests run it."""
+    js, jc, cfg = jpresets.cornell_box_scene(width=32, height=32, spp=1,
+                                             max_bounce=3)
+    a, _ = render_frame_mega(js, jc, cfg, jnp.uint32(3), interpret=True)
+    b = rtt.render_frame(*_port(js, jc), cfg, 3).numpy()
+    _tight(np.asarray(a), b)
+
+
+def test_plain_block_size_invariant_on_triangle_scene():
+    """The plain path cuts its pixel block for scenes with many triangles;
+    its images and per-pixel segments do not depend on the block."""
+    scene, cam, cfg = rtt.load_json_scene(
+        SCENES / "chess.json",
+        overrides=dict(width=32, height=18, spp=1, max_bounce=2))
+    prims = scene.spheres.count + scene.triangles.count
+    assert prims == 128 + 6016
+    # 1080p: (2^25 // prims) rounded down to a multiple of 256
+    assert tmk.plain_block_size(
+        dataclasses.replace(cfg, width=1920, height=1080), scene,
+        1920 * 1080) == 5376
+    assert tmk.plain_block_size(cfg, scene, 32 * 18) == 768
+    small = dataclasses.replace(cfg, block_size=256)
+    assert tmk.plain_block_size(small, scene, 32 * 18) == 256
+    img, _, seg_map, _ = tmk.render_frames_plain(scene, cam, cfg, 4)
+    img2, _, seg_map2, _ = tmk.render_frames_plain(scene, cam, small, 4)
+    assert torch.equal(img, img2) and torch.equal(seg_map, seg_map2)
 
 
 def test_matches_tpu_kernel_interpret():
@@ -186,13 +237,16 @@ def test_cpu_path_never_launches_the_kernel():
         tmk.render_frames_mega(scene.to("meta"), cam, cfg, 0)
 
 
-def test_unported_options_raise():
+def test_unported_options_raise(tmp_path):
     scene, cam, cfg = tpresets.three_sphere_scene(width=16, height=8, spp=1)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         rtt.render_frame(scene, cam, dataclasses.replace(cfg, intersector="bvh"), 0)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rtt.SceneBuilder().add_mesh(np.zeros((3, 3)), np.array([[0, 1, 2]]),
-                                    rtt.Material())
+        rtt.SceneBuilder().build(build_bvh="tri")
+    scene_file = tmp_path / "fbx.json"
+    scene_file.write_text('{"meshes": [{"fbx": "knight.fbx"}]}')
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        rtt.load_json_scene(scene_file)
 
 
 def _imports(path):
@@ -206,7 +260,9 @@ def _imports(path):
 
 def test_port_imports_no_jax():
     files = sorted(PORT.rglob("*.py"))
-    assert len(files) >= 15
+    assert len(files) >= 20
+    for module in ("accel/chunks.py", "scene/json_scene.py", "scene/mesh_io.py"):
+        assert PORT / module in files, module
     for path in files:
         for name in _imports(path):
             assert name.split(".")[0] not in ("jax", "jaxlib"), (path, name)
