@@ -1,0 +1,207 @@
+"""Command-line entry point of the port: the ``render`` command.
+
+    python -m ray_tracing_extended_tpu_torch.cli render \\
+        --scene scenes/chess.json --adaptive-spp --frames 16 \\
+        --out chess.png --metrics chess.jsonl
+    python -m ray_tracing_extended_tpu_torch.cli render --scene preset:rtiow \\
+        --spp 16 --adaptive-spp --batch 4 --frames 8 \\
+        --checkpoint rtiow.npz --checkpoint-every 4
+    python -m ray_tracing_extended_tpu_torch.cli render \\
+        --scene preset:three_sphere --device cpu --width 64 --height 36
+
+Counterpart of ``ray_tracing_extended_tpu/cli.py``'s ``render`` with the
+same flags, plus ``--device`` (default ``cuda``; ``cpu`` takes the plain
+PyTorch path). Scene specs: ``preset:{three_sphere|rtiow|cornell}`` or a
+``.json`` scene (``scene/json_scene.py``). Not ported yet, and raising:
+``preset:mesh`` and ``.obj`` meshes (they need the BVH), ``.unity`` scenes
+and ``--mesh`` (multi-GPU); the ``benchmark`` and ``compare`` commands are
+not here (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import dataclasses
+import sys
+
+import numpy as np
+
+from .utils.device import resolve_device
+
+_BVH_ITEM = "the BVH traversal kernel (ROADMAP.md Queue B item 4)"
+
+
+def _load_scene(spec: str, args):
+    overrides = {}
+    for k in ("width", "height", "spp", "max_bounce"):
+        v = getattr(args, k)
+        if v is not None:
+            overrides[k] = v
+    if args.intersector:
+        overrides["intersector"] = args.intersector
+    if args.hdr:
+        overrides["clamp_accumulate"] = False
+    if args.adaptive_spp:
+        overrides["adaptive_spp"] = True
+    if args.fast_scatter:
+        overrides["fast_scatter"] = True
+
+    if spec.startswith("preset:"):
+        from .models import presets
+
+        name = spec.split(":", 1)[1]
+        if name == "mesh":
+            raise NotImplementedError(f"preset:mesh needs {_BVH_ITEM}")
+        table = {
+            "three_sphere": presets.three_sphere_scene,
+            "rtiow": presets.rtiow_final_scene,
+            "cornell": presets.cornell_box_scene,
+        }
+        fn = table.get(name)
+        if fn is None:
+            raise SystemExit(
+                f"unknown preset {name!r}; available: {sorted(table)}"
+            )
+        scene, cam, cfg = fn(device=args.device)
+        if overrides:
+            cfg = dataclasses.replace(cfg, **overrides)
+        return scene, cam, cfg.validate()
+    if spec.endswith(".unity"):
+        raise NotImplementedError(
+            f"{spec}: the Unity scene importer is not ported yet (ROADMAP.md "
+            "Queue A item 13); use the scene's JSON mirror in scenes/"
+        )
+    if spec.endswith(".json"):
+        from .scene.json_scene import load_json_scene
+
+        return load_json_scene(spec, overrides=overrides, device=args.device)
+    if spec.endswith(".obj"):
+        raise NotImplementedError(f"{spec}: an OBJ mesh scene needs {_BVH_ITEM}")
+    raise SystemExit(f"unrecognized scene spec: {spec}")
+
+
+def cmd_render(args):
+    from .progressive import render_progressive
+    from .utils.metrics import MetricsLogger
+
+    try:
+        resolve_device(args.device)
+    except RuntimeError as e:
+        raise SystemExit(str(e)) from None
+    if args.mesh:
+        raise NotImplementedError(
+            "--mesh: multi-GPU rendering is not ported yet (ROADMAP.md Queue "
+            "A item 12)"
+        )
+    scene, cam, cfg = _load_scene(args.scene, args)
+    cameras = None
+    if args.flythrough:
+        # BASELINE config 5: a circular dolly path with defocus, scaled for
+        # RTIOW-sized scenes (preset:rtiow)
+        from .models.presets import flythrough_cameras
+
+        _, cameras, fcfg = flythrough_cameras(
+            args.flythrough, width=cfg.width, height=cfg.height,
+            device=args.device,
+        )
+        if args.spp is None:
+            cfg = dataclasses.replace(cfg, spp=fcfg.spp)
+        if args.frames is not None and args.frames != args.flythrough:
+            raise SystemExit(
+                f"--frames {args.frames} conflicts with --flythrough "
+                f"{args.flythrough}: the fly-through renders one frame "
+                "per camera; drop --frames"
+            )
+        args.frames = args.flythrough
+        cam = cameras[0]
+    elif args.frames is None:
+        args.frames = 1
+    if args.reset_on_move and cameras is None:
+        raise SystemExit("--reset-on-move needs --flythrough N")
+    metrics = MetricsLogger(args.metrics, echo=args.verbose)
+    prof = contextlib.nullcontext()
+    if args.profile:
+        from .utils.profiling import trace
+
+        prof = trace(args.profile)
+    try:
+        with prof:
+            img = render_progressive(
+                scene, cam, cfg, frames=args.frames,
+                checkpoint_path=args.checkpoint,
+                checkpoint_every=args.checkpoint_every, resume=args.resume,
+                metrics=metrics, cameras=cameras, batch=args.batch,
+                reset_on_move=args.reset_on_move,
+            )
+    finally:
+        metrics.close()
+    if args.out:
+        if args.out.endswith(".npy"):
+            # raw linear radiance (HDR workflows; --hdr keeps it unclamped)
+            np.save(args.out, img.cpu().numpy().astype(np.float32))
+        else:
+            from .utils.image import save_png
+
+            save_png(args.out, img, tone=args.tone, exposure=args.exposure)
+        print(f"wrote {args.out} ({cfg.width}x{cfg.height}, "
+              f"{args.frames} frames x {cfg.spp} spp)")
+    return 0
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(prog="ray_tracing_extended_tpu_torch")
+    sub = p.add_subparsers(dest="cmd", required=True)
+
+    r = sub.add_parser("render", help="progressive render")
+    r.add_argument("--scene", required=True)
+    r.add_argument("--device", default="cuda",
+                   help="torch device to render on (default cuda; cpu takes "
+                        "the plain PyTorch path)")
+    r.add_argument("--width", type=int)
+    r.add_argument("--height", type=int)
+    r.add_argument("--spp", type=int)
+    r.add_argument("--max-bounce", dest="max_bounce", type=int)
+    r.add_argument("--intersector", choices=["auto", "bruteforce", "bvh", "mega"])
+    r.add_argument(
+        "--adaptive-spp", dest="adaptive_spp", action="store_true",
+        help="sample refill: pixels whose warp-mates are still tracing get "
+             "extra samples (>= spp each, per-pixel mean)")
+    r.add_argument(
+        "--fast-scatter", dest="fast_scatter", action="store_true",
+        help="2-draw unit-vector sampler (the same distribution; breaks "
+             "draw-for-draw reference parity)")
+    r.add_argument("--hdr", action="store_true",
+                   help="unclamped accumulation (the reference clamps)")
+    r.add_argument(
+        "--frames", type=int, default=None,
+        help="frames to accumulate (default 1; implied by --flythrough N)")
+    r.add_argument("--batch", type=int, default=1, metavar="K",
+                   help="frames fused per kernel launch (static camera)")
+    r.add_argument(
+        "--flythrough", type=int, default=0, metavar="N",
+        help="render an N-frame camera fly-through (circular dolly with "
+             "defocus; scaled for preset:rtiow)")
+    r.add_argument(
+        "--reset-on-move", dest="reset_on_move", action="store_true",
+        help="restart accumulation when the fly-through camera moves")
+    r.add_argument("--mesh", default=None, metavar="SPPxTILES",
+                   help="multi-GPU split (not ported yet; raises)")
+    r.add_argument("--out", default=None, help=".png, or .npy for raw radiance")
+    r.add_argument("--tone", default="none", choices=["none", "reinhard", "aces"])
+    r.add_argument("--exposure", type=float, default=1.0)
+    r.add_argument("--checkpoint", default=None)
+    r.add_argument("--checkpoint-every", type=int, default=0)
+    r.add_argument("--resume", action="store_true")
+    r.add_argument("--metrics", default=None, help="JSONL file to append to")
+    r.add_argument("--profile", default=None,
+                   help="write a torch.profiler Chrome trace to this dir")
+    r.add_argument("--verbose", action="store_true")
+    r.set_defaults(fn=cmd_render)
+
+    args = p.parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -3,39 +3,56 @@
 //
 // Replaces the TPU kernel
 //   ray_tracing_extended_tpu/kernels/megakernel.py::_render_kernel
-// for scenes rendered with exactly spp samples per pixel. It computes what
-// that kernel computes: per pixel and frame, the PCG stream seeded
+// in its exact-spp, adaptive-refill and fast-scatter modes. It computes
+// what that kernel computes: per pixel and frame, the PCG stream seeded
 // pix + frame * 719393, the thin-lens camera ray (4 draws), the bounce loop
 // (closest hit over spheres, then triangles; checker / invisible-light
 // flags, the specular-lottery scatter with the dielectric extension,
 // 7 draws, and Russian roulette, 1 draw; the environment light on a miss),
-// the mean over spp, and the fold into a running average with weight
-// 1 / (f32(frame) + 1). It also counts each pixel's live path segments and,
-// on request, the live paths per bounce index. The arithmetic follows the
-// plain PyTorch version (ops/*.py) operation for operation; built with
-// -fmad=false, no multiply and add fuse, so the two differ only where the
-// sphere and triangle tests' forms do (this kernel tests in the direct
-// o - c and o - a forms, as the TPU kernel does; the plain version in the
-// expanded forms) and where the device's transcendentals round differently.
+// the mean over the pixel's samples, and the fold into a running average
+// with weight 1 / (f32(frame) + 1). It also counts each pixel's live path
+// segments and, on request, the live paths per bounce index. The
+// arithmetic follows the plain PyTorch version (ops/*.py and
+// kernels/megakernel.py) operation for operation; built with -fmad=false,
+// no multiply and add fuse, so the two differ only where the sphere and
+// triangle tests' forms do (this kernel tests in the direct o - c and
+// o - a forms, as the TPU kernel does; the plain version in the expanded
+// forms) and where the device's transcendentals round differently.
 //
-// One kernel, two instantiations, render_kernel<kTris>:
-//   kTris = false, sphere scenes: the sphere table in shared memory.
-//   kTris = true, scenes with triangles: the chunk table (each chunk's AABB
-//   and triangle range) in shared memory too. Each thread loops over the
-//   chunks; a chunk whose box the ray's line misses (the reference's slab
-//   test, RayTracing.shader:177-187, applied at :279-281) is skipped, and
-//   the others' triangles run the backface-culled Moller-Trumbore test on
-//   12-float rows (a, b - a, c - a, geometric normal) read through the
-//   read-only cache. Only the winner's vertex normals and material are read.
+// Two kernels, each instantiated for sphere scenes (kTris = false: the
+// sphere table in shared memory) and for scenes with triangles (kTris =
+// true: the chunk table, each chunk's AABB and triangle range, in shared
+// memory too; a chunk whose box the ray's line misses, the reference's
+// slab test, RayTracing.shader:177-187 applied at :279-281, is skipped, and
+// the others' triangles run the backface-culled Moller-Trumbore test on
+// 12-float rows read through the read-only cache), and for the scatter
+// sampler (kBoxMuller: the reference's three Box-Muller Gaussians, 6 draws;
+// kFastScatter: the TPU kernel's 2-draw (z, phi) map, cfg.fast_scatter):
+//   render_kernel<kTris, kScatter>: exactly spp samples a pixel, a loop
+//   over samples and bounces per thread.
+//   render_adaptive<kTris, kScatter>: the adaptive sample refill
+//   (cfg.adaptive_spp). A slot loop: each slot, a dead lane that owes
+//   samples, or whose warp has a lane that does (one __any_sync), starts
+//   its next camera sample, then every live lane traces one segment. The
+//   quota is n_frames * spp; a lane folds a frame after spp completed
+//   samples, so extra samples continue the last frame, whose mean divides
+//   by what it completed. At most quota * (max_bounce + 1) slots; a sample
+//   in flight at the bound is dropped. The TPU kernel votes over a TS x TS
+//   tile; here the group is the warp (16 x 2 pixels of the 16 x 8 block),
+//   the unit whose lanes idle while warp-mates finish long paths. Lanes
+//   outside the image stay in the loop with nothing owed: a full-mask vote
+//   needs all 32, and the loop's exit is decided by a vote, so it is
+//   warp-uniform.
 //
 // What bounds it on this card: FP32 ALU throughput of the brute-force scans,
-// about pixels x spp x segments x (spheres + chunks + the triangles of the
-// chunks the ray's line passes) tests, plus warp divergence between long
-// and short paths in one warp.
+// about pixels x samples x segments x (spheres + chunks + the triangles of
+// the chunks the ray's line passes) tests, plus warp divergence between
+// long and short paths in one warp.
 // What this version does about it: it keeps the sphere and chunk tables in
 // shared memory, loaded once per block and read as warp-wide broadcasts,
-// and gates triangles by chunk. No BVH, no front-to-back chunk order, no
-// path regeneration.
+// and gates triangles by chunk; with refill, lanes that would idle behind
+// a warp-mate's long path trace extra samples instead. No BVH, no
+// front-to-back chunk order, no path regeneration across warps.
 //
 // C interface, loaded with ctypes (kernels/megakernel.py):
 //   rtx_render(...) launches on the given stream and returns
@@ -83,6 +100,14 @@ constexpr float kDetEps = 1e-6f;
 // f32(1) / f32(2^32 - 1): the f32 literal rounds to 2^32, as in HLSL.
 constexpr float kInvU32Max = 1.0f / 4294967296.0f;
 constexpr uint32_t kFrameSeedStride = 719393u;
+// The fast sampler's angle scale, f32(2 * 3.14159265), as the TPU kernel's
+// _rand_unit3_fast spells it.
+constexpr float kTwoPiFast = static_cast<float>(2.0 * 3.14159265);
+
+constexpr unsigned kFullMask = 0xffffffffu;
+
+// The scatter's unit-vector sampler.
+enum Scatter : bool { kBoxMuller = false, kFastScatter = true };
 
 struct Vec3 {
   float x, y, z;
@@ -147,6 +172,17 @@ __device__ __forceinline__ Vec3 random_direction(uint32_t& state) {
   const float z = random_normal(state);
   const float inv = rsqrtf(x * x + y * y + z * z);
   return {x * inv, y * inv, z * inv};
+}
+
+// Uniform unit vector by the area-preserving (z, phi) map, 2 draws
+// (ops/rng.py random_direction_fast).
+__device__ __forceinline__ Vec3 random_direction_fast(uint32_t& state) {
+  const float u = random_value(state);
+  const float v = random_value(state);
+  const float z = u * 2.0f - 1.0f;
+  const float phi = v * kTwoPiFast;
+  const float s = sqrtf(fmaxf(1.0f - z * z, 0.0f));
+  return {s * cosf(phi), s * sinf(phi), z};
 }
 
 // Uniform point in the unit disc, scaled by `radius_scale`.
@@ -297,8 +333,109 @@ __device__ __forceinline__ Vec3 triangle_normal(Triangles tri, int i,
   return normalize(raw);
 }
 
-// One camera sample's path (ops/trace.py). Returns its incoming light.
-template <bool kTris>
+// One segment of a path (ops/trace.py trace_segment): the closest hit,
+// then the flags, the scatter, emission and roulette; or the environment
+// light on a miss. Updates the ray, throughput and incoming light and
+// returns whether the path goes on. `camera_ray` is bounce index 0.
+template <bool kTris, Scatter kScatter>
+__device__ __forceinline__ bool trace_segment(
+    const float* p, const float* sph, const int* sph_mat, int n_sph,
+    Triangles tri, const float* __restrict__ mats, bool camera_ray,
+    uint32_t& state, Vec3& o, Vec3& d, Vec3& colour, Vec3& incoming) {
+  // closest hit: a strictly nearer root wins, so the first sphere wins
+  // a tie; disc < 0, t < 0 and padding spheres (r <= 0) never hit
+  float best_t = __int_as_float(0x7f800000);
+  int best = -1;
+  for (int i = 0; i < n_sph; ++i) {
+    const float* s = sph + kSph * i;
+    const Vec3 oc = {o.x - s[0], o.y - s[1], o.z - s[2]};
+    const float b = dot(oc, d);
+    const float cc = dot(oc, oc) - s[3];
+    const float disc = b * b - cc;
+    if (disc >= 0.0f && s[4] > 0.0f) {
+      const float t = -b - sqrtf(disc);
+      if (t >= 0.0f && t < best_t) {
+        best_t = t;
+        best = i;
+      }
+    }
+  }
+  int best_tri = -1;
+  if constexpr (kTris) closest_triangle(tri, o, d, best_t, best_tri);
+  if (best < 0 && best_tri < 0) {
+    incoming = add(incoming, mul(environment(p, d), colour));
+    return false;
+  }
+
+  const Vec3 point = add(o, scale(d, best_t));
+  Vec3 normal;
+  int mat_idx;
+  if (kTris && best_tri >= 0) {
+    normal = triangle_normal(tri, best_tri, o, d);
+    mat_idx = __ldg(tri.mat + best_tri);
+  } else {
+    const float* s = sph + kSph * best;
+    normal = normalize(sub(point, Vec3{s[0], s[1], s[2]}));
+    mat_idx = sph_mat[best];
+  }
+  const float* m = mats + kMat * mat_idx;
+  const int flag = static_cast<int>(__ldg(m + 13));
+
+  if (flag == kFlagInvisibleLight && camera_ray) {
+    o = add(point, scale(d, 0.001f));  // camera rays pass through
+    return true;
+  }
+
+  Vec3 base = {__ldg(m + 0), __ldg(m + 1), __ldg(m + 2)};
+  if (flag == kFlagChecker) {
+    const float fx = floorf(point.x);
+    const float fz = floorf(point.z);
+    const float cx = fx - 2.0f * floorf(fx / 2.0f);
+    const float cz = fz - 2.0f * floorf(fz / 2.0f);
+    if (cx != cz) base = {__ldg(m + 3), __ldg(m + 4), __ldg(m + 5)};
+  }
+
+  // scatter (RayTracing.shader:325-330): 1 lottery draw + 6 direction
+  // draws (2 with the fast sampler)
+  const float u_spec = random_value(state);
+  float is_spec = (__ldg(m + 11) >= u_spec) ? 1.0f : 0.0f;
+  Vec3 unit;
+  if constexpr (kScatter == kFastScatter) {
+    unit = random_direction_fast(state);
+  } else {
+    unit = random_direction(state);
+  }
+  const Vec3 diffuse = normalize(add(normal, unit));
+  const Vec3 specular = reflect(d, normal);
+  const Vec3 surface = normalize(lerp(diffuse, specular, __ldg(m + 10) * is_spec));
+  Vec3 new_d, new_o;
+  if (flag == kFlagDielectric) {
+    new_d = refract_dir(d, normal, __ldg(m + 12), u_spec);
+    new_o = add(point, scale(new_d, 1e-4f));
+    is_spec = 0.0f;  // dielectrics are tinted by colour only
+  } else {
+    new_d = surface;
+    new_o = add(point, Vec3{0.0f, 0.0f, 0.0f});
+  }
+
+  // emission and throughput (RayTracing.shader:333-335)
+  const Vec3 em = scale(Vec3{__ldg(m + 3), __ldg(m + 4), __ldg(m + 5)}, __ldg(m + 9));
+  incoming = add(incoming, mul(em, colour));
+  const Vec3 spec_c = {__ldg(m + 6), __ldg(m + 7), __ldg(m + 8)};
+  const Vec3 col_hit = mul(colour, lerp(base, spec_c, is_spec));
+
+  // Russian roulette (RayTracing.shader:337-342)
+  const float prob = fmaxf(fmaxf(col_hit.x, col_hit.y), col_hit.z);
+  const float u_rr = random_value(state);
+  if (!(u_rr < prob)) return false;
+  colour = scale(col_hit, 1.0f / fmaxf(prob, 1e-30f));
+  o = new_o;
+  d = new_d;
+  return true;
+}
+
+// One camera sample's path (ops/trace.py trace). Returns its incoming light.
+template <bool kTris, Scatter kScatter>
 __device__ Vec3 trace_path(const float* p, const float* sph, const int* sph_mat,
                            int n_sph, Triangles tri,
                            const float* __restrict__ mats, int max_bounce,
@@ -309,90 +446,11 @@ __device__ Vec3 trace_path(const float* p, const float* sph, const int* sph_mat,
   for (int bounce = 0; bounce <= max_bounce; ++bounce) {
     ++segs;
     if (s_hist != nullptr) atomicAdd(&s_hist[bounce], 1);
-
-    // closest hit: a strictly nearer root wins, so the first sphere wins
-    // a tie; disc < 0, t < 0 and padding spheres (r <= 0) never hit
-    float best_t = __int_as_float(0x7f800000);
-    int best = -1;
-    for (int i = 0; i < n_sph; ++i) {
-      const float* s = sph + kSph * i;
-      const Vec3 oc = {o.x - s[0], o.y - s[1], o.z - s[2]};
-      const float b = dot(oc, d);
-      const float cc = dot(oc, oc) - s[3];
-      const float disc = b * b - cc;
-      if (disc >= 0.0f && s[4] > 0.0f) {
-        const float t = -b - sqrtf(disc);
-        if (t >= 0.0f && t < best_t) {
-          best_t = t;
-          best = i;
-        }
-      }
-    }
-    int best_tri = -1;
-    if constexpr (kTris) closest_triangle(tri, o, d, best_t, best_tri);
-    if (best < 0 && best_tri < 0) {
-      incoming = add(incoming, mul(environment(p, d), colour));
+    if (!trace_segment<kTris, kScatter>(p, sph, sph_mat, n_sph, tri, mats,
+                                        bounce == 0, state, o, d, colour,
+                                        incoming)) {
       break;
     }
-
-    const Vec3 point = add(o, scale(d, best_t));
-    Vec3 normal;
-    int mat_idx;
-    if (kTris && best_tri >= 0) {
-      normal = triangle_normal(tri, best_tri, o, d);
-      mat_idx = __ldg(tri.mat + best_tri);
-    } else {
-      const float* s = sph + kSph * best;
-      normal = normalize(sub(point, Vec3{s[0], s[1], s[2]}));
-      mat_idx = sph_mat[best];
-    }
-    const float* m = mats + kMat * mat_idx;
-    const int flag = static_cast<int>(__ldg(m + 13));
-
-    if (flag == kFlagInvisibleLight && bounce == 0) {
-      o = add(point, scale(d, 0.001f));  // camera rays pass through
-      continue;
-    }
-
-    Vec3 base = {__ldg(m + 0), __ldg(m + 1), __ldg(m + 2)};
-    if (flag == kFlagChecker) {
-      const float fx = floorf(point.x);
-      const float fz = floorf(point.z);
-      const float cx = fx - 2.0f * floorf(fx / 2.0f);
-      const float cz = fz - 2.0f * floorf(fz / 2.0f);
-      if (cx != cz) base = {__ldg(m + 3), __ldg(m + 4), __ldg(m + 5)};
-    }
-
-    // scatter (RayTracing.shader:325-330): 1 lottery draw + 6 direction
-    const float u_spec = random_value(state);
-    float is_spec = (__ldg(m + 11) >= u_spec) ? 1.0f : 0.0f;
-    const Vec3 unit = random_direction(state);
-    const Vec3 diffuse = normalize(add(normal, unit));
-    const Vec3 specular = reflect(d, normal);
-    const Vec3 surface = normalize(lerp(diffuse, specular, __ldg(m + 10) * is_spec));
-    Vec3 new_d, new_o;
-    if (flag == kFlagDielectric) {
-      new_d = refract_dir(d, normal, __ldg(m + 12), u_spec);
-      new_o = add(point, scale(new_d, 1e-4f));
-      is_spec = 0.0f;  // dielectrics are tinted by colour only
-    } else {
-      new_d = surface;
-      new_o = add(point, Vec3{0.0f, 0.0f, 0.0f});
-    }
-
-    // emission and throughput (RayTracing.shader:333-335)
-    const Vec3 em = scale(Vec3{__ldg(m + 3), __ldg(m + 4), __ldg(m + 5)}, __ldg(m + 9));
-    incoming = add(incoming, mul(em, colour));
-    const Vec3 spec_c = {__ldg(m + 6), __ldg(m + 7), __ldg(m + 8)};
-    const Vec3 col_hit = mul(colour, lerp(base, spec_c, is_spec));
-
-    // Russian roulette (RayTracing.shader:337-342)
-    const float prob = fmaxf(fmaxf(col_hit.x, col_hit.y), col_hit.z);
-    const float u_rr = random_value(state);
-    if (!(u_rr < prob)) break;
-    colour = scale(col_hit, 1.0f / fmaxf(prob, 1e-30f));
-    o = new_o;
-    d = new_d;
   }
   return incoming;
 }
@@ -406,7 +464,11 @@ size_t shared_floats(int n_sph, int n_chunks, int max_bounce) {
          static_cast<size_t>(max_bounce) + 1;
 }
 
-template <bool kTris>
+// Exactly spp samples a pixel. Written out in full rather than through the
+// helpers render_adaptive uses below: with them, ptxas (nvcc 12.9, sm_90a)
+// gives the triangle instantiation 64 bytes of spill stores where this form
+// has 12, and the sphere one 64 registers for 72.
+template <bool kTris, Scatter kScatter>
 __global__ void __launch_bounds__(kBlockX * kBlockY)
 render_kernel(const float* __restrict__ sph_in,
               const int* __restrict__ sph_mat_in, int n_sph,
@@ -478,10 +540,10 @@ render_kernel(const float* __restrict__ sph_in,
         random_point_in_circle(state, p[16], jx, jy);
         const Vec3 target = add(add(fp, scale(right, jx)), scale(up, jy));
         const Vec3 dir = normalize(sub(target, origin));
-        total = add(total, trace_path<kTris>(p, sph, sph_mat, n_sph, tri, mats,
-                                             max_bounce, state, origin, dir,
-                                             segs,
-                                             hist != nullptr ? s_hist : nullptr));
+        total = add(total, trace_path<kTris, kScatter>(
+                               p, sph, sph_mat, n_sph, tri, mats, max_bounce,
+                               state, origin, dir, segs,
+                               hist != nullptr ? s_hist : nullptr));
       }
       const float n = static_cast<float>(spp);
       const Vec3 mean = {total.x / n, total.y / n, total.z / n};
@@ -513,34 +575,260 @@ render_kernel(const float* __restrict__ sph_in,
   }
 }
 
+// The block's view of the scene after staging it in shared memory.
+struct Staged {
+  const float* p;  // parameters
+  const float* sph;  // sphere table
+  const int* sph_mat;
+  int* s_hist;  // the block's bounce histogram
+  Triangles tri;
+};
+
+// Every thread of the block takes part: stages the tables, zeroes the
+// histogram and waits for the block.
 template <bool kTris>
-cudaError_t launch(const void* sph, const void* sph_mat, int n_sph,
-                   const void* tri_rows, const void* tri_normals,
-                   const void* tri_mat, const void* chunks, int n_chunks,
-                   const void* mats, const void* params, int width, int height,
-                   int spp, int max_bounce, unsigned int frame0, int n_frames,
-                   const void* accum_in, int clamp_accum, void* out, void* segs,
-                   void* hist, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * shared_floats(n_sph, n_chunks, max_bounce);
+__device__ __forceinline__ Staged stage_scene(
+    float4* smem4, const float* __restrict__ sph_in,
+    const int* __restrict__ sph_mat_in, int n_sph,
+    const float4* __restrict__ tri_rows, const float* __restrict__ tri_normals,
+    const int* __restrict__ tri_mat, const float* __restrict__ chunks_in,
+    int n_chunks, const float* __restrict__ params_in, int max_bounce) {
+  float* chunks = reinterpret_cast<float*>(smem4);
+  float* p = chunks + (kTris ? kChunk * n_chunks : 0);
+  float* sph = p + kParams;
+  int* sph_mat = reinterpret_cast<int*>(sph + kSph * n_sph);
+  int* s_hist = sph_mat + n_sph;
+
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int n_threads = blockDim.x * blockDim.y;
+  if constexpr (kTris) {
+    for (int i = tid; i < kChunk * n_chunks; i += n_threads) chunks[i] = chunks_in[i];
+  }
+  for (int i = tid; i < kParams; i += n_threads) p[i] = params_in[i];
+  for (int i = tid; i < kSph * n_sph; i += n_threads) sph[i] = sph_in[i];
+  for (int i = tid; i < n_sph; i += n_threads) sph_mat[i] = sph_mat_in[i];
+  for (int i = tid; i <= max_bounce; i += n_threads) s_hist[i] = 0;
+  __syncthreads();
+  return {p, sph, sph_mat, s_hist,
+          {tri_rows, tri_normals, tri_mat, chunks, kTris ? n_chunks : 0}};
+}
+
+// Adds the block's histogram to the launch's; every thread takes part.
+__device__ __forceinline__ void flush_hist(const int* s_hist, int* hist,
+                                           int max_bounce) {
+  if (hist != nullptr) {
+    __syncthreads();
+    const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+    const int n_threads = blockDim.x * blockDim.y;
+    for (int i = tid; i <= max_bounce; i += n_threads) {
+      if (s_hist[i] != 0) atomicAdd(&hist[i], s_hist[i]);
+    }
+  }
+}
+
+// The pixel's point on the focus plane: position + rotation @ (lx, ly,
+// focus) (ops/camera.py focus_points).
+__device__ __forceinline__ Vec3 focus_point(const float* p, int x, int y,
+                                            int width, int height) {
+  const float u = (static_cast<float>(x) + 0.5f) / static_cast<float>(width);
+  const float v = (static_cast<float>(y) + 0.5f) / static_cast<float>(height);
+  const float lx = (u - 0.5f) * p[12];
+  const float ly = (v - 0.5f) * p[13];
+  const float focus = p[14];
+  return {
+      p[0] + (lx * p[3] + ly * p[4] + focus * p[5]),
+      p[1] + (lx * p[6] + ly * p[7] + focus * p[8]),
+      p[2] + (lx * p[9] + ly * p[10] + focus * p[11]),
+  };
+}
+
+// A camera sample's ray (RayTracing.shader:377-382), 4 draws: the defocus
+// disc on the origin, the diverge disc on the target.
+__device__ __forceinline__ void camera_ray(const float* p, Vec3 pos,
+                                           Vec3 right, Vec3 up, Vec3 fp,
+                                           uint32_t& state, Vec3& origin,
+                                           Vec3& dir) {
+  float cx, cy, jx, jy;
+  random_point_in_circle(state, p[15], cx, cy);
+  origin = add(add(pos, scale(right, cx)), scale(up, cy));
+  random_point_in_circle(state, p[16], jx, jy);
+  const Vec3 target = add(add(fp, scale(right, jx)), scale(up, jy));
+  dir = normalize(sub(target, origin));
+}
+
+// Folds frame `frame`'s mean into the running average (ops/accumulate.py:
+// prev (1 - w) + cur w, w = 1 / (frame + 1)); without an accumulator the
+// mean is the result.
+__device__ __forceinline__ Vec3 fold(Vec3 acc, Vec3 mean, uint32_t frame,
+                                     bool with_accum, int clamp_accum) {
+  if (!with_accum) return mean;
+  const float w = 1.0f / (__uint2float_rn(frame) + 1.0f);
+  const float keep = 1.0f - w;
+  acc = {acc.x * keep + mean.x * w, acc.y * keep + mean.y * w,
+         acc.z * keep + mean.z * w};
+  if (clamp_accum) {
+    acc = {fminf(fmaxf(acc.x, 0.0f), 1.0f), fminf(fmaxf(acc.y, 0.0f), 1.0f),
+           fminf(fmaxf(acc.z, 0.0f), 1.0f)};
+  }
+  return acc;
+}
+
+__device__ __forceinline__ Vec3 div(Vec3 v, float n) {
+  return {v.x / n, v.y / n, v.z / n};
+}
+
+// The adaptive sample refill (see the header): a slot loop whose lanes are
+// warp-synchronous through two votes a slot. Per-lane state lives in
+// registers: the RNG state, the ray, throughput, incoming and banked light,
+// the running average, the completed-sample count, frame and bounce index.
+template <bool kTris, Scatter kScatter>
+__global__ void __launch_bounds__(kBlockX * kBlockY)
+render_adaptive(const float* __restrict__ sph_in,
+                const int* __restrict__ sph_mat_in, int n_sph,
+                const float4* __restrict__ tri_rows,
+                const float* __restrict__ tri_normals,
+                const int* __restrict__ tri_mat,
+                const float* __restrict__ chunks_in, int n_chunks,
+                const float* __restrict__ mats,
+                const float* __restrict__ params_in, int width, int height,
+                int spp, int max_bounce, uint32_t frame0, int n_frames,
+                const float* __restrict__ accum_in, int clamp_accum,
+                float* __restrict__ out, int* __restrict__ segs_out,
+                int* __restrict__ hist) {
+  extern __shared__ float4 smem4[];
+  const Staged sc = stage_scene<kTris>(smem4, sph_in, sph_mat_in, n_sph,
+                                       tri_rows, tri_normals, tri_mat,
+                                       chunks_in, n_chunks, params_in,
+                                       max_bounce);
+  int* s_hist = hist != nullptr ? sc.s_hist : nullptr;
+
+  // Lanes outside the image stay in the loop, owing nothing.
+  const int x = blockIdx.x * blockDim.x + threadIdx.x;
+  const int y = blockIdx.y * blockDim.y + threadIdx.y;
+  const bool in_image = x < width && y < height;
+  const int pix = in_image ? y * width + x : 0;
+  const Vec3 pos = {sc.p[0], sc.p[1], sc.p[2]};
+  const Vec3 right = {sc.p[3], sc.p[6], sc.p[9]};
+  const Vec3 up = {sc.p[4], sc.p[7], sc.p[10]};
+  const Vec3 fp = focus_point(sc.p, x, y, width, height);
+  const bool with_accum = accum_in != nullptr;
+  Vec3 acc = {0.0f, 0.0f, 0.0f};
+  if (in_image && with_accum) {
+    acc = {accum_in[3 * pix], accum_in[3 * pix + 1], accum_in[3 * pix + 2]};
+  }
+
+  const int quota = n_frames * spp;
+  const int n_slots = quota * (max_bounce + 1);
+  uint32_t state = 0;
+  Vec3 o = {0.0f, 0.0f, 0.0f}, d = {0.0f, 0.0f, 0.0f};
+  Vec3 colour = {0.0f, 0.0f, 0.0f}, incoming = {0.0f, 0.0f, 0.0f};
+  Vec3 total = {0.0f, 0.0f, 0.0f};
+  bool live = false;
+  int ns = 0, fk = 0, bounce = 0, segs = 0;
+  for (int slot = 0; slot < n_slots; ++slot) {
+    // the votes: every lane of the warp casts both, every slot (neither
+    // may sit behind a short-circuit)
+    const bool undone = in_image && ns < quota;
+    const bool group_undone = __any_sync(kFullMask, undone);
+    const bool need = in_image && !live && group_undone;
+    if (!__any_sync(kFullMask, live || need)) break;
+
+    if (need) {
+      if (ns - fk * spp >= spp && fk < n_frames - 1) {
+        // the frame is done: fold it and move to the next
+        acc = fold(acc, div(total, static_cast<float>(spp)),
+                   frame0 + static_cast<uint32_t>(fk), with_accum,
+                   clamp_accum);
+        total = {0.0f, 0.0f, 0.0f};
+        ++fk;
+      }
+      if (ns - fk * spp == 0) {
+        state = static_cast<uint32_t>(pix) +
+                (frame0 + static_cast<uint32_t>(fk)) * kFrameSeedStride;
+      }
+      camera_ray(sc.p, pos, right, up, fp, state, o, d);
+      colour = {1.0f, 1.0f, 1.0f};
+      bounce = 0;
+      live = true;
+    }
+    if (live) {
+      ++segs;
+      if (s_hist != nullptr) atomicAdd(&s_hist[bounce], 1);
+      const bool goes_on = trace_segment<kTris, kScatter>(
+          sc.p, sc.sph, sc.sph_mat, n_sph, sc.tri, mats, bounce == 0, state,
+          o, d, colour, incoming);
+      if (!goes_on || bounce >= max_bounce) {
+        // the sample is complete: bank its light
+        total = add(total, incoming);
+        incoming = {0.0f, 0.0f, 0.0f};
+        ++ns;
+        live = false;
+      }
+      ++bounce;
+    }
+  }
+
+  if (in_image) {
+    // the last frame's mean over the samples it completed (>= spp)
+    const int n_last = max(ns - (n_frames - 1) * spp, 1);
+    acc = fold(acc, div(total, static_cast<float>(n_last)),
+               frame0 + static_cast<uint32_t>(n_frames - 1), with_accum,
+               clamp_accum);
+    out[3 * pix] = acc.x;
+    out[3 * pix + 1] = acc.y;
+    out[3 * pix + 2] = acc.z;
+    segs_out[pix] = segs;
+  }
+  flush_hist(sc.s_hist, hist, max_bounce);
+}
+
+// One launch's arguments, as rtx_render receives them.
+struct LaunchArgs {
+  const void *sph, *sph_mat;
+  int n_sph;
+  const void *tri_rows, *tri_normals, *tri_mat, *chunks;
+  int n_chunks;
+  const void *mats, *params;
+  int width, height, spp, max_bounce;
+  unsigned int frame0;
+  int n_frames;
+  const void* accum_in;
+  int clamp_accum;
+  void *out, *segs, *hist;
+};
+
+using KernelFn = void (*)(const float*, const int*, int, const float4*,
+                          const float*, const int*, const float*, int,
+                          const float*, const float*, int, int, int, int,
+                          uint32_t, int, const float*, int, float*, int*,
+                          int*);
+
+template <bool kTris, Scatter kScatter>
+cudaError_t launch(const LaunchArgs& a, bool adaptive, cudaStream_t stream) {
+  const KernelFn kernel = adaptive ? render_adaptive<kTris, kScatter>
+                                   : render_kernel<kTris, kScatter>;
+  const size_t smem =
+      sizeof(float) * shared_floats(a.n_sph, a.n_chunks, a.max_bounce);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        render_kernel<kTris>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
   const dim3 block(kBlockX, kBlockY);
-  const dim3 grid((width + kBlockX - 1) / kBlockX,
-                  (height + kBlockY - 1) / kBlockY);
-  render_kernel<kTris><<<grid, block, smem, stream>>>(
-      static_cast<const float*>(sph), static_cast<const int*>(sph_mat), n_sph,
-      static_cast<const float4*>(tri_rows),
-      static_cast<const float*>(tri_normals), static_cast<const int*>(tri_mat),
-      static_cast<const float*>(chunks), n_chunks,
-      static_cast<const float*>(mats), static_cast<const float*>(params), width,
-      height, spp, max_bounce, frame0, n_frames,
-      static_cast<const float*>(accum_in), clamp_accum,
-      static_cast<float*>(out), static_cast<int*>(segs),
-      static_cast<int*>(hist));
+  const dim3 grid((a.width + kBlockX - 1) / kBlockX,
+                  (a.height + kBlockY - 1) / kBlockY);
+  kernel<<<grid, block, smem, stream>>>(
+      static_cast<const float*>(a.sph), static_cast<const int*>(a.sph_mat),
+      a.n_sph, static_cast<const float4*>(a.tri_rows),
+      static_cast<const float*>(a.tri_normals),
+      static_cast<const int*>(a.tri_mat), static_cast<const float*>(a.chunks),
+      a.n_chunks, static_cast<const float*>(a.mats),
+      static_cast<const float*>(a.params), a.width, a.height, a.spp,
+      a.max_bounce, a.frame0, a.n_frames,
+      static_cast<const float*>(a.accum_in), a.clamp_accum,
+      static_cast<float*>(a.out), static_cast<int*>(a.segs),
+      static_cast<int*>(a.hist));
   return cudaGetLastError();
 }
 
@@ -551,27 +839,34 @@ extern "C" size_t rtx_shared_bytes(int n_sph, int n_chunks, int max_bounce) {
   return sizeof(float) * shared_floats(n_sph, n_chunks, max_bounce);
 }
 
-// A scene with triangles (n_chunks > 0) launches render_kernel<true>, with
-// tri_rows 16-byte aligned; a sphere scene passes null triangle pointers and
-// n_chunks = 0, and launches render_kernel<false>.
+// A scene with triangles (n_chunks > 0) launches a kTris = true
+// instantiation, with tri_rows 16-byte aligned; a sphere scene passes null
+// triangle pointers and n_chunks = 0. `adaptive` picks render_adaptive over
+// render_kernel, `fast_scatter` the kFastScatter sampler.
 extern "C" int rtx_render(
     const void* sph, const void* sph_mat, int n_sph, const void* tri_rows,
     const void* tri_normals, const void* tri_mat, const void* chunks,
     int n_chunks, const void* mats, const void* params, int width, int height,
     int spp, int max_bounce, unsigned int frame0, int n_frames,
-    const void* accum_in, int clamp_accum, void* out, void* segs, void* hist,
-    void* stream) {
+    const void* accum_in, int clamp_accum, int adaptive, int fast_scatter,
+    void* out, void* segs, void* hist, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      n_chunks > 0
-          ? launch<true>(sph, sph_mat, n_sph, tri_rows, tri_normals, tri_mat,
-                         chunks, n_chunks, mats, params, width, height, spp,
-                         max_bounce, frame0, n_frames, accum_in, clamp_accum,
-                         out, segs, hist, s)
-          : launch<false>(sph, sph_mat, n_sph, nullptr, nullptr, nullptr,
-                          nullptr, 0, mats, params, width, height, spp,
-                          max_bounce, frame0, n_frames, accum_in, clamp_accum,
-                          out, segs, hist, s);
+  const bool tris = n_chunks > 0;
+  const LaunchArgs a = {
+      sph, sph_mat, n_sph,
+      tris ? tri_rows : nullptr, tris ? tri_normals : nullptr,
+      tris ? tri_mat : nullptr, tris ? chunks : nullptr, tris ? n_chunks : 0,
+      mats, params, width, height, spp, max_bounce, frame0, n_frames,
+      accum_in, clamp_accum, out, segs, hist};
+  const bool ad = adaptive != 0;
+  cudaError_t err;
+  if (tris) {
+    err = fast_scatter ? launch<true, kFastScatter>(a, ad, s)
+                       : launch<true, kBoxMuller>(a, ad, s);
+  } else {
+    err = fast_scatter ? launch<false, kFastScatter>(a, ad, s)
+                       : launch<false, kBoxMuller>(a, ad, s);
+  }
   return static_cast<int>(err);
 }
 

@@ -2,8 +2,9 @@
 
 The JAX package (``ray_tracing_extended_tpu``) keeps its scene as
 dataclasses of arrays. These functions read each leaf once with
-``np.asarray`` and wrap it as a CPU tensor, so both packages can render the
-same scene and the port can be held against the reference. They use only
+``np.asarray`` and put it on ``device`` (the card unless the caller asks
+for the CPU), so both packages can render the same scene and the port can
+be held against the reference. They use only
 attribute access and numpy: nothing here imports JAX.
 """
 
@@ -21,11 +22,12 @@ from .models.geometry import (
     Triangles,
 )
 from .ops.camera import Camera, camera_from_numpy
+from .utils.device import DEFAULT_DEVICE, resolve_device
 
 
 def _copy(cls, src):
     """``cls`` with every field read from the same-named attribute of
-    ``src`` (a JAX-package dataclass with array leaves)."""
+    ``src`` (a JAX-package dataclass with array leaves), on the CPU."""
     return cls(
         **{
             name: torch.from_numpy(np.array(np.asarray(getattr(src, name))))
@@ -34,20 +36,22 @@ def _copy(cls, src):
     )
 
 
-def scene_from_arrays(scene) -> Scene:
-    """A port ``Scene`` on the CPU from a JAX-package ``Scene``. Its BVHs and
-    packed TPU tables are left behind: the port does not use them."""
+def scene_from_arrays(scene, device=DEFAULT_DEVICE) -> Scene:
+    """A port ``Scene`` on ``device`` from a JAX-package ``Scene``. Its BVHs
+    and packed TPU tables are left behind: the port does not use them."""
+    dev = resolve_device(device)
     return Scene(
         spheres=_copy(Spheres, scene.spheres),
         triangles=_copy(Triangles, scene.triangles),
         chunks=_copy(MeshChunks, scene.chunks),
         materials=_copy(Materials, scene.materials),
         env=_copy(Environment, scene.env),
-    )
+    ).to(dev)
 
 
-def camera_from_arrays(cam) -> Camera:
-    """A port ``Camera`` on the CPU from a JAX-package ``Camera``."""
+def camera_from_arrays(cam, device=DEFAULT_DEVICE) -> Camera:
+    """A port ``Camera`` on ``device`` from a JAX-package ``Camera``."""
     return camera_from_numpy(
-        *(np.asarray(getattr(cam, name)) for name in Camera.__dataclass_fields__)
+        *(np.asarray(getattr(cam, name)) for name in Camera.__dataclass_fields__),
+        device=device,
     )

@@ -5,14 +5,25 @@ Port of ``ray_tracing_extended_tpu/kernels/megakernel.py``: its Pallas
 kernel ``_render_kernel`` traces a tile of pixels start to finish; here
 ``csrc/megakernel.cu`` traces one pixel per CUDA thread (see the source's
 header for what it computes, what bounds it and what it does about that).
-The kernel has two variants: ``render_kernel<false>`` for sphere scenes and
-``render_kernel<true>``, which also scans the scene's triangle chunks.
+The source has two kernels, each instantiated for sphere scenes and for
+scenes with triangle chunks, and with the reference's Box-Muller scatter
+or the 2-draw fast one (``cfg.fast_scatter``): ``render_kernel`` traces
+exactly ``spp`` samples a pixel, ``render_adaptive`` runs the adaptive
+sample refill (``cfg.adaptive_spp``), a slot loop in which a warp's lanes
+that have met their quota trace extra samples while any lane of the warp
+is still short of it. ``variant`` names the eight instantiations.
 
 ``render_frames_mega`` is the wrapper the renderer calls. Given a scene on
 the CPU it runs ``render_frames_plain``, the same function built from the
-plain modules in ``ops/`` (the JAX package's XLA path, op for op). Given a
+plain modules in ``ops/`` (the JAX package's XLA path, op for op, and for
+refill the TPU kernel's slot machine, vectorised over lanes). Given a
 scene on a CUDA device it launches the kernel, or raises for what the
 kernel does not do; it never falls back.
+
+Refill makes the image depend on how pixels are grouped: the plain
+version takes the grouping as a (G, P) array of pixel indices, -1 for
+padding. ``warp_groups`` is the kernel's (a warp of its 16x8 block, 16x2
+pixels); ``tile_groups`` the TPU kernel's TS x TS tiles.
 
 The kernel is compiled with ``nvcc`` from the package's own source at
 first use, into ``build/`` beside this package, and loaded with ctypes.
@@ -38,7 +49,7 @@ from ..ops import rng as rng_ops
 from ..ops import vecmath as vm
 from ..ops.accumulate import accumulate
 from ..ops.camera import Camera, camera_params, focus_points, generate_rays
-from ..ops.trace import trace
+from ..ops.trace import trace, trace_segment
 from ..utils.config import RenderConfig
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -62,9 +73,29 @@ MAX_SHARED_BYTES = 232448
 # many triangles. Images do not depend on the block size.
 MAX_PAIR_ELEMENTS = 1 << 25
 
-# The kernel's two variants, as the source instantiates them.
-VARIANT_SPHERES = "render_kernel<false>"
-VARIANT_TRIANGLES = "render_kernel<true>"
+# The width of the kernel's 16x8 thread block (the source's kBlockX): a
+# warp is 32 consecutive threads of it, 16 columns by 2 rows.
+BLOCK_X = 16
+WARP = 32
+
+
+def variant(triangles: bool, adaptive: bool = False,
+            fast_scatter: bool = False) -> str:
+    """The name of one instantiation of the source's kernels."""
+    name = "render_adaptive" if adaptive else "render_kernel"
+    args = "true" if triangles else "false"
+    if fast_scatter:
+        args += ", kFastScatter"
+    return f"{name}<{args}>"
+
+
+# Every instantiation the source compiles.
+VARIANTS = tuple(
+    variant(t, a, f) for a in (False, True) for f in (False, True)
+    for t in (False, True)
+)
+VARIANT_SPHERES = variant(False)
+VARIANT_TRIANGLES = variant(True)
 
 
 # ------------------------------ plain version -------------------------------
@@ -107,7 +138,9 @@ def render_block(
 
     ``pix_idx`` holds global pixel indices ``y * width + x``. The spp loop
     is sequential: one PCG state runs through all of a pixel's samples
-    (RayTracing.shader:374-385)."""
+    (RayTracing.shader:374-385). ``cfg.fast_scatter`` picks the 2-draw
+    scatter sampler; ``cfg.adaptive_spp`` is not read here (see
+    ``render_frames_plain``)."""
     x = pix_idx % cfg.width
     y = pix_idx // cfg.width
     state = rng_ops.seed(pix_idx, frame)
@@ -121,6 +154,7 @@ def render_block(
         state, light, s, c = trace(
             state, origin, direction, scene, cfg.max_bounce,
             intersect_fn=intersect_fn, with_bounce_counts=True,
+            fast_scatter=cfg.fast_scatter,
         )
         total = total + light
         segs = segs + s
@@ -131,7 +165,7 @@ def render_block(
     return mean, segs
 
 
-def _render_frame_plain(scene, camera, cfg, frame, y0, y1):
+def _render_frame_plain(scene, camera, cfg, frame, y0, y1, intersect_fn):
     dev = scene.device
     imgs, segs, counts = [], [], []
     start, stop = y0 * cfg.width, y1 * cfg.width
@@ -139,6 +173,7 @@ def _render_frame_plain(scene, camera, cfg, frame, y0, y1):
     for block in _padded_pixel_blocks(block_size, start, stop):
         pix = torch.from_numpy(block).to(dev)
         img, s, c = render_block(scene, camera, cfg, frame, pix,
+                                 intersect_fn=intersect_fn,
                                  with_bounce_counts=True)
         imgs.append(img)
         segs.append(s)
@@ -163,6 +198,8 @@ def render_frames_plain(
     accum: torch.Tensor | None = None,
     collect_stats: bool = False,
     rows: tuple[int, int] | None = None,
+    groups: np.ndarray | None = None,
+    intersect_fn=None,
 ):
     """The plain PyTorch version of the kernel, on the scene's device.
 
@@ -171,33 +208,212 @@ def render_frames_plain(
     with it, each frame folds into the running average
     (``ops/accumulate.py``). Returns ``(image (H, W, 3) f32, total segments
     (int64 0-d), per-pixel segments (H, W) int32, per-bounce live counts
-    (max_bounce + 1,) int32 or None)``. Like the JAX package's XLA path,
-    the total and the histogram include the padding lanes of the last
-    pixel block; the per-pixel map does not. A block holds at most
-    ``plain_block_size`` pixels, so where many triangles cut it, the
-    padding and the total can be smaller than the XLA path's.
+    (max_bounce + 1,) int32 or None)``. With exact spp, like the JAX
+    package's XLA path, the total and the histogram include the padding
+    lanes of the last pixel block; the per-pixel map does not. A block
+    holds at most ``plain_block_size`` pixels, so where many triangles cut
+    it, the padding and the total can be smaller than the XLA path's.
+
+    With ``cfg.adaptive_spp`` it runs the refill slot machine
+    (``_render_adaptive``) over ``groups``, a (G, P) array of pixel
+    indices with -1 for padding, by default the kernel's ``warp_groups``;
+    its totals count real pixels only.
 
     ``rows=(y0, y1)`` renders only rows ``y0 .. y1 - 1`` of the full frame,
     with the same pixels and random streams; ``accum``, the image and the
-    per-pixel map then hold ``y1 - y0`` rows. This makes a full-width
-    check of the kernel affordable at large sizes.
+    per-pixel map then hold ``y1 - y0`` rows. With refill the band must be
+    made of whole groups. This makes a full-width check of the kernel
+    affordable at large sizes. ``intersect_fn`` replaces the brute-force
+    closest-hit scan (``ops/trace.trace_segment``).
     """
     _check_frames(n_frames, accum)
     y0, y1 = (0, cfg.height) if rows is None else rows
     if not 0 <= y0 < y1 <= cfg.height:
         raise ValueError(f"rows {rows} outside 0..{cfg.height}")
+    if cfg.adaptive_spp:
+        if groups is None:
+            groups = warp_groups(cfg.width, cfg.height)
+        return _render_adaptive(scene, camera, cfg, frame0, n_frames, accum,
+                                collect_stats, y0, y1, groups, intersect_fn)
     total = 0
     segs_map = 0
     hist = 0
     for k in range(n_frames):
         frame = (int(frame0) + k) & 0xFFFFFFFF
-        img, s, m, h = _render_frame_plain(scene, camera, cfg, frame, y0, y1)
+        img, s, m, h = _render_frame_plain(scene, camera, cfg, frame, y0, y1,
+                                           intersect_fn)
         if accum is not None:
             img = accum = accumulate(accum, img, frame, clamp=cfg.clamp_accumulate)
         total = total + s
         segs_map = segs_map + m
         hist = hist + h
     return img, total, segs_map, (hist if collect_stats else None)
+
+
+def warp_groups(width: int, height: int) -> np.ndarray:
+    """The kernel's refill groups: (G, 32) pixel indices, one row per warp
+    of its 16x8 block (16 columns by 2 rows, row-major), -1 where the warp
+    reaches past the image. Groups are ordered by pixel row pair, then by
+    column, so a band of rows starting and ending on even rows is a run of
+    whole groups."""
+    gw, gh = BLOCK_X, WARP // BLOCK_X
+    ys = np.arange(_round_up(height, gh)).reshape(-1, gh)  # (Ry, 2)
+    xs = np.arange(_round_up(width, gw)).reshape(-1, gw)  # (Rx, 16)
+    y = ys[:, None, :, None]
+    x = xs[None, :, None, :]
+    pix = np.where((y < height) & (x < width), y * width + x, -1)
+    return pix.reshape(-1, WARP)
+
+
+def tile_groups(width: int, height: int, ts: int) -> np.ndarray:
+    """The TPU kernel's refill groups: (G, ts * ts) pixel indices, one row
+    per ts x ts tile (tiles row-major, pixels row-major inside a tile), -1
+    where a tile reaches past the image. (The TPU kernel re-renders a
+    border pixel there; that duplicate's stream is its original's, so it
+    never changes a tile's vote.)"""
+    ys = np.arange(_round_up(height, ts)).reshape(-1, ts)
+    xs = np.arange(_round_up(width, ts)).reshape(-1, ts)
+    y = ys[:, None, :, None]
+    x = xs[None, :, None, :]
+    pix = np.where((y < height) & (x < width), y * width + x, -1)
+    return pix.reshape(-1, ts * ts)
+
+
+def _band_groups(groups: np.ndarray, width: int, y0: int, y1: int):
+    """The groups whose pixels lie in rows ``y0 .. y1 - 1``; raises if a
+    group has pixels on both sides of the band's edges."""
+    groups = np.asarray(groups, np.int64)
+    valid = groups >= 0
+    inside = valid & (groups >= y0 * width) & (groups < y1 * width)
+    keep = inside.any(axis=1)
+    if (inside != valid)[keep].any():
+        raise ValueError(
+            f"rows ({y0}, {y1}) cut through a refill group: a band must "
+            "hold whole groups"
+        )
+    return groups[keep]
+
+
+def _render_adaptive(scene, camera, cfg, frame0, n_frames, accum,
+                     collect_stats, y0, y1, groups, intersect_fn):
+    """Adaptive sample refill, the TPU kernel's slot loop
+    (``megakernel.py:1802-2134``) vectorised over lanes, one lane a pixel.
+
+    Each slot, a dead lane that still owes samples, or whose group has a
+    lane that does, starts its next camera sample (a lane's first sample
+    of a frame from the seed ``pix + frame * 719393``), then every live
+    lane traces one segment. A lane's quota is ``n_frames * spp``: it
+    folds a frame's mean into ``accum`` and moves to the next frame after
+    ``spp`` completed samples, so all extra samples continue its last
+    frame, whose mean divides by the samples it completed. The slot bound
+    is ``quota * (max_bounce + 1)``; a sample still in flight at the bound
+    is dropped. Segments and the histogram count every traced segment.
+    Blocks of whole groups keep memory bounded."""
+    dev = scene.device
+    w = cfg.width
+    band = _band_groups(groups, w, y0, y1)
+    n_band = (y1 - y0) * w
+    img = torch.zeros((n_band, 3), dtype=torch.float32, device=dev)
+    seg_map = torch.zeros(n_band, dtype=torch.int32, device=dev)
+    hist = torch.zeros(cfg.max_bounce + 1, dtype=torch.int32, device=dev)
+    acc = None if accum is None else accum.reshape(n_band, 3)
+    per_block = max(1, plain_block_size(cfg, scene, band.size) // band.shape[1])
+    for g0 in range(0, band.shape[0], per_block):
+        pix = torch.from_numpy(band[g0:g0 + per_block]).to(dev)
+        _adaptive_block(scene, camera, cfg, int(frame0), n_frames, pix,
+                        y0 * w, acc, img, seg_map, hist, intersect_fn)
+    return (
+        img.reshape(y1 - y0, w, 3),
+        seg_map.sum(dtype=torch.int64),
+        seg_map.reshape(y1 - y0, w),
+        hist if collect_stats else None,
+    )
+
+
+def _adaptive_block(scene, camera, cfg, frame0, n_frames, groups, offset,
+                    acc_in, img, seg_map, hist, intersect_fn):
+    """The slot machine over one block of groups ((Gb, P) pixel indices);
+    writes its pixels of ``img``, ``seg_map`` and ``hist`` (band-local
+    pixel index = global index - ``offset``)."""
+    dev = scene.device
+    spp, mb = cfg.spp, cfg.max_bounce
+    quota = n_frames * spp
+    n_groups, per_group = groups.shape
+    pix = groups.reshape(-1)
+    valid = pix >= 0
+    pix = torch.where(valid, pix, offset)  # padding lanes never trace
+    local = pix - offset
+    n = pix.shape[0]
+    fp = focus_points(camera, pix % cfg.width, pix // cfg.width, cfg.width,
+                      cfg.height)
+
+    def zeros3():
+        return torch.zeros((n, 3), dtype=torch.float32, device=dev)
+
+    def zeros_i():
+        return torch.zeros(n, dtype=torch.int64, device=dev)
+
+    state = rng_ops.seed(pix, frame0)
+    o, d, colour, incoming, total = zeros3(), zeros3(), zeros3(), zeros3(), zeros3()
+    acc = None if acc_in is None else acc_in[local]
+    live = torch.zeros(n, dtype=torch.bool, device=dev)
+    ns, fk, bc, segs = zeros_i(), zeros_i(), zeros_i(), zeros_i()
+    for _ in range(quota * (mb + 1)):
+        undone = valid & (ns < quota)
+        group_undone = undone.reshape(n_groups, per_group).any(dim=1)
+        need = valid & ~live & group_undone.repeat_interleave(per_group)
+        if not bool((live | need).any()):
+            break
+        ni = need.nonzero().squeeze(1)
+        if ni.numel():
+            ns_i, fk_i = ns[ni], fk[ni]
+            if n_frames > 1:
+                # a lane whose frame is done folds it and moves on
+                fdone = (ns_i - fk_i * spp >= spp) & (fk_i < n_frames - 1)
+                fi = ni[fdone]
+                for k in fk[fi].unique().tolist():
+                    fik = fi[fk[fi] == k]
+                    acc[fik] = accumulate(
+                        acc[fik], vm.div(total[fik], float(spp)),
+                        (frame0 + k) & 0xFFFFFFFF, clamp=cfg.clamp_accumulate)
+                total[fi] = 0.0
+                fk[fi] += 1
+                fk_i = fk[ni]
+            fresh = ns_i - fk_i * spp == 0
+            st = torch.where(fresh, rng_ops.seed(pix[ni], frame0 + fk_i),
+                             state[ni])
+            st, o[ni], d[ni] = generate_rays(st, camera, fp[ni], cfg.width)
+            state[ni] = st
+            colour[ni] = 1.0
+            bc[ni] = 0
+            live[ni] = True
+
+        pi = live.nonzero().squeeze(1)
+        bc_i = bc[pi]
+        segs[pi] += 1
+        hist += torch.bincount(bc_i, minlength=mb + 1).to(torch.int32)
+        st, o_i, d_i, inc_i, col_i, cont = trace_segment(
+            state[pi], o[pi], d[pi], incoming[pi], colour[pi],
+            torch.ones_like(bc_i, dtype=torch.bool), bc_i, scene,
+            intersect_fn=intersect_fn, fast_scatter=cfg.fast_scatter,
+        )
+        cont = cont & (bc_i < mb)
+        died = ~cont
+        state[pi], o[pi], d[pi], colour[pi] = st, o_i, d_i, col_i
+        total[pi[died]] += inc_i[died]
+        ns[pi[died]] += 1
+        incoming[pi] = torch.where(died[:, None], 0.0, inc_i)
+        live[pi] = cont
+        bc[pi] += 1
+
+    # the last frame's mean over the samples it completed (>= spp)
+    last = torch.clamp(ns - (n_frames - 1) * spp, min=1).to(torch.float32)
+    mean = total / last[:, None]
+    if acc is not None:
+        mean = accumulate(acc, mean, (frame0 + n_frames - 1) & 0xFFFFFFFF,
+                          clamp=cfg.clamp_accumulate)
+    img[local[valid]] = mean[valid]
+    seg_map[local[valid]] = segs[valid].to(torch.int32)
 
 
 def _check_frames(n_frames: int, accum) -> None:
@@ -228,14 +444,16 @@ def find_nvcc() -> str:
 class BuildInfo:
     library: Path
     seconds: float  # 0.0 when an up-to-date library was already there
-    log: str  # nvcc's output, including ptxas's register report
+    # nvcc's output, including ptxas's register report; kept beside the
+    # library, so a later load reports the same
+    log: str
 
 
 class PathTraceKernel:
     """Builds, loads and launches ``csrc/megakernel.cu``.
 
     ``variant_launches`` counts the kernel launches this object made, by
-    variant (``VARIANT_*``); only ``launch`` adds to it."""
+    instantiation (``variant``); only ``launch`` adds to it."""
 
     def __init__(self):
         self.variant_launches: collections.Counter = collections.Counter()
@@ -244,7 +462,7 @@ class PathTraceKernel:
 
     @property
     def launches(self) -> int:
-        """Launches of either variant."""
+        """Launches of every instantiation."""
         return sum(self.variant_launches.values())
 
     def reset_counts(self) -> None:
@@ -259,8 +477,12 @@ class PathTraceKernel:
             SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()
         ).hexdigest()[:16]
         lib_path = BUILD_DIR / f"libmegakernel_{digest}.so"
+        log_path = lib_path.with_suffix(".log")
         seconds, log = 0.0, ""
-        if not lib_path.exists():
+        if lib_path.exists():
+            if log_path.exists():
+                log = log_path.read_text()
+        else:
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
             cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
@@ -272,12 +494,13 @@ class PathTraceKernel:
                 raise RuntimeError(
                     f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}"
                 )
+            log_path.write_text(log)
             os.replace(tmp, lib_path)
         lib = ctypes.CDLL(str(lib_path))
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.rtx_render.argtypes = [
             vp, vp, ci, vp, vp, vp, vp, ci, vp, vp, ci, ci, ci, ci,
-            ctypes.c_uint, ci, vp, ci, vp, vp, vp, vp,
+            ctypes.c_uint, ci, vp, ci, ci, ci, vp, vp, vp, vp,
         ]
         lib.rtx_render.restype = ci
         lib.rtx_shared_bytes.argtypes = [ci, ci, ci]
@@ -298,20 +521,15 @@ class PathTraceKernel:
         accum: torch.Tensor | None,
         collect_stats: bool,
     ):
-        """One launch over the whole image; returns the same tuple as
-        ``render_frames_plain`` (the total and the histogram count real
-        pixels only). Reads nothing back from the device and does not
-        synchronise."""
+        """One launch over the whole image, of the instantiation that the
+        scene and ``cfg.adaptive_spp`` / ``cfg.fast_scatter`` pick; returns
+        the same tuple as ``render_frames_plain`` with its default warp
+        grouping (the total and the histogram count real pixels only).
+        Reads nothing back from the device and does not synchronise."""
         _check_frames(n_frames, accum)
         dev = scene.device
         if dev.type != "cuda":
             raise ValueError(f"the CUDA kernel needs a CUDA scene, got {dev}")
-        if cfg.adaptive_spp or cfg.fast_scatter:
-            raise NotImplementedError(
-                "adaptive_spp and fast_scatter are not in the CUDA kernel "
-                "yet; they are the next slice (ROADMAP.md Queue A item 11, "
-                "Queue B item 2)"
-            )
         h, w = cfg.height, cfg.width
         if accum is not None and (
             accum.device != dev
@@ -357,7 +575,8 @@ class PathTraceKernel:
                 ptr(tab.chunks), n_chunks, ptr(tab.materials),
                 ptr(tab.params), w, h, cfg.spp, cfg.max_bounce,
                 int(frame0) & 0xFFFFFFFF, n_frames, ptr(accum),
-                int(cfg.clamp_accumulate), ptr(out), ptr(segs), ptr(hist),
+                int(cfg.clamp_accumulate), int(cfg.adaptive_spp),
+                int(cfg.fast_scatter), ptr(out), ptr(segs), ptr(hist),
                 torch.cuda.current_stream(dev).cuda_stream,
             )
         if rc != 0:
@@ -365,9 +584,9 @@ class PathTraceKernel:
                 "megakernel launch failed: "
                 + self._lib.rtx_error_string(rc).decode()
             )
-        self.variant_launches[
-            VARIANT_SPHERES if tab.chunks is None else VARIANT_TRIANGLES
-        ] += 1
+        self.variant_launches[variant(
+            tab.chunks is not None, cfg.adaptive_spp, cfg.fast_scatter
+        )] += 1
         return out, segs.sum(dtype=torch.int64), segs, hist
 
 
@@ -457,8 +676,10 @@ def render_frames_mega(
     histogram or None)``.
 
     A scene on the CPU takes the plain version; a scene on a CUDA device
-    takes the kernel (one launch for all frames), its triangle variant when
-    the scene has triangles."""
+    takes the kernel (one launch for all frames): ``render_adaptive`` with
+    ``cfg.adaptive_spp``, else ``render_kernel``, each in its triangle
+    instantiation when the scene has triangles and its fast one with
+    ``cfg.fast_scatter``."""
     dev = scene.device
     if dev.type == "cpu":
         return render_frames_plain(

@@ -1,8 +1,10 @@
-"""Scene presets: the sphere and Cornell configs of BASELINE.json.
+"""Scene presets: the sphere and Cornell configs of BASELINE.json, and the
+fly-through camera path.
 
 Mirrors ``ray_tracing_extended_tpu/models/presets.py`` call for call, with
 the same fixed-seed ``np.random.RandomState``, so both packages build
-identical scenes. Each returns ``(scene, camera, config)`` on the CPU.
+identical scenes. Each returns ``(scene, camera, config)`` with the scene
+and camera on ``device``: the card unless the caller asks for the CPU.
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ import torch
 
 from ..ops.camera import look_at
 from ..utils.config import RenderConfig
+from ..utils.device import DEFAULT_DEVICE
 from .geometry import Environment
 from .scene import Material, SceneBuilder
 
@@ -33,7 +36,8 @@ def _gradient_sky(horizon=(1.0, 1.0, 1.0), zenith=(0.5, 0.7, 1.0)):
     )
 
 
-def three_sphere_scene(width=320, height=180, max_bounce=4, spp=16):
+def three_sphere_scene(width=320, height=180, max_bounce=4, spp=16,
+                       device=DEFAULT_DEVICE):
     """Three spheres (lambertian / metal / dielectric) on a ground sphere."""
     b = SceneBuilder(env=_gradient_sky())
     b.add_sphere((0.0, -100.5, 0.0), 100.0, Material.lambertian((0.8, 0.8, 0.0)))
@@ -47,13 +51,15 @@ def three_sphere_scene(width=320, height=180, max_bounce=4, spp=16):
         focus_distance=2.6,
         defocus_strength=0.0,
         diverge_strength=0.5,
+        device=device,
     )
     cfg = RenderConfig(width=width, height=height, max_bounce=max_bounce, spp=spp)
-    return b.build(), cam, cfg
+    return b.build(device=device), cam, cfg
 
 
 def rtiow_final_scene(
-    width=1920, height=1080, max_bounce=4, spp=1, seed=20260816
+    width=1920, height=1080, max_bounce=4, spp=1, seed=20260816,
+    device=DEFAULT_DEVICE,
 ):
     """The RTIOW cover scene: ~480 random small spheres, 3 hero spheres and
     a ground sphere, HDR accumulation."""
@@ -88,12 +94,13 @@ def rtiow_final_scene(
         focus_distance=10.0,
         defocus_strength=20.0,
         diverge_strength=1.0,
+        device=device,
     )
     cfg = RenderConfig(
         width=width, height=height, max_bounce=max_bounce, spp=spp,
         clamp_accumulate=False,
     )
-    return b.build(), cam, cfg
+    return b.build(device=device), cam, cfg
 
 
 def _quad(b: SceneBuilder, p0, p1, p2, p3, mat: Material, normal=None):
@@ -108,10 +115,11 @@ def _quad(b: SceneBuilder, p0, p1, p2, p3, mat: Material, normal=None):
     b.add_triangles(tris, nrm, mat)
 
 
-def cornell_box_scene(width=512, height=512, max_bounce=8, spp=4):
+def cornell_box_scene(width=512, height=512, max_bounce=8, spp=4,
+                      device=DEFAULT_DEVICE):
     """Cornell box with an emissive ceiling light, a glass and a metal
-    sphere; environment off. Its walls are triangles, so on the card it
-    waits for the triangle kernel (ROADMAP.md); the plain path renders it."""
+    sphere; environment off. Its walls are triangles: on the card it takes
+    the kernel's triangle variant."""
     b = SceneBuilder()
     white = Material.lambertian((0.73, 0.73, 0.73))
     red = Material.lambertian((0.65, 0.05, 0.05))
@@ -144,9 +152,49 @@ def cornell_box_scene(width=512, height=512, max_bounce=8, spp=4):
         focus_distance=3.2,
         defocus_strength=0.0,
         diverge_strength=1.0,
+        device=device,
     )
     cfg = RenderConfig(
         width=width, height=height, max_bounce=max_bounce, spp=spp,
         clamp_accumulate=False,
     )
-    return b.build(), cam, cfg
+    return b.build(device=device), cam, cfg
+
+
+def mesh_scene(*args, **kwargs):
+    """BASELINE config 4, a ~70k-triangle mesh rendered through a BVH. The
+    port has no BVH yet, so this raises."""
+    raise NotImplementedError(
+        "mesh_scene needs build_bvh and the BVH traversal kernel "
+        "(ROADMAP.md Queue B item 4)"
+    )
+
+
+def flythrough_cameras(num_frames: int, width=3840, height=2160,
+                       device=DEFAULT_DEVICE):
+    """BASELINE config 5: 4K fly-through with defocus blur. Returns the RTIOW
+    scene plus a camera for each frame along a circular dolly path, on
+    ``device``."""
+    scene, _, _ = rtiow_final_scene(width=width, height=height, device=device)
+    cams = []
+    for i in range(num_frames):
+        t = i / max(num_frames - 1, 1)
+        ang = 0.35 * np.sin(2 * np.pi * t)
+        r = 13.6 - 2.0 * t
+        pos = (r * np.cos(ang + 0.23), 2.0 + 0.7 * np.sin(2 * np.pi * t),
+               r * np.sin(ang + 0.23))
+        cams.append(
+            look_at(
+                pos,
+                (0.0, 0.5, 0.0),
+                fov_y_deg=26.0,
+                focus_distance=float(np.linalg.norm(pos)) - 3.0,
+                defocus_strength=40.0,
+                diverge_strength=1.0,
+                device=device,
+            )
+        )
+    cfg = RenderConfig(
+        width=width, height=height, max_bounce=4, spp=1, clamp_accumulate=False
+    )
+    return scene, cams, cfg

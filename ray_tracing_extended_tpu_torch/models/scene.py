@@ -2,8 +2,9 @@
 CreateMeshes, RayTracingManager.cs:135-187).
 
 Mirrors ``ray_tracing_extended_tpu/models/scene.py``. ``build()`` flattens
-the builder into SoA tensors on the CPU with the JAX package's padding and
-order rules, so both packages build identical arrays from the same calls:
+the builder into SoA tensors with the JAX package's padding and order
+rules, so both packages build identical arrays from the same calls, and
+puts them on ``device`` (the card unless the caller asks for the CPU):
 
   * spheres padded to a multiple of 128 with radius -1 (never hit), at
     least one padding slot;
@@ -27,6 +28,7 @@ import numpy as np
 import torch
 
 from ..accel.chunks import MAX_TRIS_PER_CHUNK, create_chunks
+from ..utils.device import DEFAULT_DEVICE, resolve_device
 from .geometry import (
     FLAG_DIELECTRIC,
     FLAG_NONE,
@@ -247,12 +249,16 @@ class SceneBuilder:
             else:
                 yield from self._mesh_chunks(self._meshes[src[1]])
 
-    def build(self, build_bvh: str | None = None) -> Scene:
-        """Flatten into a CPU ``Scene``; move it with ``.to(device)``.
+    def build(
+        self, build_bvh: str | None = None, device=DEFAULT_DEVICE
+    ) -> Scene:
+        """Flatten into a ``Scene`` on ``device`` (default the card; raises
+        where CUDA is not available unless ``device="cpu"``).
 
         ``build_bvh`` must be None: BVHs wait for the BVH traversal kernel.
         Without one a scene renders by chunk scan, which gives the same
         image."""
+        dev = resolve_device(device)
         if build_bvh is not None:
             raise NotImplementedError(
                 f"build_bvh={build_bvh!r}: BVH builds come with the BVH "
@@ -329,7 +335,7 @@ class SceneBuilder:
             chunks=chunks,
             materials=_materials_soa(mats),
             env=self.env,
-        )
+        ).to(dev)
 
 
 def _vertex_normals(vertices: np.ndarray, indices: np.ndarray) -> np.ndarray:

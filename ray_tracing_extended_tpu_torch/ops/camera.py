@@ -14,6 +14,7 @@ import math
 import numpy as np
 import torch
 
+from ..utils.device import DEFAULT_DEVICE, resolve_device
 from . import rng as rng_ops
 from . import vecmath as vm
 
@@ -53,12 +54,13 @@ class Camera:
 
 def camera_from_numpy(
     position, rotation, fov_y_deg, focus_distance, defocus_strength,
-    diverge_strength,
+    diverge_strength, device=DEFAULT_DEVICE,
 ) -> Camera:
-    """Camera on the CPU from array-likes, every field as f32."""
+    """Camera on ``device`` from array-likes, every field as f32."""
+    dev = resolve_device(device)
 
     def f32(v):
-        return torch.from_numpy(np.array(v, dtype=np.float32))
+        return torch.from_numpy(np.array(v, dtype=np.float32)).to(dev)
 
     return Camera(
         position=f32(position),
@@ -78,10 +80,11 @@ def look_at(
     focus_distance=1.0,
     defocus_strength=0.0,
     diverge_strength=0.3,
+    device=DEFAULT_DEVICE,
 ) -> Camera:
     """A camera looking from ``position`` toward ``target``, built in numpy
     exactly as the JAX package builds it (defaults mirror
-    RayTracingManager.cs:12-16)."""
+    RayTracingManager.cs:12-16), on ``device``."""
     position = np.asarray(position, np.float32)
     target = np.asarray(target, np.float32)
     up_hint = np.asarray(up, np.float32)
@@ -101,7 +104,7 @@ def look_at(
     rotation = np.stack([right, up_v, fwd], axis=-1).astype(np.float32)
     return camera_from_numpy(
         position, rotation, fov_y_deg, focus_distance, defocus_strength,
-        diverge_strength,
+        diverge_strength, device,
     )
 
 
@@ -112,12 +115,13 @@ def camera_from_matrix(
     focus_distance=1.0,
     defocus_strength=0.0,
     diverge_strength=0.3,
+    device=DEFAULT_DEVICE,
 ) -> Camera:
     """A camera from an explicit local-to-world rotation (columns right,
-    up, forward), as scene files store it."""
+    up, forward), as scene files store it, on ``device``."""
     return camera_from_numpy(
         position, rotation, fov_y_deg, focus_distance, defocus_strength,
-        diverge_strength,
+        diverge_strength, device,
     )
 
 

@@ -3,7 +3,8 @@ scatter and the dielectric extension.
 
 Mirrors ``ray_tracing_extended_tpu/ops/materials.py`` (Trace,
 RayTracing.shader:309-342). A dielectric reuses the specular-lottery draw
-as its Fresnel choice, so every scattering lane takes the same 7 draws.
+as its Fresnel choice, so every scattering lane takes the same 7 draws
+(3 with ``fast_scatter``).
 """
 
 from __future__ import annotations
@@ -55,15 +56,19 @@ def _refract_dir(d, normal, ior, u_fresnel):
     return torch.where(do_reflect[..., None], reflected, refracted)
 
 
-def scatter(state, d, point, normal, mat: Materials):
+def scatter(state, d, point, normal, mat: Materials, fast_scatter: bool = False):
     """Outgoing ray of scattering lanes: 1 specular-lottery draw, then 6 for
-    the unit vector (RayTracing.shader:325-330). Returns
-    ``(state, new_origin, new_dir, is_specular)``; ``is_specular`` is the
-    f32 lottery outcome used in the throughput lerp."""
+    the unit vector (RayTracing.shader:325-330), or 2 with ``fast_scatter``
+    (``rng.random_direction_fast``). Returns ``(state, new_origin, new_dir,
+    is_specular)``; ``is_specular`` is the f32 lottery outcome used in the
+    throughput lerp."""
     state, u_spec = rng_ops.random_value(state)
     is_specular = (mat.specular_probability >= u_spec).to(torch.float32)
 
-    state, unit = rng_ops.random_direction(state)
+    if fast_scatter:
+        state, unit = rng_ops.random_direction_fast(state)
+    else:
+        state, unit = rng_ops.random_direction(state)
     diffuse_dir = vm.normalize(normal + unit)
     specular_dir = vm.reflect(d, normal)
     surface_dir = vm.normalize(

@@ -30,14 +30,21 @@ FRAME_SEED_STRIDE = 719393
 # and Box-Muller's 3.1415926 (RayTracing.shader:210).
 PI_LOWP = float(np.float32(3.1415))
 PI_BOXMULLER = float(np.float32(3.1415926))
+# The fast scatter sampler's angle scale, f32(2 * 3.14159265), as the TPU
+# kernel's _rand_unit3_fast spells it (a third constant, not 2 * the above).
+TWO_PI_FAST = float(np.float32(2.0 * 3.14159265))
 
 # f32(1) / f32(2^32 - 1): the f32 literal rounds to 2^32, as in HLSL.
 INV_U32_MAX = float(np.float32(1.0) / np.float32(4294967295.0))
 
 
 def seed(pixel_index: torch.Tensor, frame) -> torch.Tensor:
-    """``pixelIndex + frame * 719393`` in uint32 wraparound."""
-    frame = int(frame) & _MASK
+    """``pixelIndex + frame * 719393`` in uint32 wraparound; ``frame`` is a
+    number or an integer tensor (one frame a lane)."""
+    if isinstance(frame, torch.Tensor):
+        frame = frame.long() & _MASK
+    else:
+        frame = int(frame) & _MASK
     return (pixel_index.long() + frame * FRAME_SEED_STRIDE) & _MASK
 
 
@@ -74,6 +81,21 @@ def random_direction(state: torch.Tensor):
     state, z = random_value_normal(state)
     inv_len = vm.rsqrt(x * x + y * y + z * z)
     return state, torch.stack([x * inv_len, y * inv_len, z * inv_len], dim=-1)
+
+
+def random_direction_fast(state: torch.Tensor):
+    """Uniform unit vector by the (z, phi) area-preserving map, two draws:
+    ``z = 2u - 1``, ``phi = v * f32(2 * 3.14159265)``,
+    ``(s cos phi, s sin phi, z)`` with ``s = sqrt(max(1 - z^2, 0))``.
+    The counterpart of the TPU kernel's ``_rand_unit3_fast``
+    (``cfg.fast_scatter``): the same distribution as ``random_direction``
+    from a different draw sequence."""
+    state, u = random_value(state)
+    state, v = random_value(state)
+    z = u * 2.0 - 1.0
+    phi = v * TWO_PI_FAST
+    s = vm.sqrt(torch.clamp(1.0 - z * z, min=0.0))
+    return state, torch.stack([s * vm.cos(phi), s * vm.sin(phi), z], dim=-1)
 
 
 def random_point_in_circle(state: torch.Tensor):

@@ -28,6 +28,74 @@ from .materials import checker_colour, passthrough_mask, scatter
 PASSTHROUGH_EPS = 0.001
 
 
+def trace_segment(
+    state: torch.Tensor,
+    o: torch.Tensor,
+    d: torch.Tensor,
+    incoming: torch.Tensor,
+    colour: torch.Tensor,
+    alive: torch.Tensor,
+    bounce_idx,
+    scene: Scene,
+    intersect_fn=None,
+    fast_scatter: bool = False,
+):
+    """One bounce of the loop for a batch of lanes: the closest hit of each
+    ``alive`` lane and what follows from it.
+
+    ``bounce_idx`` is the bounce index, an int or a (B,) tensor (lanes of
+    the adaptive slot machine sit at different bounces). Returns ``(state,
+    o, d, incoming, colour, continues)``: ``continues`` marks the lanes
+    whose path goes on (an invisible-light passthrough, or a scatter that
+    survived roulette); the bounce budget is the caller's."""
+    if intersect_fn is None:
+        intersect_fn = closest_hit_bruteforce
+    # dead lanes are parked far away, pointing away from the scene (+x,
+    # made on the device: no host-to-device copy a bounce)
+    parked_dir = torch.zeros_like(d[:1])
+    parked_dir[:, 0] = 1.0
+    o_live = torch.where(alive[..., None], o, 1.0e9)
+    d_live = torch.where(alive[..., None], d, parked_dir)
+    hit = intersect_fn(o_live, d_live, scene)
+    did_hit = hit.hit & alive
+    mat = scene.materials.take(hit.mat_idx)
+
+    base_colour = checker_colour(mat, hit.point)
+    passthru = passthrough_mask(mat, bounce_idx, did_hit)
+    scattering = did_hit & ~passthru
+
+    new_state, new_o, new_d, is_spec = scatter(
+        state, d, hit.point, hit.normal, mat, fast_scatter=fast_scatter
+    )
+    emitted = mat.emission_colour * mat.emission_strength[..., None]
+    inc_hit = incoming + emitted * colour
+    col_hit = colour * vm.lerp(
+        base_colour, mat.specular_colour, is_spec[..., None]
+    )
+    # Russian roulette; the clamped 1/p only keeps dead lanes finite
+    p = torch.amax(col_hit, dim=-1)
+    new_state, u_rr = rng_ops.random_value(new_state)
+    survive = u_rr < p
+    col_boosted = col_hit * (1.0 / torch.clamp(p, min=1e-30))[..., None]
+
+    missed = alive & ~hit.hit
+    inc_miss = incoming + environment_light(d, scene.env) * colour
+
+    sc3 = scattering[..., None]
+    o = torch.where(
+        passthru[..., None],
+        hit.point + d * PASSTHROUGH_EPS,
+        torch.where(sc3, new_o, o),
+    )
+    d = torch.where(sc3, new_d, d)
+    incoming = torch.where(
+        sc3, inc_hit, torch.where(missed[..., None], inc_miss, incoming)
+    )
+    colour = torch.where(sc3 & survive[..., None], col_boosted, colour)
+    state = torch.where(scattering, new_state, state)
+    return state, o, d, incoming, colour, passthru | (scattering & survive)
+
+
 def trace(
     state: torch.Tensor,
     origin: torch.Tensor,
@@ -36,20 +104,20 @@ def trace(
     max_bounce: int,
     intersect_fn=None,
     with_bounce_counts: bool = False,
+    fast_scatter: bool = False,
 ):
     """Trace a batch of rays to completion.
 
     ``state`` (B,) PCG states; ``origin``/``direction`` (B, 3) with unit
     directions. Bounces run ``0..max_bounce`` inclusive. ``intersect_fn``
-    ``(o, d, scene) -> HitRecord`` defaults to the brute-force scan.
+    ``(o, d, scene) -> HitRecord`` defaults to the brute-force scan;
+    ``fast_scatter`` picks the 2-draw unit-vector sampler.
 
     Returns ``(state, incoming_light (B, 3), segments (B,) int32)``: a
     segment is one scene intersection of a live lane. With
     ``with_bounce_counts`` a fourth element holds the (max_bounce + 1,)
     int32 live-lane counts per bounce index.
     """
-    if intersect_fn is None:
-        intersect_fn = closest_hit_bruteforce
     b = origin.shape[0]
     dev = origin.device
     incoming = torch.zeros((b, 3), dtype=torch.float32, device=dev)
@@ -57,7 +125,6 @@ def trace(
     alive = torch.ones((b,), dtype=torch.bool, device=dev)
     segments = torch.zeros((b,), dtype=torch.int32, device=dev)
     counts = torch.zeros((max_bounce + 1,), dtype=torch.int32, device=dev)
-    parked_dir = torch.tensor([1.0, 0.0, 0.0], device=dev)
     o, d = origin, direction
 
     for bounce_idx in range(max_bounce + 1):
@@ -66,47 +133,10 @@ def trace(
         segments = segments + alive.to(torch.int32)
         if with_bounce_counts:
             counts[bounce_idx] += alive.sum().to(torch.int32)
-        # dead lanes are parked far away, pointing away from the scene
-        o_live = torch.where(alive[..., None], o, 1.0e9)
-        d_live = torch.where(alive[..., None], d, parked_dir)
-        hit = intersect_fn(o_live, d_live, scene)
-        did_hit = hit.hit & alive
-        mat = scene.materials.take(hit.mat_idx)
-
-        base_colour = checker_colour(mat, hit.point)
-        passthru = passthrough_mask(mat, bounce_idx, did_hit)
-        scattering = did_hit & ~passthru
-
-        new_state, new_o, new_d, is_spec = scatter(
-            state, d, hit.point, hit.normal, mat
+        state, o, d, incoming, colour, alive = trace_segment(
+            state, o, d, incoming, colour, alive, bounce_idx, scene,
+            intersect_fn=intersect_fn, fast_scatter=fast_scatter,
         )
-        emitted = mat.emission_colour * mat.emission_strength[..., None]
-        inc_hit = incoming + emitted * colour
-        col_hit = colour * vm.lerp(
-            base_colour, mat.specular_colour, is_spec[..., None]
-        )
-        # Russian roulette; the clamped 1/p only keeps dead lanes finite
-        p = torch.amax(col_hit, dim=-1)
-        new_state, u_rr = rng_ops.random_value(new_state)
-        survive = u_rr < p
-        col_boosted = col_hit * (1.0 / torch.clamp(p, min=1e-30))[..., None]
-
-        missed = alive & ~hit.hit
-        inc_miss = incoming + environment_light(d, scene.env) * colour
-
-        sc3 = scattering[..., None]
-        o = torch.where(
-            passthru[..., None],
-            hit.point + d * PASSTHROUGH_EPS,
-            torch.where(sc3, new_o, o),
-        )
-        d = torch.where(sc3, new_d, d)
-        incoming = torch.where(
-            sc3, inc_hit, torch.where(missed[..., None], inc_miss, incoming)
-        )
-        colour = torch.where(sc3 & survive[..., None], col_boosted, colour)
-        state = torch.where(scattering, new_state, state)
-        alive = passthru | (scattering & survive)
 
     if with_bounce_counts:
         return state, incoming, segments, counts

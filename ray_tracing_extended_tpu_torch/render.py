@@ -7,13 +7,15 @@ BOTTOM and the pixel index is ``y * width + x``. Segment totals are int64
 0-d tensors (the JAX package returns uint32).
 
 The scene's device picks the path: on the CPU the plain PyTorch path
-(``ops/``, the counterpart of the JAX package's XLA path), on a CUDA device
-the hand-written kernel (``kernels/megakernel.py``) for scenes of spheres
-and triangle chunks, with no other route. On CUDA, what the kernel does not
-do yet (``adaptive_spp``, ``fast_scatter``) raises ``NotImplementedError``
-naming the ROADMAP.md item that adds it, as does ``intersector="bvh"`` on
-either device. Scenes load from JSON files with
-``scene.json_scene.load_json_scene``.
+(``ops/``, the counterpart of the JAX package's XLA path, and for
+``adaptive_spp`` of the TPU kernel's slot machine), on a CUDA device the
+hand-written kernel (``kernels/megakernel.py``) for scenes of spheres and
+triangle chunks, in exact-spp, adaptive-refill (``cfg.adaptive_spp``) and
+fast-scatter (``cfg.fast_scatter``) modes, with no other route. Not ported
+yet: ``intersector="bvh"`` raises ``NotImplementedError`` on either device,
+naming the ROADMAP.md item that adds it. Scenes load from JSON files with
+``scene.json_scene.load_json_scene``; ``progressive.render_progressive``
+drives these functions frame after frame.
 """
 
 from __future__ import annotations
@@ -54,8 +56,9 @@ def render_frame_with_stats(
     """Render one frame -> ``((H, W, 3) f32 linear radiance, total live ray
     segments)``, the Mrays/s numerator. With ``bounce_stats`` a third
     element holds the (max_bounce + 1,) int32 live-path counts per bounce
-    index. On CUDA the counts cover real pixels only; the plain path, like
-    the JAX package's XLA path, also counts its padding lanes."""
+    index. On CUDA, and with ``adaptive_spp``, the counts cover real pixels
+    only; the plain exact-spp path, like the JAX package's XLA path, also
+    counts its padding lanes."""
     _check_supported(cfg)
     img, segs, _, hist = render_frames_mega(
         scene, camera, cfg, frame, collect_stats=bounce_stats

@@ -47,6 +47,7 @@ from ..models.geometry import Environment
 from ..models.scene import Material, SceneBuilder
 from ..ops.camera import camera_from_matrix, look_at
 from ..utils.config import RenderConfig
+from ..utils.device import DEFAULT_DEVICE
 from .mesh_io import load_obj
 
 _FLAGS = {"none": 0, "checker": 1, "invisiblelight": 2, "dielectric": 3}
@@ -111,11 +112,14 @@ def _environment(envd: dict) -> Environment:
     )
 
 
-def load_json_scene(path, overrides: dict | None = None):
-    """-> ``(scene, camera, config)`` on the CPU. Relative mesh paths resolve
-    against the JSON file's directory; ``overrides`` replaces config
-    fields. No BVH is built: the CUDA kernel scans chunks, which gives the
-    image a BVH would."""
+def load_json_scene(path, overrides: dict | None = None,
+                    device=DEFAULT_DEVICE):
+    """-> ``(scene, camera, config)`` with the scene and camera on
+    ``device`` (default the card; raises where CUDA is not available
+    unless ``device="cpu"``). Relative mesh paths resolve against the JSON
+    file's directory; ``overrides`` replaces config fields. No BVH is
+    built: the CUDA kernel scans chunks, which gives the image a BVH
+    would."""
     path = Path(path)
     spec = json.loads(path.read_text())
 
@@ -155,7 +159,7 @@ def load_json_scene(path, overrides: dict | None = None):
             )
         else:
             raise ValueError("mesh entry needs 'obj', 'fbx' or 'npz'")
-    scene = b.build()
+    scene = b.build(device=device)
 
     settings = spec.get("settings") or {}
     camd = spec.get("camera") or {}
@@ -169,14 +173,14 @@ def load_json_scene(path, overrides: dict | None = None):
         cam = camera_from_matrix(
             np.asarray(camd.get("position", (0, 0, -3)), np.float32),
             np.asarray(camd["rotation"], np.float32),
-            **lens,
+            **lens, device=device,
         )
     else:
         cam = look_at(
             camd.get("position", (0, 0, -3)),
             camd.get("lookAt", (0, 0, 0)),
             up=camd.get("up", (0, 1, 0)),
-            **lens,
+            **lens, device=device,
         )
     cfg = RenderConfig(
         max_bounce=int(settings.get("maxBounceCount", 4)),

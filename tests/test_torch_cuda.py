@@ -10,6 +10,7 @@ imports no JAX, so it also runs where only PyTorch is installed:
 import dataclasses
 import pathlib
 
+import numpy as np
 import pytest
 import torch
 
@@ -22,12 +23,12 @@ pytestmark = pytest.mark.cuda
 SCENES = pathlib.Path(rtt.__file__).resolve().parent.parent / "scenes"
 
 
-def _triangle_scene(name, **small):
-    """Cornell (the preset) or Chess (the shipped mirror) at a small size,
-    on the CPU."""
+def _triangle_scene(name, device="cuda", **small):
+    """Cornell (the preset) or Chess (the shipped mirror) at a small size."""
     if name == "cornell":
-        return presets.cornell_box_scene(**small)
-    return rtt.load_json_scene(SCENES / f"{name}.json", overrides=small)
+        return presets.cornell_box_scene(device=device, **small)
+    return rtt.load_json_scene(SCENES / f"{name}.json", overrides=small,
+                               device=device)
 
 
 @pytest.fixture
@@ -169,7 +170,8 @@ def test_plain_on_card_matches_plain_on_cpu(cuda):
     """The plain version computes its transcendentals in float64 on the CPU
     and with the card's f32 library on CUDA; the two are held to the
     tolerance the CPU tests hold the port to against the JAX package."""
-    scene, cam, cfg0 = presets.rtiow_final_scene(width=48, height=27, spp=2)
+    scene, cam, cfg0 = presets.rtiow_final_scene(width=48, height=27, spp=2,
+                                                 device="cpu")
     for mb, limit in ((1, 5e-3), (4, 2e-2)):
         cfg = dataclasses.replace(cfg0, max_bounce=mb, clamp_accumulate=False)
         c = mk.render_frames_plain(scene, cam, cfg, 5)[0]
@@ -217,21 +219,124 @@ def test_batched_launch_equals_sequential_steps(cuda):
 
 
 def test_cuda_refuses_what_the_kernel_does_not_do(cuda):
-    """Triangle scenes render on the card; adaptive_spp, fast_scatter and
-    the BVH intersector still raise, on sphere and triangle scenes."""
+    """The BVH intersector still raises on sphere and triangle scenes;
+    adaptive refill and fast scatter render through their instantiations.
+    Bad accumulators and a camera on another device are refused."""
     scene, cam, cfg = _on(cuda, *presets.three_sphere_scene(
         width=16, height=8, spp=1))
     tri_scene, tri_cam, tri_cfg = _on(cuda, *presets.cornell_box_scene(
         width=16, height=16, spp=1))
     for s, c, base in ((scene, cam, cfg), (tri_scene, tri_cam, tri_cfg)):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            rtt.render_frame(s, c, dataclasses.replace(base, intersector="bvh"), 0)
         for change in (dict(adaptive_spp=True), dict(fast_scatter=True),
-                       dict(intersector="bvh")):
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                rtt.render_frame(s, c, dataclasses.replace(base, **change), 0)
-    img = rtt.render_frame(tri_scene, tri_cam, tri_cfg, 0)
-    assert img.shape == (16, 16, 3) and bool(torch.isfinite(img).all())
+                       dict(adaptive_spp=True, fast_scatter=True)):
+            img = rtt.render_frame(s, c, dataclasses.replace(base, **change), 0)
+            assert bool(torch.isfinite(img).all())
     with pytest.raises(ValueError):
         rtt.render_frames_and_accumulate(
             scene, cam, cfg, torch.zeros((8, 16, 3), device=cuda)[:, ::1, :2], 0)
     with pytest.raises(ValueError):
         rtt.render_frame(scene, cam.to("cpu"), cfg, 0)
+
+
+@pytest.mark.parametrize("fast", [False, True])
+@pytest.mark.parametrize("adaptive", [False, True])
+@pytest.mark.parametrize("name", ["rtiow", "cornell", "chess"])
+def test_refill_and_fast_scatter_match_plain_gates(cuda, name, adaptive, fast):
+    """Each instantiation against the plain version with the kernel's warp
+    grouping: bench.py's gates at mb0 and mb1 without defocus, mb4 with
+    the scene's camera; launches counted under the instantiation's name."""
+    if name == "rtiow":
+        scene, cam, cfg = presets.rtiow_final_scene(width=96, height=54, spp=4)
+    else:
+        scene, cam, cfg = _triangle_scene(name, width=96, height=54, spp=4)
+    still = cam.replace(defocus_strength=0.0)
+    cfg = dataclasses.replace(cfg, adaptive_spp=adaptive, fast_scatter=fast)
+    name_k = mk.variant(name != "rtiow", adaptive, fast)
+    before = mk.KERNEL.variant_launches[name_k]
+    for mb, c in ((0, still), (1, still), (4, cam)):
+        cfg = dataclasses.replace(cfg, max_bounce=mb)
+        k, k_segs, k_map, k_hist = mk.render_frames_mega(scene, c, cfg, 5,
+                                                         collect_stats=True)
+        p = mk.render_frames_plain(scene, c, cfg, 5)[0]
+        assert bool(torch.isfinite(k).all())
+        exact, median, channel = _gates(k, p)
+        if mb == 0:
+            assert exact > 0.85, exact
+        elif mb == 1:
+            assert median < 2e-3 and channel < 5e-3, (median, channel)
+        else:
+            assert channel < 1e-2, channel
+        k_hist = k_hist.cpu()
+        assert int(k_hist.sum()) == int(k_segs) == int(k_map.sum())
+        assert int(k_hist[0]) >= 96 * 54 * cfg.spp
+    assert mk.KERNEL.variant_launches[name_k] == before + 3
+
+
+@pytest.mark.parametrize("fast", [False, True])
+@pytest.mark.parametrize("name", ["rtiow", "cornell", "chess"])
+def test_refill_at_depth_zero_equals_exact_kernel(cuda, name, fast):
+    """At max_bounce 0 every sample is one segment, so all lanes of a warp
+    finish their quota in the same slot and refill adds no sample. The
+    refill kernel then gives the exact kernel's image, segment map and
+    histogram bit for bit: its staging, raygen and fold (separate helpers)
+    agree with render_kernel's written-out copy."""
+    if name == "rtiow":
+        scene, cam, cfg = presets.rtiow_final_scene(width=100, height=54, spp=3)
+    else:
+        scene, cam, cfg = _triangle_scene(name, width=100, height=54, spp=3)
+    cfg = dataclasses.replace(cfg, max_bounce=0, fast_scatter=fast)
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    acc0 = 2.0 * torch.rand((54, 100, 3), generator=gen, device=cuda)
+    exact = mk.render_frames_mega(scene, cam, cfg, 3, 2, accum=acc0,
+                                  collect_stats=True)
+    refill = mk.render_frames_mega(
+        scene, cam, dataclasses.replace(cfg, adaptive_spp=True), 3, 2,
+        accum=acc0, collect_stats=True)
+    assert torch.equal(refill[0], exact[0])
+    assert int(refill[1]) == int(exact[1]) == 100 * 54 * 2 * cfg.spp
+    assert torch.equal(refill[2], exact[2])
+    assert torch.equal(refill[3], exact[3])
+
+
+@pytest.mark.parametrize("clamp", [False, True])
+def test_refill_fold_matches_plain(cuda, clamp):
+    """The refill kernel's K-frame fold from a seeded accumulator, spheres
+    and triangles, on a band of whole warp rows of the plain version."""
+    for make in (presets.rtiow_final_scene, presets.cornell_box_scene):
+        scene, cam, cfg = make(width=96, height=54, max_bounce=1, spp=4)
+        cam = cam.replace(defocus_strength=0.0)
+        cfg = dataclasses.replace(cfg, adaptive_spp=True, clamp_accumulate=clamp)
+        gen = torch.Generator(device=cuda).manual_seed(2)
+        acc0 = 2.0 * torch.rand((54, 96, 3), generator=gen, device=cuda)
+        k, _, k_map, _ = mk.render_frames_mega(scene, cam, cfg, 2, 3, accum=acc0)
+        p, _, p_map, _ = mk.render_frames_plain(
+            scene, cam, cfg, 2, 3, accum=acc0[20:36].contiguous(), rows=(20, 36))
+        _, median, channel = _gates(k[20:36], p)
+        assert median < 2e-3 and channel < 5e-3, (median, channel)
+        assert int(k_map.min()) >= 3 * cfg.spp
+        if clamp:
+            assert float(k.min()) >= 0.0 and float(k.max()) <= 1.0
+
+
+def test_render_command_on_the_card(cuda, tmp_path):
+    """The CLI on the card with refill, fused batches, a checkpoint and a
+    resume: only the refill instantiation launches."""
+    from ray_tracing_extended_tpu_torch.cli import main
+
+    ck, out = tmp_path / "ck.npz", tmp_path / "out.npy"
+    args = ["render", "--scene", "preset:rtiow", "--width", "192",
+            "--height", "108", "--spp", "4", "--adaptive-spp", "--batch", "2",
+            "--checkpoint", str(ck), "--checkpoint-every", "2"]
+    before = dict(mk.KERNEL.variant_launches)
+    assert main(args + ["--frames", "4"]) == 0
+    assert main(args + ["--frames", "2", "--resume", "--out", str(out)]) == 0
+    after = mk.KERNEL.variant_launches
+    grew = {k: after[k] - before.get(k, 0) for k in after
+            if after[k] != before.get(k, 0)}
+    assert grew == {mk.variant(False, adaptive=True): 3}
+    img = np.load(out)
+    assert img.shape == (108, 192, 3) and np.isfinite(img).all()
+    with np.load(ck) as z:
+        assert int(z["frame"]) == 6

@@ -36,6 +36,18 @@ from ray_tracing_extended_tpu_torch.ops import tonemap as ttone
 EDGE = 1e-4  # pairs this close to a hit/miss boundary may flip
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module's tests: the suite runs several
+    workers on the CPU, and torch's default of a thread a core
+    oversubscribes it many times over (each small op then waits on its
+    parallel region)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _rays(n, lo, hi, seed):
     rs = np.random.RandomState(seed)
     o = rs.uniform(lo, hi, (n, 3)).astype(np.float32)
@@ -55,7 +67,7 @@ def _check_flips(t_port, t_jax, near_edge):
 
 def test_sphere_t_matches():
     js, _, _ = jpresets.three_sphere_scene(width=8, height=8)
-    ts = scene_from_arrays(js)
+    ts = scene_from_arrays(js, device="cpu")
     o, d = _rays(2048, -2.5, 2.5, seed=0)
     t_j = np.asarray(jint.ray_spheres_t(jnp.asarray(o), jnp.asarray(d),
                                         js.spheres))
@@ -87,7 +99,7 @@ def test_sphere_t_matches():
 
 def test_triangle_t_matches():
     js, _, _ = jpresets.cornell_box_scene(width=8, height=8)
-    ts = scene_from_arrays(js)
+    ts = scene_from_arrays(js, device="cpu")
     o, d = _rays(2048, -0.9, 0.9, seed=1)
     o[:, 2] += 1.0  # inside the box
     t_j = np.asarray(jint.ray_triangles_t(jnp.asarray(o), jnp.asarray(d),
@@ -114,7 +126,7 @@ def test_triangle_t_matches():
 
 def test_closest_hit_matches():
     js, _, _ = jpresets.cornell_box_scene(width=8, height=8)
-    ts = scene_from_arrays(js)
+    ts = scene_from_arrays(js, device="cpu")
     o, d = _rays(1024, -0.5, 0.5, seed=2)
     o[:, 2] += 1.0
     hj = jint.closest_hit_bruteforce(jnp.asarray(o), jnp.asarray(d), js)
@@ -163,7 +175,8 @@ def test_environment_matches(which):
         env = JEnv.disabled()
     t_env = scene_from_arrays(
         dataclasses.replace(jpresets.three_sphere_scene(width=8, height=8)[0],
-                            env=env)
+                            env=env),
+        device="cpu",
     ).env
     _, d = _rays(4096, 0, 1, seed=5)
     want = np.asarray(jenv.environment_light(jnp.asarray(d), env))
@@ -183,7 +196,8 @@ def test_checker_colour_matches():
     )
     idx = rs.randint(0, 4, 2048)
     point = rs.uniform(-5, 5, (2048, 3)).astype(np.float32)
-    tm = scene_from_arrays(dataclasses.replace(js, materials=mats)).materials
+    tm = scene_from_arrays(dataclasses.replace(js, materials=mats),
+                           device="cpu").materials
     want = np.asarray(jmat.checker_colour(mats.take(jnp.asarray(idx)),
                                           jnp.asarray(point)))
     got = tmat.checker_colour(tm.take(torch.from_numpy(idx)),
@@ -193,7 +207,7 @@ def test_checker_colour_matches():
 
 def test_scatter_matches():
     js, _, _ = jpresets.rtiow_final_scene(width=8, height=8)
-    ts = scene_from_arrays(js)
+    ts = scene_from_arrays(js, device="cpu")
     n_real = int((np.asarray(js.spheres.radius) > 0).sum())
     rs = np.random.RandomState(7)
     b = 4096
@@ -263,7 +277,8 @@ def _leaves(obj, prefix=""):
 )
 def test_presets_identical(name):
     j_scene, j_cam, j_cfg = getattr(jpresets, name)(width=40, height=30)
-    t_scene, t_cam, t_cfg = getattr(tpresets, name)(width=40, height=30)
+    t_scene, t_cam, t_cfg = getattr(tpresets, name)(width=40, height=30,
+                                                    device="cpu")
     assert dataclasses.asdict(t_cfg) == dataclasses.asdict(j_cfg)
     t_leaves = dict(_leaves(t_scene))
     j_leaves = {
@@ -274,7 +289,8 @@ def test_presets_identical(name):
     for k, v in j_leaves.items():
         assert np.array_equal(t_leaves[k].numpy(), np.asarray(v)), k
         assert t_leaves[k].numpy().dtype == np.asarray(v).dtype, k
-    for k, v in _leaves(camera_from_arrays(j_cam)):
+    for k, v in _leaves(camera_from_arrays(j_cam, device="cpu")):
         assert np.array_equal(getattr(t_cam, k).numpy(), v.numpy()), k
     assert t_scene.has_triangles == (name == "cornell_box_scene")
-    assert scene_from_arrays(j_scene).has_triangles == t_scene.has_triangles
+    assert (scene_from_arrays(j_scene, device="cpu").has_triangles
+            == t_scene.has_triangles)

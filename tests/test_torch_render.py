@@ -38,8 +38,21 @@ PORT = pathlib.Path(rtt.__file__).parent
 SCENES = PORT.parent / "scenes"
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module's tests: the suite runs several
+    workers on the CPU, and torch's default of a thread a core
+    oversubscribes it many times over (each small op then waits on its
+    parallel region)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _port(j_scene, j_cam):
-    return scene_from_arrays(j_scene), camera_from_arrays(j_cam)
+    return (scene_from_arrays(j_scene, device="cpu"),
+            camera_from_arrays(j_cam, device="cpu"))
 
 
 def _tight(a, b):
@@ -111,7 +124,8 @@ def test_shipped_triangle_scene_plain_matches_xla(name, defocus):
     size, with its shipped defocus and without."""
     small = dict(width=48, height=27, spp=1, max_bounce=3)
     js, jc, cfg = j_load(SCENES / f"{name}.json", overrides=small)
-    ts, tc, tcfg = rtt.load_json_scene(SCENES / f"{name}.json", overrides=small)
+    ts, tc, tcfg = rtt.load_json_scene(SCENES / f"{name}.json", overrides=small,
+                                       device="cpu")
     assert dataclasses.asdict(tcfg) == dataclasses.asdict(cfg)
     assert ts.has_triangles
     if not defocus:
@@ -138,7 +152,8 @@ def test_plain_block_size_invariant_on_triangle_scene():
     its images and per-pixel segments do not depend on the block."""
     scene, cam, cfg = rtt.load_json_scene(
         SCENES / "chess.json",
-        overrides=dict(width=32, height=18, spp=1, max_bounce=2))
+        overrides=dict(width=32, height=18, spp=1, max_bounce=2),
+        device="cpu")
     prims = scene.spheres.count + scene.triangles.count
     assert prims == 128 + 6016
     # 1080p: (2^25 // prims) rounded down to a multiple of 256
@@ -199,7 +214,8 @@ def test_accumulation_matches_xla(clamp):
 
 
 def test_batched_fold_equals_sequential_steps():
-    scene, cam, cfg = tpresets.three_sphere_scene(width=24, height=16, spp=1)
+    scene, cam, cfg = tpresets.three_sphere_scene(width=24, height=16, spp=1,
+                                                   device="cpu")
     acc0 = torch.zeros((16, 24, 3))
     batched, _ = rtt.render_frames_and_accumulate(scene, cam, cfg, acc0, 0, 3)
     seq = acc0
@@ -210,7 +226,7 @@ def test_batched_fold_equals_sequential_steps():
 
 def test_plain_band_of_rows_equals_full_frame_rows():
     scene, cam, cfg = tpresets.rtiow_final_scene(width=40, height=24, spp=1,
-                                                 max_bounce=2)
+                                                 max_bounce=2, device="cpu")
     acc0 = torch.from_numpy(
         np.random.RandomState(1).uniform(0, 2, (24, 40, 3)).astype(np.float32))
     full, _, full_map, _ = tmk.render_frames_plain(scene, cam, cfg, 1, 2,
@@ -225,7 +241,8 @@ def test_plain_band_of_rows_equals_full_frame_rows():
 
 
 def test_cpu_path_never_launches_the_kernel():
-    scene, cam, cfg = tpresets.three_sphere_scene(width=16, height=8, spp=1)
+    scene, cam, cfg = tpresets.three_sphere_scene(width=16, height=8, spp=1,
+                                                   device="cpu")
     before = tmk.KERNEL.launches
     img, segs, seg_map, hist = tmk.render_frames_mega(scene, cam, cfg, 0)
     assert tmk.KERNEL.launches == before
@@ -238,15 +255,24 @@ def test_cpu_path_never_launches_the_kernel():
 
 
 def test_unported_options_raise(tmp_path):
-    scene, cam, cfg = tpresets.three_sphere_scene(width=16, height=8, spp=1)
+    """What is not ported yet raises, naming its ROADMAP.md item: the BVH
+    (intersector, build, the 70k-triangle mesh preset), FBX meshes and the
+    multi-GPU split of the progressive renderer. Adaptive refill and fast
+    scatter are ported (tests/test_torch_adaptive.py)."""
+    scene, cam, cfg = tpresets.three_sphere_scene(width=16, height=8, spp=1,
+                                                   device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         rtt.render_frame(scene, cam, dataclasses.replace(cfg, intersector="bvh"), 0)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rtt.SceneBuilder().build(build_bvh="tri")
+        rtt.SceneBuilder().build(build_bvh="tri", device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue B item 4"):
+        tpresets.mesh_scene(device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue A item 12"):
+        rtt.render_progressive(scene, cam, cfg, frames=1, mesh=object())
     scene_file = tmp_path / "fbx.json"
     scene_file.write_text('{"meshes": [{"fbx": "knight.fbx"}]}')
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rtt.load_json_scene(scene_file)
+        rtt.load_json_scene(scene_file, device="cpu")
 
 
 def _imports(path):
@@ -261,7 +287,10 @@ def _imports(path):
 def test_port_imports_no_jax():
     files = sorted(PORT.rglob("*.py"))
     assert len(files) >= 20
-    for module in ("accel/chunks.py", "scene/json_scene.py", "scene/mesh_io.py"):
+    for module in ("accel/chunks.py", "scene/json_scene.py", "scene/mesh_io.py",
+                   "progressive.py", "cli.py", "utils/checkpoint.py",
+                   "utils/device.py", "utils/image.py", "utils/metrics.py",
+                   "utils/profiling.py"):
         assert PORT / module in files, module
     for path in files:
         for name in _imports(path):
@@ -269,6 +298,7 @@ def test_port_imports_no_jax():
             assert not name.startswith("ray_tracing_extended_tpu."), (path, name)
             assert name != "ray_tracing_extended_tpu", (path, name)
     code = ("import sys, ray_tracing_extended_tpu_torch as m; "
+            "import ray_tracing_extended_tpu_torch.cli; "
             "m.render_frame; print(sorted(k for k in sys.modules "
             "if k.split('.')[0] in ('jax', 'jaxlib', 'ray_tracing_extended_tpu')))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -27,6 +27,18 @@ DRAW_ATOL = 1e-6
 CAMERA_ATOL = 1e-5
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module's tests: the suite runs several
+    workers on the CPU, and torch's default of a thread a core
+    oversubscribes it many times over (each small op then waits on its
+    parallel region)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _grid():
     """A (pixel, frame) grid including the u32 wrap region."""
     pix = np.array([0, 1, 2, 1919, 2073599, 12345, 0x7FFFFFFF, 0xFFFFFFFF],
@@ -127,7 +139,8 @@ CAMERAS = [
 @pytest.mark.parametrize("kw", CAMERAS)
 def test_look_at_identical(kw):
     j = jcam.look_at(**kw)
-    for t in (tcam.look_at(**kw), camera_from_arrays(j)):
+    for t in (tcam.look_at(**kw, device="cpu"),
+              camera_from_arrays(j, device="cpu")):
         for name in ("position", "rotation", "fov_y_deg", "focus_distance",
                      "defocus_strength", "diverge_strength"):
             np.testing.assert_array_equal(
@@ -138,7 +151,7 @@ def test_look_at_identical(kw):
 @pytest.mark.parametrize("kw", CAMERAS)
 def test_focus_points_and_rays_match(kw):
     j = jcam.look_at(**kw)
-    t = camera_from_arrays(j)
+    t = camera_from_arrays(j, device="cpu")
     width, height = 96, 54
     pix = np.random.RandomState(3).randint(0, width * height, 1024)
     x, y = pix % width, pix // width

@@ -42,10 +42,22 @@ TRANSFORM = {"position": [0.5, 1.0, 2.0], "rotationEulerDeg": [10, 35, -20],
              "scale": [1.0, 1.5, 0.8]}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module's tests: the suite runs several
+    workers on the CPU, and torch's default of a thread a core
+    oversubscribes it many times over (each small op then waits on its
+    parallel region)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _assert_same_scene(port, jax_scene):
     """Every array of the port's scene equals the JAX package's, handed over
     with ``interop.scene_from_arrays``, in dtype, shape and value."""
-    ref = scene_from_arrays(jax_scene)
+    ref = scene_from_arrays(jax_scene, device="cpu")
     for part in ("spheres", "triangles", "chunks", "materials", "env"):
         a, b = getattr(port, part), getattr(ref, part)
         for f in dataclasses.fields(a):
@@ -106,17 +118,17 @@ def _builders():
 
 def test_add_mesh_matches_jax():
     jb, tb = _builders()
-    _assert_same_scene(tb.build(), jb.build())
+    _assert_same_scene(tb.build(device="cpu"), jb.build())
 
 
 def test_set_mesh_transform_matches_jax():
     jb, tb = _builders()
-    first = tb.build()
+    first = tb.build(device="cpu")
     for b, transform in ((jb, j_transform), (tb, t_transform)):
         b.set_mesh_transform(0, transform({"position": [0, 2, 0],
                                            "rotationEulerDeg": [0, 90, 0]}))
         b.set_mesh_transform(1, transform({"scale": 2.0}))
-    moved = tb.build()
+    moved = tb.build(device="cpu")
     _assert_same_scene(moved, jb.build())
     # the chunks move with the mesh; their count and ranges do not
     assert torch.equal(moved.chunks.num_tris, first.chunks.num_tris)
@@ -156,7 +168,7 @@ def _assert_same_camera(tc, jc):
 @pytest.mark.parametrize("path", SCENES, ids=lambda p: p.stem)
 def test_load_json_scene_matches_jax(path):
     js, jc, jcfg = j_load(path)
-    ts, tc, tcfg = rtt.load_json_scene(path)
+    ts, tc, tcfg = rtt.load_json_scene(path, device="cpu")
     _assert_same_scene(ts, js)
     _assert_same_camera(tc, jc)
     assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
@@ -179,7 +191,8 @@ def test_load_json_scene_obj_mesh_matches_jax(tmp_path):
     p = tmp_path / "s.json"
     p.write_text(json.dumps(spec))
     js, jc, jcfg = j_load(p, overrides={"spp": 2})
-    ts, tc, tcfg = rtt.load_json_scene(p, overrides={"spp": 2})
+    ts, tc, tcfg = rtt.load_json_scene(p, overrides={"spp": 2},
+                                       device="cpu")
     _assert_same_scene(ts, js)
     _assert_same_camera(tc, jc)
     assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
@@ -189,7 +202,8 @@ def test_load_json_scene_obj_mesh_matches_jax(tmp_path):
 def test_kernel_tables_layout():
     """The CUDA kernel's triangle and chunk tables, built on the CPU: the
     rows the kernel reads and the chunk ranges as int32 bits."""
-    scene, cam, cfg = rtt.load_json_scene(SCENES[1].parent / "knight.json")
+    scene, cam, cfg = rtt.load_json_scene(SCENES[1].parent / "knight.json",
+                                          device="cpu")
     tab = tmk.scene_tables(scene, cam, cfg)
     tri, ch = scene.triangles, scene.chunks
     assert tab.tri_rows.shape == (tri.count, 12) and tab.tri_rows.is_contiguous()
@@ -206,5 +220,6 @@ def test_kernel_tables_layout():
     assert torch.equal(bits[:, 1], ch.num_tris)
     assert torch.equal(bits[1:, 0], bits[:-1, 0] + bits[:-1, 1])
     assert 0 < int(bits[:, 1].sum()) < tri.count
-    spheres_only = tmk.scene_tables(*rtt.load_json_scene(SCENES[0])[:2], cfg)
+    spheres_only = tmk.scene_tables(
+        *rtt.load_json_scene(SCENES[0], device="cpu")[:2], cfg)
     assert spheres_only.chunks is None and spheres_only.tri_rows is None
