@@ -1,0 +1,381 @@
+"""LBVH: the Morton-sorted binary BVH build (host, NumPy) and the masked
+stack traversal (PyTorch), the plain version of the CUDA kernel's BVH
+geometry (``csrc/megakernel.cu`` ``closest_triangle_bvh``).
+
+Mirrors ``ray_tracing_extended_tpu/accel/bvh.py``, whose NumPy build it
+copies line for line, so both packages build identical arrays. Primitive
+centroids are quantized to a 2^10 grid and interleaved into 30-bit Morton
+codes; primitives are sorted by code; the tree is built top-down by
+splitting each range at the highest differing Morton bit (median fallback
+for equal codes), leaves holding up to ``leaf_width`` primitives in
+fixed-width rows whose unused slots point at the scene's first padding
+(never-hit) primitive. (The JAX package can also build with its native C++
+runtime, which its tests hold identical to the NumPy build; the port has
+no native build.)
+
+The traversal follows the JAX package's ``_traverse`` op for op, for each
+ray: pop a node and slab-test it against the best t so far; at a leaf test
+every slot with a strict <; at an internal node slab-test both children and
+push the survivors, the far one first, so the near one pops next; at most
+``4 x nodes`` pops. The JAX version steps every ray in lock step under
+masks; here only the rays that still have nodes on their stack are
+stepped, which changes no ray's result.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..models.geometry import BVH, Scene
+from ..ops import vecmath as vm
+from ..ops.intersect import (
+    DET_EPS,
+    INF,
+    HitRecord,
+    _triangle_normal_at,
+    ray_spheres_t,
+    ray_triangles_t,
+)
+
+LEAF_WIDTH = 4
+STACK_DEPTH = 48  # fits any split-balanced tree of < 2^47 prims
+
+
+# ------------------------------------------------------------- build -------
+def _morton3(x: np.ndarray) -> np.ndarray:
+    """Interleave 10-bit integer coords (P, 3) -> 30-bit Morton codes."""
+    def expand(v):
+        v = v.astype(np.uint64)
+        v = (v | (v << 16)) & 0x030000FF
+        v = (v | (v << 8)) & 0x0300F00F
+        v = (v | (v << 4)) & 0x030C30C3
+        v = (v | (v << 2)) & 0x09249249
+        return v
+
+    return (
+        (expand(x[:, 0]) << 2) | (expand(x[:, 1]) << 1) | expand(x[:, 2])
+    )
+
+
+def _assert_traversable(left: np.ndarray, right: np.ndarray) -> None:
+    """The traversal's stack is fixed (pushes clamp to its last slot), so a
+    deeper tree would silently drop subtrees. Depth can exceed the Morton
+    split's bound for long runs of equal codes, so the actual tree is
+    measured."""
+    n = len(left)
+    depth = np.zeros(n, np.int32)
+    stack = [0]
+    max_depth = 0
+    while stack:
+        node = stack.pop()
+        d = depth[node]
+        max_depth = max(max_depth, int(d))
+        l, r = int(left[node]), int(right[node])
+        if l >= 0:
+            depth[l] = d + 1
+            stack.append(l)
+        if r >= 0:
+            depth[r] = d + 1
+            stack.append(r)
+    # traversal pushes at most one node per level beyond the current one
+    if max_depth + 1 > STACK_DEPTH:
+        raise ValueError(
+            f"LBVH depth {max_depth + 1} exceeds the device traversal "
+            f"stack ({STACK_DEPTH}); rebuild with a larger leaf_width or "
+            "raise STACK_DEPTH"
+        )
+
+
+def _clz64(x: int) -> int:
+    return 64 - x.bit_length()
+
+
+def build_lbvh(
+    prim_bmin: np.ndarray,
+    prim_bmax: np.ndarray,
+    sentinel: int,
+    leaf_width: int = LEAF_WIDTH,
+) -> BVH:
+    """An LBVH over primitive AABBs, as CPU tensors. ``sentinel`` pads the
+    fixed-width leaves: the index of a never-hit (padding) primitive of the
+    scene's arrays."""
+    prim_bmin = np.asarray(prim_bmin, np.float32)
+    prim_bmax = np.asarray(prim_bmax, np.float32)
+    p = prim_bmin.shape[0]
+    centroid = (prim_bmin + prim_bmax) * 0.5
+
+    lo = centroid.min(axis=0)
+    hi = centroid.max(axis=0)
+    denom = np.where(hi > lo, hi - lo, 1.0)
+    scale = np.where(hi > lo, 1023.0 / denom, 0.0)
+    q = np.clip(((centroid - lo) * scale), 0, 1023).astype(np.uint32)
+    codes = _morton3(q)
+    order = np.argsort(codes, kind="stable").astype(np.int32)
+    codes = codes[order]
+
+    # Top-down build over the sorted range, splitting at the highest
+    # differing Morton bit (median fallback for equal codes).
+    bounds_min, bounds_max = [], []
+    left, right, leaf_row = [], [], []
+    leaf_prims: list[np.ndarray] = []
+
+    def new_node():
+        bounds_min.append(None)
+        bounds_max.append(None)
+        left.append(-1)
+        right.append(-1)
+        leaf_row.append(-1)
+        return len(left) - 1
+
+    def node_bounds(node, s, e):
+        idx = order[s:e]
+        bounds_min[node] = prim_bmin[idx].min(axis=0)
+        bounds_max[node] = prim_bmax[idx].max(axis=0)
+
+    def split_pos(s, e):
+        first, last = int(codes[s]), int(codes[e - 1])
+        if first == last:
+            return (s + e) // 2
+        top_bit = 63 - _clz64(first ^ last)
+        mask = 1 << top_bit
+        # first index in [s, e) whose bit ``top_bit`` is set
+        return s + int(np.searchsorted(codes[s:e] & mask, 1))
+
+    # an explicit work stack, not recursion
+    root = new_node()
+    work = [(root, 0, p)]
+    while work:
+        node, s, e = work.pop()
+        node_bounds(node, s, e)
+        if e - s <= leaf_width:
+            row = len(leaf_prims)
+            slots = np.full(leaf_width, sentinel, np.int32)
+            slots[: e - s] = order[s:e]
+            leaf_prims.append(slots)
+            leaf_row[node] = row
+        else:
+            m = split_pos(s, e)
+            l_node = new_node()
+            r_node = new_node()
+            left[node] = l_node
+            right[node] = r_node
+            # the left subtree is numbered first
+            work.append((r_node, m, e))
+            work.append((l_node, s, m))
+
+    _assert_traversable(np.array(left, np.int32), np.array(right, np.int32))
+    # every slot the traversal gathers must be a real primitive index or
+    # the sentinel: the kernel reads its rows unchecked
+    lp = np.stack(leaf_prims)
+    assert lp.min() >= 0 and lp.max() <= sentinel, (
+        f"leaf_prims slot out of range [0, {sentinel}]"
+    )
+    return BVH(
+        bounds_min=torch.from_numpy(np.stack(bounds_min)),
+        bounds_max=torch.from_numpy(np.stack(bounds_max)),
+        left=torch.from_numpy(np.array(left, np.int32)),
+        right=torch.from_numpy(np.array(right, np.int32)),
+        leaf_row=torch.from_numpy(np.array(leaf_row, np.int32)),
+        leaf_prims=torch.from_numpy(lp),
+    )
+
+
+# ---------------------------------------------------------- traversal ------
+def _slab(o, d_inv, bmin, bmax):
+    """Per-ray slab test -> (t_near, t_far), (B, 3) -> (B,). NaN (a zero
+    direction component with the origin on a face) propagates, and then
+    every comparison of the visit rule fails."""
+    t0 = (bmin - o) * d_inv
+    t1 = (bmax - o) * d_inv
+    t_near = torch.amax(torch.minimum(t0, t1), dim=-1)
+    t_far = torch.amin(torch.maximum(t0, t1), dim=-1)
+    return t_near, t_far
+
+
+def _sphere_t_one(o, d, scene: Scene, idx):
+    """Hit distance of gathered spheres ``idx`` for rays ``o``, ``d`` (any
+    broadcast shapes; RaySphere semantics, RayTracing.shader:120-146), +inf
+    on a miss."""
+    c = scene.spheres.center[idx]
+    r = scene.spheres.radius[idx]
+    oc = o - c
+    b = vm.dot(oc, d)
+    cc = vm.dot(oc, oc) - r * r
+    disc = b * b - cc
+    t = -b - vm.sqrt(torch.clamp(disc, min=0.0))
+    valid = (disc >= 0.0) & (t >= 0.0) & (r > 0.0)
+    return torch.where(valid, t, INF)
+
+
+def _triangle_t_one(o, d, scene: Scene, idx):
+    """Hit distance of gathered triangles ``idx`` for rays ``o``, ``d`` (any
+    broadcast shapes; RayTriangle semantics, RayTracing.shader:150-174, in
+    the direct form), +inf on a miss."""
+    tris = scene.triangles
+    pa = tris.pos_a[idx]
+    e_ab = tris.edge_ab[idx]
+    e_ac = tris.edge_ac[idx]
+    n = tris.n[idx]
+    ao = o - pa
+    dao = vm.cross(ao, d)
+    det = -vm.dot(d, n)
+    t_det = vm.dot(ao, n)
+    u_det = vm.dot(e_ac, dao)
+    v_det = -vm.dot(e_ab, dao)
+    w_det = det - u_det - v_det
+    hit = (
+        (det >= DET_EPS)
+        & (t_det >= 0.0)
+        & (u_det >= 0.0)
+        & (v_det >= 0.0)
+        & (w_det >= 0.0)
+    )
+    t = t_det / torch.where(det >= DET_EPS, det, torch.ones_like(det))
+    return torch.where(hit, t, INF)
+
+
+def _traverse(o, d, bvh: BVH, prim_t_fn, best_t, best_idx, counts=None,
+              sentinel=None):
+    """Closest primitive through ``bvh`` for every ray: ``prim_t_fn(o, d,
+    idx)`` gives the t of primitives ``idx`` (B, W) for rays (B, 1, 3).
+    Returns ``(best_t, best_idx)`` updated where a strictly nearer
+    primitive was found. ``counts``, a dict, if given, gains the tests
+    these rays need: ``"slabs"``, the root's slab test a ray and both
+    children's at every internal node visited (not the repeat of a node's
+    test at its pop, which the kernel also makes), and ``"prims"``, the
+    real primitives of the leaves visited (slots below ``sentinel``, the
+    leaves' padding index; every slot if it is None)."""
+    b = o.shape[0]
+    dev = o.device
+    d_inv = 1.0 / d
+    leaf_width = bvh.leaf_prims.shape[1]
+    n_nodes = bvh.left.shape[0]
+    best_t, best_idx = best_t.clone(), best_idx.clone()
+    stack = torch.zeros((b, STACK_DEPTH), dtype=torch.int64, device=dev)
+    # every ray starts with the root on its stack
+    ptr = torch.ones(b, dtype=torch.int64, device=dev)
+    lanes = torch.arange(b, device=dev)
+    if counts is not None:
+        counts["slabs"] = counts.get("slabs", 0) + b
+    for _ in range(4 * n_nodes):
+        if lanes.numel() == 0:
+            break
+        p = ptr[lanes] - 1
+        node = stack[lanes, p]
+        ptr[lanes] = p
+        o_l, d_l, inv_l = o[lanes], d[lanes], d_inv[lanes]
+        bt = best_t[lanes]
+        t_near, t_far = _slab(o_l, inv_l, bvh.bounds_min[node],
+                              bvh.bounds_max[node])
+        visit = (t_far >= 0.0) & (t_near <= torch.minimum(t_far, bt))
+        row = bvh.leaf_row[node].long()
+        is_leaf = row >= 0
+
+        # leaves: every slot, in order, strictly nearer wins
+        lf = (visit & is_leaf).nonzero().squeeze(1)
+        if lf.numel():
+            prims = bvh.leaf_prims[row[lf]].long()  # (n, leaf_width)
+            if counts is not None:
+                real = prims.numel() if sentinel is None else int(
+                    (prims < sentinel).sum())
+                counts["prims"] = counts.get("prims", 0) + real
+            t_all = prim_t_fn(o_l[lf, None], d_l[lf, None], prims)
+            bt_f, bi_f = bt[lf], best_idx[lanes[lf]]
+            for j in range(leaf_width):
+                better = t_all[:, j] < bt_f
+                bt_f = torch.where(better, t_all[:, j], bt_f)
+                bi_f = torch.where(better, prims[:, j], bi_f)
+            best_t[lanes[lf]] = bt_f
+            best_idx[lanes[lf]] = bi_f
+
+        # internal nodes: slab-test both children, push the survivors far
+        # first (the near one pops next)
+        it = (visit & ~is_leaf).nonzero().squeeze(1)
+        if it.numel():
+            li = lanes[it]
+            o_i, inv_i, bt_i = o_l[it], inv_l[it], bt[it]
+            l_node = bvh.left[node[it]].long()
+            r_node = bvh.right[node[it]].long()
+            tn_l, tf_l = _slab(o_i, inv_i, bvh.bounds_min[l_node],
+                               bvh.bounds_max[l_node])
+            tn_r, tf_r = _slab(o_i, inv_i, bvh.bounds_min[r_node],
+                               bvh.bounds_max[r_node])
+            hit_l = (tf_l >= 0.0) & (tn_l <= torch.minimum(tf_l, bt_i))
+            hit_r = (tf_r >= 0.0) & (tn_r <= torch.minimum(tf_r, bt_i))
+            both = hit_l & hit_r
+            l_is_near = tn_l <= tn_r
+            near = torch.where(l_is_near, l_node, r_node)
+            far = torch.where(l_is_near, r_node, l_node)
+            first = torch.where(both, far, torch.where(hit_l, l_node, r_node))
+            any_push = hit_l | hit_r
+            p_i = ptr[li]
+            p0 = torch.clamp(p_i, max=STACK_DEPTH - 1)
+            p1 = torch.clamp(p_i + 1, max=STACK_DEPTH - 1)
+            stack[li, p0] = torch.where(any_push, first, stack[li, p0])
+            stack[li, p1] = torch.where(both, near, stack[li, p1])
+            ptr[li] = p_i + any_push.long() + both.long()
+            if counts is not None:
+                counts["slabs"] += 2 * it.numel()
+        lanes = lanes[ptr[lanes] > 0]
+    return best_t, best_idx
+
+
+def closest_hit_bvh(o, d, scene: Scene, sphere_bvh: bool = True,
+                    counts=None) -> HitRecord:
+    """Closest hit through the scene's BVHs where present (triangles and,
+    with ``sphere_bvh``, spheres), scanning the primitive type without one:
+    ``closest_hit_bruteforce``'s result, except which of two exactly tied
+    primitives of one type wins (the first in traversal order). A sphere
+    wins an exact tie with a triangle, as in the reference's scan.
+    ``counts`` gathers the tests the triangle BVH's traversal needs
+    (``_traverse``)."""
+    b = o.shape[0]
+    dev = o.device
+    s = scene.spheres.count
+    inf = torch.full((b,), INF, dtype=torch.float32, device=dev)
+    zero = torch.zeros((b,), dtype=torch.int64, device=dev)
+
+    if sphere_bvh and scene.sphere_bvh is not None:
+        t_s, i_s = _traverse(
+            o, d, scene.sphere_bvh,
+            lambda o_, d_, idx: _sphere_t_one(o_, d_, scene, idx), inf, zero,
+        )
+    else:
+        t_s, i_s = torch.min(ray_spheres_t(o, d, scene.spheres), dim=1)
+    better = t_s < inf
+    best_t = torch.where(better, t_s, inf)
+    best_enc = torch.where(better, i_s, zero)
+
+    if scene.tri_bvh is not None:
+        # the leaves' padding index is the first padding triangle: the
+        # number of real ones, which the chunks hold
+        sentinel = None if counts is None else int(scene.chunks.num_tris.sum())
+        t_t, i_t = _traverse(
+            o, d, scene.tri_bvh,
+            lambda o_, d_, idx: _triangle_t_one(o_, d_, scene, idx), inf, zero,
+            counts, sentinel,
+        )
+    else:
+        t_t, i_t = torch.min(ray_triangles_t(o, d, scene.triangles), dim=1)
+    # strict <: spheres win exact ties (the reference's scan order)
+    better = t_t < best_t
+    best_t = torch.where(better, t_t, best_t)
+    best_enc = torch.where(better, s + i_t, best_enc)
+
+    hit = torch.isfinite(best_t)
+    point = o + d * torch.where(hit, best_t, 0.0)[:, None]
+    is_sphere = best_enc < s
+    sph_idx = torch.clamp(best_enc, max=s - 1)
+    tri_idx = torch.clamp(best_enc - s, 0, scene.triangles.count - 1)
+    n_sph = vm.normalize(point - scene.spheres.center[sph_idx])
+    n_tri = _triangle_normal_at(o, d, scene.triangles, tri_idx)
+    normal = torch.where(is_sphere[:, None], n_sph, n_tri)
+    mat_idx = torch.where(
+        is_sphere,
+        scene.spheres.mat_idx[sph_idx],
+        scene.triangles.mat_idx[tri_idx],
+    ).long()
+    mat_idx = torch.where(hit, mat_idx, 0)
+    return HitRecord(hit=hit, t=best_t, point=point, normal=normal,
+                     mat_idx=mat_idx)

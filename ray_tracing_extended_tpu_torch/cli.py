@@ -11,11 +11,11 @@
 
 Counterpart of ``ray_tracing_extended_tpu/cli.py``'s ``render`` with the
 same flags, plus ``--device`` (default ``cuda``; ``cpu`` takes the plain
-PyTorch path). Scene specs: ``preset:{three_sphere|rtiow|cornell}`` or a
-``.json`` scene (``scene/json_scene.py``). Not ported yet, and raising:
-``preset:mesh`` and ``.obj`` meshes (they need the BVH), ``.unity`` scenes
-and ``--mesh`` (multi-GPU); the ``benchmark`` and ``compare`` commands are
-not here (ROADMAP.md).
+PyTorch path). Scene specs: ``preset:{three_sphere|rtiow|cornell|mesh}``,
+a ``.json`` scene (``scene/json_scene.py``), or an ``.obj`` mesh, which
+renders as ``mesh_scene(obj_path=...)`` through a triangle BVH. Not ported
+yet, and raising: ``.unity`` scenes and ``--mesh`` (multi-GPU); the
+``benchmark`` and ``compare`` commands are not here (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -28,9 +28,6 @@ import sys
 import numpy as np
 
 from .utils.device import resolve_device
-
-_BVH_ITEM = "the BVH traversal kernel (ROADMAP.md Queue B item 4)"
-
 
 def _load_scene(spec: str, args):
     overrides = {}
@@ -51,12 +48,11 @@ def _load_scene(spec: str, args):
         from .models import presets
 
         name = spec.split(":", 1)[1]
-        if name == "mesh":
-            raise NotImplementedError(f"preset:mesh needs {_BVH_ITEM}")
         table = {
             "three_sphere": presets.three_sphere_scene,
             "rtiow": presets.rtiow_final_scene,
             "cornell": presets.cornell_box_scene,
+            "mesh": presets.mesh_scene,
         }
         fn = table.get(name)
         if fn is None:
@@ -77,7 +73,12 @@ def _load_scene(spec: str, args):
 
         return load_json_scene(spec, overrides=overrides, device=args.device)
     if spec.endswith(".obj"):
-        raise NotImplementedError(f"{spec}: an OBJ mesh scene needs {_BVH_ITEM}")
+        from .models.presets import mesh_scene
+
+        scene, cam, cfg = mesh_scene(obj_path=spec, device=args.device)
+        if overrides:
+            cfg = dataclasses.replace(cfg, **overrides)
+        return scene, cam, cfg.validate()
     raise SystemExit(f"unrecognized scene spec: {spec}")
 
 

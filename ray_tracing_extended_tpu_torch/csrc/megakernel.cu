@@ -19,18 +19,19 @@
 // o - a forms, as the TPU kernel does; the plain version in the expanded
 // forms) and where the device's transcendentals round differently.
 //
-// Two kernels, each instantiated for sphere scenes (kTris = false: the
-// sphere table in shared memory) and for scenes with triangles (kTris =
-// true: the chunk table, each chunk's AABB and triangle range, in shared
-// memory too; a chunk whose box the ray's line misses, the reference's
-// slab test, RayTracing.shader:177-187 applied at :279-281, is skipped, and
-// the others' triangles run the backface-culled Moller-Trumbore test on
-// 12-float rows read through the read-only cache), and for the scatter
+// Two kernels, each instantiated for three scene geometries, always with
+// the sphere table in shared memory: kSpheres (spheres only); kChunks (the
+// chunk table, each chunk's AABB and triangle range, in shared memory too;
+// a chunk whose box the ray's line misses, the reference's slab test,
+// RayTracing.shader:177-187 applied at :279-281, is skipped, and the
+// others' triangles run the backface-culled Moller-Trumbore test on
+// 12-float rows read through the read-only cache); kBvh (the triangles
+// through the scene's LBVH in global memory, below). And for the scatter
 // sampler (kBoxMuller: the reference's three Box-Muller Gaussians, 6 draws;
 // kFastScatter: the TPU kernel's 2-draw (z, phi) map, cfg.fast_scatter):
-//   render_kernel<kTris, kScatter>: exactly spp samples a pixel, a loop
+//   render_kernel<kGeom, kScatter>: exactly spp samples a pixel, a loop
 //   over samples and bounces per thread.
-//   render_adaptive<kTris, kScatter>: the adaptive sample refill
+//   render_adaptive<kGeom, kScatter>: the adaptive sample refill
 //   (cfg.adaptive_spp). A slot loop: each slot, a dead lane that owes
 //   samples, or whose warp has a lane that does (one __any_sync), starts
 //   its next camera sample, then every live lane traces one segment. The
@@ -51,13 +52,35 @@
 // What this version does about it: it keeps the sphere and chunk tables in
 // shared memory, loaded once per block and read as warp-wide broadcasts,
 // and gates triangles by chunk; with refill, lanes that would idle behind
-// a warp-mate's long path trace extra samples instead. No BVH, no
-// front-to-back chunk order, no path regeneration across warps.
+// a warp-mate's long path trace extra samples instead. No front-to-back
+// chunk order, no path regeneration across warps.
+//
+// kBvh, for big meshes (mesh_scene's 70,016 triangles in one chunk, which
+// the chunk scan would test in full every segment). It replaces the TPU
+// kernel's big-scene mode, the winner post-pass fetch (megakernel.py
+// :1258-1430) with the per-row drain of culled sub-clusters (:92-135,
+// :896-1250): those exist because a TPU lane cannot branch on its own. A
+// Hopper thread can walk its own stack, so each thread traverses the LBVH
+// of accel/bvh.py (the JAX package's _traverse, bvh.py:269-340) op for op:
+// pop a node and slab-test it against the best t so far (a NaN slab
+// rejects, as jnp.minimum / maximum propagate NaN); at a leaf test all
+// four slots in order with a strict <, the sentinel padding triangle
+// included; at an internal node slab-test both children and push the
+// survivors, the far one first; at most 4 x nodes pops. The triangle test
+// is closest_triangle's direct form. As in closest_hit_bvh the traversal
+// starts from t = inf and its winner replaces the sphere scan's only if
+// strictly nearer, so the kernel and its plain version test the same
+// triangles in the same order and agree on ties. What bounds it on this
+// card: divergent node fetches (32-byte nodes; mesh_scene's 49,743 take
+// 1.6 MB, its triangle rows and normals 5.9 MB: L2-resident), the
+// per-thread stack of 48 ints in local memory (192 bytes a thread), and
+// occupancy. A shared-memory or short stack and dropping the slab test
+// repeated at pop are later work.
 //
 // C interface, loaded with ctypes (kernels/megakernel.py):
-//   rtx_render(...) launches on the given stream and returns
-//   cudaGetLastError(); rtx_shared_bytes(...) is a launch's dynamic shared
-//   memory; rtx_error_string(code) names an error.
+//   rtx_render(geometry, ...) launches on the given stream and returns
+//   cudaGetLastError(); rtx_shared_bytes(geometry, ...) is a launch's
+//   dynamic shared memory; rtx_error_string(code) names an error.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -88,6 +111,14 @@ constexpr int kTri = 12;
 constexpr int kTri4 = kTri / 4;  // the row in float4s
 // vertex-normal row: the normal at a 0-2, at b 3-5, at c 6-8
 constexpr int kTriNrm = 9;
+// BVH node: two float4s, (min xyz, a) and (max xyz, b) with a and b int32
+// bits: an internal node has a = left child >= 0 and b = right child; a
+// leaf has a = ~leaf row < 0 (accel/bvh.py build_lbvh's leaf_row)
+// Leaf row: kLeafWidth primitive indices, one int4.
+constexpr int kLeafWidth = 4;
+// The traversal stack (accel/bvh.py STACK_DEPTH): pushes clamp to its last
+// slot, as in the reference; build_lbvh refuses deeper trees.
+constexpr int kStackDepth = 48;
 
 constexpr int kFlagChecker = 1;
 constexpr int kFlagInvisibleLight = 2;
@@ -108,6 +139,9 @@ constexpr unsigned kFullMask = 0xffffffffu;
 
 // The scatter's unit-vector sampler.
 enum Scatter : bool { kBoxMuller = false, kFastScatter = true };
+
+// How a scene's triangles are found (the C interface's `geometry`).
+enum Geometry : int { kSpheres = 0, kChunks = 1, kBvh = 2 };
 
 struct Vec3 {
   float x, y, z;
@@ -235,16 +269,19 @@ __device__ Vec3 refract_dir(Vec3 d, Vec3 n, float ior, float u_fresnel) {
   return sub(r_perp, scale(ne, sqrtf(k)));
 }
 
-// ---- triangles (kTris = true only) ----
+// ---- triangles (kChunks and kBvh) ----
 
 // The scene's triangles in global memory, and the chunk table the kernel
-// stages in shared memory.
+// stages in shared memory (kChunks) or the BVH in global memory (kBvh).
 struct Triangles {
   const float4* __restrict__ rows;  // kTri floats (kTri4 float4s) a triangle
   const float* __restrict__ normals;  // kTriNrm floats a triangle
   const int* __restrict__ mat;  // material index a triangle
   const float* chunks;  // shared memory, kChunk floats a chunk
   int n_chunks;
+  const float4* __restrict__ nodes;  // two float4s a node
+  const int4* __restrict__ leaves;  // kLeafWidth indices a leaf
+  int n_nodes;
 };
 
 // The reference's slab test (RayBoundingBox, RayTracing.shader:177-187):
@@ -309,6 +346,108 @@ __device__ __forceinline__ void closest_triangle(Triangles tri, Vec3 o,
   }
 }
 
+// The BVH's slab test (accel/bvh.py _slab and its visit rule): true iff
+// t_far >= 0 and t_near <= min(t_far, best_t). Unlike the chunk gate, an
+// axis whose t0 or t1 is NaN rejects the node: the reference's
+// jnp.minimum / maximum propagate the NaN and every comparison fails.
+__device__ __forceinline__ bool bvh_box(float4 lo, float4 hi, Vec3 o,
+                                        Vec3 inv_d, float best_t,
+                                        float& t_near) {
+  const float t0x = (lo.x - o.x) * inv_d.x, t1x = (hi.x - o.x) * inv_d.x;
+  const float t0y = (lo.y - o.y) * inv_d.y, t1y = (hi.y - o.y) * inv_d.y;
+  const float t0z = (lo.z - o.z) * inv_d.z, t1z = (hi.z - o.z) * inv_d.z;
+  if (isnan(t0x) || isnan(t1x) || isnan(t0y) || isnan(t1y) || isnan(t0z) ||
+      isnan(t1z)) {
+    return false;
+  }
+  t_near = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)), fminf(t0z, t1z));
+  const float t_far =
+      fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)), fmaxf(t0z, t1z));
+  return t_far >= 0.0f && t_near <= fminf(t_far, best_t);
+}
+
+// Hit distance of triangle i, +inf on a miss (accel/bvh.py
+// _triangle_t_one): closest_triangle's test. closest_triangle keeps its own
+// copy: calling this helper instead raises render_kernel<kChunks>'s spill
+// stores from 12 to 16 bytes and its spill loads from 20 to 24 (ptxas -v,
+// nvcc 12.9, both scatters); the other instantiations do not move.
+__device__ __forceinline__ float triangle_t(Triangles tri, int i, Vec3 o,
+                                            Vec3 d) {
+  const float4 r0 = __ldg(tri.rows + kTri4 * i);
+  const float4 r1 = __ldg(tri.rows + kTri4 * i + 1);
+  const float4 r2 = __ldg(tri.rows + kTri4 * i + 2);
+  const Vec3 ao = {o.x - r0.x, o.y - r0.y, o.z - r0.z};
+  const Vec3 dao = cross(ao, d);
+  const float det = -(d.x * r2.y + d.y * r2.z + d.z * r2.w);
+  const float t_det = ao.x * r2.y + ao.y * r2.z + ao.z * r2.w;
+  const float u_det = r1.z * dao.x + r1.w * dao.y + r2.x * dao.z;
+  const float v_det = -(r0.w * dao.x + r1.x * dao.y + r1.y * dao.z);
+  const float w_det = det - u_det - v_det;
+  if (det >= kDetEps && t_det >= 0.0f && u_det >= 0.0f && v_det >= 0.0f &&
+      w_det >= 0.0f) {
+    return t_det / det;
+  }
+  return __int_as_float(0x7f800000);
+}
+
+struct TriangleHit {
+  float t;  // +inf on a miss
+  int i;
+};
+
+// Closest triangle through the BVH (accel/bvh.py _traverse): the
+// traversal's own best starts at +inf. Not inlined, so the traversal's
+// registers do not add to the rest of the kernel's.
+__device__ __noinline__ TriangleHit closest_triangle_bvh(Triangles tri,
+                                                         Vec3 o, Vec3 d) {
+  const Vec3 inv_d = {1.0f / d.x, 1.0f / d.y, 1.0f / d.z};
+  float t_best = __int_as_float(0x7f800000);
+  int i_best = 0;
+  int stack[kStackDepth];
+  stack[0] = 0;
+  int ptr = 1;
+  const int max_pops = 4 * tri.n_nodes;
+  for (int it = 0; ptr > 0 && it < max_pops; ++it) {
+    const int node = stack[--ptr];
+    const float4 lo = __ldg(tri.nodes + 2 * node);
+    const float4 hi = __ldg(tri.nodes + 2 * node + 1);
+    float t_near;
+    if (!bvh_box(lo, hi, o, inv_d, t_best, t_near)) continue;
+    const int a = __float_as_int(lo.w);
+    if (a < 0) {
+      const int4 prims = __ldg(tri.leaves + ~a);
+      const int slot[kLeafWidth] = {prims.x, prims.y, prims.z, prims.w};
+#pragma unroll
+      for (int j = 0; j < kLeafWidth; ++j) {
+        const float t = triangle_t(tri, slot[j], o, d);
+        if (t < t_best) {
+          t_best = t;
+          i_best = slot[j];
+        }
+      }
+      continue;
+    }
+    const int b = __float_as_int(hi.w);
+    float tn_l, tn_r;
+    const bool hit_l = bvh_box(__ldg(tri.nodes + 2 * a),
+                               __ldg(tri.nodes + 2 * a + 1), o, inv_d, t_best,
+                               tn_l);
+    const bool hit_r = bvh_box(__ldg(tri.nodes + 2 * b),
+                               __ldg(tri.nodes + 2 * b + 1), o, inv_d, t_best,
+                               tn_r);
+    if (hit_l && hit_r) {
+      const bool l_near = tn_l <= tn_r;
+      stack[min(ptr, kStackDepth - 1)] = l_near ? b : a;  // far
+      stack[min(ptr + 1, kStackDepth - 1)] = l_near ? a : b;  // near
+      ptr += 2;
+    } else if (hit_l || hit_r) {
+      stack[min(ptr, kStackDepth - 1)] = hit_l ? a : b;
+      ptr += 1;
+    }
+  }
+  return {t_best, i_best};
+}
+
 // Shading normal of triangle i where the ray hits it (ops/intersect.py
 // _triangle_normal_at): barycentrics in the direct form, the vertex normals
 // interpolated and normalised.
@@ -337,7 +476,7 @@ __device__ __forceinline__ Vec3 triangle_normal(Triangles tri, int i,
 // then the flags, the scatter, emission and roulette; or the environment
 // light on a miss. Updates the ray, throughput and incoming light and
 // returns whether the path goes on. `camera_ray` is bounce index 0.
-template <bool kTris, Scatter kScatter>
+template <Geometry kGeom, Scatter kScatter>
 __device__ __forceinline__ bool trace_segment(
     const float* p, const float* sph, const int* sph_mat, int n_sph,
     Triangles tri, const float* __restrict__ mats, bool camera_ray,
@@ -361,7 +500,15 @@ __device__ __forceinline__ bool trace_segment(
     }
   }
   int best_tri = -1;
-  if constexpr (kTris) closest_triangle(tri, o, d, best_t, best_tri);
+  if constexpr (kGeom == kChunks) closest_triangle(tri, o, d, best_t, best_tri);
+  if constexpr (kGeom == kBvh) {
+    // closest_hit_bvh's merge: strictly nearer, so a sphere keeps a tie
+    const TriangleHit h = closest_triangle_bvh(tri, o, d);
+    if (h.t < best_t) {
+      best_t = h.t;
+      best_tri = h.i;
+    }
+  }
   if (best < 0 && best_tri < 0) {
     incoming = add(incoming, mul(environment(p, d), colour));
     return false;
@@ -370,7 +517,7 @@ __device__ __forceinline__ bool trace_segment(
   const Vec3 point = add(o, scale(d, best_t));
   Vec3 normal;
   int mat_idx;
-  if (kTris && best_tri >= 0) {
+  if (kGeom != kSpheres && best_tri >= 0) {
     normal = triangle_normal(tri, best_tri, o, d);
     mat_idx = __ldg(tri.mat + best_tri);
   } else {
@@ -435,7 +582,7 @@ __device__ __forceinline__ bool trace_segment(
 }
 
 // One camera sample's path (ops/trace.py trace). Returns its incoming light.
-template <bool kTris, Scatter kScatter>
+template <Geometry kGeom, Scatter kScatter>
 __device__ Vec3 trace_path(const float* p, const float* sph, const int* sph_mat,
                            int n_sph, Triangles tri,
                            const float* __restrict__ mats, int max_bounce,
@@ -446,7 +593,7 @@ __device__ Vec3 trace_path(const float* p, const float* sph, const int* sph_mat,
   for (int bounce = 0; bounce <= max_bounce; ++bounce) {
     ++segs;
     if (s_hist != nullptr) atomicAdd(&s_hist[bounce], 1);
-    if (!trace_segment<kTris, kScatter>(p, sph, sph_mat, n_sph, tri, mats,
+    if (!trace_segment<kGeom, kScatter>(p, sph, sph_mat, n_sph, tri, mats,
                                         bounce == 0, state, o, d, colour,
                                         incoming)) {
       break;
@@ -468,7 +615,7 @@ size_t shared_floats(int n_sph, int n_chunks, int max_bounce) {
 // helpers render_adaptive uses below: with them, ptxas (nvcc 12.9, sm_90a)
 // gives the triangle instantiation 64 bytes of spill stores where this form
 // has 12, and the sphere one 64 registers for 72.
-template <bool kTris, Scatter kScatter>
+template <Geometry kGeom, Scatter kScatter>
 __global__ void __launch_bounds__(kBlockX * kBlockY)
 render_kernel(const float* __restrict__ sph_in,
               const int* __restrict__ sph_mat_in, int n_sph,
@@ -481,17 +628,18 @@ render_kernel(const float* __restrict__ sph_in,
               int spp, int max_bounce, uint32_t frame0, int n_frames,
               const float* __restrict__ accum_in, int clamp_accum,
               float* __restrict__ out, int* __restrict__ segs_out,
-              int* __restrict__ hist) {
+              int* __restrict__ hist, const float4* __restrict__ bvh_nodes,
+              const int4* __restrict__ bvh_leaves, int n_nodes) {
   extern __shared__ float4 smem4[];
   float* chunks = reinterpret_cast<float*>(smem4);
-  float* p = chunks + (kTris ? kChunk * n_chunks : 0);
+  float* p = chunks + (kGeom == kChunks ? kChunk * n_chunks : 0);
   float* sph = p + kParams;
   int* sph_mat = reinterpret_cast<int*>(sph + kSph * n_sph);
   int* s_hist = sph_mat + n_sph;
 
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   const int n_threads = blockDim.x * blockDim.y;
-  if constexpr (kTris) {
+  if constexpr (kGeom == kChunks) {
     for (int i = tid; i < kChunk * n_chunks; i += n_threads) chunks[i] = chunks_in[i];
   }
   for (int i = tid; i < kParams; i += n_threads) p[i] = params_in[i];
@@ -500,7 +648,8 @@ render_kernel(const float* __restrict__ sph_in,
   for (int i = tid; i <= max_bounce; i += n_threads) s_hist[i] = 0;
   __syncthreads();
   const Triangles tri = {tri_rows, tri_normals, tri_mat, chunks,
-                         kTris ? n_chunks : 0};
+                         kGeom == kChunks ? n_chunks : 0,
+                         bvh_nodes, bvh_leaves, n_nodes};
 
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const int y = blockIdx.y * blockDim.y + threadIdx.y;
@@ -540,7 +689,7 @@ render_kernel(const float* __restrict__ sph_in,
         random_point_in_circle(state, p[16], jx, jy);
         const Vec3 target = add(add(fp, scale(right, jx)), scale(up, jy));
         const Vec3 dir = normalize(sub(target, origin));
-        total = add(total, trace_path<kTris, kScatter>(
+        total = add(total, trace_path<kGeom, kScatter>(
                                p, sph, sph_mat, n_sph, tri, mats, max_bounce,
                                state, origin, dir, segs,
                                hist != nullptr ? s_hist : nullptr));
@@ -586,22 +735,24 @@ struct Staged {
 
 // Every thread of the block takes part: stages the tables, zeroes the
 // histogram and waits for the block.
-template <bool kTris>
+template <Geometry kGeom>
 __device__ __forceinline__ Staged stage_scene(
     float4* smem4, const float* __restrict__ sph_in,
     const int* __restrict__ sph_mat_in, int n_sph,
     const float4* __restrict__ tri_rows, const float* __restrict__ tri_normals,
     const int* __restrict__ tri_mat, const float* __restrict__ chunks_in,
-    int n_chunks, const float* __restrict__ params_in, int max_bounce) {
+    int n_chunks, const float* __restrict__ params_in, int max_bounce,
+    const float4* __restrict__ bvh_nodes, const int4* __restrict__ bvh_leaves,
+    int n_nodes) {
   float* chunks = reinterpret_cast<float*>(smem4);
-  float* p = chunks + (kTris ? kChunk * n_chunks : 0);
+  float* p = chunks + (kGeom == kChunks ? kChunk * n_chunks : 0);
   float* sph = p + kParams;
   int* sph_mat = reinterpret_cast<int*>(sph + kSph * n_sph);
   int* s_hist = sph_mat + n_sph;
 
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   const int n_threads = blockDim.x * blockDim.y;
-  if constexpr (kTris) {
+  if constexpr (kGeom == kChunks) {
     for (int i = tid; i < kChunk * n_chunks; i += n_threads) chunks[i] = chunks_in[i];
   }
   for (int i = tid; i < kParams; i += n_threads) p[i] = params_in[i];
@@ -610,7 +761,8 @@ __device__ __forceinline__ Staged stage_scene(
   for (int i = tid; i <= max_bounce; i += n_threads) s_hist[i] = 0;
   __syncthreads();
   return {p, sph, sph_mat, s_hist,
-          {tri_rows, tri_normals, tri_mat, chunks, kTris ? n_chunks : 0}};
+          {tri_rows, tri_normals, tri_mat, chunks,
+           kGeom == kChunks ? n_chunks : 0, bvh_nodes, bvh_leaves, n_nodes}};
 }
 
 // Adds the block's histogram to the launch's; every thread takes part.
@@ -681,7 +833,7 @@ __device__ __forceinline__ Vec3 div(Vec3 v, float n) {
 // warp-synchronous through two votes a slot. Per-lane state lives in
 // registers: the RNG state, the ray, throughput, incoming and banked light,
 // the running average, the completed-sample count, frame and bounce index.
-template <bool kTris, Scatter kScatter>
+template <Geometry kGeom, Scatter kScatter>
 __global__ void __launch_bounds__(kBlockX * kBlockY)
 render_adaptive(const float* __restrict__ sph_in,
                 const int* __restrict__ sph_mat_in, int n_sph,
@@ -694,12 +846,14 @@ render_adaptive(const float* __restrict__ sph_in,
                 int spp, int max_bounce, uint32_t frame0, int n_frames,
                 const float* __restrict__ accum_in, int clamp_accum,
                 float* __restrict__ out, int* __restrict__ segs_out,
-                int* __restrict__ hist) {
+                int* __restrict__ hist, const float4* __restrict__ bvh_nodes,
+                const int4* __restrict__ bvh_leaves, int n_nodes) {
   extern __shared__ float4 smem4[];
-  const Staged sc = stage_scene<kTris>(smem4, sph_in, sph_mat_in, n_sph,
+  const Staged sc = stage_scene<kGeom>(smem4, sph_in, sph_mat_in, n_sph,
                                        tri_rows, tri_normals, tri_mat,
                                        chunks_in, n_chunks, params_in,
-                                       max_bounce);
+                                       max_bounce, bvh_nodes, bvh_leaves,
+                                       n_nodes);
   int* s_hist = hist != nullptr ? sc.s_hist : nullptr;
 
   // Lanes outside the image stay in the loop, owing nothing.
@@ -754,7 +908,7 @@ render_adaptive(const float* __restrict__ sph_in,
     if (live) {
       ++segs;
       if (s_hist != nullptr) atomicAdd(&s_hist[bounce], 1);
-      const bool goes_on = trace_segment<kTris, kScatter>(
+      const bool goes_on = trace_segment<kGeom, kScatter>(
           sc.p, sc.sph, sc.sph_mat, n_sph, sc.tri, mats, bounce == 0, state,
           o, d, colour, incoming);
       if (!goes_on || bounce >= max_bounce) {
@@ -795,20 +949,27 @@ struct LaunchArgs {
   const void* accum_in;
   int clamp_accum;
   void *out, *segs, *hist;
+  const void *bvh_nodes, *bvh_leaves;
+  int n_nodes;
 };
 
 using KernelFn = void (*)(const float*, const int*, int, const float4*,
                           const float*, const int*, const float*, int,
                           const float*, const float*, int, int, int, int,
                           uint32_t, int, const float*, int, float*, int*,
-                          int*);
+                          int*, const float4*, const int4*, int);
 
-template <bool kTris, Scatter kScatter>
+// The chunk table is staged by kChunks only.
+size_t shared_bytes(Geometry geom, int n_sph, int n_chunks, int max_bounce) {
+  return sizeof(float) *
+         shared_floats(n_sph, geom == kChunks ? n_chunks : 0, max_bounce);
+}
+
+template <Geometry kGeom, Scatter kScatter>
 cudaError_t launch(const LaunchArgs& a, bool adaptive, cudaStream_t stream) {
-  const KernelFn kernel = adaptive ? render_adaptive<kTris, kScatter>
-                                   : render_kernel<kTris, kScatter>;
-  const size_t smem =
-      sizeof(float) * shared_floats(a.n_sph, a.n_chunks, a.max_bounce);
+  const KernelFn kernel = adaptive ? render_adaptive<kGeom, kScatter>
+                                   : render_kernel<kGeom, kScatter>;
+  const size_t smem = shared_bytes(kGeom, a.n_sph, a.n_chunks, a.max_bounce);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -828,46 +989,58 @@ cudaError_t launch(const LaunchArgs& a, bool adaptive, cudaStream_t stream) {
       a.max_bounce, a.frame0, a.n_frames,
       static_cast<const float*>(a.accum_in), a.clamp_accum,
       static_cast<float*>(a.out), static_cast<int*>(a.segs),
-      static_cast<int*>(a.hist));
+      static_cast<int*>(a.hist), static_cast<const float4*>(a.bvh_nodes),
+      static_cast<const int4*>(a.bvh_leaves), a.n_nodes);
   return cudaGetLastError();
+}
+
+template <Geometry kGeom>
+cudaError_t launch_geometry(const LaunchArgs& a, bool adaptive,
+                            bool fast_scatter, cudaStream_t stream) {
+  return fast_scatter ? launch<kGeom, kFastScatter>(a, adaptive, stream)
+                      : launch<kGeom, kBoxMuller>(a, adaptive, stream);
 }
 
 }  // namespace
 
-// n_chunks is 0 for a sphere scene.
-extern "C" size_t rtx_shared_bytes(int n_sph, int n_chunks, int max_bounce) {
-  return sizeof(float) * shared_floats(n_sph, n_chunks, max_bounce);
+// A launch's dynamic shared memory; `geometry` is a Geometry value.
+extern "C" size_t rtx_shared_bytes(int geometry, int n_sph, int n_chunks,
+                                   int max_bounce) {
+  return shared_bytes(static_cast<Geometry>(geometry), n_sph, n_chunks,
+                      max_bounce);
 }
 
-// A scene with triangles (n_chunks > 0) launches a kTris = true
-// instantiation, with tri_rows 16-byte aligned; a sphere scene passes null
-// triangle pointers and n_chunks = 0. `adaptive` picks render_adaptive over
-// render_kernel, `fast_scatter` the kFastScatter sampler.
+// `geometry` picks the instantiation (0 kSpheres, 1 kChunks, 2 kBvh).
+// kChunks and kBvh need the triangle tables (tri_rows 16-byte aligned),
+// kChunks the chunk table, kBvh the node table (16-byte aligned) and the
+// leaf rows; the pointers a geometry does not read may be null. `adaptive`
+// picks render_adaptive over render_kernel, `fast_scatter` the
+// kFastScatter sampler. Returns cudaGetLastError() after the launch.
 extern "C" int rtx_render(
-    const void* sph, const void* sph_mat, int n_sph, const void* tri_rows,
-    const void* tri_normals, const void* tri_mat, const void* chunks,
-    int n_chunks, const void* mats, const void* params, int width, int height,
-    int spp, int max_bounce, unsigned int frame0, int n_frames,
-    const void* accum_in, int clamp_accum, int adaptive, int fast_scatter,
-    void* out, void* segs, void* hist, void* stream) {
+    int geometry, const void* sph, const void* sph_mat, int n_sph,
+    const void* tri_rows, const void* tri_normals, const void* tri_mat,
+    const void* chunks, int n_chunks, const void* bvh_nodes,
+    const void* bvh_leaves, int n_nodes, const void* mats, const void* params,
+    int width, int height, int spp, int max_bounce, unsigned int frame0,
+    int n_frames, const void* accum_in, int clamp_accum, int adaptive,
+    int fast_scatter, void* out, void* segs, void* hist, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool tris = n_chunks > 0;
   const LaunchArgs a = {
-      sph, sph_mat, n_sph,
-      tris ? tri_rows : nullptr, tris ? tri_normals : nullptr,
-      tris ? tri_mat : nullptr, tris ? chunks : nullptr, tris ? n_chunks : 0,
-      mats, params, width, height, spp, max_bounce, frame0, n_frames,
-      accum_in, clamp_accum, out, segs, hist};
-  const bool ad = adaptive != 0;
-  cudaError_t err;
-  if (tris) {
-    err = fast_scatter ? launch<true, kFastScatter>(a, ad, s)
-                       : launch<true, kBoxMuller>(a, ad, s);
-  } else {
-    err = fast_scatter ? launch<false, kFastScatter>(a, ad, s)
-                       : launch<false, kBoxMuller>(a, ad, s);
+      sph, sph_mat, n_sph, tri_rows, tri_normals, tri_mat, chunks,
+      geometry == kChunks ? n_chunks : 0, mats, params, width, height, spp,
+      max_bounce, frame0, n_frames, accum_in, clamp_accum, out, segs, hist,
+      bvh_nodes, bvh_leaves, geometry == kBvh ? n_nodes : 0};
+  const bool ad = adaptive != 0, fast = fast_scatter != 0;
+  switch (geometry) {
+    case kSpheres:
+      return static_cast<int>(launch_geometry<kSpheres>(a, ad, fast, s));
+    case kChunks:
+      return static_cast<int>(launch_geometry<kChunks>(a, ad, fast, s));
+    case kBvh:
+      return static_cast<int>(launch_geometry<kBvh>(a, ad, fast, s));
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(err);
 }
 
 extern "C" const char* rtx_error_string(int code) {

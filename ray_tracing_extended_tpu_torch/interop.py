@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from .models.geometry import (
+    BVH,
     Environment,
     Materials,
     MeshChunks,
@@ -36,9 +37,14 @@ def _copy(cls, src):
     )
 
 
+def _copy_bvh(bvh):
+    return None if bvh is None else _copy(BVH, bvh)
+
+
 def scene_from_arrays(scene, device=DEFAULT_DEVICE) -> Scene:
-    """A port ``Scene`` on ``device`` from a JAX-package ``Scene``. Its BVHs
-    and packed TPU tables are left behind: the port does not use them."""
+    """A port ``Scene`` on ``device`` from a JAX-package ``Scene``, with its
+    BVHs. Its packed TPU tables are left behind: the port does not use
+    them."""
     dev = resolve_device(device)
     return Scene(
         spheres=_copy(Spheres, scene.spheres),
@@ -46,6 +52,8 @@ def scene_from_arrays(scene, device=DEFAULT_DEVICE) -> Scene:
         chunks=_copy(MeshChunks, scene.chunks),
         materials=_copy(Materials, scene.materials),
         env=_copy(Environment, scene.env),
+        tri_bvh=_copy_bvh(scene.tri_bvh),
+        sphere_bvh=_copy_bvh(scene.sphere_bvh),
     ).to(dev)
 
 

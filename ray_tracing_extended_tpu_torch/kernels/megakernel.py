@@ -5,20 +5,22 @@ Port of ``ray_tracing_extended_tpu/kernels/megakernel.py``: its Pallas
 kernel ``_render_kernel`` traces a tile of pixels start to finish; here
 ``csrc/megakernel.cu`` traces one pixel per CUDA thread (see the source's
 header for what it computes, what bounds it and what it does about that).
-The source has two kernels, each instantiated for sphere scenes and for
-scenes with triangle chunks, and with the reference's Box-Muller scatter
-or the 2-draw fast one (``cfg.fast_scatter``): ``render_kernel`` traces
-exactly ``spp`` samples a pixel, ``render_adaptive`` runs the adaptive
-sample refill (``cfg.adaptive_spp``), a slot loop in which a warp's lanes
-that have met their quota trace extra samples while any lane of the warp
-is still short of it. ``variant`` names the eight instantiations.
+The source has two kernels, each instantiated for three scene geometries
+(``geometry``): spheres only, triangles by chunk scan, and triangles
+through the scene's triangle BVH (the TPU kernel's big-mesh mode); and
+with the reference's Box-Muller scatter or the 2-draw fast one
+(``cfg.fast_scatter``): ``render_kernel`` traces exactly ``spp`` samples a
+pixel, ``render_adaptive`` runs the adaptive sample refill
+(``cfg.adaptive_spp``), a slot loop in which a warp's lanes that have met
+their quota trace extra samples while any lane of the warp is still short
+of it. ``variant`` names the twelve instantiations.
 
 ``render_frames_mega`` is the wrapper the renderer calls. Given a scene on
 the CPU it runs ``render_frames_plain``, the same function built from the
-plain modules in ``ops/`` (the JAX package's XLA path, op for op, and for
-refill the TPU kernel's slot machine, vectorised over lanes). Given a
-scene on a CUDA device it launches the kernel, or raises for what the
-kernel does not do; it never falls back.
+plain modules in ``ops/`` and ``accel/bvh.py`` (the JAX package's XLA
+path, op for op, and for refill the TPU kernel's slot machine, vectorised
+over lanes). Given a scene on a CUDA device it launches the kernel, or
+raises for what the kernel does not do; it never falls back.
 
 Refill makes the image depend on how pixels are grouped: the plain
 version takes the grouping as a (G, P) array of pixel indices, -1 for
@@ -26,7 +28,8 @@ padding. ``warp_groups`` is the kernel's (a warp of its 16x8 block, 16x2
 pixels); ``tile_groups`` the TPU kernel's TS x TS tiles.
 
 The kernel is compiled with ``nvcc`` from the package's own source at
-first use, into ``build/`` beside this package, and loaded with ctypes.
+first use, into ``build/`` beside this package, and loaded with ctypes
+(``kernels/build.py``).
 """
 
 from __future__ import annotations
@@ -34,16 +37,12 @@ from __future__ import annotations
 import collections
 import ctypes
 import dataclasses
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
+import functools
 
 import numpy as np
 import torch
 
+from ..accel.bvh import LEAF_WIDTH, STACK_DEPTH, closest_hit_bvh
 from ..models.geometry import Scene
 from ..ops import rng as rng_ops
 from ..ops import vecmath as vm
@@ -51,19 +50,7 @@ from ..ops.accumulate import accumulate
 from ..ops.camera import Camera, camera_params, focus_points, generate_rays
 from ..ops.trace import trace, trace_segment
 from ..utils.config import RenderConfig
-
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "megakernel.cu"
-BUILD_DIR = _PKG / "build"
-
-# Flags of the one build. No --use_fast_math: it would swap logf, cosf,
-# sinf, powf and sqrtf for approximations the plain version does not use.
-# -fmad=false keeps every multiply and add separately rounded, as in the
-# plain version.
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+from .build import BuildInfo, CudaLibrary
 
 # Dynamic shared memory one block may use on Hopper (227 KB).
 MAX_SHARED_BYTES = 232448
@@ -78,12 +65,16 @@ MAX_PAIR_ELEMENTS = 1 << 25
 BLOCK_X = 16
 WARP = 32
 
+# How the kernel finds a scene's triangles, in the order of the source's
+# Geometry values (kSpheres, kChunks, kBvh).
+GEOMETRIES = ("spheres", "chunks", "bvh")
 
-def variant(triangles: bool, adaptive: bool = False,
+
+def variant(geometry: str, adaptive: bool = False,
             fast_scatter: bool = False) -> str:
     """The name of one instantiation of the source's kernels."""
     name = "render_adaptive" if adaptive else "render_kernel"
-    args = "true" if triangles else "false"
+    args = f"k{geometry.capitalize()}"
     if fast_scatter:
         args += ", kFastScatter"
     return f"{name}<{args}>"
@@ -91,11 +82,38 @@ def variant(triangles: bool, adaptive: bool = False,
 
 # Every instantiation the source compiles.
 VARIANTS = tuple(
-    variant(t, a, f) for a in (False, True) for f in (False, True)
-    for t in (False, True)
+    variant(g, a, f) for a in (False, True) for f in (False, True)
+    for g in GEOMETRIES
 )
-VARIANT_SPHERES = variant(False)
-VARIANT_TRIANGLES = variant(True)
+VARIANT_SPHERES = variant("spheres")
+VARIANT_TRIANGLES = variant("chunks")
+VARIANT_BVH = variant("bvh")
+
+
+def geometry(scene: Scene, cfg: RenderConfig) -> str:
+    """The geometry the kernel takes for ``scene`` under
+    ``cfg.intersector``: ``"bvh"`` for a scene with a triangle BVH unless
+    the intersector is ``"bruteforce"``, else ``"chunks"`` for a scene with
+    triangles and ``"spheres"``. Spheres are always scanned: a sphere BVH
+    is traversed by the plain path only. Reads nothing from the device."""
+    if scene.has_tri_bvh and cfg.intersector != "bruteforce":
+        return "bvh"
+    return "chunks" if scene.has_triangles else "spheres"
+
+
+def plain_intersector(scene: Scene, cfg: RenderConfig):
+    """The plain path's closest-hit function for ``cfg.intersector``, the
+    JAX package's ``_resolve_intersector`` (render.py:33-50): ``"auto"``
+    and ``"bvh"`` traverse the BVHs the scene has and scan the primitive
+    type without one; ``"bruteforce"`` scans and ignores them; ``"mega"``
+    is the kernel's own choice, the triangle BVH where there is one. None
+    means the brute-force scan."""
+    if cfg.intersector in ("auto", "bvh"):
+        if scene.has_tri_bvh or scene.sphere_bvh is not None:
+            return closest_hit_bvh
+    elif cfg.intersector == "mega" and scene.has_tri_bvh:
+        return functools.partial(closest_hit_bvh, sphere_bvh=False)
+    return None
 
 
 # ------------------------------ plain version -------------------------------
@@ -109,8 +127,11 @@ def plain_block_size(cfg: RenderConfig, scene: Scene, n: int) -> int:
     """Pixels per block of the plain path for ``n`` pixels: ``cfg.block_size``
     (as in the JAX package's XLA path), cut to a multiple of 256 that keeps
     each (pixels x (spheres + triangles)) temporary within
-    ``MAX_PAIR_ELEMENTS``."""
-    prims = scene.spheres.count + scene.triangles.count
+    ``MAX_PAIR_ELEMENTS`` (where a BVH carries the triangles, their
+    column is the traversal stack's width)."""
+    tri = (STACK_DEPTH if geometry(scene, cfg) == "bvh"
+           else scene.triangles.count)
+    prims = scene.spheres.count + tri
     cap = max(256, MAX_PAIR_ELEMENTS // prims // 256 * 256)
     return min(cfg.block_size, cap, _round_up(n, 256))
 
@@ -223,10 +244,13 @@ def render_frames_plain(
     with the same pixels and random streams; ``accum``, the image and the
     per-pixel map then hold ``y1 - y0`` rows. With refill the band must be
     made of whole groups. This makes a full-width check of the kernel
-    affordable at large sizes. ``intersect_fn`` replaces the brute-force
-    closest-hit scan (``ops/trace.trace_segment``).
+    affordable at large sizes. ``intersect_fn`` is the closest-hit
+    function (``ops/trace.trace_segment``); by default the one
+    ``plain_intersector`` picks for ``cfg.intersector``.
     """
     _check_frames(n_frames, accum)
+    if intersect_fn is None:
+        intersect_fn = plain_intersector(scene, cfg)
     y0, y1 = (0, cfg.height) if rows is None else rows
     if not 0 <= y0 < y1 <= cfg.height:
         raise ValueError(f"rows {rows} outside 0..{cfg.height}")
@@ -426,27 +450,15 @@ def _check_frames(n_frames: int, accum) -> None:
 # --------------------------------- kernel -----------------------------------
 
 
-def find_nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    candidate = os.path.join(cuda_home, "bin", "nvcc")
-    if os.path.exists(candidate):
-        return candidate
-    raise RuntimeError(
-        "nvcc not found (PATH, $CUDA_HOME/bin): the CUDA kernel is built "
-        "from csrc/megakernel.cu at first use and needs the CUDA toolkit"
-    )
-
-
-@dataclasses.dataclass
-class BuildInfo:
-    library: Path
-    seconds: float  # 0.0 when an up-to-date library was already there
-    # nvcc's output, including ptxas's register report; kept beside the
-    # library, so a later load reports the same
-    log: str
+def _bind(lib) -> None:
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.rtx_render.argtypes = [
+        ci, vp, vp, ci, vp, vp, vp, vp, ci, vp, vp, ci, vp, vp, ci, ci, ci,
+        ci, ctypes.c_uint, ci, vp, ci, ci, ci, vp, vp, vp, vp,
+    ]
+    lib.rtx_render.restype = ci
+    lib.rtx_shared_bytes.argtypes = [ci, ci, ci, ci]
+    lib.rtx_shared_bytes.restype = ctypes.c_size_t
 
 
 class PathTraceKernel:
@@ -457,8 +469,11 @@ class PathTraceKernel:
 
     def __init__(self):
         self.variant_launches: collections.Counter = collections.Counter()
-        self.build_info: BuildInfo | None = None
-        self._lib = None
+        self.library = CudaLibrary("megakernel.cu", "megakernel", _bind)
+
+    @property
+    def build_info(self) -> BuildInfo | None:
+        return self.library.build_info
 
     @property
     def launches(self) -> int:
@@ -471,45 +486,7 @@ class PathTraceKernel:
     def build(self) -> BuildInfo:
         """Compile the source (if its library is not built yet) and load
         it. Raises if nvcc is missing or fails."""
-        if self._lib is not None:
-            return self.build_info
-        digest = hashlib.sha256(
-            SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()
-        ).hexdigest()[:16]
-        lib_path = BUILD_DIR / f"libmegakernel_{digest}.so"
-        log_path = lib_path.with_suffix(".log")
-        seconds, log = 0.0, ""
-        if lib_path.exists():
-            if log_path.exists():
-                log = log_path.read_text()
-        else:
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-            t0 = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            seconds = time.perf_counter() - t0
-            log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}"
-                )
-            log_path.write_text(log)
-            os.replace(tmp, lib_path)
-        lib = ctypes.CDLL(str(lib_path))
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.rtx_render.argtypes = [
-            vp, vp, ci, vp, vp, vp, vp, ci, vp, vp, ci, ci, ci, ci,
-            ctypes.c_uint, ci, vp, ci, ci, ci, vp, vp, vp, vp,
-        ]
-        lib.rtx_render.restype = ci
-        lib.rtx_shared_bytes.argtypes = [ci, ci, ci]
-        lib.rtx_shared_bytes.restype = ctypes.c_size_t
-        lib.rtx_error_string.argtypes = [ci]
-        lib.rtx_error_string.restype = ctypes.c_char_p
-        self._lib = lib
-        self.build_info = BuildInfo(lib_path, seconds, log)
-        return self.build_info
+        return self.library.build()
 
     def launch(
         self,
@@ -521,11 +498,12 @@ class PathTraceKernel:
         accum: torch.Tensor | None,
         collect_stats: bool,
     ):
-        """One launch over the whole image, of the instantiation that the
-        scene and ``cfg.adaptive_spp`` / ``cfg.fast_scatter`` pick; returns
-        the same tuple as ``render_frames_plain`` with its default warp
-        grouping (the total and the histogram count real pixels only).
-        Reads nothing back from the device and does not synchronise."""
+        """One launch over the whole image, of the instantiation that
+        ``geometry(scene, cfg)`` and ``cfg.adaptive_spp`` /
+        ``cfg.fast_scatter`` pick; returns the same tuple as
+        ``render_frames_plain`` with its default warp grouping (the total
+        and the histogram count real pixels only). Reads nothing back from
+        the device and does not synchronise."""
         _check_frames(n_frames, accum)
         dev = scene.device
         if dev.type != "cuda":
@@ -545,17 +523,20 @@ class PathTraceKernel:
             raise ValueError(
                 f"camera on {camera.position.device}, scene on {dev}"
             )
-        self.build()
+        lib = self.library.lib
+        geom = geometry(scene, cfg)
         tab = scene_tables(scene, camera, cfg)
         n_sph = scene.spheres.count
         n_chunks = 0 if tab.chunks is None else tab.chunks.shape[0]
-        shared = self._lib.rtx_shared_bytes(n_sph, n_chunks, cfg.max_bounce)
+        n_nodes = 0 if tab.bvh_nodes is None else tab.bvh_nodes.shape[0]
+        code = GEOMETRIES.index(geom)
+        shared = lib.rtx_shared_bytes(code, n_sph, n_chunks, cfg.max_bounce)
         if shared > MAX_SHARED_BYTES:
             raise NotImplementedError(
                 f"{n_sph} spheres and {n_chunks} triangle chunks need "
                 f"{shared} bytes of shared memory, over {MAX_SHARED_BYTES}; "
-                "larger scenes wait for the BVH kernel (ROADMAP.md Queue B "
-                "item 4)"
+                "build the scene with build_bvh=\"tri\" to render its "
+                "triangles through the BVH instantiation"
             )
 
         out = torch.empty((h, w, 3), dtype=torch.float32, device=dev)
@@ -569,23 +550,20 @@ class PathTraceKernel:
             return None if t is None else t.data_ptr()
 
         with torch.cuda.device(dev):
-            rc = self._lib.rtx_render(
-                ptr(tab.spheres), ptr(tab.sphere_mat), n_sph,
+            rc = lib.rtx_render(
+                code, ptr(tab.spheres), ptr(tab.sphere_mat), n_sph,
                 ptr(tab.tri_rows), ptr(tab.tri_normals), ptr(tab.tri_mat),
-                ptr(tab.chunks), n_chunks, ptr(tab.materials),
+                ptr(tab.chunks), n_chunks, ptr(tab.bvh_nodes),
+                ptr(tab.bvh_leaves), n_nodes, ptr(tab.materials),
                 ptr(tab.params), w, h, cfg.spp, cfg.max_bounce,
                 int(frame0) & 0xFFFFFFFF, n_frames, ptr(accum),
                 int(cfg.clamp_accumulate), int(cfg.adaptive_spp),
                 int(cfg.fast_scatter), ptr(out), ptr(segs), ptr(hist),
                 torch.cuda.current_stream(dev).cuda_stream,
             )
-        if rc != 0:
-            raise RuntimeError(
-                "megakernel launch failed: "
-                + self._lib.rtx_error_string(rc).decode()
-            )
+        self.library.check(rc, "megakernel")
         self.variant_launches[variant(
-            tab.chunks is not None, cfg.adaptive_spp, cfg.fast_scatter
+            geom, cfg.adaptive_spp, cfg.fast_scatter
         )] += 1
         return out, segs.sum(dtype=torch.int64), segs, hist
 
@@ -593,8 +571,9 @@ class PathTraceKernel:
 @dataclasses.dataclass
 class KernelTables:
     """The kernel's inputs on the scene's device (layouts in
-    ``csrc/megakernel.cu``). The triangle fields are None for a scene
-    without triangles, which launches the sphere variant."""
+    ``csrc/megakernel.cu``). The triangle fields are None for the sphere
+    geometry, the chunk table for the BVH geometry, and the BVH tables for
+    the other two."""
 
     spheres: torch.Tensor  # (S, 5) f32: cx, cy, cz, r^2, r
     sphere_mat: torch.Tensor  # (S,) int32
@@ -604,12 +583,19 @@ class KernelTables:
     tri_normals: torch.Tensor | None = None  # (T, 9) f32: at a, b, c
     tri_mat: torch.Tensor | None = None  # (T,) int32
     chunks: torch.Tensor | None = None  # (C, 8) f32: min, max, first, count
+    # (N, 8) f32: min, a, max, b with a = left child or ~leaf row, b =
+    # right child (int32 bits)
+    bvh_nodes: torch.Tensor | None = None
+    bvh_leaves: torch.Tensor | None = None  # (L, 4) int32
 
 
 def scene_tables(scene: Scene, camera: Camera, cfg: RenderConfig) -> KernelTables:
-    """The scene, camera and config flattened into the kernel's tables.
-    The chunk table holds each chunk's first triangle and triangle count as
-    int32 bits in its f32 columns 6 and 7."""
+    """The scene, camera and config flattened into the kernel's tables,
+    for ``geometry(scene, cfg)``. The chunk table holds each chunk's first
+    triangle and triangle count as int32 bits in its f32 columns 6 and 7;
+    a BVH node row its child links or leaf row in columns 3 and 7 (an
+    internal node has left and right children >= 0, a leaf has
+    ``leaf_row >= 0``: ``accel/bvh.py build_lbvh``)."""
     dev = scene.device
     sph, mat, env = scene.spheres, scene.materials, scene.env
     r = sph.radius[:, None]
@@ -638,24 +624,41 @@ def scene_tables(scene: Scene, camera: Camera, cfg: RenderConfig) -> KernelTable
             ]
         ).to(torch.float32),
     )
-    if scene.has_triangles:
-        tri, ch = scene.triangles, scene.chunks
+    geom = geometry(scene, cfg)
+    if geom == "spheres":
+        return tab
 
-        def int_bits(x):
-            return x.to(torch.int32)[:, None].view(torch.float32)
+    def int_bits(x):
+        return x.to(torch.int32)[:, None].view(torch.float32)
 
-        tab.tri_rows = torch.cat(
-            [tri.pos_a, tri.edge_ab, tri.edge_ac, tri.n], dim=1
-        ).contiguous()
-        tab.tri_normals = torch.cat(
-            [tri.normal_a, tri.normal_b, tri.normal_c], dim=1
-        ).contiguous()
-        tab.tri_mat = tri.mat_idx.to(torch.int32).contiguous()
+    tri = scene.triangles
+    tab.tri_rows = torch.cat(
+        [tri.pos_a, tri.edge_ab, tri.edge_ac, tri.n], dim=1
+    ).contiguous()
+    tab.tri_normals = torch.cat(
+        [tri.normal_a, tri.normal_b, tri.normal_c], dim=1
+    ).contiguous()
+    tab.tri_mat = tri.mat_idx.to(torch.int32).contiguous()
+    if geom == "chunks":
+        ch = scene.chunks
         tab.chunks = torch.cat(
             [ch.bounds_min, ch.bounds_max, int_bits(ch.first_tri),
              int_bits(ch.num_tris)],
             dim=1,
         ).contiguous()
+        return tab
+    bvh = scene.tri_bvh
+    if bvh.leaf_prims.shape[1] != LEAF_WIDTH:
+        raise ValueError(
+            f"the kernel's BVH leaves hold {LEAF_WIDTH} triangles, this "
+            f"scene's {bvh.leaf_prims.shape[1]}"
+        )
+    a = torch.where(bvh.leaf_row >= 0, -1 - bvh.leaf_row, bvh.left)
+    tab.bvh_nodes = torch.cat(
+        [bvh.bounds_min, int_bits(a), bvh.bounds_max, int_bits(bvh.right)],
+        dim=1,
+    ).contiguous()
+    tab.bvh_leaves = bvh.leaf_prims.to(torch.int32).contiguous()
     return tab
 
 
@@ -677,8 +680,8 @@ def render_frames_mega(
 
     A scene on the CPU takes the plain version; a scene on a CUDA device
     takes the kernel (one launch for all frames): ``render_adaptive`` with
-    ``cfg.adaptive_spp``, else ``render_kernel``, each in its triangle
-    instantiation when the scene has triangles and its fast one with
+    ``cfg.adaptive_spp``, else ``render_kernel``, each in the instantiation
+    of ``geometry(scene, cfg)`` and in its fast one with
     ``cfg.fast_scatter``."""
     dev = scene.device
     if dev.type == "cpu":

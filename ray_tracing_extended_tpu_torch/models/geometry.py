@@ -126,6 +126,22 @@ class MeshChunks(_Tensors):
 
 
 @dataclasses.dataclass(frozen=True)
+class BVH(_Tensors):
+    """Flat LBVH over primitives (``accel/bvh.py``), the JAX package's
+    ``BVH``: built on the host, traversed with a fixed-size stack a ray.
+    Every leaf owns exactly ``leaf_width`` slots of ``leaf_prims``; unused
+    slots hold a sentinel index, the scene's first padding (never-hit)
+    primitive. The root is node 0."""
+
+    bounds_min: torch.Tensor  # (N, 3) f32 node AABB
+    bounds_max: torch.Tensor  # (N, 3) f32
+    left: torch.Tensor  # (N,) int32 child index (-1 for leaves)
+    right: torch.Tensor  # (N,) int32
+    leaf_row: torch.Tensor  # (N,) int32 row into leaf_prims, -1 internal
+    leaf_prims: torch.Tensor  # (L, leaf_width) int32 primitive indices
+
+
+@dataclasses.dataclass(frozen=True)
 class Environment(_Tensors):
     """Sky/ground/sun settings (EnvironmentSettings.cs:3-12).
     ``sun_dir`` is the unit vector toward the sun."""
@@ -167,6 +183,9 @@ class Scene(_Tensors):
     # made and carried through ``.to(device)``, so no render call has to
     # read it back from the device.
     has_triangles: bool | None = None
+    # Optional acceleration structures (None: brute force / chunk scan).
+    tri_bvh: BVH | None = None
+    sphere_bvh: BVH | None = None
 
     def __post_init__(self):
         if self.has_triangles is None:
@@ -174,3 +193,9 @@ class Scene(_Tensors):
                 self, "has_triangles",
                 bool(torch.any(self.triangles.n != 0.0)),
             )
+
+    @property
+    def has_tri_bvh(self) -> bool:
+        """Whether the triangles carry a BVH: a host fact, so the kernel's
+        instantiation is picked without reading the device."""
+        return self.tri_bvh is not None

@@ -1,5 +1,5 @@
-"""Scene presets: the sphere and Cornell configs of BASELINE.json, and the
-fly-through camera path.
+"""Scene presets: the sphere, Cornell and big-mesh configs of
+BASELINE.json, and the fly-through camera path.
 
 Mirrors ``ray_tracing_extended_tpu/models/presets.py`` call for call, with
 the same fixed-seed ``np.random.RandomState``, so both packages build
@@ -13,6 +13,8 @@ import numpy as np
 import torch
 
 from ..ops.camera import look_at
+from ..scene.mesh_io import load_obj
+from ..scene.procedural import trefoil_knot_mesh
 from ..utils.config import RenderConfig
 from ..utils.device import DEFAULT_DEVICE
 from .geometry import Environment
@@ -59,10 +61,11 @@ def three_sphere_scene(width=320, height=180, max_bounce=4, spp=16,
 
 def rtiow_final_scene(
     width=1920, height=1080, max_bounce=4, spp=1, seed=20260816,
-    device=DEFAULT_DEVICE,
+    build_bvh: str | None = None, device=DEFAULT_DEVICE,
 ):
     """The RTIOW cover scene: ~480 random small spheres, 3 hero spheres and
-    a ground sphere, HDR accumulation."""
+    a ground sphere, HDR accumulation. ``build_bvh`` as in
+    ``SceneBuilder.build``."""
     rs = np.random.RandomState(seed)
     b = SceneBuilder(env=_gradient_sky())
     b.add_sphere((0.0, -1000.0, 0.0), 1000.0, Material.lambertian((0.5, 0.5, 0.5)))
@@ -100,7 +103,7 @@ def rtiow_final_scene(
         width=width, height=height, max_bounce=max_bounce, spp=spp,
         clamp_accumulate=False,
     )
-    return b.build(device=device), cam, cfg
+    return b.build(build_bvh=build_bvh, device=device), cam, cfg
 
 
 def _quad(b: SceneBuilder, p0, p1, p2, p3, mat: Material, normal=None):
@@ -161,13 +164,49 @@ def cornell_box_scene(width=512, height=512, max_bounce=8, spp=4,
     return b.build(device=device), cam, cfg
 
 
-def mesh_scene(*args, **kwargs):
-    """BASELINE config 4, a ~70k-triangle mesh rendered through a BVH. The
-    port has no BVH yet, so this raises."""
-    raise NotImplementedError(
-        "mesh_scene needs build_bvh and the BVH traversal kernel "
-        "(ROADMAP.md Queue B item 4)"
+def mesh_scene(
+    width=1280,
+    height=720,
+    max_bounce=4,
+    spp=1,
+    obj_path: str | None = None,
+    target_tris: int = 70000,
+    device=DEFAULT_DEVICE,
+):
+    """BASELINE config 4: a large triangle mesh (~70k triangles) in one
+    chunk, with a triangle BVH; on the card it takes the kernel's BVH
+    instantiation. Loads an OBJ if given; otherwise a deterministic
+    procedural trefoil knot of ``target_tris`` triangles (the repo ships
+    no mesh assets)."""
+    b = SceneBuilder(env=_gradient_sky())
+    b.add_sphere((0.0, -1000.0, 0.0), 1000.0, Material.lambertian((0.6, 0.6, 0.6)))
+    if obj_path is not None:
+        v, f, n = load_obj(obj_path)
+    else:
+        v, f = trefoil_knot_mesh(target_tris=target_tris)
+        n = None
+    # centre and scale the mesh to about unit size above the ground
+    v = np.asarray(v, np.float32)
+    lo, hi = v.min(axis=0), v.max(axis=0)
+    v = (v - (lo + hi) / 2.0) / max(hi - lo) * 2.0
+    v[:, 1] -= v[:, 1].min()
+    b.add_mesh(v, f, Material.metal((0.8, 0.5, 0.2), smoothness=0.7), normals=n,
+               chunked=False)
+    scene = b.build(build_bvh="tri", device=device)
+    cam = look_at(
+        (2.6, 1.6, -2.6),
+        (0.0, 0.8, 0.0),
+        fov_y_deg=35.0,
+        focus_distance=4.0,
+        defocus_strength=0.0,
+        diverge_strength=1.0,
+        device=device,
     )
+    cfg = RenderConfig(
+        width=width, height=height, max_bounce=max_bounce, spp=spp,
+        clamp_accumulate=False, intersector="auto",
+    )
+    return scene, cam, cfg
 
 
 def flythrough_cameras(num_frames: int, width=3840, height=2160,

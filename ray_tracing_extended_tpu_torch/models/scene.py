@@ -14,9 +14,10 @@ puts them on ``device`` (the card unless the caller asks for the CPU):
     chunk, in insertion order (the spheres-then-triangles tie-break order).
 
 Meshes added with ``add_mesh`` are octree-chunked once in local space
-(``accel/chunks.py``) and re-posed per build, as in the JAX package. BVH
-builds, the TPU kernel's packed tables and the content hash are not part
-of the port.
+(``accel/chunks.py``) and re-posed per build, as in the JAX package.
+``build(build_bvh=...)`` adds LBVHs over the triangles and / or spheres
+(``accel/bvh.py``). The TPU kernel's packed tables and the content hash
+are not part of the port.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from ..accel.bvh import build_lbvh
 from ..accel.chunks import MAX_TRIS_PER_CHUNK, create_chunks
 from ..utils.device import DEFAULT_DEVICE, resolve_device
 from .geometry import (
@@ -255,15 +257,14 @@ class SceneBuilder:
         """Flatten into a ``Scene`` on ``device`` (default the card; raises
         where CUDA is not available unless ``device="cpu"``).
 
-        ``build_bvh`` must be None: BVHs wait for the BVH traversal kernel.
-        Without one a scene renders by chunk scan, which gives the same
-        image."""
+        ``build_bvh`` is None, ``"tri"``, ``"sphere"`` or ``"both"``: an
+        LBVH over the real triangles and / or spheres, its leaves padded
+        with the first padding primitive (never hit), as in the JAX
+        package. On the card a triangle BVH takes the kernel's BVH
+        instantiation; without one the triangles are scanned by chunk."""
         dev = resolve_device(device)
-        if build_bvh is not None:
-            raise NotImplementedError(
-                f"build_bvh={build_bvh!r}: BVH builds come with the BVH "
-                "traversal kernel (ROADMAP.md Queue B item 4)"
-            )
+        if build_bvh not in (None, "tri", "sphere", "both"):
+            raise ValueError(f"unknown build_bvh {build_bvh!r}")
         s = len(self._sphere_center)
         s_pad = _round_up(s + 1, _LANE)
         centers = np.zeros((s_pad, 3), np.float32)
@@ -329,12 +330,22 @@ class SceneBuilder:
                 and 0 <= tmat.min() and tmat.max() < n_mats):
             raise ValueError(f"material index out of range [0, {n_mats})")
 
+        tri_bvh = sphere_bvh = None
+        if build_bvh in ("tri", "both") and t:
+            tri_bvh = build_lbvh(pos[:t].min(axis=1), pos[:t].max(axis=1),
+                                 sentinel=t)
+        if build_bvh in ("sphere", "both") and s:
+            sphere_bvh = build_lbvh(centers[:s] - radii[:s, None],
+                                    centers[:s] + radii[:s, None], sentinel=s)
+
         return Scene(
             spheres=Spheres(center=_t(centers), radius=_t(radii), mat_idx=_t(smat)),
             triangles=_triangles_soa(pos, nrm, tmat),
             chunks=chunks,
             materials=_materials_soa(mats),
             env=self.env,
+            tri_bvh=tri_bvh,
+            sphere_bvh=sphere_bvh,
         ).to(dev)
 
 

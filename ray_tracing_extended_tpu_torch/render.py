@@ -7,13 +7,16 @@ BOTTOM and the pixel index is ``y * width + x``. Segment totals are int64
 0-d tensors (the JAX package returns uint32).
 
 The scene's device picks the path: on the CPU the plain PyTorch path
-(``ops/``, the counterpart of the JAX package's XLA path, and for
-``adaptive_spp`` of the TPU kernel's slot machine), on a CUDA device the
-hand-written kernel (``kernels/megakernel.py``) for scenes of spheres and
-triangle chunks, in exact-spp, adaptive-refill (``cfg.adaptive_spp``) and
-fast-scatter (``cfg.fast_scatter``) modes, with no other route. Not ported
-yet: ``intersector="bvh"`` raises ``NotImplementedError`` on either device,
-naming the ROADMAP.md item that adds it. Scenes load from JSON files with
+(``ops/`` and ``accel/bvh.py``, the counterpart of the JAX package's XLA
+path, and for ``adaptive_spp`` of the TPU kernel's slot machine), on a
+CUDA device the hand-written kernel (``kernels/megakernel.py``), in
+exact-spp, adaptive-refill (``cfg.adaptive_spp``) and fast-scatter
+(``cfg.fast_scatter``) modes, with no other route. ``cfg.intersector``
+keeps the JAX package's meaning: ``"auto"`` and ``"bvh"`` traverse the
+BVHs a scene has, ``"bruteforce"`` scans, ``"mega"`` takes the kernel's
+choice (``kernels/megakernel.py`` ``plain_intersector`` on the CPU,
+``geometry`` on the card, which traverses a triangle BVH and always scans
+spheres). Scenes load from JSON files with
 ``scene.json_scene.load_json_scene``; ``progressive.render_progressive``
 drives these functions frame after frame.
 """
@@ -39,11 +42,6 @@ __all__ = [
 def _check_supported(cfg: RenderConfig) -> None:
     if cfg.intersector not in ("auto", "bruteforce", "mega", "bvh"):
         raise ValueError(f"unknown intersector {cfg.intersector!r}")
-    if cfg.intersector == "bvh":
-        raise NotImplementedError(
-            "intersector='bvh' needs the BVH traversal kernel "
-            "(ROADMAP.md Queue B item 4)"
-        )
 
 
 def render_frame_with_stats(

@@ -117,9 +117,11 @@ def load_json_scene(path, overrides: dict | None = None,
     """-> ``(scene, camera, config)`` with the scene and camera on
     ``device`` (default the card; raises where CUDA is not available
     unless ``device="cpu"``). Relative mesh paths resolve against the JSON
-    file's directory; ``overrides`` replaces config fields. No BVH is
-    built: the CUDA kernel scans chunks, which gives the image a BVH
-    would."""
+    file's directory; ``overrides`` replaces config fields. As in the JAX
+    package, a scene with a mesh of more than 4096 faces, or more than
+    16384 baked triangles, gets a triangle BVH (``build_bvh="tri"``),
+    which on the card takes the kernel's BVH instantiation; smaller
+    scenes (every shipped mirror) are scanned by chunk."""
     path = Path(path)
     spec = json.loads(path.read_text())
 
@@ -131,6 +133,8 @@ def load_json_scene(path, overrides: dict | None = None,
             _material(s.get("material") or {}),
         )
 
+    any_big_mesh = False
+    n_baked_tris = 0
     npz_cache: dict = {}
     for m in spec.get("meshes", []):
         material = _material(m.get("material") or {})
@@ -140,13 +144,14 @@ def load_json_scene(path, overrides: dict | None = None,
                 npz_cache[f_npz] = np.load(f_npz)
             data = npz_cache[f_npz]
             g = m["group"]
+            tri_pos = np.asarray(data[f"{g}_pos"], np.float32)
             b.add_triangles(
-                np.asarray(data[f"{g}_pos"], np.float32),
-                np.asarray(data[f"{g}_nrm"], np.float32),
-                material,
+                tri_pos, np.asarray(data[f"{g}_nrm"], np.float32), material
             )
+            n_baked_tris += len(tri_pos)
         elif "obj" in m:
             v, f, n = load_obj(path.parent / m["obj"])
+            any_big_mesh |= len(f) > 4096
             b.add_mesh(
                 v, f, material, normals=n,
                 transform=_transform_matrix(m.get("transform") or {}),
@@ -159,7 +164,10 @@ def load_json_scene(path, overrides: dict | None = None,
             )
         else:
             raise ValueError("mesh entry needs 'obj', 'fbx' or 'npz'")
-    scene = b.build(device=device)
+    scene = b.build(
+        build_bvh="tri" if any_big_mesh or n_baked_tris > 16384 else None,
+        device=device,
+    )
 
     settings = spec.get("settings") or {}
     camd = spec.get("camera") or {}

@@ -25,20 +25,23 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ..models.geometry import BVH
 from .config import RenderConfig
 
 
 def tree_leaves(tree):
     """The arrays of a dataclass tree or a sequence of them, in field order
     (the JAX package's pytree leaf order). ``Scene.has_triangles`` is a
-    cached property of the arrays, not data, and is skipped."""
+    cached property of the arrays, not data, and is skipped; so are BVHs,
+    which derive from the scene (the JAX package's fingerprint excludes
+    them too)."""
     if isinstance(tree, (list, tuple)):
         for item in tree:
             yield from tree_leaves(item)
     elif dataclasses.is_dataclass(tree):
         for f in dataclasses.fields(tree):
             value = getattr(tree, f.name)
-            if value is not None and not isinstance(value, bool):
+            if value is not None and not isinstance(value, (bool, BVH)):
                 yield from tree_leaves(value)
     else:
         yield tree

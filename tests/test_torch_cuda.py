@@ -1,5 +1,6 @@
-"""The CUDA kernel on the card: against its plain PyTorch version, its
-launch count and outputs, and what it refuses.
+"""The CUDA kernels on the card: the path-trace kernel against its plain
+PyTorch version, its launch count and outputs, and what it refuses; the
+two roofline probes against theirs.
 
 Every test here needs a CUDA device and skips without one. This file
 imports no JAX, so it also runs where only PyTorch is installed:
@@ -17,6 +18,8 @@ import torch
 import ray_tracing_extended_tpu_torch as rtt
 from ray_tracing_extended_tpu_torch.kernels import megakernel as mk
 from ray_tracing_extended_tpu_torch.models import presets
+from ray_tracing_extended_tpu_torch.tools import pairblock_roofline as pairblock
+from ray_tracing_extended_tpu_torch.tools import vpu_roofline as vpu
 
 pytestmark = pytest.mark.cuda
 
@@ -24,9 +27,12 @@ SCENES = pathlib.Path(rtt.__file__).resolve().parent.parent / "scenes"
 
 
 def _triangle_scene(name, device="cuda", **small):
-    """Cornell (the preset) or Chess (the shipped mirror) at a small size."""
+    """Cornell (the preset), the 70k-triangle mesh (the preset, with its
+    BVH) or Chess (the shipped mirror) at a small size."""
     if name == "cornell":
         return presets.cornell_box_scene(device=device, **small)
+    if name == "mesh":
+        return presets.mesh_scene(device=device, **small)
     return rtt.load_json_scene(SCENES / f"{name}.json", overrides=small,
                                device=device)
 
@@ -139,17 +145,23 @@ def test_triangle_kernel_fold_matches_plain(cuda, clamp):
             assert float(k.min()) >= 0.0 and float(k.max()) <= 1.0
 
 
-def test_triangle_scene_never_takes_the_plain_path(cuda, monkeypatch):
-    """Through the public entry points a triangle scene on the card runs the
-    triangle variant, one launch a call, and nothing of the plain path."""
+@pytest.mark.parametrize("name", ["chess", "mesh"])
+def test_triangle_scene_never_takes_the_plain_path(cuda, monkeypatch, name):
+    """Through the public entry points a triangle scene on the card runs its
+    instantiation (chunk scan for Chess, the BVH for the mesh), one launch
+    a call, and nothing of the plain path."""
 
     def refuse(*args, **kwargs):
         raise AssertionError("the plain path ran on a CUDA scene")
 
-    for name in ("render_frames_plain", "_render_frame_plain", "render_block"):
-        monkeypatch.setattr(mk, name, refuse)
+    for fn in ("render_frames_plain", "_render_frame_plain", "render_block"):
+        monkeypatch.setattr(mk, fn, refuse)
+    monkeypatch.setattr(mk, "closest_hit_bvh", refuse)
     scene, cam, cfg = _on(cuda, *_triangle_scene(
-        "chess", width=64, height=36, max_bounce=3, spp=1))
+        name, width=64, height=36, max_bounce=3, spp=1))
+    launched = mk.variant(mk.geometry(scene, cfg))
+    assert launched == (mk.VARIANT_BVH if name == "mesh"
+                        else mk.VARIANT_TRIANGLES)
     before = dict(mk.KERNEL.variant_launches)
     img, segs, hist = rtt.render_frame_with_stats(scene, cam, cfg, 0,
                                                   bounce_stats=True)
@@ -158,8 +170,9 @@ def test_triangle_scene_never_takes_the_plain_path(cuda, monkeypatch):
     acc = rtt.render_and_accumulate(scene, cam, cfg, acc, 3)
     torch.cuda.synchronize()
     after = mk.KERNEL.variant_launches
-    assert after[mk.VARIANT_TRIANGLES] == before.get(mk.VARIANT_TRIANGLES, 0) + 3
-    assert after[mk.VARIANT_SPHERES] == before.get(mk.VARIANT_SPHERES, 0)
+    grew = {k: after[k] - before.get(k, 0) for k in after
+            if after[k] != before.get(k, 0)}
+    assert grew == {launched: 3}
     assert bool(torch.isfinite(img).all() and torch.isfinite(acc).all())
     hist = hist.cpu()
     assert int(hist[0]) == 64 * 36 and int(hist.sum()) == int(segs)
@@ -219,16 +232,17 @@ def test_batched_launch_equals_sequential_steps(cuda):
 
 
 def test_cuda_refuses_what_the_kernel_does_not_do(cuda):
-    """The BVH intersector still raises on sphere and triangle scenes;
-    adaptive refill and fast scatter render through their instantiations.
-    Bad accumulators and a camera on another device are refused."""
+    """The BVH intersector on scenes without a BVH renders through the
+    scan instantiations, bit for bit the default's image; adaptive refill
+    and fast scatter render through their instantiations. Bad accumulators
+    and a camera on another device are refused."""
     scene, cam, cfg = _on(cuda, *presets.three_sphere_scene(
         width=16, height=8, spp=1))
     tri_scene, tri_cam, tri_cfg = _on(cuda, *presets.cornell_box_scene(
         width=16, height=16, spp=1))
     for s, c, base in ((scene, cam, cfg), (tri_scene, tri_cam, tri_cfg)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            rtt.render_frame(s, c, dataclasses.replace(base, intersector="bvh"), 0)
+        by_bvh = rtt.render_frame(s, c, dataclasses.replace(base, intersector="bvh"), 0)
+        assert torch.equal(by_bvh, rtt.render_frame(s, c, base, 0))
         for change in (dict(adaptive_spp=True), dict(fast_scatter=True),
                        dict(adaptive_spp=True, fast_scatter=True)):
             img = rtt.render_frame(s, c, dataclasses.replace(base, **change), 0)
@@ -242,18 +256,21 @@ def test_cuda_refuses_what_the_kernel_does_not_do(cuda):
 
 @pytest.mark.parametrize("fast", [False, True])
 @pytest.mark.parametrize("adaptive", [False, True])
-@pytest.mark.parametrize("name", ["rtiow", "cornell", "chess"])
+@pytest.mark.parametrize("name", ["rtiow", "cornell", "chess", "mesh"])
 def test_refill_and_fast_scatter_match_plain_gates(cuda, name, adaptive, fast):
     """Each instantiation against the plain version with the kernel's warp
     grouping: bench.py's gates at mb0 and mb1 without defocus, mb4 with
-    the scene's camera; launches counted under the instantiation's name."""
+    the scene's camera; launches counted under the instantiation's name
+    (the mesh, 70k triangles, through the BVH instantiations)."""
     if name == "rtiow":
         scene, cam, cfg = presets.rtiow_final_scene(width=96, height=54, spp=4)
     else:
         scene, cam, cfg = _triangle_scene(name, width=96, height=54, spp=4)
     still = cam.replace(defocus_strength=0.0)
     cfg = dataclasses.replace(cfg, adaptive_spp=adaptive, fast_scatter=fast)
-    name_k = mk.variant(name != "rtiow", adaptive, fast)
+    name_k = mk.variant(mk.geometry(scene, cfg), adaptive, fast)
+    assert (name == "mesh") == name_k.startswith(("render_kernel<kBvh",
+                                                  "render_adaptive<kBvh"))
     before = mk.KERNEL.variant_launches[name_k]
     for mb, c in ((0, still), (1, still), (4, cam)):
         cfg = dataclasses.replace(cfg, max_bounce=mb)
@@ -275,7 +292,7 @@ def test_refill_and_fast_scatter_match_plain_gates(cuda, name, adaptive, fast):
 
 
 @pytest.mark.parametrize("fast", [False, True])
-@pytest.mark.parametrize("name", ["rtiow", "cornell", "chess"])
+@pytest.mark.parametrize("name", ["rtiow", "cornell", "chess", "mesh"])
 def test_refill_at_depth_zero_equals_exact_kernel(cuda, name, fast):
     """At max_bounce 0 every sample is one segment, so all lanes of a warp
     finish their quota in the same slot and refill adds no sample. The
@@ -335,8 +352,73 @@ def test_render_command_on_the_card(cuda, tmp_path):
     after = mk.KERNEL.variant_launches
     grew = {k: after[k] - before.get(k, 0) for k in after
             if after[k] != before.get(k, 0)}
-    assert grew == {mk.variant(False, adaptive=True): 3}
+    assert grew == {mk.variant("spheres", adaptive=True): 3}
     img = np.load(out)
     assert img.shape == (108, 192, 3) and np.isfinite(img).all()
     with np.load(ck) as z:
         assert int(z["frame"]) == 6
+
+
+def test_mesh_command_on_the_card(cuda, tmp_path):
+    """``render --scene preset:mesh`` and an ``.obj`` spec on the card: only
+    the BVH instantiations launch."""
+    from ray_tracing_extended_tpu_torch.cli import main
+    from ray_tracing_extended_tpu_torch.scene.procedural import uv_sphere_mesh
+
+    v, f = uv_sphere_mesh(16, 32)
+    obj = tmp_path / "ball.obj"
+    obj.write_text("".join(f"v {x} {y} {z}\n" for x, y, z in v)
+                   + "".join(f"f {i + 1} {j + 1} {k + 1}\n" for i, j, k in f))
+    before = dict(mk.KERNEL.variant_launches)
+    for spec in ("preset:mesh", str(obj)):
+        out = tmp_path / "out.npy"
+        assert main(["render", "--scene", spec, "--width", "128", "--height",
+                     "72", "--frames", "4", "--batch", "2", "--adaptive-spp",
+                     "--out", str(out)]) == 0
+        img = np.load(out)
+        assert img.shape == (72, 128, 3) and np.isfinite(img).all()
+    after = mk.KERNEL.variant_launches
+    grew = {k: after[k] - before.get(k, 0) for k in after
+            if after[k] != before.get(k, 0)}
+    assert grew == {mk.variant("bvh", adaptive=True): 4}
+
+
+def test_bvh_kernel_equals_chunk_scan(cuda):
+    """The mesh through the BVH instantiation and through the chunk scan
+    (``intersector="bruteforce"``): the same frame under the whole-frame
+    rule (only exact ties could differ) and the same segment counts."""
+    scene, cam, cfg = _on(cuda, *presets.mesh_scene(
+        width=96, height=54, spp=2, target_tris=4000))
+    scan_cfg = dataclasses.replace(cfg, intersector="bruteforce")
+    assert mk.geometry(scene, scan_cfg) == "chunks"
+    a, a_segs, a_map, _ = mk.render_frames_mega(scene, cam, cfg, 3)
+    b, b_segs, b_map, _ = mk.render_frames_mega(scene, cam, scan_cfg, 3)
+    d = (a - b).abs().amax(-1)
+    assert float((d < 1e-3).double().mean()) > 0.995
+    assert float((a - b).abs().mean()) < 1e-3
+    assert int(a_segs) == int(b_segs) and torch.equal(a_map, b_map)
+
+
+def test_vpu_kernel_matches_plain(cuda):
+    """The vpu probe's kernel against its plain version on the card, bit for
+    bit, at a reduced step count; one launch counted."""
+    before = vpu.LAUNCHES["vpu_roofline"]
+    k = vpu.vpu_chain(n_steps=300, grid=8, device=cuda)
+    p = vpu.vpu_chain_plain(n_steps=300, grid=8, device=cuda)
+    assert torch.equal(k.view(torch.int32), p.view(torch.int32))
+    assert vpu.LAUNCHES["vpu_roofline"] == before + 1
+    cpu = vpu.vpu_chain_plain(n_steps=300, grid=8)
+    assert torch.equal(k.cpu(), cpu)
+
+
+@pytest.mark.parametrize("variant", pairblock.VARIANTS)
+def test_pairblock_kernel_matches_plain(cuda, variant):
+    """Each pair-block variant's kernel against the plain version on the
+    same CUDA tensors, bit for bit, at reduced steps and grid."""
+    rays, cols = (torch.from_numpy(a).to(cuda) for a in pairblock.make_inputs())
+    before = pairblock.LAUNCHES[variant]
+    k = pairblock.pairblock(rays, cols, variant, steps=3, grid=2)
+    p = pairblock.pairblock_plain(rays, cols, variant, steps=3, grid=2)
+    assert k.shape == (16, 128)
+    assert torch.equal(k.view(torch.int32), p.view(torch.int32))
+    assert pairblock.LAUNCHES[variant] == before + 1

@@ -254,19 +254,34 @@ def test_cpu_path_never_launches_the_kernel():
         tmk.render_frames_mega(scene.to("meta"), cam, cfg, 0)
 
 
-def test_unported_options_raise(tmp_path):
-    """What is not ported yet raises, naming its ROADMAP.md item: the BVH
-    (intersector, build, the 70k-triangle mesh preset), FBX meshes and the
-    multi-GPU split of the progressive renderer. Adaptive refill and fast
-    scatter are ported (tests/test_torch_adaptive.py)."""
+def test_bvh_options_render():
+    """The BVH options that raised before the BVH was ported now render:
+    ``intersector="bvh"`` on a scene without a BVH scans (the JAX package's
+    ``closest_hit_bvh`` falls back the same way), ``build(build_bvh=...)``
+    builds, and the mesh preset renders (tests/test_torch_bvh.py holds
+    them to the JAX package)."""
     scene, cam, cfg = tpresets.three_sphere_scene(width=16, height=8, spp=1,
                                                    device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rtt.render_frame(scene, cam, dataclasses.replace(cfg, intersector="bvh"), 0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rtt.SceneBuilder().build(build_bvh="tri", device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue B item 4"):
-        tpresets.mesh_scene(device="cpu")
+    ref = rtt.render_frame(scene, cam, cfg, 0)
+    img = rtt.render_frame(scene, cam, dataclasses.replace(cfg, intersector="bvh"), 0)
+    assert torch.equal(img, ref)
+    built = rtt.SceneBuilder().build(build_bvh="tri", device="cpu")
+    assert built.tri_bvh is None and built.sphere_bvh is None  # nothing to build
+    with pytest.raises(ValueError):
+        rtt.SceneBuilder().build(build_bvh="octree", device="cpu")
+    scene, cam, cfg = tpresets.mesh_scene(width=16, height=8, target_tris=512,
+                                          device="cpu")
+    assert scene.has_tri_bvh and tmk.geometry(scene, cfg) == "bvh"
+    assert bool(torch.isfinite(rtt.render_frame(scene, cam, cfg, 0)).all())
+
+
+def test_unported_options_raise(tmp_path):
+    """What is not ported yet raises, naming its ROADMAP.md item: FBX
+    meshes and the multi-GPU split of the progressive renderer. The BVH
+    renders (test_bvh_options_render); adaptive refill and fast scatter
+    are ported (tests/test_torch_adaptive.py)."""
+    scene, cam, cfg = tpresets.three_sphere_scene(width=16, height=8, spp=1,
+                                                   device="cpu")
     with pytest.raises(NotImplementedError, match="Queue A item 12"):
         rtt.render_progressive(scene, cam, cfg, frames=1, mesh=object())
     scene_file = tmp_path / "fbx.json"
