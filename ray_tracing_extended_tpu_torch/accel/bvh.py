@@ -33,7 +33,7 @@ from ..ops.intersect import (
     DET_EPS,
     INF,
     HitRecord,
-    _triangle_normal_at,
+    hit_record,
     ray_spheres_t,
     ray_triangles_t,
 )
@@ -363,19 +363,4 @@ def closest_hit_bvh(o, d, scene: Scene, sphere_bvh: bool = True,
     best_t = torch.where(better, t_t, best_t)
     best_enc = torch.where(better, s + i_t, best_enc)
 
-    hit = torch.isfinite(best_t)
-    point = o + d * torch.where(hit, best_t, 0.0)[:, None]
-    is_sphere = best_enc < s
-    sph_idx = torch.clamp(best_enc, max=s - 1)
-    tri_idx = torch.clamp(best_enc - s, 0, scene.triangles.count - 1)
-    n_sph = vm.normalize(point - scene.spheres.center[sph_idx])
-    n_tri = _triangle_normal_at(o, d, scene.triangles, tri_idx)
-    normal = torch.where(is_sphere[:, None], n_sph, n_tri)
-    mat_idx = torch.where(
-        is_sphere,
-        scene.spheres.mat_idx[sph_idx],
-        scene.triangles.mat_idx[tri_idx],
-    ).long()
-    mat_idx = torch.where(hit, mat_idx, 0)
-    return HitRecord(hit=hit, t=best_t, point=point, normal=normal,
-                     mat_idx=mat_idx)
+    return hit_record(o, d, scene, best_t, best_enc)

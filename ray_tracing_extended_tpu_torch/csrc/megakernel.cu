@@ -20,15 +20,14 @@
 // forms) and where the device's transcendentals round differently.
 //
 // Two kernels, each instantiated for three scene geometries, always with
-// the sphere table in shared memory: kSpheres (spheres only); kChunks (the
+// the sphere tables in shared memory: kSpheres (spheres only); kChunks (the
 // chunk table, each chunk's AABB and triangle range, in shared memory too;
-// a chunk whose box the ray's line misses, the reference's slab test,
-// RayTracing.shader:177-187 applied at :279-281, is skipped, and the
-// others' triangles run the backface-culled Moller-Trumbore test on
-// 12-float rows read through the read-only cache); kBvh (the triangles
-// through the scene's LBVH in global memory, below). And for the scatter
-// sampler (kBoxMuller: the reference's three Box-Muller Gaussians, 6 draws;
-// kFastScatter: the TPU kernel's 2-draw (z, phi) map, cfg.fast_scatter):
+// the triangles of the chunks that pass the gate below run the
+// backface-culled Moller-Trumbore test on 12-float rows read through the
+// read-only cache); kBvh (the triangles through the scene's LBVH in global
+// memory, below). And for the scatter sampler (kBoxMuller: the reference's
+// three Box-Muller Gaussians, 6 draws; kFastScatter: the TPU kernel's
+// 2-draw (z, phi) map, cfg.fast_scatter):
 //   render_kernel<kGeom, kScatter>: exactly spp samples a pixel, a loop
 //   over samples and bounces per thread.
 //   render_adaptive<kGeom, kScatter>: the adaptive sample refill
@@ -45,15 +44,51 @@
 //   needs all 32, and the loop's exit is decided by a vote, so it is
 //   warp-uniform.
 //
-// What bounds it on this card: FP32 ALU throughput of the brute-force scans,
-// about pixels x samples x segments x (spheres + chunks + the triangles of
-// the chunks the ray's line passes) tests, plus warp divergence between
-// long and short paths in one warp.
-// What this version does about it: it keeps the sphere and chunk tables in
-// shared memory, loaded once per block and read as warp-wide broadcasts,
-// and gates triangles by chunk; with refill, lanes that would idle behind
-// a warp-mate's long path trace extra samples instead. No front-to-back
-// chunk order, no path regeneration across warps.
+// The two scans of a segment, both behind the TPU kernel's t-bounded slab
+// test (megakernel.py tile_hits: a box is entered iff t_far >= 0 and
+// t_near <= min(t_far, best t so far)):
+//   spheres, through the clustered tables of kernels/pack.py (the TPU
+//   kernel's pack_scene): the hoisted spheres (RTIOW's ground and heroes)
+//   first, so their hit bounds every later test; then each sub-cluster of
+//   up to 32 spheres behind its box. The TPU kernel votes a cluster in or
+//   out for a whole tile of rays; a Hopper thread branches on its own
+//   test, so a warp pays for the union of its lanes' clusters (a warp's 32
+//   camera rays are neighbours and pass the same few). No vote is cast, so
+//   the scan may sit in a loop lanes leave one by one (render_kernel) or
+//   under render_adaptive's `if (live)`. Only real spheres have a slot;
+//   one 16-byte shared-memory load a sphere; the square root only where
+//   disc >= 0. (Skipping it also where b > 0, whose root -b - sqrt(disc)
+//   is negative whatever the square root, gave the same images and cost
+//   1.5-3% of a RTIOW 1080p frame on an NVIDIA H100 80GB HBM3 at 700 W:
+//   the second condition's branch outweighs the roots it saves.) The
+//   nearest sphere wins and, on an exact tie, the one of lower index in
+//   the scene, so the clustered order decides nothing.
+//   chunks (kChunks), in index order behind the same test, two 16-byte
+//   loads a chunk: a chunk behind the origin, or beyond the best hit so
+//   far (spheres are tested first), is skipped. The reference's gate
+//   (RayTracing.shader:177-187 at :279-281) passes every chunk the ray's
+//   line meets. A scene of more than one run of 32 chunks gets a second
+//   level, the TPU kernel's super-cluster: one box over each run, behind
+//   the same test, and a run that fails it is skipped whole (Chess, 440
+//   chunks in 14 runs, 1280x720, 3 spp, 15 bounces: 5.1 ms a frame with
+//   it, 7.7 without, on an NVIDIA H100 80GB HBM3 at 700 W).
+// In both tests an axis whose t0 or t1 is NaN (a zero direction component,
+// the origin on that face's plane) never rejects, the reference's rule: no
+// primitive a scan without boxes would hit is skipped for it. A sphere
+// cluster's box is one ulp wider each way than its spheres' c -+ r
+// (kernels/megakernel.py sphere_tables), so it holds them after rounding.
+// The winner's t is computed as without the culls; a cull decides only a
+// near-tie that rounding puts on the other side of a box's entry.
+//
+// What bounds it on this card: FP32 ALU throughput of the tests that pass
+// their gates plus the gates themselves, about pixels x samples x segments
+// x (boxes + gated spheres + gated triangles), and warp divergence: lanes
+// of one warp in different clusters and chunks, and long and short paths.
+// What this version does about it: the tables in shared memory, loaded
+// once per block and read as warp-wide broadcasts; the culls above; with
+// refill, lanes that would idle behind a warp-mate's long path trace extra
+// samples instead. No front-to-back order, no path regeneration across
+// warps.
 //
 // kBvh, for big meshes (mesh_scene's 70,016 triangles in one chunk, which
 // the chunk scan would test in full every segment). It replaces the TPU
@@ -97,15 +132,15 @@ constexpr int kBlockY = 8;
 //   18-20 ground  21-23 horizon  24-26 zenith  27 sun focus
 //   28 sun intensity  29-31 sun direction
 constexpr int kParams = 32;
-// sphere table row: cx, cy, cz, r^2, r
-constexpr int kSph = 5;
+// sphere table row, one float4: cx, cy, cz, r^2
+// sphere cluster row, two float4s: (box min, first slot), (box max, live
+// slots), the two counts as int32 bits
 // material table row: colour 0-2, emission colour 3-5, specular colour
 // 6-8, emission strength 9, smoothness 10, specular probability 11,
 // ior 12, flag 13, pad 14-15
 constexpr int kMat = 16;
-// chunk table row: bounds min 0-2, bounds max 3-5, then the first
-// triangle 6 and the triangle count 7 as int32 bits
-constexpr int kChunk = 8;
+// chunk table row, two float4s: (box min, first triangle), (box max,
+// triangle count), the two counts as int32 bits
 // triangle row: a 0-2, b - a 3-5, c - a 6-8, cross(b - a, c - a) 9-11
 constexpr int kTri = 12;
 constexpr int kTri4 = kTri / 4;  // the row in float4s
@@ -277,18 +312,22 @@ struct Triangles {
   const float4* __restrict__ rows;  // kTri floats (kTri4 float4s) a triangle
   const float* __restrict__ normals;  // kTriNrm floats a triangle
   const int* __restrict__ mat;  // material index a triangle
-  const float* chunks;  // shared memory, kChunk floats a chunk
+  const float4* chunks;  // shared memory, two float4s a chunk
   int n_chunks;
+  // shared memory, two float4s (box min, box max) over each run of
+  // super_size chunks; n_supers == 0: no second level
+  const float4* supers;
+  int n_supers, super_size;
   const float4* __restrict__ nodes;  // two float4s a node
   const int4* __restrict__ leaves;  // kLeafWidth indices a leaf
   int n_nodes;
 };
 
-// The reference's slab test (RayBoundingBox, RayTracing.shader:177-187):
-// the box passes iff tNear <= tFar, with no tFar >= 0 requirement. An axis
-// whose t0 or t1 is NaN (a zero direction component, the origin on the
-// box's face) leaves tNear and tFar as they are, so it never rejects the
-// box: the ray's line lies in that face's plane.
+// One axis of a slab test. An axis whose t0 or t1 is NaN (a zero direction
+// component, the origin on the box's face) leaves t_near and t_far as they
+// are, so it never rejects the box: the ray's line lies in that face's
+// plane (the reference's RayBoundingBox, RayTracing.shader:177-187, whose
+// min and max drop a NaN operand).
 __device__ __forceinline__ void slab(float lo, float hi, float o, float inv_d,
                                      float& t_near, float& t_far) {
   const float t0 = (lo - o) * inv_d;
@@ -299,47 +338,66 @@ __device__ __forceinline__ void slab(float lo, float hi, float o, float inv_d,
   }
 }
 
-__device__ __forceinline__ bool ray_box(const float* box, Vec3 o, Vec3 inv_d) {
+// The t-bounded gate of a sphere cluster or a chunk (the TPU kernel's
+// tile_hits): the box's slab interval reaches in front of the origin and
+// starts no later than the best hit so far.
+__device__ __forceinline__ bool box_gate(float4 lo, float4 hi, Vec3 o,
+                                         Vec3 inv_d, float best_t) {
   float t_near = -__int_as_float(0x7f800000);
   float t_far = __int_as_float(0x7f800000);
-  slab(box[0], box[3], o.x, inv_d.x, t_near, t_far);
-  slab(box[1], box[4], o.y, inv_d.y, t_near, t_far);
-  slab(box[2], box[5], o.z, inv_d.z, t_near, t_far);
-  return t_near <= t_far;
+  slab(lo.x, hi.x, o.x, inv_d.x, t_near, t_far);
+  slab(lo.y, hi.y, o.y, inv_d.y, t_near, t_far);
+  slab(lo.z, hi.z, o.z, inv_d.z, t_near, t_far);
+  return t_far >= 0.0f && t_near <= fminf(t_far, best_t);
 }
 
-// Closest triangle of the chunks whose boxes pass, in index order; a
+// Closest triangle of the chunks that pass the gate, in index order; a
 // strictly nearer hit wins, so the lower index wins a tie and a triangle
-// never takes a tie from a sphere (tested before). Moller-Trumbore in the
-// direct form: a hit iff det >= 1e-6 and t, u, v, w >= 0.
+// never takes a tie from a sphere (tested before). With a second level, a
+// run of chunks is entered only if the box over it passes the same gate.
+// Moller-Trumbore in the direct form: a hit iff det >= 1e-6 and t, u, v,
+// w >= 0.
 __device__ __forceinline__ void closest_triangle(Triangles tri, Vec3 o,
-                                                 Vec3 d, float& best_t,
+                                                 Vec3 d, Vec3 inv_d,
+                                                 float& best_t,
                                                  int& best_tri) {
-  const Vec3 inv_d = {1.0f / d.x, 1.0f / d.y, 1.0f / d.z};
-  for (int c = 0; c < tri.n_chunks; ++c) {
-    const float* ch = tri.chunks + kChunk * c;
-    if (!ray_box(ch, o, inv_d)) continue;
-    const int first = __float_as_int(ch[6]);
-    const int end = first + __float_as_int(ch[7]);
-    for (int i = first; i < end; ++i) {
-      // r0 = a.x a.y a.z ab.x   r1 = ab.y ab.z ac.x ac.y
-      // r2 = ac.z n.x n.y n.z
-      const float4 r0 = __ldg(tri.rows + kTri4 * i);
-      const float4 r1 = __ldg(tri.rows + kTri4 * i + 1);
-      const float4 r2 = __ldg(tri.rows + kTri4 * i + 2);
-      const Vec3 ao = {o.x - r0.x, o.y - r0.y, o.z - r0.z};
-      const Vec3 dao = cross(ao, d);
-      const float det = -(d.x * r2.y + d.y * r2.z + d.z * r2.w);
-      const float t_det = ao.x * r2.y + ao.y * r2.z + ao.z * r2.w;
-      const float u_det = r1.z * dao.x + r1.w * dao.y + r2.x * dao.z;
-      const float v_det = -(r0.w * dao.x + r1.x * dao.y + r1.y * dao.z);
-      const float w_det = det - u_det - v_det;
-      if (det >= kDetEps && t_det >= 0.0f && u_det >= 0.0f &&
-          v_det >= 0.0f && w_det >= 0.0f) {
-        const float t = t_det / det;
-        if (t < best_t) {
-          best_t = t;
-          best_tri = i;
+  const int n_outer = tri.n_supers > 0 ? tri.n_supers : 1;
+  for (int s = 0; s < n_outer; ++s) {
+    int c = 0, c_end = tri.n_chunks;
+    if (tri.n_supers > 0) {
+      if (!box_gate(tri.supers[2 * s], tri.supers[2 * s + 1], o, inv_d,
+                    best_t)) {
+        continue;
+      }
+      c = tri.super_size * s;
+      c_end = min(c + tri.super_size, tri.n_chunks);
+    }
+    for (; c < c_end; ++c) {
+      const float4 lo = tri.chunks[2 * c];
+      const float4 hi = tri.chunks[2 * c + 1];
+      if (!box_gate(lo, hi, o, inv_d, best_t)) continue;
+      const int first = __float_as_int(lo.w);
+      const int end = first + __float_as_int(hi.w);
+      for (int i = first; i < end; ++i) {
+        // r0 = a.x a.y a.z ab.x   r1 = ab.y ab.z ac.x ac.y
+        // r2 = ac.z n.x n.y n.z
+        const float4 r0 = __ldg(tri.rows + kTri4 * i);
+        const float4 r1 = __ldg(tri.rows + kTri4 * i + 1);
+        const float4 r2 = __ldg(tri.rows + kTri4 * i + 2);
+        const Vec3 ao = {o.x - r0.x, o.y - r0.y, o.z - r0.z};
+        const Vec3 dao = cross(ao, d);
+        const float det = -(d.x * r2.y + d.y * r2.z + d.z * r2.w);
+        const float t_det = ao.x * r2.y + ao.y * r2.z + ao.z * r2.w;
+        const float u_det = r1.z * dao.x + r1.w * dao.y + r2.x * dao.z;
+        const float v_det = -(r0.w * dao.x + r1.x * dao.y + r1.y * dao.z);
+        const float w_det = det - u_det - v_det;
+        if (det >= kDetEps && t_det >= 0.0f && u_det >= 0.0f &&
+            v_det >= 0.0f && w_det >= 0.0f) {
+          const float t = t_det / det;
+          if (t < best_t) {
+            best_t = t;
+            best_tri = i;
+          }
         }
       }
     }
@@ -472,35 +530,68 @@ __device__ __forceinline__ Vec3 triangle_normal(Triangles tri, int i,
   return normalize(raw);
 }
 
+// The sphere tables a block stages in shared memory, in clustered order:
+// the hoisted spheres in slots [0, n_hoist), then each cluster's spheres.
+struct Spheres {
+  const float4* rows;  // cx, cy, cz, r^2
+  const float4* clusters;  // two float4s a cluster
+  const int* orig;  // the slot's sphere index in the scene
+  const int* mat;  // the slot's material index
+  int n_hoist, n_clusters;
+};
+
+// Spheres [first, end) against the ray: the nearest root t >= 0 wins, and
+// on an exact tie the sphere of lower scene index. Two slots a loop step
+// (4 and 1 were slower on RTIOW, see the header's card).
+__device__ __forceinline__ void test_spheres(Spheres sph, int first, int end,
+                                             Vec3 o, Vec3 d, float& best_t,
+                                             int& best) {
+#pragma unroll 2
+  for (int i = first; i < end; ++i) {
+    const float4 s = sph.rows[i];
+    const Vec3 oc = {o.x - s.x, o.y - s.y, o.z - s.z};
+    const float b = dot(oc, d);
+    const float cc = dot(oc, oc) - s.w;
+    const float disc = b * b - cc;
+    if (disc >= 0.0f) {
+      const float t = -b - sqrtf(disc);
+      if (t >= 0.0f &&
+          (t < best_t || (t == best_t && sph.orig[i] < sph.orig[best]))) {
+        best_t = t;
+        best = i;
+      }
+    }
+  }
+}
+
 // One segment of a path (ops/trace.py trace_segment): the closest hit,
 // then the flags, the scatter, emission and roulette; or the environment
 // light on a miss. Updates the ray, throughput and incoming light and
 // returns whether the path goes on. `camera_ray` is bounce index 0.
 template <Geometry kGeom, Scatter kScatter>
 __device__ __forceinline__ bool trace_segment(
-    const float* p, const float* sph, const int* sph_mat, int n_sph,
-    Triangles tri, const float* __restrict__ mats, bool camera_ray,
-    uint32_t& state, Vec3& o, Vec3& d, Vec3& colour, Vec3& incoming) {
-  // closest hit: a strictly nearer root wins, so the first sphere wins
-  // a tie; disc < 0, t < 0 and padding spheres (r <= 0) never hit
+    const float* p, Spheres sph, Triangles tri,
+    const float* __restrict__ mats, bool camera_ray, uint32_t& state, Vec3& o,
+    Vec3& d, Vec3& colour, Vec3& incoming) {
+  // closest hit: the hoisted spheres, then each cluster behind its gate
+  // (a finite best_t is a sphere's here, so `best` is a slot wherever the
+  // tie rule reads it)
   float best_t = __int_as_float(0x7f800000);
   int best = -1;
-  for (int i = 0; i < n_sph; ++i) {
-    const float* s = sph + kSph * i;
-    const Vec3 oc = {o.x - s[0], o.y - s[1], o.z - s[2]};
-    const float b = dot(oc, d);
-    const float cc = dot(oc, oc) - s[3];
-    const float disc = b * b - cc;
-    if (disc >= 0.0f && s[4] > 0.0f) {
-      const float t = -b - sqrtf(disc);
-      if (t >= 0.0f && t < best_t) {
-        best_t = t;
-        best = i;
-      }
-    }
+  const Vec3 inv_d = {1.0f / d.x, 1.0f / d.y, 1.0f / d.z};
+  test_spheres(sph, 0, sph.n_hoist, o, d, best_t, best);
+  for (int k = 0; k < sph.n_clusters; ++k) {
+    const float4 lo = sph.clusters[2 * k];
+    const float4 hi = sph.clusters[2 * k + 1];
+    if (!box_gate(lo, hi, o, inv_d, best_t)) continue;
+    const int first = __float_as_int(lo.w);
+    test_spheres(sph, first, first + __float_as_int(hi.w), o, d, best_t,
+                 best);
   }
   int best_tri = -1;
-  if constexpr (kGeom == kChunks) closest_triangle(tri, o, d, best_t, best_tri);
+  if constexpr (kGeom == kChunks) {
+    closest_triangle(tri, o, d, inv_d, best_t, best_tri);
+  }
   if constexpr (kGeom == kBvh) {
     // closest_hit_bvh's merge: strictly nearer, so a sphere keeps a tie
     const TriangleHit h = closest_triangle_bvh(tri, o, d);
@@ -521,9 +612,9 @@ __device__ __forceinline__ bool trace_segment(
     normal = triangle_normal(tri, best_tri, o, d);
     mat_idx = __ldg(tri.mat + best_tri);
   } else {
-    const float* s = sph + kSph * best;
-    normal = normalize(sub(point, Vec3{s[0], s[1], s[2]}));
-    mat_idx = sph_mat[best];
+    const float4 s = sph.rows[best];
+    normal = normalize(sub(point, Vec3{s.x, s.y, s.z}));
+    mat_idx = sph.mat[best];
   }
   const float* m = mats + kMat * mat_idx;
   const int flag = static_cast<int>(__ldg(m + 13));
@@ -583,8 +674,7 @@ __device__ __forceinline__ bool trace_segment(
 
 // One camera sample's path (ops/trace.py trace). Returns its incoming light.
 template <Geometry kGeom, Scatter kScatter>
-__device__ Vec3 trace_path(const float* p, const float* sph, const int* sph_mat,
-                           int n_sph, Triangles tri,
+__device__ Vec3 trace_path(const float* p, Spheres sph, Triangles tri,
                            const float* __restrict__ mats, int max_bounce,
                            uint32_t& state, Vec3 o, Vec3 d, int& segs,
                            int* s_hist) {
@@ -593,63 +683,123 @@ __device__ Vec3 trace_path(const float* p, const float* sph, const int* sph_mat,
   for (int bounce = 0; bounce <= max_bounce; ++bounce) {
     ++segs;
     if (s_hist != nullptr) atomicAdd(&s_hist[bounce], 1);
-    if (!trace_segment<kGeom, kScatter>(p, sph, sph_mat, n_sph, tri, mats,
-                                        bounce == 0, state, o, d, colour,
-                                        incoming)) {
+    if (!trace_segment<kGeom, kScatter>(p, sph, tri, mats, bounce == 0, state,
+                                        o, d, colour, incoming)) {
       break;
     }
   }
   return incoming;
 }
 
-// Dynamic shared memory, in floats: the chunk table first (16-byte
-// aligned), then the parameters, the sphere table, the sphere materials and
-// the block's bounce histogram.
-size_t shared_floats(int n_sph, int n_chunks, int max_bounce) {
-  return static_cast<size_t>(kChunk) * n_chunks + kParams +
-         (kSph + 1) * static_cast<size_t>(n_sph) +
-         static_cast<size_t>(max_bounce) + 1;
+// Adds the block's histogram to the launch's; every thread takes part.
+__device__ __forceinline__ void flush_hist(const int* s_hist, int* hist,
+                                           int max_bounce) {
+  if (hist != nullptr) {
+    __syncthreads();
+    const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+    const int n_threads = blockDim.x * blockDim.y;
+    for (int i = tid; i <= max_bounce; i += n_threads) {
+      if (s_hist[i] != 0) atomicAdd(&hist[i], s_hist[i]);
+    }
+  }
 }
 
-// Exactly spp samples a pixel. Written out in full rather than through the
-// helpers render_adaptive uses below: with them, ptxas (nvcc 12.9, sm_90a)
-// gives the triangle instantiation 64 bytes of spill stores where this form
-// has 12, and the sphere one 64 registers for 72.
-template <Geometry kGeom, Scatter kScatter>
-__global__ void __launch_bounds__(kBlockX * kBlockY)
-render_kernel(const float* __restrict__ sph_in,
-              const int* __restrict__ sph_mat_in, int n_sph,
-              const float4* __restrict__ tri_rows,
-              const float* __restrict__ tri_normals,
-              const int* __restrict__ tri_mat,
-              const float* __restrict__ chunks_in, int n_chunks,
-              const float* __restrict__ mats,
-              const float* __restrict__ params_in, int width, int height,
-              int spp, int max_bounce, uint32_t frame0, int n_frames,
-              const float* __restrict__ accum_in, int clamp_accum,
-              float* __restrict__ out, int* __restrict__ segs_out,
-              int* __restrict__ hist, const float4* __restrict__ bvh_nodes,
-              const int4* __restrict__ bvh_leaves, int n_nodes) {
-  extern __shared__ float4 smem4[];
-  float* chunks = reinterpret_cast<float*>(smem4);
-  float* p = chunks + (kGeom == kChunks ? kChunk * n_chunks : 0);
-  float* sph = p + kParams;
-  int* sph_mat = reinterpret_cast<int*>(sph + kSph * n_sph);
-  int* s_hist = sph_mat + n_sph;
+// One launch's arguments: the scene's tables in global memory, the image
+// and what to render. The pointers a geometry does not read are null.
+struct Args {
+  const float4* __restrict__ sph;  // n_sph rows
+  const int* __restrict__ sph_orig;
+  const int* __restrict__ sph_mat;
+  int n_sph;
+  const float4* __restrict__ clusters;  // two float4s a cluster
+  int n_clusters, n_hoist;
+  const float4* __restrict__ tri_rows;
+  const float* __restrict__ tri_normals;
+  const int* __restrict__ tri_mat;
+  const float4* __restrict__ chunks;  // two float4s a chunk
+  int n_chunks;
+  const float4* __restrict__ supers;  // two float4s a run of chunks
+  int n_supers, super_size;
+  const float4* __restrict__ bvh_nodes;
+  const int4* __restrict__ bvh_leaves;
+  int n_nodes;
+  const float* __restrict__ mats;
+  const float* __restrict__ params;
+  int width, height, spp, max_bounce;
+  uint32_t frame0;
+  int n_frames;
+  const float* __restrict__ accum_in;
+  int clamp_accum;
+  float* __restrict__ out;
+  int* __restrict__ segs;
+  int* __restrict__ hist;
+};
+
+// Dynamic shared memory, in bytes: the float4 tables first (super boxes,
+// chunks, sphere clusters, spheres), then the parameters, the spheres'
+// scene and material indices and the block's bounce histogram.
+size_t shared_bytes(int n_sph, int n_clusters, int n_chunks, int n_supers,
+                    int max_bounce) {
+  const size_t float4s = 2 * (static_cast<size_t>(n_supers) + n_chunks +
+                              n_clusters) + n_sph;
+  return 16 * float4s +
+         4 * (kParams + 2 * static_cast<size_t>(n_sph) + max_bounce + 1);
+}
+
+// The block's view of the scene after staging it in shared memory.
+struct Staged {
+  const float* p;  // parameters
+  Spheres sph;
+  int* s_hist;  // the block's bounce histogram
+  Triangles tri;
+};
+
+// Every thread of the block takes part: stages the tables, zeroes the
+// histogram and waits for the block. rtx_render passes n_chunks and
+// n_supers as 0 unless the geometry is kChunks.
+__device__ __forceinline__ Staged stage_scene(float4* smem4, const Args& a) {
+  float4* supers = smem4;
+  float4* chunks = supers + 2 * a.n_supers;
+  float4* clusters = chunks + 2 * a.n_chunks;
+  float4* rows = clusters + 2 * a.n_clusters;
+  float* p = reinterpret_cast<float*>(rows + a.n_sph);
+  int* orig = reinterpret_cast<int*>(p + kParams);
+  int* mat = orig + a.n_sph;
+  int* s_hist = mat + a.n_sph;
 
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   const int n_threads = blockDim.x * blockDim.y;
-  if constexpr (kGeom == kChunks) {
-    for (int i = tid; i < kChunk * n_chunks; i += n_threads) chunks[i] = chunks_in[i];
+  for (int i = tid; i < 2 * a.n_supers; i += n_threads) supers[i] = a.supers[i];
+  for (int i = tid; i < 2 * a.n_chunks; i += n_threads) chunks[i] = a.chunks[i];
+  for (int i = tid; i < 2 * a.n_clusters; i += n_threads) {
+    clusters[i] = a.clusters[i];
   }
-  for (int i = tid; i < kParams; i += n_threads) p[i] = params_in[i];
-  for (int i = tid; i < kSph * n_sph; i += n_threads) sph[i] = sph_in[i];
-  for (int i = tid; i < n_sph; i += n_threads) sph_mat[i] = sph_mat_in[i];
-  for (int i = tid; i <= max_bounce; i += n_threads) s_hist[i] = 0;
+  for (int i = tid; i < a.n_sph; i += n_threads) {
+    rows[i] = a.sph[i];
+    orig[i] = a.sph_orig[i];
+    mat[i] = a.sph_mat[i];
+  }
+  for (int i = tid; i < kParams; i += n_threads) p[i] = a.params[i];
+  for (int i = tid; i <= a.max_bounce; i += n_threads) s_hist[i] = 0;
   __syncthreads();
-  const Triangles tri = {tri_rows, tri_normals, tri_mat, chunks,
-                         kGeom == kChunks ? n_chunks : 0,
-                         bvh_nodes, bvh_leaves, n_nodes};
+  return {p,
+          {rows, clusters, orig, mat, a.n_hoist, a.n_clusters},
+          s_hist,
+          {a.tri_rows, a.tri_normals, a.tri_mat, chunks, a.n_chunks, supers,
+           a.n_supers, a.super_size, a.bvh_nodes, a.bvh_leaves, a.n_nodes}};
+}
+
+// Exactly spp samples a pixel. Raygen and the fold are written out rather
+// than through the helpers render_adaptive uses below: with them, ptxas
+// (nvcc 12.9, sm_90a) spilled more in the triangle instantiation and took
+// fewer registers than it needs in the sphere one.
+template <Geometry kGeom, Scatter kScatter>
+__global__ void __launch_bounds__(kBlockX * kBlockY)
+render_kernel(const Args a) {
+  extern __shared__ float4 smem4[];
+  const Staged sc = stage_scene(smem4, a);
+  const float* p = sc.p;
+  const int width = a.width, height = a.height;
 
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const int y = blockIdx.y * blockDim.y + threadIdx.y;
@@ -673,14 +823,15 @@ render_kernel(const float* __restrict__ sph_in,
 
     int segs = 0;
     Vec3 acc = {0.0f, 0.0f, 0.0f};
-    if (accum_in != nullptr) {
-      acc = {accum_in[3 * pix], accum_in[3 * pix + 1], accum_in[3 * pix + 2]};
+    if (a.accum_in != nullptr) {
+      acc = {a.accum_in[3 * pix], a.accum_in[3 * pix + 1],
+             a.accum_in[3 * pix + 2]};
     }
-    for (int k = 0; k < n_frames; ++k) {
-      const uint32_t frame = frame0 + static_cast<uint32_t>(k);
+    for (int k = 0; k < a.n_frames; ++k) {
+      const uint32_t frame = a.frame0 + static_cast<uint32_t>(k);
       uint32_t state = static_cast<uint32_t>(pix) + frame * kFrameSeedStride;
       Vec3 total = {0.0f, 0.0f, 0.0f};
-      for (int sample = 0; sample < spp; ++sample) {
+      for (int sample = 0; sample < a.spp; ++sample) {
         // raygen (RayTracing.shader:377-382): defocus disc on the origin,
         // diverge disc on the target
         float cx, cy, jx, jy;
@@ -690,13 +841,13 @@ render_kernel(const float* __restrict__ sph_in,
         const Vec3 target = add(add(fp, scale(right, jx)), scale(up, jy));
         const Vec3 dir = normalize(sub(target, origin));
         total = add(total, trace_path<kGeom, kScatter>(
-                               p, sph, sph_mat, n_sph, tri, mats, max_bounce,
-                               state, origin, dir, segs,
-                               hist != nullptr ? s_hist : nullptr));
+                               p, sc.sph, sc.tri, a.mats, a.max_bounce, state,
+                               origin, dir, segs,
+                               a.hist != nullptr ? sc.s_hist : nullptr));
       }
-      const float n = static_cast<float>(spp);
+      const float n = static_cast<float>(a.spp);
       const Vec3 mean = {total.x / n, total.y / n, total.z / n};
-      if (accum_in == nullptr) {
+      if (a.accum_in == nullptr) {
         acc = mean;
       } else {
         // ops/accumulate.py: prev (1 - w) + cur w, w = 1 / (frame + 1)
@@ -704,78 +855,18 @@ render_kernel(const float* __restrict__ sph_in,
         const float keep = 1.0f - w;
         acc = {acc.x * keep + mean.x * w, acc.y * keep + mean.y * w,
                acc.z * keep + mean.z * w};
-        if (clamp_accum) {
+        if (a.clamp_accum) {
           acc = {fminf(fmaxf(acc.x, 0.0f), 1.0f), fminf(fmaxf(acc.y, 0.0f), 1.0f),
                  fminf(fmaxf(acc.z, 0.0f), 1.0f)};
         }
       }
     }
-    out[3 * pix] = acc.x;
-    out[3 * pix + 1] = acc.y;
-    out[3 * pix + 2] = acc.z;
-    segs_out[pix] = segs;
+    a.out[3 * pix] = acc.x;
+    a.out[3 * pix + 1] = acc.y;
+    a.out[3 * pix + 2] = acc.z;
+    a.segs[pix] = segs;
   }
-
-  if (hist != nullptr) {
-    __syncthreads();
-    for (int i = tid; i <= max_bounce; i += n_threads) {
-      if (s_hist[i] != 0) atomicAdd(&hist[i], s_hist[i]);
-    }
-  }
-}
-
-// The block's view of the scene after staging it in shared memory.
-struct Staged {
-  const float* p;  // parameters
-  const float* sph;  // sphere table
-  const int* sph_mat;
-  int* s_hist;  // the block's bounce histogram
-  Triangles tri;
-};
-
-// Every thread of the block takes part: stages the tables, zeroes the
-// histogram and waits for the block.
-template <Geometry kGeom>
-__device__ __forceinline__ Staged stage_scene(
-    float4* smem4, const float* __restrict__ sph_in,
-    const int* __restrict__ sph_mat_in, int n_sph,
-    const float4* __restrict__ tri_rows, const float* __restrict__ tri_normals,
-    const int* __restrict__ tri_mat, const float* __restrict__ chunks_in,
-    int n_chunks, const float* __restrict__ params_in, int max_bounce,
-    const float4* __restrict__ bvh_nodes, const int4* __restrict__ bvh_leaves,
-    int n_nodes) {
-  float* chunks = reinterpret_cast<float*>(smem4);
-  float* p = chunks + (kGeom == kChunks ? kChunk * n_chunks : 0);
-  float* sph = p + kParams;
-  int* sph_mat = reinterpret_cast<int*>(sph + kSph * n_sph);
-  int* s_hist = sph_mat + n_sph;
-
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  const int n_threads = blockDim.x * blockDim.y;
-  if constexpr (kGeom == kChunks) {
-    for (int i = tid; i < kChunk * n_chunks; i += n_threads) chunks[i] = chunks_in[i];
-  }
-  for (int i = tid; i < kParams; i += n_threads) p[i] = params_in[i];
-  for (int i = tid; i < kSph * n_sph; i += n_threads) sph[i] = sph_in[i];
-  for (int i = tid; i < n_sph; i += n_threads) sph_mat[i] = sph_mat_in[i];
-  for (int i = tid; i <= max_bounce; i += n_threads) s_hist[i] = 0;
-  __syncthreads();
-  return {p, sph, sph_mat, s_hist,
-          {tri_rows, tri_normals, tri_mat, chunks,
-           kGeom == kChunks ? n_chunks : 0, bvh_nodes, bvh_leaves, n_nodes}};
-}
-
-// Adds the block's histogram to the launch's; every thread takes part.
-__device__ __forceinline__ void flush_hist(const int* s_hist, int* hist,
-                                           int max_bounce) {
-  if (hist != nullptr) {
-    __syncthreads();
-    const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-    const int n_threads = blockDim.x * blockDim.y;
-    for (int i = tid; i <= max_bounce; i += n_threads) {
-      if (s_hist[i] != 0) atomicAdd(&hist[i], s_hist[i]);
-    }
-  }
+  flush_hist(sc.s_hist, a.hist, a.max_bounce);
 }
 
 // The pixel's point on the focus plane: position + rotation @ (lx, ly,
@@ -835,26 +926,14 @@ __device__ __forceinline__ Vec3 div(Vec3 v, float n) {
 // the running average, the completed-sample count, frame and bounce index.
 template <Geometry kGeom, Scatter kScatter>
 __global__ void __launch_bounds__(kBlockX * kBlockY)
-render_adaptive(const float* __restrict__ sph_in,
-                const int* __restrict__ sph_mat_in, int n_sph,
-                const float4* __restrict__ tri_rows,
-                const float* __restrict__ tri_normals,
-                const int* __restrict__ tri_mat,
-                const float* __restrict__ chunks_in, int n_chunks,
-                const float* __restrict__ mats,
-                const float* __restrict__ params_in, int width, int height,
-                int spp, int max_bounce, uint32_t frame0, int n_frames,
-                const float* __restrict__ accum_in, int clamp_accum,
-                float* __restrict__ out, int* __restrict__ segs_out,
-                int* __restrict__ hist, const float4* __restrict__ bvh_nodes,
-                const int4* __restrict__ bvh_leaves, int n_nodes) {
+render_adaptive(const Args a) {
   extern __shared__ float4 smem4[];
-  const Staged sc = stage_scene<kGeom>(smem4, sph_in, sph_mat_in, n_sph,
-                                       tri_rows, tri_normals, tri_mat,
-                                       chunks_in, n_chunks, params_in,
-                                       max_bounce, bvh_nodes, bvh_leaves,
-                                       n_nodes);
-  int* s_hist = hist != nullptr ? sc.s_hist : nullptr;
+  const Staged sc = stage_scene(smem4, a);
+  int* s_hist = a.hist != nullptr ? sc.s_hist : nullptr;
+  const int width = a.width, height = a.height, spp = a.spp;
+  const int max_bounce = a.max_bounce, n_frames = a.n_frames;
+  const uint32_t frame0 = a.frame0;
+  const int clamp_accum = a.clamp_accum;
 
   // Lanes outside the image stay in the loop, owing nothing.
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
@@ -865,10 +944,11 @@ render_adaptive(const float* __restrict__ sph_in,
   const Vec3 right = {sc.p[3], sc.p[6], sc.p[9]};
   const Vec3 up = {sc.p[4], sc.p[7], sc.p[10]};
   const Vec3 fp = focus_point(sc.p, x, y, width, height);
-  const bool with_accum = accum_in != nullptr;
+  const bool with_accum = a.accum_in != nullptr;
   Vec3 acc = {0.0f, 0.0f, 0.0f};
   if (in_image && with_accum) {
-    acc = {accum_in[3 * pix], accum_in[3 * pix + 1], accum_in[3 * pix + 2]};
+    acc = {a.accum_in[3 * pix], a.accum_in[3 * pix + 1],
+           a.accum_in[3 * pix + 2]};
   }
 
   const int quota = n_frames * spp;
@@ -909,8 +989,8 @@ render_adaptive(const float* __restrict__ sph_in,
       ++segs;
       if (s_hist != nullptr) atomicAdd(&s_hist[bounce], 1);
       const bool goes_on = trace_segment<kGeom, kScatter>(
-          sc.p, sc.sph, sc.sph_mat, n_sph, sc.tri, mats, bounce == 0, state,
-          o, d, colour, incoming);
+          sc.p, sc.sph, sc.tri, a.mats, bounce == 0, state, o, d, colour,
+          incoming);
       if (!goes_on || bounce >= max_bounce) {
         // the sample is complete: bank its light
         total = add(total, incoming);
@@ -928,48 +1008,20 @@ render_adaptive(const float* __restrict__ sph_in,
     acc = fold(acc, div(total, static_cast<float>(n_last)),
                frame0 + static_cast<uint32_t>(n_frames - 1), with_accum,
                clamp_accum);
-    out[3 * pix] = acc.x;
-    out[3 * pix + 1] = acc.y;
-    out[3 * pix + 2] = acc.z;
-    segs_out[pix] = segs;
+    a.out[3 * pix] = acc.x;
+    a.out[3 * pix + 1] = acc.y;
+    a.out[3 * pix + 2] = acc.z;
+    a.segs[pix] = segs;
   }
-  flush_hist(sc.s_hist, hist, max_bounce);
-}
-
-// One launch's arguments, as rtx_render receives them.
-struct LaunchArgs {
-  const void *sph, *sph_mat;
-  int n_sph;
-  const void *tri_rows, *tri_normals, *tri_mat, *chunks;
-  int n_chunks;
-  const void *mats, *params;
-  int width, height, spp, max_bounce;
-  unsigned int frame0;
-  int n_frames;
-  const void* accum_in;
-  int clamp_accum;
-  void *out, *segs, *hist;
-  const void *bvh_nodes, *bvh_leaves;
-  int n_nodes;
-};
-
-using KernelFn = void (*)(const float*, const int*, int, const float4*,
-                          const float*, const int*, const float*, int,
-                          const float*, const float*, int, int, int, int,
-                          uint32_t, int, const float*, int, float*, int*,
-                          int*, const float4*, const int4*, int);
-
-// The chunk table is staged by kChunks only.
-size_t shared_bytes(Geometry geom, int n_sph, int n_chunks, int max_bounce) {
-  return sizeof(float) *
-         shared_floats(n_sph, geom == kChunks ? n_chunks : 0, max_bounce);
+  flush_hist(sc.s_hist, a.hist, max_bounce);
 }
 
 template <Geometry kGeom, Scatter kScatter>
-cudaError_t launch(const LaunchArgs& a, bool adaptive, cudaStream_t stream) {
-  const KernelFn kernel = adaptive ? render_adaptive<kGeom, kScatter>
-                                   : render_kernel<kGeom, kScatter>;
-  const size_t smem = shared_bytes(kGeom, a.n_sph, a.n_chunks, a.max_bounce);
+cudaError_t launch(const Args& a, bool adaptive, cudaStream_t stream) {
+  void (*kernel)(const Args) = adaptive ? render_adaptive<kGeom, kScatter>
+                                        : render_kernel<kGeom, kScatter>;
+  const size_t smem = shared_bytes(a.n_sph, a.n_clusters, a.n_chunks,
+                                   a.n_supers, a.max_bounce);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -979,57 +1031,82 @@ cudaError_t launch(const LaunchArgs& a, bool adaptive, cudaStream_t stream) {
   const dim3 block(kBlockX, kBlockY);
   const dim3 grid((a.width + kBlockX - 1) / kBlockX,
                   (a.height + kBlockY - 1) / kBlockY);
-  kernel<<<grid, block, smem, stream>>>(
-      static_cast<const float*>(a.sph), static_cast<const int*>(a.sph_mat),
-      a.n_sph, static_cast<const float4*>(a.tri_rows),
-      static_cast<const float*>(a.tri_normals),
-      static_cast<const int*>(a.tri_mat), static_cast<const float*>(a.chunks),
-      a.n_chunks, static_cast<const float*>(a.mats),
-      static_cast<const float*>(a.params), a.width, a.height, a.spp,
-      a.max_bounce, a.frame0, a.n_frames,
-      static_cast<const float*>(a.accum_in), a.clamp_accum,
-      static_cast<float*>(a.out), static_cast<int*>(a.segs),
-      static_cast<int*>(a.hist), static_cast<const float4*>(a.bvh_nodes),
-      static_cast<const int4*>(a.bvh_leaves), a.n_nodes);
+  kernel<<<grid, block, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
 template <Geometry kGeom>
-cudaError_t launch_geometry(const LaunchArgs& a, bool adaptive,
-                            bool fast_scatter, cudaStream_t stream) {
+cudaError_t launch_geometry(const Args& a, bool adaptive, bool fast_scatter,
+                            cudaStream_t stream) {
   return fast_scatter ? launch<kGeom, kFastScatter>(a, adaptive, stream)
                       : launch<kGeom, kBoxMuller>(a, adaptive, stream);
 }
 
 }  // namespace
 
-// A launch's dynamic shared memory; `geometry` is a Geometry value.
-extern "C" size_t rtx_shared_bytes(int geometry, int n_sph, int n_chunks,
+// A launch's dynamic shared memory; `geometry` is a Geometry value. The
+// chunk table and its second level are staged by kChunks only.
+extern "C" size_t rtx_shared_bytes(int geometry, int n_sph, int n_clusters,
+                                   int n_chunks, int n_supers,
                                    int max_bounce) {
-  return shared_bytes(static_cast<Geometry>(geometry), n_sph, n_chunks,
-                      max_bounce);
+  const bool chunks = geometry == kChunks;
+  return shared_bytes(n_sph, n_clusters, chunks ? n_chunks : 0,
+                      chunks ? n_supers : 0, max_bounce);
 }
 
 // `geometry` picks the instantiation (0 kSpheres, 1 kChunks, 2 kBvh).
-// kChunks and kBvh need the triangle tables (tri_rows 16-byte aligned),
-// kChunks the chunk table, kBvh the node table (16-byte aligned) and the
-// leaf rows; the pointers a geometry does not read may be null. `adaptive`
-// picks render_adaptive over render_kernel, `fast_scatter` the
-// kFastScatter sampler. Returns cudaGetLastError() after the launch.
+// Every geometry takes the sphere tables (16-byte aligned; empty for a
+// scene without spheres). kChunks and kBvh need the triangle tables
+// (tri_rows 16-byte aligned), kChunks the chunk table and, with n_supers
+// > 0, a box over each run of super_size chunks; kBvh the node table
+// (16-byte aligned) and the leaf rows; the pointers a geometry does not
+// read may be null. `adaptive` picks render_adaptive over render_kernel,
+// `fast_scatter` the kFastScatter sampler. Returns cudaGetLastError() after
+// the launch.
 extern "C" int rtx_render(
-    int geometry, const void* sph, const void* sph_mat, int n_sph,
+    int geometry, const void* sph, const void* sph_orig, const void* sph_mat,
+    int n_sph, const void* clusters, int n_clusters, int n_hoist,
     const void* tri_rows, const void* tri_normals, const void* tri_mat,
-    const void* chunks, int n_chunks, const void* bvh_nodes,
-    const void* bvh_leaves, int n_nodes, const void* mats, const void* params,
-    int width, int height, int spp, int max_bounce, unsigned int frame0,
-    int n_frames, const void* accum_in, int clamp_accum, int adaptive,
-    int fast_scatter, void* out, void* segs, void* hist, void* stream) {
+    const void* chunks, int n_chunks, const void* supers, int n_supers,
+    int super_size, const void* bvh_nodes, const void* bvh_leaves,
+    int n_nodes, const void* mats, const void* params, int width, int height,
+    int spp, int max_bounce, unsigned int frame0, int n_frames,
+    const void* accum_in, int clamp_accum, int adaptive, int fast_scatter,
+    void* out, void* segs, void* hist, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const LaunchArgs a = {
-      sph, sph_mat, n_sph, tri_rows, tri_normals, tri_mat, chunks,
-      geometry == kChunks ? n_chunks : 0, mats, params, width, height, spp,
-      max_bounce, frame0, n_frames, accum_in, clamp_accum, out, segs, hist,
-      bvh_nodes, bvh_leaves, geometry == kBvh ? n_nodes : 0};
+  const bool by_chunks = geometry == kChunks;
+  const Args a = {
+      static_cast<const float4*>(sph),
+      static_cast<const int*>(sph_orig),
+      static_cast<const int*>(sph_mat),
+      n_sph,
+      static_cast<const float4*>(clusters),
+      n_clusters,
+      n_hoist,
+      static_cast<const float4*>(tri_rows),
+      static_cast<const float*>(tri_normals),
+      static_cast<const int*>(tri_mat),
+      static_cast<const float4*>(chunks),
+      by_chunks ? n_chunks : 0,
+      static_cast<const float4*>(supers),
+      by_chunks ? n_supers : 0,
+      super_size,
+      static_cast<const float4*>(bvh_nodes),
+      static_cast<const int4*>(bvh_leaves),
+      geometry == kBvh ? n_nodes : 0,
+      static_cast<const float*>(mats),
+      static_cast<const float*>(params),
+      width,
+      height,
+      spp,
+      max_bounce,
+      frame0,
+      n_frames,
+      static_cast<const float*>(accum_in),
+      clamp_accum,
+      static_cast<float*>(out),
+      static_cast<int*>(segs),
+      static_cast<int*>(hist)};
   const bool ad = adaptive != 0, fast = fast_scatter != 0;
   switch (geometry) {
     case kSpheres:

@@ -38,19 +38,35 @@ import collections
 import ctypes
 import dataclasses
 import functools
+import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from ..accel.bvh import LEAF_WIDTH, STACK_DEPTH, closest_hit_bvh
+from ..accel.bvh import (
+    LEAF_WIDTH,
+    STACK_DEPTH,
+    _traverse,
+    _triangle_t_one,
+    closest_hit_bvh,
+)
 from ..models.geometry import Scene
 from ..ops import rng as rng_ops
 from ..ops import vecmath as vm
 from ..ops.accumulate import accumulate
 from ..ops.camera import Camera, camera_params, focus_points, generate_rays
+from ..ops.intersect import (
+    INF,
+    HitRecord,
+    hit_record,
+    ray_spheres_t,
+    ray_triangles_t,
+)
 from ..ops.trace import trace, trace_segment
 from ..utils.config import RenderConfig
 from .build import BuildInfo, CudaLibrary
+from .pack import SUB, pack_spheres
 
 # Dynamic shared memory one block may use on Hopper (227 KB).
 MAX_SHARED_BYTES = 232448
@@ -64,6 +80,10 @@ MAX_PAIR_ELEMENTS = 1 << 25
 # warp is 32 consecutive threads of it, 16 columns by 2 rows.
 BLOCK_X = 16
 WARP = 32
+
+# The chunk scan's second level: one box over each run of this many chunks
+# (the TPU kernel's super-cluster of 32 sub-clusters).
+SUPER_CHUNKS = 32
 
 # How the kernel finds a scene's triangles, in the order of the source's
 # Geometry values (kSpheres, kChunks, kBvh).
@@ -101,22 +121,242 @@ def geometry(scene: Scene, cfg: RenderConfig) -> str:
     return "chunks" if scene.has_triangles else "spheres"
 
 
-def plain_intersector(scene: Scene, cfg: RenderConfig):
-    """The plain path's closest-hit function for ``cfg.intersector``, the
-    JAX package's ``_resolve_intersector`` (render.py:33-50): ``"auto"``
-    and ``"bvh"`` traverse the BVHs the scene has and scan the primitive
-    type without one; ``"bruteforce"`` scans and ignores them; ``"mega"``
-    is the kernel's own choice, the triangle BVH where there is one. None
-    means the brute-force scan."""
-    if cfg.intersector in ("auto", "bvh"):
-        if scene.has_tri_bvh or scene.sphere_bvh is not None:
-            return closest_hit_bvh
-    elif cfg.intersector == "mega" and scene.has_tri_bvh:
-        return functools.partial(closest_hit_bvh, sphere_bvh=False)
-    return None
+def plain_intersector(scene: Scene, cfg: RenderConfig, counts=None):
+    """The plain path's closest-hit function for ``cfg.intersector``:
+    ``closest_hit_clustered`` on the tables of ``geometry(scene, cfg)``,
+    the function the kernel computes for this scene and config. One case
+    the kernel has no counterpart of keeps the JAX package's XLA path:
+    ``"auto"`` and ``"bvh"`` on a scene with a sphere BVH traverse it
+    (``closest_hit_bvh``). ``counts``, a dict, gathers the tests the
+    clustered scan needs (``closest_hit_clustered``)."""
+    if cfg.intersector in ("auto", "bvh") and scene.sphere_bvh is not None:
+        return closest_hit_bvh
+    return functools.partial(
+        closest_hit_clustered,
+        tables=geometry_tables(scene, geometry(scene, cfg)), counts=counts,
+    )
 
 
 # ------------------------------ plain version -------------------------------
+
+
+def _slab_interval(o, inv_d, bmin, bmax):
+    """Every ray's slab interval with every box -> ``(t_near, t_far)``, each
+    (B, K). An axis whose ``t0`` or ``t1`` is NaN (a zero direction
+    component with the origin on that face's plane: the ray's line lies in
+    the plane) leaves the interval as it is, the reference's rule
+    (RayTracing.shader:177-187, whose min and max drop a NaN operand): it
+    can never reject, so no primitive that a scan without boxes would hit
+    is skipped for it."""
+    t0 = (bmin[None, :, :] - o[:, None, :]) * inv_d[:, None, :]
+    t1 = (bmax[None, :, :] - o[:, None, :]) * inv_d[:, None, :]
+    free = torch.isnan(t0) | torch.isnan(t1)
+    t_near = torch.where(free, -INF, torch.minimum(t0, t1)).amax(dim=-1)
+    t_far = torch.where(free, INF, torch.maximum(t0, t1)).amin(dim=-1)
+    return t_near, t_far
+
+
+def _gated_visits(t_near, t_far, nearest, best0, outer=None):
+    """Which boxes a scan in table order visits behind the t-bounded slab
+    test: box k iff ``t_far >= 0 and t_near <= min(t_far, best)``, where
+    ``best`` is the nearest hit so far: ``best0`` (B,) before the first
+    box, then the least of it and ``nearest`` (B, K, the nearest hit among
+    a box's members, +inf for none) of the boxes visited. -> ``(visit (B,
+    K) bool, None)``. With ``outer = (t_near, t_far, size)``, the intervals
+    (B, R) of a box over each run of ``size`` boxes, a run is entered only
+    if its outer box passes the same test, with ``best`` as it is then:
+    -> ``(visit, entered (B, R) bool)``.
+
+    Computed without a loop over boxes. A box skipped for ``t_near > best``
+    holds, as a rule, nothing nearer than ``best``; then ``best`` before
+    box k is the running minimum over all boxes before k that the line
+    test alone passes, one ``cummin``. The exception is a skipped box with
+    a member nearer than ``best`` (a near-tie: rounding put the member
+    before its box's entry, ``best`` between the two): the running minimum
+    took a hit the scan never saw. The first such box of a ray is certain
+    (everything before it is right), so it is taken out of that ray's
+    minimum and the ray is scanned again, until none is left: a pass or
+    two over a few rays."""
+    n = t_near.shape[1]
+    line = (t_far >= 0.0) & (t_near <= t_far)
+    if outer is not None:
+        o_near, o_far, size = outer
+        run_of = torch.arange(n, device=t_near.device) // size
+        o_line = (o_far >= 0.0) & (o_near <= o_far)
+        line = line & o_line[:, run_of]
+
+    def scan(rows, unseen):
+        """One pass over the rays ``rows`` (all of them for None), the
+        boxes ``unseen`` (rows, K) out of the minimum -> (visit, entered,
+        skipped boxes with a member nearer than the best so far)."""
+        def of(x):
+            return x if rows is None else x[rows]
+
+        ln, tn, m = of(line), of(t_near), of(nearest)
+        counted = ln if unseen is None else ln & ~unseen
+        reach = torch.where(counted, m, INF)
+        before = torch.cummin(
+            torch.cat([of(best0)[:, None], reach[:, :-1]], dim=1), dim=1
+        ).values
+        visit = ln & (tn <= before)
+        entered = None
+        if outer is not None:
+            entered = of(o_line) & (of(o_near) <= before[:, ::size])
+            visit &= entered[:, run_of]
+        return visit, entered, counted & ~visit & (m < before)
+
+    visit, entered, wrong = scan(None, None)
+    rows = wrong.any(dim=1).nonzero().squeeze(1)
+    if rows.numel():
+        wrong = wrong[rows]
+        unseen = torch.zeros_like(wrong)
+        while True:
+            has = wrong.any(dim=1).nonzero().squeeze(1)
+            if not has.numel():
+                break
+            unseen[has, wrong[has].to(torch.int8).argmax(dim=1)] = True
+            v, e, wrong = scan(rows, unseen)
+        visit[rows] = v
+        if entered is not None:
+            entered[rows] = e
+    return visit, entered
+
+
+def _group_min(t, members):
+    """(B, P) hit distances -> (B, G) least distance of each group's
+    members, +inf for a group without a hit. ``members`` (G, M) int64 holds
+    each group's columns of ``t``, filled up with P (a column of +inf)."""
+    return F.pad(t, (0, 1), value=INF)[:, members].amin(dim=2)
+
+
+def _members(group_of: np.ndarray, n_groups: int, pad: int) -> np.ndarray:
+    """(n_groups, M) int64: row g lists the positions where ``group_of`` is
+    g (groups at or beyond ``n_groups`` are left out), filled up with
+    ``pad``; M is the largest group's size, at least 1."""
+    keep = np.nonzero(group_of < n_groups)[0]
+    order = keep[np.argsort(group_of[keep], kind="stable")]
+    sizes = np.bincount(group_of[keep], minlength=n_groups)
+    out = np.full((n_groups, max(1, int(sizes.max(initial=0)))), pad, np.int64)
+    starts = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+    within = np.arange(len(order)) - np.repeat(starts, sizes)
+    out[group_of[order], within] = order
+    return out
+
+
+def closest_hit_clustered(o, d, scene: Scene, tables: KernelTables,
+                          counts=None) -> HitRecord:
+    """The kernel's closest hit in plain PyTorch (``clustered_winner``) as
+    a hit record."""
+    return hit_record(o, d, scene,
+                      *clustered_winner(o, d, scene, tables, counts))
+
+
+def clustered_winner(o, d, scene: Scene, tables: KernelTables, counts=None):
+    """The kernel's closest hit in plain PyTorch -> ``(t (B,), index (B,))``
+    as ``hit_record`` takes them: ``closest_hit_bruteforce`` behind the
+    kernel's culls, with its pair tests (so a distance is computed by the
+    same operations whether or not a cull comes first).
+
+    Spheres: the hoisted ones, then each sub-cluster of ``tables.clusters``
+    in table order behind the t-bounded slab test (``_gated_visits``,
+    ``_slab_interval`` for the NaN rule); among the spheres tested the
+    nearest wins, the lower scene index on a tie, so the clustered order
+    decides no tie. Then the triangles, by ``tables.geometry``: each chunk
+    in index order behind the same test (spheres first, so the best hit is
+    often finite already), a strictly nearer triangle winning and the lower
+    index a tie; or through the triangle BVH (``accel/bvh._traverse``, from
+    +inf, its winner taken if strictly nearer).
+
+    ``counts``, a dict, if given, gains what the scan does for the rays
+    that are live (the plain path parks dead lanes at 1e9): ``segments``,
+    ``cluster_slabs``, ``sphere_tests``, ``chunk_slabs``,
+    ``triangle_tests``, beside them ``line_triangle_tests`` (the triangles
+    of every chunk whose box the ray's line meets: what the reference's
+    gate, without the bound, would test), and for the BVH ``_traverse``'s
+    ``slabs`` and ``prims`` (those with the parked lanes' root tests,
+    ``parked`` of them)."""
+    b = o.shape[0]
+    dev = o.device
+    inv_d = 1.0 / d
+    s = scene.spheres.count
+    n_clusters = tables.clusters.shape[0]
+    live = None
+    if counts is not None:
+        live = o[:, 0] < 1e8
+        counts["segments"] = counts.get("segments", 0) + int(live.sum())
+
+    def add(key, per_ray):
+        counts[key] = counts.get(key, 0) + int(per_ray[live].sum())
+
+    def weighted(mask, weights):
+        # (B, K) bool x (K,) integer -> (B,) int64 (CUDA has no integer
+        # matrix product)
+        return (mask * weights.to(torch.int64)[None, :]).sum(dim=1)
+
+    # spheres: hoisted (column n_clusters, always tested), then clusters
+    t_sph = ray_spheres_t(o, d, scene.spheres)
+    nearest = _group_min(t_sph, tables.cluster_members)
+    tested = torch.zeros((b, n_clusters + 2), dtype=torch.bool, device=dev)
+    tested[:, n_clusters] = True
+    if n_clusters:
+        cl = tables.clusters
+        t_near, t_far = _slab_interval(o, inv_d, cl[:, 0:3], cl[:, 4:7])
+        tested[:, :n_clusters] = _gated_visits(
+            t_near, t_far, nearest[:, :n_clusters], nearest[:, n_clusters]
+        )[0]
+    t_sph = torch.where(tested[:, tables.cluster_of], t_sph, INF)
+    best_t, best = torch.min(t_sph, dim=1)
+    if counts is not None:
+        add("cluster_slabs", torch.full((b,), n_clusters, device=dev))
+        # a cluster's live slots, int32 bits in its row's last column
+        sizes = tables.clusters[:, 7].contiguous().view(torch.int32)
+        add("sphere_tests", tables.n_hoist
+            + weighted(tested[:, :n_clusters], sizes))
+
+    if tables.geometry == "chunks":
+        ch = tables.chunks
+        n_chunks = ch.shape[0]
+        t_tri = ray_triangles_t(o, d, scene.triangles)
+        nearest = _group_min(t_tri, tables.chunk_members)
+        t_near, t_far = _slab_interval(o, inv_d, ch[:, 0:3], ch[:, 4:7])
+        outer = None
+        if tables.supers is not None:
+            su = tables.supers
+            outer = (*_slab_interval(o, inv_d, su[:, 0:3], su[:, 4:7]),
+                     SUPER_CHUNKS)
+        visit = torch.zeros((b, n_chunks + 1), dtype=torch.bool, device=dev)
+        visit[:, :n_chunks], entered = _gated_visits(
+            t_near, t_far, nearest, best_t, outer
+        )
+        t_tri = torch.where(visit[:, tables.chunk_of], t_tri, INF)
+        t_t, i_t = torch.min(t_tri, dim=1)
+        if counts is not None:
+            if outer is None:
+                add("chunk_slabs", torch.full((b,), n_chunks, device=dev))
+            else:
+                # every run's box, and the chunk boxes of the runs entered
+                sizes = torch.bincount(
+                    torch.arange(n_chunks, device=dev) // SUPER_CHUNKS)
+                add("chunk_slabs", su.shape[0] + weighted(entered, sizes))
+            n_tris = scene.chunks.num_tris
+            add("triangle_tests", weighted(visit[:, :n_chunks], n_tris))
+            add("line_triangle_tests", weighted(t_near <= t_far, n_tris))
+    elif tables.geometry == "bvh":
+        inf = torch.full((b,), INF, dtype=torch.float32, device=dev)
+        sentinel = None
+        if counts is not None:
+            counts["parked"] = counts.get("parked", 0) + int((~live).sum())
+            sentinel = int(scene.chunks.num_tris.sum())
+        t_t, i_t = _traverse(
+            o, d, scene.tri_bvh,
+            lambda o_, d_, idx: _triangle_t_one(o_, d_, scene, idx), inf,
+            torch.zeros((b,), dtype=torch.int64, device=dev), counts, sentinel,
+        )
+    else:
+        return best_t, best
+    # strict <: a sphere keeps an exact tie with a triangle
+    better = t_t < best_t
+    return torch.where(better, t_t, best_t), torch.where(better, s + i_t, best)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -453,11 +693,12 @@ def _check_frames(n_frames: int, accum) -> None:
 def _bind(lib) -> None:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.rtx_render.argtypes = [
-        ci, vp, vp, ci, vp, vp, vp, vp, ci, vp, vp, ci, vp, vp, ci, ci, ci,
-        ci, ctypes.c_uint, ci, vp, ci, ci, ci, vp, vp, vp, vp,
+        ci, vp, vp, vp, ci, vp, ci, ci, vp, vp, vp, vp, ci, vp, ci, ci, vp,
+        vp, ci, vp, vp, ci, ci, ci, ci, ctypes.c_uint, ci, vp, ci, ci, ci,
+        vp, vp, vp, vp,
     ]
     lib.rtx_render.restype = ci
-    lib.rtx_shared_bytes.argtypes = [ci, ci, ci, ci]
+    lib.rtx_shared_bytes.argtypes = [ci, ci, ci, ci, ci, ci]
     lib.rtx_shared_bytes.restype = ctypes.c_size_t
 
 
@@ -503,7 +744,9 @@ class PathTraceKernel:
         ``cfg.fast_scatter`` pick; returns the same tuple as
         ``render_frames_plain`` with its default warp grouping (the total
         and the histogram count real pixels only). Reads nothing back from
-        the device and does not synchronise."""
+        the device and does not synchronise, except at a scene's first
+        launch, which reads its sphere arrays back to cluster them
+        (``geometry_tables``)."""
         _check_frames(n_frames, accum)
         dev = scene.device
         if dev.type != "cuda":
@@ -526,17 +769,20 @@ class PathTraceKernel:
         lib = self.library.lib
         geom = geometry(scene, cfg)
         tab = scene_tables(scene, camera, cfg)
-        n_sph = scene.spheres.count
+        n_sph = tab.spheres.shape[0]
+        n_clusters = tab.clusters.shape[0]
         n_chunks = 0 if tab.chunks is None else tab.chunks.shape[0]
+        n_supers = 0 if tab.supers is None else tab.supers.shape[0]
         n_nodes = 0 if tab.bvh_nodes is None else tab.bvh_nodes.shape[0]
         code = GEOMETRIES.index(geom)
-        shared = lib.rtx_shared_bytes(code, n_sph, n_chunks, cfg.max_bounce)
+        shared = lib.rtx_shared_bytes(code, n_sph, n_clusters, n_chunks,
+                                      n_supers, cfg.max_bounce)
         if shared > MAX_SHARED_BYTES:
             raise NotImplementedError(
-                f"{n_sph} spheres and {n_chunks} triangle chunks need "
-                f"{shared} bytes of shared memory, over {MAX_SHARED_BYTES}; "
-                "build the scene with build_bvh=\"tri\" to render its "
-                "triangles through the BVH instantiation"
+                f"{n_sph} spheres in {n_clusters} clusters and {n_chunks} "
+                f"triangle chunks need {shared} bytes of shared memory, over "
+                f"{MAX_SHARED_BYTES}; build the scene with build_bvh=\"tri\" "
+                "to render its triangles through the BVH instantiation"
             )
 
         out = torch.empty((h, w, 3), dtype=torch.float32, device=dev)
@@ -547,13 +793,16 @@ class PathTraceKernel:
         )
 
         def ptr(t):
-            return None if t is None else t.data_ptr()
+            # an empty tensor's pointer is null: the kernel reads no row of it
+            return None if t is None or t.numel() == 0 else t.data_ptr()
 
         with torch.cuda.device(dev):
             rc = lib.rtx_render(
-                code, ptr(tab.spheres), ptr(tab.sphere_mat), n_sph,
-                ptr(tab.tri_rows), ptr(tab.tri_normals), ptr(tab.tri_mat),
-                ptr(tab.chunks), n_chunks, ptr(tab.bvh_nodes),
+                code, ptr(tab.spheres), ptr(tab.sphere_orig),
+                ptr(tab.sphere_mat), n_sph, ptr(tab.clusters), n_clusters,
+                tab.n_hoist, ptr(tab.tri_rows), ptr(tab.tri_normals), ptr(tab.tri_mat),
+                ptr(tab.chunks), n_chunks, ptr(tab.supers), n_supers,
+                SUPER_CHUNKS, ptr(tab.bvh_nodes),
                 ptr(tab.bvh_leaves), n_nodes, ptr(tab.materials),
                 ptr(tab.params), w, h, cfg.spp, cfg.max_bounce,
                 int(frame0) & 0xFFFFFFFF, n_frames, ptr(accum),
@@ -571,95 +820,253 @@ class PathTraceKernel:
 @dataclasses.dataclass
 class KernelTables:
     """The kernel's inputs on the scene's device (layouts in
-    ``csrc/megakernel.cu``). The triangle fields are None for the sphere
-    geometry, the chunk table for the BVH geometry, and the BVH tables for
-    the other two."""
+    ``csrc/megakernel.cu``), and what the plain version needs beside them.
+    The triangle fields are None for the sphere geometry, the chunk table
+    for the BVH geometry, and the BVH tables for the other two.
 
-    spheres: torch.Tensor  # (S, 5) f32: cx, cy, cz, r^2, r
-    sphere_mat: torch.Tensor  # (S,) int32
+    Spheres are in clustered order (``kernels/pack.py``): the hoisted ones
+    first, then each sub-cluster's live slots, sub-cluster after
+    sub-cluster. Only real spheres have a slot."""
+
+    geometry: str
+    spheres: torch.Tensor  # (N, 4) f32: cx, cy, cz, r^2
+    sphere_orig: torch.Tensor  # (N,) int32: the slot's index in the scene
+    sphere_mat: torch.Tensor  # (N,) int32
+    # (K, 8) f32: box min, first slot, box max, live slots (the two counts
+    # as int32 bits); the box is the sub-cluster's, one ulp wider each way
+    clusters: torch.Tensor
+    n_hoist: int
+    # (S,) int64, by the scene's sphere index: its cluster, K for a hoisted
+    # sphere, K + 1 for a padding sphere
+    cluster_of: torch.Tensor
+    # (K + 1, M) int64: the scene indices of each cluster's spheres, row K
+    # the hoisted ones, filled up with S
+    cluster_members: torch.Tensor
     materials: torch.Tensor  # (M, 16) f32
-    params: torch.Tensor  # (32,) f32
+    params: torch.Tensor | None = None  # (32,) f32, set a launch
     tri_rows: torch.Tensor | None = None  # (T, 12) f32: a, b - a, c - a, n
     tri_normals: torch.Tensor | None = None  # (T, 9) f32: at a, b, c
     tri_mat: torch.Tensor | None = None  # (T,) int32
-    chunks: torch.Tensor | None = None  # (C, 8) f32: min, max, first, count
+    # (C, 8) f32: box min, first triangle, box max, triangle count
+    chunks: torch.Tensor | None = None
+    # (T,) int64: the triangle's chunk, C for a padding triangle
+    chunk_of: torch.Tensor | None = None
+    # (C, M) int64: each chunk's triangles, filled up with T
+    chunk_members: torch.Tensor | None = None
+    # (R, 8) f32: box min, 0, box max, 0 over each run of SUPER_CHUNKS
+    # chunks; None for a scene of at most one run
+    supers: torch.Tensor | None = None
     # (N, 8) f32: min, a, max, b with a = left child or ~leaf row, b =
     # right child (int32 bits)
     bvh_nodes: torch.Tensor | None = None
     bvh_leaves: torch.Tensor | None = None  # (L, 4) int32
+    # host seconds the sphere clustering took when these were built
+    cluster_seconds: float = 0.0
 
 
-def scene_tables(scene: Scene, camera: Camera, cfg: RenderConfig) -> KernelTables:
-    """The scene, camera and config flattened into the kernel's tables,
-    for ``geometry(scene, cfg)``. The chunk table holds each chunk's first
-    triangle and triangle count as int32 bits in its f32 columns 6 and 7;
-    a BVH node row its child links or leaf row in columns 3 and 7 (an
-    internal node has left and right children >= 0, a leaf has
-    ``leaf_row >= 0``: ``accel/bvh.py build_lbvh``)."""
+@dataclasses.dataclass
+class TableBuilds:
+    """How often ``geometry_tables`` built (and did not find) a scene's
+    tables, and the host seconds that took; of them the clustering's."""
+
+    builds: int = 0
+    seconds: float = 0.0
+    cluster_seconds: float = 0.0
+
+    def reset(self) -> None:
+        self.builds, self.seconds, self.cluster_seconds = 0, 0.0, 0.0
+
+
+TABLE_BUILDS = TableBuilds()
+
+
+def _int_bits(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.int32)[:, None].view(torch.float32)
+
+
+def _tensor_leaves(tree):
+    if dataclasses.is_dataclass(tree):
+        for f in dataclasses.fields(tree):
+            yield from _tensor_leaves(getattr(tree, f.name))
+    elif torch.is_tensor(tree):
+        yield tree
+
+
+def sphere_tables(scene: Scene) -> dict:
+    """The clustered sphere tables of ``KernelTables`` (its fields, by
+    name) from ``pack_spheres`` on the scene's sphere arrays, read back to
+    the host once. The JAX package's tables carry dead slots and, after
+    the regular sub-clusters, all-dead ones; here a sub-cluster keeps only
+    its live slots and an empty one is dropped, so a scene without spheres
+    has no cluster. A box is widened by one ulp each way: ``c - r`` and
+    ``c + r`` round to nearest, so the sub-cluster's own box can miss its
+    sphere's surface by half an ulp."""
     dev = scene.device
-    sph, mat, env = scene.spheres, scene.materials, scene.env
-    r = sph.radius[:, None]
-    m = mat.count
+    sph = scene.spheres
+    centers = sph.center.cpu().numpy()
+    radii = sph.radius.cpu().numpy()
+    t0 = time.perf_counter()
+    pack = pack_spheres(centers, radii)
+    seconds = time.perf_counter() - t0
+    live = pack.sph_sub_cols[:, :, 3] > 0
+    perm = pack.perm.reshape(-1, SUB)
+    n_sub = pack.n_sphere_subs_visit
+    order = [perm[n_sub:][live[n_sub:]][: pack.n_hoist]]
+    boxes = []
+    cluster_of = np.full(centers.shape[0], -1, np.int64)
+    first = pack.n_hoist
+    for k in range(n_sub):
+        members = perm[k][live[k]]
+        if len(members) == 0:
+            continue
+        cluster_of[members] = len(boxes)
+        lo = np.nextafter(pack.sph_sub_bounds[k, :3], np.float32(-np.inf))
+        hi = np.nextafter(pack.sph_sub_bounds[k, 3:6], np.float32(np.inf))
+        counts = np.array([first, len(members)], np.int32).view(np.float32)
+        boxes.append(np.concatenate([lo, counts[:1], hi, counts[1:]]))
+        order.append(members)
+        first += len(members)
+    order = np.concatenate(order).astype(np.int64)
+    n_clusters = len(boxes)
+    cluster_of[order[: pack.n_hoist]] = n_clusters
+    cluster_of[cluster_of < 0] = n_clusters + 1
+    if len(order) != int((radii > 0).sum()) or len(set(order.tolist())) != len(order):
+        raise AssertionError("a real sphere is not in exactly one slot")
+    r = radii[order]
+    rows = np.concatenate([centers[order], (r * r)[:, None]], axis=1)
+    clusters = np.stack(boxes) if boxes else np.zeros((0, 8), np.float32)
+    order_t = torch.from_numpy(order).to(dev)
+    return dict(
+        spheres=torch.from_numpy(rows.astype(np.float32)).to(dev),
+        sphere_orig=order_t.to(torch.int32),
+        sphere_mat=sph.mat_idx[order_t].to(torch.int32).contiguous(),
+        clusters=torch.from_numpy(clusters).to(dev),
+        n_hoist=pack.n_hoist,
+        cluster_of=torch.from_numpy(cluster_of).to(dev),
+        cluster_members=torch.from_numpy(
+            _members(cluster_of, n_clusters + 1, centers.shape[0])).to(dev),
+        cluster_seconds=seconds,
+    )
+
+
+def geometry_tables(scene: Scene, geom: str) -> KernelTables:
+    """The scene's part of the kernel's tables for geometry ``geom``, built
+    once a scene: kept on the scene object and found again as long as none
+    of its tensors was replaced or written to in place (an animation's
+    frames are scenes of their own and build their own).
+
+    The chunk table holds each chunk's first triangle and triangle count as
+    int32 bits in its f32 columns 3 and 7; a BVH node row its child links
+    or leaf row in columns 3 and 7 (an internal node has left and right
+    children >= 0, a leaf has ``leaf_row >= 0``: ``accel/bvh.py
+    build_lbvh``)."""
+    key = tuple((id(t), t._version) for t in _tensor_leaves(scene))
+    cache = scene.__dict__.setdefault("_kernel_tables", {})
+    if cache.get("key") != key:
+        cache.clear()
+        cache["key"] = key
+    if geom in cache:
+        return cache[geom]
+
+    t0 = time.perf_counter()
+    dev = scene.device
+    mat = scene.materials
+    if "spheres" not in cache:
+        cache["spheres"] = sphere_tables(scene)
     tab = KernelTables(
-        spheres=torch.cat([sph.center, r * r, r], dim=1).contiguous(),
-        sphere_mat=sph.mat_idx.to(torch.int32).contiguous(),
+        geometry=geom,
         materials=torch.cat(
             [
                 mat.colour, mat.emission_colour, mat.specular_colour,
                 mat.emission_strength[:, None], mat.smoothness[:, None],
                 mat.specular_probability[:, None], mat.ior[:, None],
                 mat.flag.to(torch.float32)[:, None],
-                torch.zeros((m, 2), dtype=torch.float32, device=dev),
+                torch.zeros((mat.count, 2), dtype=torch.float32, device=dev),
             ],
             dim=1,
         ).contiguous(),
-        params=torch.cat(
-            [
-                camera.position, camera.rotation.reshape(-1),
-                camera_params(camera, cfg.width, cfg.height),
-                env.enabled.reshape(1), env.ground_colour,
-                env.sky_colour_horizon, env.sky_colour_zenith,
-                env.sun_focus.reshape(1), env.sun_intensity.reshape(1),
-                env.sun_dir,
-            ]
-        ).to(torch.float32),
+        **cache["spheres"],
     )
-    geom = geometry(scene, cfg)
-    if geom == "spheres":
-        return tab
-
-    def int_bits(x):
-        return x.to(torch.int32)[:, None].view(torch.float32)
-
-    tri = scene.triangles
-    tab.tri_rows = torch.cat(
-        [tri.pos_a, tri.edge_ab, tri.edge_ac, tri.n], dim=1
-    ).contiguous()
-    tab.tri_normals = torch.cat(
-        [tri.normal_a, tri.normal_b, tri.normal_c], dim=1
-    ).contiguous()
-    tab.tri_mat = tri.mat_idx.to(torch.int32).contiguous()
+    if geom != "spheres":
+        tri = scene.triangles
+        tab.tri_rows = torch.cat(
+            [tri.pos_a, tri.edge_ab, tri.edge_ac, tri.n], dim=1
+        ).contiguous()
+        tab.tri_normals = torch.cat(
+            [tri.normal_a, tri.normal_b, tri.normal_c], dim=1
+        ).contiguous()
+        tab.tri_mat = tri.mat_idx.to(torch.int32).contiguous()
     if geom == "chunks":
         ch = scene.chunks
+        first = ch.first_tri.cpu().numpy()
+        ends = first + ch.num_tris.cpu().numpy()
+        if first[0] != 0 or (first[1:] != ends[:-1]).any():
+            raise ValueError(
+                "the scene's chunks are not consecutive runs of its triangles"
+            )
         tab.chunks = torch.cat(
-            [ch.bounds_min, ch.bounds_max, int_bits(ch.first_tri),
-             int_bits(ch.num_tris)],
+            [ch.bounds_min, _int_bits(ch.first_tri), ch.bounds_max,
+             _int_bits(ch.num_tris)],
             dim=1,
         ).contiguous()
-        return tab
-    bvh = scene.tri_bvh
-    if bvh.leaf_prims.shape[1] != LEAF_WIDTH:
-        raise ValueError(
-            f"the kernel's BVH leaves hold {LEAF_WIDTH} triangles, this "
-            f"scene's {bvh.leaf_prims.shape[1]}"
-        )
-    a = torch.where(bvh.leaf_row >= 0, -1 - bvh.leaf_row, bvh.left)
-    tab.bvh_nodes = torch.cat(
-        [bvh.bounds_min, int_bits(a), bvh.bounds_max, int_bits(bvh.right)],
-        dim=1,
-    ).contiguous()
-    tab.bvh_leaves = bvh.leaf_prims.to(torch.int32).contiguous()
+        n_runs = -(-first.shape[0] // SUPER_CHUNKS)
+        if n_runs > 1:
+            # a chunk without triangles takes no part in its run's box
+            pad = n_runs * SUPER_CHUNKS - first.shape[0]
+            real = (ch.num_tris > 0)[:, None]
+            lo = F.pad(torch.where(real, ch.bounds_min, INF), (0, 0, 0, pad),
+                       value=INF)
+            hi = F.pad(torch.where(real, ch.bounds_max, -INF), (0, 0, 0, pad),
+                       value=-INF)
+            zero = torch.zeros((n_runs, 1), dtype=torch.float32, device=dev)
+            tab.supers = torch.cat(
+                [lo.reshape(n_runs, SUPER_CHUNKS, 3).amin(dim=1), zero,
+                 hi.reshape(n_runs, SUPER_CHUNKS, 3).amax(dim=1), zero],
+                dim=1,
+            ).contiguous()
+        chunk_of = np.searchsorted(ends, np.arange(tri.count), side="right")
+        tab.chunk_of = torch.from_numpy(chunk_of).to(dev)
+        tab.chunk_members = torch.from_numpy(
+            _members(chunk_of, first.shape[0], tri.count)).to(dev)
+    elif geom == "bvh":
+        bvh = scene.tri_bvh
+        if bvh.leaf_prims.shape[1] != LEAF_WIDTH:
+            raise ValueError(
+                f"the kernel's BVH leaves hold {LEAF_WIDTH} triangles, this "
+                f"scene's {bvh.leaf_prims.shape[1]}"
+            )
+        a = torch.where(bvh.leaf_row >= 0, -1 - bvh.leaf_row, bvh.left)
+        tab.bvh_nodes = torch.cat(
+            [bvh.bounds_min, _int_bits(a), bvh.bounds_max,
+             _int_bits(bvh.right)],
+            dim=1,
+        ).contiguous()
+        tab.bvh_leaves = bvh.leaf_prims.to(torch.int32).contiguous()
+    cache[geom] = tab
+    TABLE_BUILDS.builds += 1
+    TABLE_BUILDS.seconds += time.perf_counter() - t0
+    TABLE_BUILDS.cluster_seconds += tab.cluster_seconds
     return tab
+
+
+def scene_tables(scene: Scene, camera: Camera, cfg: RenderConfig) -> KernelTables:
+    """The scene, camera and config flattened into the kernel's tables, for
+    ``geometry(scene, cfg)``: the scene's part from ``geometry_tables``,
+    the camera's and the environment's parameters made anew."""
+    env = scene.env
+    params = torch.cat(
+        [
+            camera.position, camera.rotation.reshape(-1),
+            camera_params(camera, cfg.width, cfg.height),
+            env.enabled.reshape(1), env.ground_colour,
+            env.sky_colour_horizon, env.sky_colour_zenith,
+            env.sun_focus.reshape(1), env.sun_intensity.reshape(1),
+            env.sun_dir,
+        ]
+    ).to(torch.float32)
+    return dataclasses.replace(
+        geometry_tables(scene, geometry(scene, cfg)), params=params
+    )
 
 
 KERNEL = PathTraceKernel()

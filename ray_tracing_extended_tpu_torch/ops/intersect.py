@@ -124,7 +124,6 @@ def closest_hit_bruteforce(o, d, scene: Scene) -> HitRecord:
     """Closest hit over every sphere, then every triangle; a strictly closer
     hit wins and the first primitive wins an exact tie (argmin's first
     occurrence, like the shader's ``dst < closestHit.dst`` scan)."""
-    s = scene.spheres.count
     t_all = torch.cat(
         [
             ray_spheres_t(o, d, scene.spheres),
@@ -133,6 +132,14 @@ def closest_hit_bruteforce(o, d, scene: Scene) -> HitRecord:
         dim=1,
     )
     t, best = torch.min(t_all, dim=1)
+    return hit_record(o, d, scene, t, best)
+
+
+def hit_record(o, d, scene: Scene, t, best) -> HitRecord:
+    """The hit record of each ray's winner: ``t`` (B,) its distance, +inf on
+    a miss, ``best`` (B,) its index, a sphere's below the scene's sphere
+    count and a triangle's from there on."""
+    s = scene.spheres.count
     hit = torch.isfinite(t)
     point = o + d * torch.where(hit, t, 0.0)[:, None]
 

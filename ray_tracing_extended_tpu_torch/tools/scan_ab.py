@@ -1,0 +1,153 @@
+"""Frame times of the path-trace kernel on the scenes its two scans are
+judged on, for an A/B of two trees of this package on one card.
+
+It drives only what every tree of the port since the big-mesh slice
+offers (the presets, ``load_json_scene``, ``render_frames_and_accumulate``,
+``kernels.megakernel.KERNEL``), so the same file measures an older
+checkout: run it by path with ``PYTHONPATH`` set to the tree to measure,
+
+    PYTHONPATH=<tree> python <this file> --label parent --out a.jsonl
+
+and compare two trees only within one run of commands on one card, in turns
+(parent, change, change, parent). Per configuration it prints one JSON line:
+the K = 4 frame fold from a seeded accumulator (frame0 = 1), its CUDA-event
+time a frame (median and least of ``--reps`` calls after a warm-up), the
+segment total and the image mean; first a line with the card, and the
+registers and spill bytes of every kernel entry from ``ptxas -v``.
+
+Configurations: RTIOW 1920x1080, 16 spp, 4 bounces; Chess at its shipped
+settings (1280x720, 3 spp, 15 bounces); Cornell 512x512, 4 spp, 8 bounces;
+the 70k-triangle mesh 1280x720, 1 spp, 4 bounces; each with exact spp and
+with adaptive refill. ``--super-chunks N`` sets the chunk scan's run length
+(a value above the chunk count switches its second level off) on a tree
+that has one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import re
+import statistics
+import subprocess
+from pathlib import Path
+
+import torch
+
+SEED = 0
+K_FRAMES = 4
+
+
+def _ptxas(log: str) -> dict:
+    """{entry: [registers, spill store bytes, spill load bytes]} from
+    ``ptxas -v``; an entry's stack line is the one right after its
+    "Function properties" line."""
+    out, entry, own = {}, None, False
+    for ln in log.splitlines():
+        m = re.search(r"(render_kernel|render_adaptive)IL\w*?E(\d)EL\w*?E(\d)E",
+                      ln)
+        if "Compiling entry function" in ln:
+            entry = f"{m.group(1)}<{m.group(2)},{m.group(3)}>" if m else None
+            if entry:
+                out[entry] = [None, None, None]
+        elif "Function properties for" in ln:
+            own = bool(m) and entry == f"{m.group(1)}<{m.group(2)},{m.group(3)}>"
+        elif entry and (r := re.search(r"Used (\d+) registers", ln)):
+            out[entry][0] = int(r.group(1))
+        elif entry and own and "bytes spill stores" in ln:
+            out[entry][1] = int(re.search(r"(\d+) bytes spill stores", ln).group(1))
+            out[entry][2] = int(re.search(r"(\d+) bytes spill loads", ln).group(1))
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--label", default="tree")
+    ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--super-chunks", type=int, default=None)
+    ap.add_argument("--only", default=None,
+                    help="comma-separated scene names (rtiow, chess, cornell, mesh)")
+    ap.add_argument("--out", default=None, help="append the lines to this file")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("scan_ab needs a CUDA device")
+
+    import ray_tracing_extended_tpu_torch as rtt
+    from ray_tracing_extended_tpu_torch.kernels import megakernel as mk
+    from ray_tracing_extended_tpu_torch.models import presets
+
+    if args.super_chunks is not None:
+        if not hasattr(mk, "SUPER_CHUNKS"):
+            raise SystemExit("this tree's chunk scan has no second level")
+        mk.SUPER_CHUNKS = args.super_chunks
+
+    lines = []
+
+    def emit(**fields):
+        line = json.dumps({"label": args.label, **fields})
+        print(line, flush=True)
+        lines.append(line)
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    info = mk.KERNEL.build()
+    emit(phase="build", gpu=smi, package=str(Path(rtt.__file__).parent),
+         super_chunks=getattr(mk, "SUPER_CHUNKS", None),
+         build_s=info.seconds, ptxas=_ptxas(info.log))
+
+    dev = torch.device("cuda", 0)
+    scenes = {
+        "rtiow": lambda: presets.rtiow_final_scene(
+            width=1920, height=1080, max_bounce=4, spp=16),
+        "chess": lambda: rtt.load_json_scene(
+            Path(rtt.__file__).resolve().parent.parent / "scenes" / "chess.json"),
+        "cornell": lambda: presets.cornell_box_scene(
+            width=512, height=512, max_bounce=8, spp=4),
+        "mesh": lambda: presets.mesh_scene(),
+    }
+    only = args.only.split(",") if args.only else list(scenes)
+    for name in only:
+        scene, cam, cfg = scenes[name]()
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        acc0 = 2.0 * torch.rand((cfg.height, cfg.width, 3), generator=gen,
+                                device=dev)
+        for adaptive in (False, True):
+            vcfg = dataclasses.replace(cfg, adaptive_spp=adaptive)
+
+            def call():
+                return rtt.render_frames_and_accumulate(
+                    scene, cam, vcfg, acc0, 1, K_FRAMES)
+
+            mk.KERNEL.reset_counts()
+            acc, segs = call()
+            torch.cuda.synchronize()
+            ms = []
+            for _ in range(args.reps):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                again, _ = call()
+                end.record()
+                torch.cuda.synchronize()
+                ms.append(start.elapsed_time(end) / K_FRAMES)
+            if not torch.equal(acc, again):
+                raise RuntimeError(f"{name}: two identical calls differ")
+            emit(phase="frames", scene=name, adaptive_spp=adaptive,
+                 width=cfg.width, height=cfg.height, spp=cfg.spp,
+                 max_bounce=cfg.max_bounce, frames=K_FRAMES,
+                 frame_ms_median=statistics.median(ms), frame_ms_min=min(ms),
+                 frame_ms_all=ms, segments=int(segs),
+                 image_mean=float(acc.mean()),
+                 image_mean_f64=float(acc.double().mean()),
+                 launches=dict(mk.KERNEL.variant_launches))
+    if args.out:
+        with open(args.out, "a") as f:
+            f.write("\n".join(lines) + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -399,6 +399,164 @@ def test_bvh_kernel_equals_chunk_scan(cuda):
     assert int(a_segs) == int(b_segs) and torch.equal(a_map, b_map)
 
 
+def _uncull(scene, cfg):
+    """The plain version's closest hit without the kernel's culls."""
+    from ray_tracing_extended_tpu_torch.accel.bvh import closest_hit_bvh
+    from ray_tracing_extended_tpu_torch.ops.intersect import (
+        closest_hit_bruteforce,
+    )
+
+    return (closest_hit_bvh if mk.geometry(scene, cfg) == "bvh"
+            else closest_hit_bruteforce)
+
+
+@pytest.mark.parametrize("adaptive", [False, True])
+@pytest.mark.parametrize("name", ["rtiow", "cornell", "chess", "mesh"])
+def test_clustered_scan_against_plain_with_and_without_culls(cuda, name,
+                                                             adaptive):
+    """The redesigned scans: the plain path is ``closest_hit_clustered``
+    (the kernel's function, culls included) and the kernel passes
+    bench.py's gates against it; against the plain version without culls
+    (brute-force scan; sphere scan and BVH for the mesh) it passes the same
+    gates, and the segment totals of real pixels agree within 5e-3
+    relative (the kernel tests in the direct o - c form, the plain version
+    in the expanded one: they decide some grazing hits differently, culls
+    or not). The culls themselves move almost nothing: the plain version
+    with them against the one without, over 99.9% of pixels identical."""
+    if name == "rtiow":
+        scene, cam, cfg = presets.rtiow_final_scene(width=96, height=54, spp=4)
+    else:
+        scene, cam, cfg = _triangle_scene(name, width=96, height=54, spp=4)
+    fn = mk.plain_intersector(scene, cfg)
+    assert fn.func is mk.closest_hit_clustered
+    assert fn.keywords["tables"].geometry == mk.geometry(scene, cfg)
+    still = cam.replace(defocus_strength=0.0)
+    cfg = dataclasses.replace(cfg, adaptive_spp=adaptive)
+    for mb, c in ((0, still), (1, still), (4, cam)):
+        cfg = dataclasses.replace(cfg, max_bounce=mb)
+        k, _, k_map, _ = mk.render_frames_mega(scene, c, cfg, 5)
+        p, _, p_map, _ = mk.render_frames_plain(scene, c, cfg, 5)
+        u, _, u_map, _ = mk.render_frames_plain(
+            scene, c, cfg, 5, intersect_fn=_uncull(scene, cfg))
+        for ref, ref_map in ((p, p_map), (u, u_map)):
+            exact, median, channel = _gates(k, ref)
+            if mb == 0:
+                assert exact > 0.85, exact
+                assert torch.equal(k_map, ref_map)
+            elif mb == 1:
+                assert median < 2e-3 and channel < 5e-3, (median, channel)
+            else:
+                assert channel < 1e-2, channel
+            total = int(ref_map.sum())
+            assert abs(int(k_map.sum()) - total) <= 5e-3 * total
+        assert float((p == u).all(dim=-1).double().mean()) > 0.999
+        assert float((p_map == u_map).double().mean()) > 0.999
+
+
+def _few_spheres_scene(n_spheres, triangles, device):
+    from ray_tracing_extended_tpu_torch.models.scene import (
+        Material,
+        SceneBuilder,
+    )
+
+    b = SceneBuilder(env=presets._gradient_sky())
+    for i in range(n_spheres):
+        b.add_sphere((1.2 * i - 0.6, 0.0, 0.0), 0.5,
+                     Material.lambertian((0.8, 0.3 + 0.4 * i, 0.2)))
+    if triangles:
+        # a floor quad facing up, as one chunk
+        quad = np.array([[[-3, -0.5, -3], [-3, -0.5, 3], [3, -0.5, 3]],
+                         [[-3, -0.5, -3], [3, -0.5, 3], [3, -0.5, -3]]],
+                        np.float32)
+        up = np.tile(np.array([0.0, 1.0, 0.0], np.float32), (2, 3, 1))
+        b.add_triangles(quad, up, Material.lambertian((0.5, 0.5, 0.5)))
+    cam = rtt.look_at((0.0, 0.6, -3.0), (0.0, 0.0, 0.0), fov_y_deg=45.0,
+                      focus_distance=3.0, defocus_strength=0.0,
+                      diverge_strength=0.5, device=device)
+    return b.build(device=device), cam
+
+
+@pytest.mark.parametrize("adaptive", [False, True])
+@pytest.mark.parametrize("triangles", [False, True])
+@pytest.mark.parametrize("n_spheres", [0, 2])
+def test_zero_and_two_sphere_scenes(cuda, n_spheres, triangles, adaptive):
+    """A scene without a sphere launches with no cluster and no sphere slot
+    (the sky, or the floor alone); two spheres are one cluster of two live
+    slots behind a tight box. Both against the plain version."""
+    scene, cam = _few_spheres_scene(n_spheres, triangles, cuda)
+    cfg = rtt.RenderConfig(width=64, height=40, spp=4, max_bounce=0,
+                           adaptive_spp=adaptive)
+    tab = mk.geometry_tables(scene, mk.geometry(scene, cfg))
+    assert tab.spheres.shape == (n_spheres, 4) and tab.n_hoist == 0
+    assert tab.clusters.shape[0] == (1 if n_spheres else 0)
+    assert scene.spheres.count == 128  # the scene's own arrays stay padded
+    for mb in (0, 3):
+        cfg = dataclasses.replace(cfg, max_bounce=mb)
+        k, k_segs, k_map, _ = mk.render_frames_mega(scene, cam, cfg, 2)
+        p, _, p_map, _ = mk.render_frames_plain(scene, cam, cfg, 2)
+        assert bool(torch.isfinite(k).all())
+        exact, median, channel = _gates(k, p)
+        if mb == 0:
+            assert exact > 0.85, exact
+            assert torch.equal(k_map, p_map)
+        else:
+            assert median < 2e-3 and channel < 5e-3, (median, channel)
+        if n_spheres == 0 and not triangles:
+            # nothing to hit: every sample is one segment of sky
+            assert int(k_segs) == 64 * 40 * 4 and float(k.min()) > 0.0
+
+
+def test_lower_scene_index_wins_a_tie_in_any_slot_order(cuda):
+    """Twelve of 52 spheres repeat an earlier sphere with another colour;
+    the kernel gives the earlier one's colour, as the plain version does,
+    also when each cluster's slots are laid out in reverse, so that a
+    repeat is tested before its original."""
+    from ray_tracing_extended_tpu_torch.models.scene import (
+        Material,
+        SceneBuilder,
+    )
+
+    rs = np.random.RandomState(14)
+    centres = rs.uniform(-2.0, 2.0, (40, 3)).astype(np.float32)
+    b = SceneBuilder(env=presets._gradient_sky())
+    for c in centres:
+        b.add_sphere(c, 0.45, Material.lambertian((0.9, 0.1, 0.1)))
+    for c in centres[:12]:
+        b.add_sphere(c, 0.45, Material.lambertian((0.1, 0.1, 0.9)))
+    scene = b.build(device=cuda)
+    cam = rtt.look_at((0.0, 0.0, -8.0), (0.0, 0.0, 0.0), fov_y_deg=40.0,
+                      focus_distance=8.0, defocus_strength=0.0,
+                      diverge_strength=0.0, device=cuda)
+    # one bounce: a hit pixel shows its sphere's colour under the sky
+    cfg = rtt.RenderConfig(width=96, height=96, spp=1, max_bounce=1)
+    p = mk.render_frames_plain(scene, cam, cfg, 0)[0]
+    k, _, k_map, _ = mk.render_frames_mega(scene, cam, cfg, 0)
+    _, median, channel = _gates(k, p)
+    assert median < 2e-3 and channel < 5e-3, (median, channel)
+
+    tab = mk.geometry_tables(scene, "spheres")
+    bits = tab.clusters[:, [3, 7]].contiguous().view(torch.int32).cpu()
+    order = list(range(tab.n_hoist))
+    for first, n in bits.tolist():
+        order += range(first + n - 1, first - 1, -1)
+    order = torch.tensor(order, device=cuda)
+    flipped = dataclasses.replace(
+        tab, spheres=tab.spheres[order].contiguous(),
+        sphere_orig=tab.sphere_orig[order].contiguous(),
+        sphere_mat=tab.sphere_mat[order].contiguous())
+    orig = flipped.sphere_orig.cpu().tolist()
+    assert any(orig.index(i + 40) < orig.index(i) for i in range(12))
+    scene.__dict__["_kernel_tables"]["spheres"] = flipped
+    k2 = mk.render_frames_mega(scene, cam, cfg, 0)[0]
+    assert torch.equal(k2, k)
+    # a pixel whose camera ray hit a sphere traced a second segment; under
+    # the sky a red sphere is redder than blue, and no blue repeat shows
+    hit = k_map == 2
+    assert int(hit.sum()) > 500
+    for img in (k, k2):
+        assert int((img[..., 2] > img[..., 0])[hit].sum()) == 0
+
+
 def test_vpu_kernel_matches_plain(cuda):
     """The vpu probe's kernel against its plain version on the card, bit for
     bit, at a reduced step count; one launch counted."""

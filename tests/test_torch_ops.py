@@ -1,6 +1,7 @@
 """The port's per-module functions against their JAX counterparts:
 intersection, environment, materials and scatter, accumulation, tonemap,
-and the scene presets.
+and the scene presets; and the clustered closest hit (the CUDA kernel's
+plain version) against the brute-force one.
 
 Inputs come from numpy with a fixed seed and go through both packages.
 Tolerances are stated where each is used; the reason is always the same:
@@ -9,6 +10,7 @@ differently, by about an ulp.
 """
 
 import dataclasses
+import pathlib
 
 import numpy as np
 import jax.numpy as jnp
@@ -22,15 +24,20 @@ from ray_tracing_extended_tpu.ops import environment as jenv
 from ray_tracing_extended_tpu.ops import intersect as jint
 from ray_tracing_extended_tpu.ops import materials as jmat
 from ray_tracing_extended_tpu.ops import tonemap as jtone
+import ray_tracing_extended_tpu_torch as rtt
 from ray_tracing_extended_tpu_torch.interop import (
     camera_from_arrays,
     scene_from_arrays,
 )
+from ray_tracing_extended_tpu_torch.kernels import megakernel as tmk
+from ray_tracing_extended_tpu_torch.models.scene import Material, SceneBuilder
 from ray_tracing_extended_tpu_torch.models import presets as tpresets
 from ray_tracing_extended_tpu_torch.ops import accumulate as tacc
+from ray_tracing_extended_tpu_torch.ops import camera as tcam
 from ray_tracing_extended_tpu_torch.ops import environment as tenv
 from ray_tracing_extended_tpu_torch.ops import intersect as tint
 from ray_tracing_extended_tpu_torch.ops import materials as tmat
+from ray_tracing_extended_tpu_torch.ops import rng as trng
 from ray_tracing_extended_tpu_torch.ops import tonemap as ttone
 
 EDGE = 1e-4  # pairs this close to a hit/miss boundary may flip
@@ -294,3 +301,261 @@ def test_presets_identical(name):
     assert t_scene.has_triangles == (name == "cornell_box_scene")
     assert (scene_from_arrays(j_scene, device="cpu").has_triangles
             == t_scene.has_triangles)
+
+
+# ---- the clustered closest hit against the brute-force one ----
+
+SCENES = pathlib.Path(rtt.__file__).resolve().parent.parent / "scenes"
+
+
+def _clustered_scene(name):
+    if name == "rtiow":
+        return tpresets.rtiow_final_scene(width=96, height=54, device="cpu")
+    if name == "cornell":
+        return tpresets.cornell_box_scene(width=64, height=64, device="cpu")
+    return rtt.load_json_scene(SCENES / "chess.json", device="cpu")
+
+
+def _boxes(scene, tab):
+    """Every box the clustered scan tests: (lo (K, 3), hi (K, 3))."""
+    rows = [tab.clusters] + [t for t in (tab.chunks, tab.supers)
+                             if t is not None]
+    rows = torch.cat(rows).numpy()
+    rows = rows[np.isfinite(rows[:, :3]).all(axis=1)]
+    return rows[:, 0:3], rows[:, 4:7]
+
+
+def _test_rays(kind, scene, cam, cfg, tab, n=1024):
+    """``n`` seeded rays of one kind -> (o, d) f32 tensors."""
+    rs = np.random.RandomState(12)
+    lo, hi = _boxes(scene, tab)
+    if kind == "camera":
+        # a band of rows through the middle of the image
+        pix = (cfg.height // 2 - 2) * cfg.width + torch.arange(n) * 3 % (
+            4 * cfg.width)
+        fp = tcam.focus_points(cam, pix % cfg.width, pix // cfg.width,
+                               cfg.width, cfg.height)
+        _, o, d = tcam.generate_rays(trng.seed(pix, 3), cam, fp, cfg.width)
+        return o, d
+    # the scene without a huge ground sphere's box
+    small = (hi - lo).max(axis=1) < 100.0
+    s_lo, s_hi = lo[small].min(axis=0), hi[small].max(axis=0)
+    d = rs.randn(n, 3)
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    if kind == "inside":
+        o = rs.uniform(s_lo, s_hi, (n, 3)).astype(np.float32)
+    elif kind == "outside":
+        # from a shell around the scene, aimed at a point inside it
+        mid, ext = (s_lo + s_hi) / 2, (s_hi - s_lo).max()
+        o = (mid + 1.5 * ext * d).astype(np.float32)
+        aim = rs.uniform(s_lo, s_hi, (n, 3))
+        d = aim - o
+        d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    elif kind == "axis":
+        # one or two direction components exactly zero (some of them -0.0)
+        o = rs.uniform(s_lo, s_hi, (n, 3)).astype(np.float32)
+        zero = rs.rand(n, 3) < 0.5
+        zero[zero.all(axis=1), 0] = False
+        d = np.where(zero, np.where(rs.rand(n, 3) < 0.5, 0.0, -0.0), d)
+        d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    else:
+        # origins on a face of a box of the scan, half of them with a zero
+        # direction component on that axis (the slab's NaN case)
+        k = rs.randint(0, lo.shape[0], n)
+        o = rs.uniform(lo[k], hi[k]).astype(np.float32)
+        axis = rs.randint(0, 3, n)
+        face = np.where(rs.rand(n) < 0.5, lo[k, axis], hi[k, axis])
+        o[np.arange(n), axis] = face
+        flat = rs.rand(n) < 0.5
+        d[np.arange(n)[flat], axis[flat]] = 0.0
+        d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    return torch.from_numpy(o), torch.from_numpy(d)
+
+
+def _bruteforce_winner(o, d, scene):
+    t_all = torch.cat([tint.ray_spheres_t(o, d, scene.spheres),
+                       tint.ray_triangles_t(o, d, scene.triangles)], dim=1)
+    return torch.min(t_all, dim=1)
+
+
+@pytest.mark.parametrize("kind", ["camera", "inside", "outside", "axis",
+                                  "face"])
+@pytest.mark.parametrize("name", ["rtiow", "cornell", "chess"])
+def test_clustered_hit_matches_bruteforce(name, kind):
+    """The culls change no winner: the same index and the same t, bit for
+    bit, on at least 99.9% of the rays; on the rest the two winners' t
+    differ by at most 1e-5 relative (a near-tie that rounding puts on the
+    other side of a box's entry, the only cause the culls allow)."""
+    scene, cam, cfg = _clustered_scene(name)
+    tab = tmk.geometry_tables(scene, tmk.geometry(scene, cfg))
+    o, d = _test_rays(kind, scene, cam, cfg, tab)
+    t_b, i_b = _bruteforce_winner(o, d, scene)
+    counts = {}
+    t_c, i_c = tmk.clustered_winner(o, d, scene, tab, counts)
+    assert int(torch.isfinite(t_b).sum()) > 100  # the rays really hit
+    same = (i_b == i_c) & (t_b.view(torch.int32) == t_c.view(torch.int32))
+    miss = ~torch.isfinite(t_b) & ~torch.isfinite(t_c)
+    same |= miss
+    assert float(same.double().mean()) >= 0.999, int((~same).sum())
+    rest = ~same
+    rel = (t_b[rest] - t_c[rest]).abs() / t_b[rest].abs().clamp_min(1e-30)
+    assert bool((rel <= 1e-5).all()), (
+        "rays whose winner moved by more than a near-tie",
+        list(zip(i_b[rest].tolist(), i_c[rest].tolist(), t_b[rest].tolist(),
+                 t_c[rest].tolist())))
+    # no padding slot is tested, and the culls do cull
+    n_real = int((scene.spheres.radius > 0).sum())
+    assert counts["segments"] == o.shape[0]
+    assert counts["sphere_tests"] <= n_real * o.shape[0]
+    if name == "rtiow":
+        assert counts["sphere_tests"] < 0.5 * n_real * o.shape[0]
+    if name != "rtiow" and kind != "face":
+        # (ray_aabb rejects a box on a NaN slab, the kernel's gate does not)
+        line = tint.ray_aabb(o, d, scene.chunks.bounds_min,
+                             scene.chunks.bounds_max)
+        by_line = int((line.to(torch.int64)
+                       @ scene.chunks.num_tris.to(torch.int64)).sum())
+        assert 0 < counts["triangle_tests"] <= by_line
+
+
+def _visits_one_by_one(t_near, t_far, nearest, best0, outer=None):
+    """``_gated_visits`` as the kernel runs it: a loop over the boxes of one
+    ray at a time."""
+    t_near, t_far, nearest = (x.tolist() for x in (t_near, t_far, nearest))
+    n_rays, n = len(t_near), len(t_near[0])
+    visit = np.zeros((n_rays, n), bool)
+    entered = None
+    if outer is not None:
+        o_near, o_far, size = outer[0].tolist(), outer[1].tolist(), outer[2]
+        entered = np.zeros((n_rays, len(o_near[0])), bool)
+    for r in range(n_rays):
+        best = float(best0[r])
+        for k in range(n):
+            if outer is not None:
+                run = k // size
+                if k % size == 0:
+                    entered[r, run] = (o_far[r][run] >= 0.0 and o_near[r][run]
+                                       <= min(o_far[r][run], best))
+                if not entered[r, run]:
+                    continue
+            if t_far[r][k] >= 0.0 and t_near[r][k] <= min(t_far[r][k], best):
+                visit[r, k] = True
+                best = min(best, nearest[r][k])
+    return visit, entered
+
+
+@pytest.mark.parametrize("with_outer", [False, True])
+def test_gated_visits_match_a_loop_over_boxes(with_outer):
+    """The plain version's gate without a loop over boxes against the loop
+    the kernel runs, on random slab intervals: boxes behind the origin,
+    empty intervals, boxes without a hit, and members that rounding puts
+    before their box's entry (the rays that take the loop)."""
+    rs = np.random.RandomState(13)
+    n_rays, n, size = 300, 70, 32
+    t_near = rs.uniform(-2.0, 6.0, (n_rays, n)).astype(np.float32)
+    t_far = (t_near + rs.uniform(-0.5, 3.0, (n_rays, n))).astype(np.float32)
+    inside = rs.uniform(0.0, 1.0, (n_rays, n)).astype(np.float32)
+    nearest = np.maximum(t_near, 0.0) + inside * np.abs(t_far - t_near)
+    nearest[rs.rand(n_rays, n) < 0.6] = np.inf
+    # a member just before its box's entry, on a tenth of the rays
+    early = (rs.rand(n_rays, n) < 0.02) & (rs.rand(n_rays, 1) < 0.1)
+    nearest = np.where(early, t_near - 1e-3, nearest).astype(np.float32)
+    best0 = np.where(rs.rand(n_rays) < 0.5, np.inf,
+                     rs.uniform(0.0, 6.0, n_rays)).astype(np.float32)
+    outer = None
+    if with_outer:
+        n_runs = -(-n // size)
+        pad = n_runs * size - n
+        near_p = np.pad(t_near, ((0, 0), (0, pad)), constant_values=np.inf)
+        far_p = np.pad(t_far, ((0, 0), (0, pad)), constant_values=-np.inf)
+        o_near = near_p.reshape(n_rays, n_runs, size).min(axis=2)
+        o_far = far_p.reshape(n_rays, n_runs, size).max(axis=2)
+        # some runs culled whole
+        o_far[rs.rand(n_rays, n_runs) < 0.2] = -1.0
+        outer = (torch.from_numpy(o_near), torch.from_numpy(o_far), size)
+    args = [torch.from_numpy(x) for x in (t_near, t_far, nearest, best0)]
+    visit, entered = tmk._gated_visits(*args, outer)
+    want, want_entered = _visits_one_by_one(*args, outer)
+    assert np.array_equal(visit.numpy(), want)
+    assert 0.05 < want.mean() < 0.95
+    if with_outer:
+        assert np.array_equal(entered.numpy(), want_entered)
+        assert 0.05 < want_entered.mean() < 0.95
+    else:
+        assert entered is None
+
+
+def test_lower_index_wins_a_tie():
+    """Two equal spheres and two coplanar (equal) triangles: the one of
+    lower scene index wins, whatever the clustered order, and a sphere keeps
+    a tie with a triangle."""
+    rs = np.random.RandomState(14)
+    b = SceneBuilder()
+    centres = rs.uniform(-3.0, 3.0, (40, 3)).astype(np.float32)
+    for c in centres:
+        b.add_sphere(c, 0.3, Material())
+    for c in centres[:12]:  # spheres 40-51 repeat spheres 0-11
+        b.add_sphere(c, 0.3, Material())
+    # wound to face the rays (the test culls back faces)
+    tri = np.array([[[-4.0, -4.0, 5.0], [0.0, 4.0, 5.0], [4.0, -4.0, 5.0]]],
+                   np.float32)
+    nrm = np.tile(np.array([0.0, 0.0, -1.0], np.float32), (1, 3, 1))
+    b.add_triangles(tri, nrm, Material())
+    b.add_triangles(tri, nrm, Material())
+    scene = b.build(device="cpu")
+    cfg = rtt.RenderConfig(width=8, height=8)
+    tab = tmk.geometry_tables(scene, tmk.geometry(scene, cfg))
+    assert tab.geometry == "chunks" and tab.chunks.shape[0] == 2
+    # at the repeated spheres from z = -10, and past them at the triangles
+    o = np.concatenate([centres[:12] + rs.uniform(-0.2, 0.2, (12, 3)),
+                        rs.uniform(-1.0, 1.0, (12, 3)) * [3.5, 3.5, 0.0]])
+    o[:, 2] = -10.0
+    o = torch.from_numpy(o.astype(np.float32))
+    d = torch.tensor([[0.0, 0.0, 1.0]]).repeat(24, 1)
+    t_b, i_b = _bruteforce_winner(o, d, scene)
+    t_c, i_c = tmk.clustered_winner(o, d, scene, tab)
+    assert torch.equal(i_b, i_c) and torch.equal(t_b, t_c)
+    s = scene.spheres.count
+    t_sph = tint.ray_spheres_t(o, d, scene.spheres)
+    twins = 0
+    for r in torch.isfinite(t_c).nonzero().squeeze(1).tolist():
+        w = int(i_c[r])
+        if w < s:
+            # its twin ties exactly and has the higher index
+            if w < 12 and float(t_sph[r, w + 40]) == float(t_c[r]):
+                twins += 1
+            assert w < 40
+        else:
+            assert w == s  # the first of the two equal triangles
+    assert twins >= 6 and int((i_c >= s).sum()) >= 3
+
+
+@pytest.mark.parametrize("name", ["cornell", "chess"])
+def test_bounded_chunk_gate_against_line_gate(name):
+    """The t-bounded chunk gate on Cornell and on a band of Chess, camera
+    rays and rays that start inside the scene (as bounces do): it enters no
+    chunk the reference's line gate (``ray_aabb``) rejects, fewer of them,
+    and every chunk that holds the ray's winner."""
+    scene, cam, cfg = _clustered_scene(name)
+    tab = tmk.geometry_tables(scene, "chunks")
+    o, d = (torch.cat(x) for x in zip(
+        _test_rays("camera", scene, cam, cfg, tab, n=384),
+        _test_rays("inside", scene, cam, cfg, tab, n=384)))
+    line = tint.ray_aabb(o, d, scene.chunks.bounds_min, scene.chunks.bounds_max)
+    counts = {}
+    t_c, i_c = tmk.clustered_winner(o, d, scene, tab, counts)
+    tris = scene.chunks.num_tris.to(torch.int64)
+    by_line = int((line.to(torch.int64) @ tris).sum())
+    assert counts["triangle_tests"] < by_line
+    if name == "chess":
+        # 440 chunks in index order, not front to back: the bound culls
+        # only what comes after a nearer hit in the table
+        assert counts["triangle_tests"] < 0.8 * by_line
+        assert tab.supers is not None
+        assert counts["chunk_slabs"] < 440 * 768
+    s = scene.spheres.count
+    won = (i_c >= s).nonzero().squeeze(1)
+    assert won.numel() > 100
+    assert bool(line[won, tab.chunk_of[i_c[won] - s]].all())
+    t_b, i_b = _bruteforce_winner(o, d, scene)
+    assert torch.equal(i_b, i_c) and torch.equal(t_b, t_c)

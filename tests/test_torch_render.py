@@ -178,6 +178,71 @@ def test_matches_tpu_kernel_interpret():
     _tight(np.asarray(a), b)
 
 
+def _small_rtiow():
+    """A small RTIOW-like scene from a seed, built by the JAX package:
+    a huge ground sphere and a big hero (both hoisted by the clustering)
+    over 70 small spheres (three sub-clusters) of three materials."""
+    from ray_tracing_extended_tpu.models.scene import Material as JMaterial
+    from ray_tracing_extended_tpu.models.scene import SceneBuilder as JBuilder
+
+    rs = np.random.RandomState(0)
+    js, jc, _ = jpresets.rtiow_final_scene(width=8, height=8)
+    b = JBuilder(env=js.env)
+    b.add_sphere((0.0, -1000.0, 0.0), 1000.0, JMaterial.lambertian((0.5, 0.5, 0.5)))
+    b.add_sphere((0.0, 1.0, 0.0), 1.0, JMaterial.dielectric(1.5))
+    for i in range(70):
+        x, z = i % 10 - 5 + 0.8 * rs.rand(), i // 10 - 3 + 0.8 * rs.rand()
+        mat = (JMaterial.lambertian(tuple(rs.rand(3))) if i % 3 else
+               JMaterial.metal(tuple(0.5 + 0.5 * rs.rand(3)), smoothness=1.0))
+        b.add_sphere((x, 0.2, z), 0.2, mat)
+    return b.build(), jc
+
+
+def test_clustered_plain_frames_match_xla_and_tpu_kernel():
+    """Whole frames through the clustered plain path (hoisted spheres,
+    three sub-clusters behind their boxes) against the JAX package's XLA
+    path and its Pallas kernel in interpret mode, by the rule of
+    tests/test_megakernel.py: over 99.5% of pixels within 1e-3, mean
+    absolute difference under 1e-3."""
+    js, jc = _small_rtiow()
+    cfg = rte.RenderConfig(width=32, height=32, max_bounce=2, spp=1)
+    ts, tc = _port(js, jc)
+    tab = tmk.geometry_tables(ts, "spheres")
+    assert tab.n_hoist == 2 and tab.clusters.shape[0] == 3
+    counts = {}
+    fn = tmk.plain_intersector(ts, cfg, counts)
+    assert fn.func is tmk.closest_hit_clustered
+    b = tmk.render_frames_plain(ts, tc, cfg, 3, intersect_fn=fn)[0].numpy()
+    # the default path is that function, and the culls do cull
+    assert np.array_equal(b, rtt.render_frame(ts, tc, cfg, 3).numpy())
+    assert counts["sphere_tests"] < 0.6 * 72 * counts["segments"]
+    a = np.asarray(rte.render_frame(js, jc, cfg, jnp.uint32(3)))
+    _tight(a, b)
+    k, _ = render_frame_mega(js, jc, cfg, jnp.uint32(3), interpret=True)
+    _tight(np.asarray(k), b)
+
+
+@pytest.mark.parametrize("name", ["chess", "knight"])
+def test_clustered_plain_frames_equal_bruteforce_frames(name):
+    """A shipped triangle scene (chunk boxes, and a box over each run of 32
+    chunks) through the plain path with the kernel's culls and through the
+    brute-force scan: the same frame and segment map (only a near-tie at a
+    box's entry could differ)."""
+    from ray_tracing_extended_tpu_torch.ops.intersect import (
+        closest_hit_bruteforce,
+    )
+
+    scene, cam, cfg = rtt.load_json_scene(
+        SCENES / f"{name}.json",
+        overrides=dict(width=48, height=27, spp=1, max_bounce=3), device="cpu")
+    assert tmk.geometry_tables(scene, "chunks").supers is not None
+    a, _, a_map, _ = tmk.render_frames_plain(scene, cam, cfg, 3)
+    b, _, b_map, _ = tmk.render_frames_plain(
+        scene, cam, cfg, 3, intersect_fn=closest_hit_bruteforce)
+    _tight(a.numpy(), b.numpy())
+    assert (a_map == b_map).double().mean() > 0.995
+
+
 def test_bounce_stats_match_xla():
     js, jc, cfg = jpresets.three_sphere_scene(width=64, height=32, spp=2)
     _, _, a = rte.render_frame_with_stats(js, jc, cfg, jnp.uint32(0),

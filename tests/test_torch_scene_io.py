@@ -213,9 +213,12 @@ def test_kernel_tables_layout():
     assert torch.equal(tab.tri_rows[:, 9:12], tri.n)
     assert torch.equal(tab.tri_normals[:, 3:6], tri.normal_b)
     assert tab.tri_mat.dtype == torch.int32
+    # a chunk row is two float4s: (box min, first triangle), (box max, count)
+    assert tab.chunks.shape == (ch.num_tris.shape[0], 8)
+    assert tab.chunks.is_contiguous()
     assert torch.equal(tab.chunks[:, 0:3], ch.bounds_min)
-    assert torch.equal(tab.chunks[:, 3:6], ch.bounds_max)
-    bits = tab.chunks[:, 6:8].contiguous().view(torch.int32)
+    assert torch.equal(tab.chunks[:, 4:7], ch.bounds_max)
+    bits = tab.chunks[:, [3, 7]].contiguous().view(torch.int32)
     assert torch.equal(bits[:, 0], ch.first_tri)
     assert torch.equal(bits[:, 1], ch.num_tris)
     assert torch.equal(bits[1:, 0], bits[:-1, 0] + bits[:-1, 1])
