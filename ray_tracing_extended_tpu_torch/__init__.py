@@ -23,6 +23,7 @@ or, from the shell, ``python -m ray_tracing_extended_tpu_torch.cli render
 """
 
 from .models.geometry import (
+    BVH,
     FLAG_CHECKER,
     FLAG_DIELECTRIC,
     FLAG_INVISIBLE_LIGHT,
@@ -50,6 +51,7 @@ from .utils.config import RenderConfig
 __version__ = "0.1.0"
 
 __all__ = [
+    "BVH",
     "Camera",
     "Environment",
     "FLAG_CHECKER",

@@ -13,13 +13,17 @@ fixed-width rows whose unused slots point at the scene's first padding
 runtime, which its tests hold identical to the NumPy build; the port has
 no native build.)
 
-The traversal follows the JAX package's ``_traverse`` op for op, for each
-ray: pop a node and slab-test it against the best t so far; at a leaf test
-every slot with a strict <; at an internal node slab-test both children and
-push the survivors, the far one first, so the near one pops next; at most
-``4 x nodes`` pops. The JAX version steps every ray in lock step under
-masks; here only the rays that still have nodes on their stack are
-stepped, which changes no ray's result.
+The traversal visits the nodes and primitives that the JAX package's
+``_traverse`` visits, in its order, for each ray: at an internal node
+slab-test both children against the best t so far and push the survivors,
+the far one first, so the near one pops next; at a leaf test the slots
+with a strict <; at most ``4 x nodes`` pops. It is the kernel's form of
+it: the root is tested once, a node is pushed with its ``t_near`` and a
+pop compares that with the best t instead of testing the node's slab
+again, and a leaf's padding slots are skipped when the sentinel is known.
+The JAX version steps every ray in lock step under masks; here only the
+rays that still have nodes on their stack are stepped, which changes no
+ray's result.
 """
 
 from __future__ import annotations
@@ -40,6 +44,12 @@ from ..ops.intersect import (
 
 LEAF_WIDTH = 4
 STACK_DEPTH = 48  # fits any split-balanced tree of < 2^47 prims
+
+# Bytes the kernel reads for a traversal (csrc/megakernel.cu, its node
+# table): the root's box and reference, both children's boxes and
+# references an internal node (one 64-byte row), a leaf's row of slots,
+# and a triangle's test row.
+ROOT_BYTES, NODE_ROW_BYTES, LEAF_ROW_BYTES, PRIM_ROW_BYTES = 32, 64, 16, 48
 
 
 # ------------------------------------------------------------- build -------
@@ -240,12 +250,28 @@ def _traverse(o, d, bvh: BVH, prim_t_fn, best_t, best_idx, counts=None,
     """Closest primitive through ``bvh`` for every ray: ``prim_t_fn(o, d,
     idx)`` gives the t of primitives ``idx`` (B, W) for rays (B, 1, 3).
     Returns ``(best_t, best_idx)`` updated where a strictly nearer
-    primitive was found. ``counts``, a dict, if given, gains the tests
-    these rays need: ``"slabs"``, the root's slab test a ray and both
-    children's at every internal node visited (not the repeat of a node's
-    test at its pop, which the kernel also makes), and ``"prims"``, the
-    real primitives of the leaves visited (slots below ``sentinel``, the
-    leaves' padding index; every slot if it is None)."""
+    primitive was found.
+
+    The kernel's traversal: the root is slab-tested once; a node is pushed
+    with the ``t_near`` of the slab test its parent made, and a pop drops
+    it by comparing that ``t_near`` with the best t so far, with no second
+    slab test (a pushed node passed ``t_far >= 0 and t_near <= min(t_far,
+    best)``, ``best`` only falls, and a NaN slab is never pushed, so this
+    is the JAX package's test at the pop). With ``sentinel``, the leaves'
+    padding index, only a leaf's real slots are tested (the build puts
+    them first; the sentinel never hits, so the result is the same).
+
+    ``counts``, a dict, if given, gains: ``"slabs"``, the root's test a
+    ray and both children's at every internal node visited; ``"prims"``,
+    the real primitives tested (every slot without ``sentinel``);
+    ``"pops"``, every stack entry popped and every failed root test (in
+    place of the root's pop), of them ``"pop_rejects"`` those rejected (the
+    root by its slab test, an entry by its ``t_near``); ``"internal"`` and
+    ``"leaves"``, the nodes visited; and ``"fetched_bytes"``, what the
+    kernel reads for it by its node table's layout
+    (``kernels/megakernel.bvh_node_table``): the root's ``ROOT_BYTES`` a
+    ray, ``NODE_ROW_BYTES`` an internal node (both children's boxes),
+    ``LEAF_ROW_BYTES`` a leaf and ``PRIM_ROW_BYTES`` a primitive tested."""
     b = o.shape[0]
     dev = o.device
     d_inv = 1.0 / d
@@ -253,44 +279,54 @@ def _traverse(o, d, bvh: BVH, prim_t_fn, best_t, best_idx, counts=None,
     n_nodes = bvh.left.shape[0]
     best_t, best_idx = best_t.clone(), best_idx.clone()
     stack = torch.zeros((b, STACK_DEPTH), dtype=torch.int64, device=dev)
-    # every ray starts with the root on its stack
-    ptr = torch.ones(b, dtype=torch.int64, device=dev)
-    lanes = torch.arange(b, device=dev)
-    if counts is not None:
-        counts["slabs"] = counts.get("slabs", 0) + b
-    for _ in range(4 * n_nodes):
+    stack_tn = torch.zeros((b, STACK_DEPTH), dtype=torch.float32, device=dev)
+    # the root's slab test, in place of its pop: a ray that passes it
+    # starts with the root on its stack
+    t_near, t_far = _slab(o, d_inv, bvh.bounds_min[0], bvh.bounds_max[0])
+    root = (t_far >= 0.0) & (t_near <= torch.minimum(t_far, best_t))
+    stack_tn[:, 0] = t_near
+    ptr = root.long()
+    lanes = root.nonzero().squeeze(1)
+    # a failed root test takes the place of the root's pop; the real
+    # primitives are summed on the device, read once at the end
+    pops = rejects = b - lanes.numel()
+    internal = leaves = 0
+    prims = torch.zeros((), dtype=torch.int64, device=dev)
+    # the root's test was the first of at most 4 x nodes pops
+    for _ in range(4 * n_nodes - 1):
         if lanes.numel() == 0:
             break
         p = ptr[lanes] - 1
         node = stack[lanes, p]
+        tn = stack_tn[lanes, p]
         ptr[lanes] = p
         o_l, d_l, inv_l = o[lanes], d[lanes], d_inv[lanes]
         bt = best_t[lanes]
-        t_near, t_far = _slab(o_l, inv_l, bvh.bounds_min[node],
-                              bvh.bounds_max[node])
-        visit = (t_far >= 0.0) & (t_near <= torch.minimum(t_far, bt))
+        visit = tn <= bt
         row = bvh.leaf_row[node].long()
         is_leaf = row >= 0
 
-        # leaves: every slot, in order, strictly nearer wins
+        # leaves: the real slots, in order, strictly nearer wins
         lf = (visit & is_leaf).nonzero().squeeze(1)
         if lf.numel():
-            prims = bvh.leaf_prims[row[lf]].long()  # (n, leaf_width)
-            if counts is not None:
-                real = prims.numel() if sentinel is None else int(
-                    (prims < sentinel).sum())
-                counts["prims"] = counts.get("prims", 0) + real
-            t_all = prim_t_fn(o_l[lf, None], d_l[lf, None], prims)
+            slots = bvh.leaf_prims[row[lf]].long()  # (n, leaf_width)
+            t_all = prim_t_fn(o_l[lf, None], d_l[lf, None], slots)
+            if sentinel is not None:
+                real = slots < sentinel
+                t_all = torch.where(real, t_all, INF)
+                prims += real.sum()
+            else:
+                prims += slots.numel()
             bt_f, bi_f = bt[lf], best_idx[lanes[lf]]
             for j in range(leaf_width):
                 better = t_all[:, j] < bt_f
                 bt_f = torch.where(better, t_all[:, j], bt_f)
-                bi_f = torch.where(better, prims[:, j], bi_f)
+                bi_f = torch.where(better, slots[:, j], bi_f)
             best_t[lanes[lf]] = bt_f
             best_idx[lanes[lf]] = bi_f
 
-        # internal nodes: slab-test both children, push the survivors far
-        # first (the near one pops next)
+        # internal nodes: slab-test both children, push the survivors with
+        # their t_near, far first (the near one pops next)
         it = (visit & ~is_leaf).nonzero().squeeze(1)
         if it.numel():
             li = lanes[it]
@@ -307,17 +343,34 @@ def _traverse(o, d, bvh: BVH, prim_t_fn, best_t, best_idx, counts=None,
             l_is_near = tn_l <= tn_r
             near = torch.where(l_is_near, l_node, r_node)
             far = torch.where(l_is_near, r_node, l_node)
+            near_tn = torch.where(l_is_near, tn_l, tn_r)
+            far_tn = torch.where(l_is_near, tn_r, tn_l)
             first = torch.where(both, far, torch.where(hit_l, l_node, r_node))
+            first_tn = torch.where(both, far_tn, torch.where(hit_l, tn_l, tn_r))
             any_push = hit_l | hit_r
             p_i = ptr[li]
             p0 = torch.clamp(p_i, max=STACK_DEPTH - 1)
             p1 = torch.clamp(p_i + 1, max=STACK_DEPTH - 1)
             stack[li, p0] = torch.where(any_push, first, stack[li, p0])
+            stack_tn[li, p0] = torch.where(any_push, first_tn, stack_tn[li, p0])
             stack[li, p1] = torch.where(both, near, stack[li, p1])
+            stack_tn[li, p1] = torch.where(both, near_tn, stack_tn[li, p1])
             ptr[li] = p_i + any_push.long() + both.long()
-            if counts is not None:
-                counts["slabs"] += 2 * it.numel()
+        pops += lanes.numel()
+        internal += it.numel()
+        leaves += lf.numel()
+        rejects += lanes.numel() - it.numel() - lf.numel()
         lanes = lanes[ptr[lanes] > 0]
+    if counts is not None:
+        n_prims = int(prims)
+        for key, n in (
+            ("slabs", b + 2 * internal), ("prims", n_prims), ("pops", pops),
+            ("pop_rejects", rejects), ("internal", internal),
+            ("leaves", leaves),
+            ("fetched_bytes", ROOT_BYTES * b + NODE_ROW_BYTES * internal
+             + LEAF_ROW_BYTES * leaves + PRIM_ROW_BYTES * n_prims),
+        ):
+            counts[key] = counts.get(key, 0) + n
     return best_t, best_idx
 
 

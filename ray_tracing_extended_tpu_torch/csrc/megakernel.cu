@@ -96,26 +96,53 @@
 // :1258-1430) with the per-row drain of culled sub-clusters (:92-135,
 // :896-1250): those exist because a TPU lane cannot branch on its own. A
 // Hopper thread can walk its own stack, so each thread traverses the LBVH
-// of accel/bvh.py (the JAX package's _traverse, bvh.py:269-340) op for op:
-// pop a node and slab-test it against the best t so far (a NaN slab
-// rejects, as jnp.minimum / maximum propagate NaN); at a leaf test all
-// four slots in order with a strict <, the sentinel padding triangle
-// included; at an internal node slab-test both children and push the
-// survivors, the far one first; at most 4 x nodes pops. The triangle test
-// is closest_triangle's direct form. As in closest_hit_bvh the traversal
+// of accel/bvh.py and visits the nodes and triangles that the JAX
+// package's _traverse (bvh.py:269-340) visits, in its order: at an
+// internal node slab-test both children against the best t so far (a NaN
+// slab rejects, as jnp.minimum / maximum propagate NaN) and push the
+// survivors, the far one first; at a leaf test its triangles in order with
+// a strict <; at most 4 x nodes pops. The triangle test is
+// closest_triangle's direct form. As in closest_hit_bvh the traversal
 // starts from t = inf and its winner replaces the sphere scan's only if
-// strictly nearer, so the kernel and its plain version test the same
-// triangles in the same order and agree on ties. What bounds it on this
-// card: divergent node fetches (32-byte nodes; mesh_scene's 49,743 take
-// 1.6 MB, its triangle rows and normals 5.9 MB: L2-resident), the
-// per-thread stack of 48 ints in local memory (192 bytes a thread), and
-// occupancy. A shared-memory or short stack and dropping the slab test
-// repeated at pop are later work.
+// strictly nearer, so the kernel and its plain version (accel/bvh.py
+// _traverse, which makes the same steps) test the same triangles in the
+// same order and agree on ties.
+// What bounds it on this card: the latency of dependent, divergent reads
+// (a thread cannot test a node before its row arrives; mesh_scene's
+// 24,871 internal rows take 1.6 MB, its triangle rows and normals 5.9 MB:
+// L2-resident), not its operations (37.4 slab and 5.3 triangle tests a
+// segment are 1/68 of the frame). So the traversal reads as little, and
+// as few times in a row, as it can:
+//   - children in the parent: an internal node's row holds both children's
+//     boxes and references, one 64-byte read (two sectors) whose address
+//     the stack entry holds, with no second, dependent read; a reference
+//     to a leaf names its leaf row and real slot count, so a leaf costs
+//     its row of slots and no node read. The root's box is tested once,
+//     from row 0.
+//   - t_near on the stack: a push stores the child's reference with the
+//     t_near of its slab test; a pop drops an entry whose t_near is beyond
+//     the best t without reading memory. (A pushed child passed t_far >= 0
+//     and t_near <= min(t_far, best at the push); the best only falls; a
+//     NaN slab is never pushed: the JAX package's test at the pop is then
+//     exactly t_near <= best.)
+//   - real slots only: the build puts a leaf's real triangles first, and
+//     the sentinel padding triangle never hits.
+// The stack: 8 bytes an entry (reference, t_near) in a local array of
+// kStackDepth entries a thread (L1-cached; its top entries are the ones
+// in use). The traversal is inlined into the kernels, and the kBvh
+// instantiations are compiled for 8 blocks of 128 threads an SM (64
+// registers). On an NVIDIA H100 80GB HBM3 at 700 W, mesh_scene at
+// 1280x720, K=4 frames a launch, A/B in one call each against this
+// version: the stack in shared memory, [slot][thread] and sized from the
+// tree's depth + 1 (23.5 KB a block), was 5-8% slower exact; the
+// traversal as a __noinline__ function 4-6% slower; without the 8-block
+// bound up to 10% slower with refill and fast scatter (PERF.md).
 //
 // C interface, loaded with ctypes (kernels/megakernel.py):
 //   rtx_render(geometry, ...) launches on the given stream and returns
 //   cudaGetLastError(); rtx_shared_bytes(geometry, ...) is a launch's
-//   dynamic shared memory; rtx_error_string(code) names an error.
+//   dynamic shared memory; rtx_occupancy(geometry, ...) the blocks of an
+//   instantiation one SM holds; rtx_error_string(code) names an error.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -146,10 +173,16 @@ constexpr int kTri = 12;
 constexpr int kTri4 = kTri / 4;  // the row in float4s
 // vertex-normal row: the normal at a 0-2, at b 3-5, at c 6-8
 constexpr int kTriNrm = 9;
-// BVH node: two float4s, (min xyz, a) and (max xyz, b) with a and b int32
-// bits: an internal node has a = left child >= 0 and b = right child; a
-// leaf has a = ~leaf row < 0 (accel/bvh.py build_lbvh's leaf_row)
-// Leaf row: kLeafWidth primitive indices, one int4.
+// BVH node table (kernels/megakernel.py bvh_node_table), rows of four
+// float4s (64 bytes): row 0 (root min xyz, root ref), (root max xyz, 0),
+// then zeros; row 1 + k, the k-th internal node of the BVH: (left min
+// xyz, left ref), (left max xyz, 0), (right min xyz, right ref), (right
+// max xyz, 0). A ref, int32 bits: an internal node's row (>= 1), or for a
+// leaf ~(leaf row << kLeafCountBits | real slots) < 0.
+constexpr int kNodeRow4 = 4;  // a row in float4s
+constexpr int kLeafCountBits = 3;
+// Leaf row: kLeafWidth primitive indices, one int4, the real ones first,
+// then the sentinel (the scene's first padding triangle).
 constexpr int kLeafWidth = 4;
 // The traversal stack (accel/bvh.py STACK_DEPTH): pushes clamp to its last
 // slot, as in the reference; build_lbvh refuses deeper trees.
@@ -318,9 +351,9 @@ struct Triangles {
   // super_size chunks; n_supers == 0: no second level
   const float4* supers;
   int n_supers, super_size;
-  const float4* __restrict__ nodes;  // two float4s a node
+  const float4* __restrict__ nodes;  // kNodeRow4 float4s a row
   const int4* __restrict__ leaves;  // kLeafWidth indices a leaf
-  int n_nodes;
+  int n_nodes;  // the BVH's nodes
 };
 
 // One axis of a slab test. An axis whose t0 or t1 is NaN (a zero direction
@@ -453,53 +486,65 @@ struct TriangleHit {
   int i;
 };
 
+// One traversal stack entry: a node reference and its t_near's bits.
+__device__ __forceinline__ int2 entry(int ref, float t_near) {
+  return make_int2(ref, __float_as_int(t_near));
+}
+
 // Closest triangle through the BVH (accel/bvh.py _traverse): the
-// traversal's own best starts at +inf. Not inlined, so the traversal's
-// registers do not add to the rest of the kernel's.
-__device__ __noinline__ TriangleHit closest_triangle_bvh(Triangles tri,
-                                                         Vec3 o, Vec3 d) {
+// traversal's own best starts at +inf.
+__device__ __forceinline__ TriangleHit closest_triangle_bvh(Triangles tri,
+                                                            Vec3 o, Vec3 d) {
   const Vec3 inv_d = {1.0f / d.x, 1.0f / d.y, 1.0f / d.z};
   float t_best = __int_as_float(0x7f800000);
   int i_best = 0;
-  int stack[kStackDepth];
-  stack[0] = 0;
+  // the root's box, tested once: the first of at most 4 x nodes pops
+  const float4 root_lo = __ldg(tri.nodes);
+  const float4 root_hi = __ldg(tri.nodes + 1);
+  float t_root;
+  if (!bvh_box(root_lo, root_hi, o, inv_d, t_best, t_root)) {
+    return {t_best, i_best};
+  }
+  int2 stack[kStackDepth];
+  constexpr int last = kStackDepth - 1;
+  stack[0] = entry(__float_as_int(root_lo.w), t_root);
   int ptr = 1;
   const int max_pops = 4 * tri.n_nodes;
-  for (int it = 0; ptr > 0 && it < max_pops; ++it) {
-    const int node = stack[--ptr];
-    const float4 lo = __ldg(tri.nodes + 2 * node);
-    const float4 hi = __ldg(tri.nodes + 2 * node + 1);
-    float t_near;
-    if (!bvh_box(lo, hi, o, inv_d, t_best, t_near)) continue;
-    const int a = __float_as_int(lo.w);
-    if (a < 0) {
-      const int4 prims = __ldg(tri.leaves + ~a);
+  for (int it = 1; ptr > 0 && it < max_pops; ++it) {
+    const int2 e = stack[--ptr];
+    if (__int_as_float(e.y) > t_best) continue;
+    if (e.x < 0) {
+      const int leaf = ~e.x;
+      const int n = leaf & ((1 << kLeafCountBits) - 1);
+      const int4 prims = __ldg(tri.leaves + (leaf >> kLeafCountBits));
       const int slot[kLeafWidth] = {prims.x, prims.y, prims.z, prims.w};
 #pragma unroll
       for (int j = 0; j < kLeafWidth; ++j) {
-        const float t = triangle_t(tri, slot[j], o, d);
-        if (t < t_best) {
-          t_best = t;
-          i_best = slot[j];
+        if (j < n) {
+          const float t = triangle_t(tri, slot[j], o, d);
+          if (t < t_best) {
+            t_best = t;
+            i_best = slot[j];
+          }
         }
       }
       continue;
     }
-    const int b = __float_as_int(hi.w);
+    const float4* row = tri.nodes + kNodeRow4 * e.x;
+    const float4 l_lo = __ldg(row), l_hi = __ldg(row + 1);
+    const float4 r_lo = __ldg(row + 2), r_hi = __ldg(row + 3);
     float tn_l, tn_r;
-    const bool hit_l = bvh_box(__ldg(tri.nodes + 2 * a),
-                               __ldg(tri.nodes + 2 * a + 1), o, inv_d, t_best,
-                               tn_l);
-    const bool hit_r = bvh_box(__ldg(tri.nodes + 2 * b),
-                               __ldg(tri.nodes + 2 * b + 1), o, inv_d, t_best,
-                               tn_r);
+    const bool hit_l = bvh_box(l_lo, l_hi, o, inv_d, t_best, tn_l);
+    const bool hit_r = bvh_box(r_lo, r_hi, o, inv_d, t_best, tn_r);
+    const int2 left = entry(__float_as_int(l_lo.w), tn_l);
+    const int2 right = entry(__float_as_int(r_lo.w), tn_r);
     if (hit_l && hit_r) {
       const bool l_near = tn_l <= tn_r;
-      stack[min(ptr, kStackDepth - 1)] = l_near ? b : a;  // far
-      stack[min(ptr + 1, kStackDepth - 1)] = l_near ? a : b;  // near
+      stack[min(ptr, last)] = l_near ? right : left;  // far
+      stack[min(ptr + 1, last)] = l_near ? left : right;  // near
       ptr += 2;
     } else if (hit_l || hit_r) {
-      stack[min(ptr, kStackDepth - 1)] = hit_l ? a : b;
+      stack[min(ptr, last)] = hit_l ? left : right;
       ptr += 1;
     }
   }
@@ -789,12 +834,17 @@ __device__ __forceinline__ Staged stage_scene(float4* smem4, const Args& a) {
            a.n_supers, a.super_size, a.bvh_nodes, a.bvh_leaves, a.n_nodes}};
 }
 
+// Both kernels' launch bounds: 128 threads a block, and for kBvh 8 blocks
+// an SM (at most 64 registers a thread); a minimum of 0, none given, for
+// the others, which ptxas then compiles as before (a minimum of 1 moves
+// their registers and spills).
+//
 // Exactly spp samples a pixel. Raygen and the fold are written out rather
 // than through the helpers render_adaptive uses below: with them, ptxas
 // (nvcc 12.9, sm_90a) spilled more in the triangle instantiation and took
 // fewer registers than it needs in the sphere one.
 template <Geometry kGeom, Scatter kScatter>
-__global__ void __launch_bounds__(kBlockX * kBlockY)
+__global__ void __launch_bounds__(kBlockX * kBlockY, kGeom == kBvh ? 8 : 0)
 render_kernel(const Args a) {
   extern __shared__ float4 smem4[];
   const Staged sc = stage_scene(smem4, a);
@@ -925,7 +975,7 @@ __device__ __forceinline__ Vec3 div(Vec3 v, float n) {
 // registers: the RNG state, the ray, throughput, incoming and banked light,
 // the running average, the completed-sample count, frame and bounce index.
 template <Geometry kGeom, Scatter kScatter>
-__global__ void __launch_bounds__(kBlockX * kBlockY)
+__global__ void __launch_bounds__(kBlockX * kBlockY, kGeom == kBvh ? 8 : 0)
 render_adaptive(const Args a) {
   extern __shared__ float4 smem4[];
   const Staged sc = stage_scene(smem4, a);
@@ -1016,30 +1066,50 @@ render_adaptive(const Args a) {
   flush_hist(sc.s_hist, a.hist, max_bounce);
 }
 
-template <Geometry kGeom, Scatter kScatter>
-cudaError_t launch(const Args& a, bool adaptive, cudaStream_t stream) {
-  void (*kernel)(const Args) = adaptive ? render_adaptive<kGeom, kScatter>
-                                        : render_kernel<kGeom, kScatter>;
+using Kernel = void (*)(const Args);
+
+template <Geometry kGeom>
+Kernel kernel_of(bool adaptive, bool fast_scatter) {
+  if (fast_scatter) {
+    return adaptive ? render_adaptive<kGeom, kFastScatter>
+                    : render_kernel<kGeom, kFastScatter>;
+  }
+  return adaptive ? render_adaptive<kGeom, kBoxMuller>
+                  : render_kernel<kGeom, kBoxMuller>;
+}
+
+// The instantiation for a Geometry value, or null.
+Kernel kernel_for(int geometry, bool adaptive, bool fast_scatter) {
+  switch (geometry) {
+    case kSpheres:
+      return kernel_of<kSpheres>(adaptive, fast_scatter);
+    case kChunks:
+      return kernel_of<kChunks>(adaptive, fast_scatter);
+    case kBvh:
+      return kernel_of<kBvh>(adaptive, fast_scatter);
+    default:
+      return nullptr;
+  }
+}
+
+// Lets `kernel` take `smem` bytes of dynamic shared memory.
+cudaError_t allow_shared(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
+cudaError_t launch(Kernel kernel, const Args& a, cudaStream_t stream) {
   const size_t smem = shared_bytes(a.n_sph, a.n_clusters, a.n_chunks,
                                    a.n_supers, a.max_bounce);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
+  const cudaError_t err = allow_shared(kernel, smem);
+  if (err != cudaSuccess) return err;
   const dim3 block(kBlockX, kBlockY);
   const dim3 grid((a.width + kBlockX - 1) / kBlockX,
                   (a.height + kBlockY - 1) / kBlockY);
   kernel<<<grid, block, smem, stream>>>(a);
   return cudaGetLastError();
-}
-
-template <Geometry kGeom>
-cudaError_t launch_geometry(const Args& a, bool adaptive, bool fast_scatter,
-                            cudaStream_t stream) {
-  return fast_scatter ? launch<kGeom, kFastScatter>(a, adaptive, stream)
-                      : launch<kGeom, kBoxMuller>(a, adaptive, stream);
 }
 
 }  // namespace
@@ -1054,13 +1124,31 @@ extern "C" size_t rtx_shared_bytes(int geometry, int n_sph, int n_clusters,
                       chunks ? n_supers : 0, max_bounce);
 }
 
+// How many blocks of an instantiation one SM holds at once with `smem`
+// bytes of dynamic shared memory
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or minus a CUDA error
+// code.
+extern "C" int rtx_occupancy(int geometry, int adaptive, int fast_scatter,
+                             size_t smem) {
+  const Kernel kernel = kernel_for(geometry, adaptive != 0, fast_scatter != 0);
+  if (kernel == nullptr) return -static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = allow_shared(kernel, smem);
+  int blocks = 0;
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, kernel, kBlockX * kBlockY, smem);
+  }
+  return err == cudaSuccess ? blocks : -static_cast<int>(err);
+}
+
 // `geometry` picks the instantiation (0 kSpheres, 1 kChunks, 2 kBvh).
 // Every geometry takes the sphere tables (16-byte aligned; empty for a
 // scene without spheres). kChunks and kBvh need the triangle tables
 // (tri_rows 16-byte aligned), kChunks the chunk table and, with n_supers
 // > 0, a box over each run of super_size chunks; kBvh the node table
-// (16-byte aligned) and the leaf rows; the pointers a geometry does not
-// read may be null. `adaptive` picks render_adaptive over render_kernel,
+// (64-byte aligned rows), the leaf rows and the BVH's node count (the
+// traversal's pop cap is 4 x nodes); the pointers a geometry does not read
+// may be null. `adaptive` picks render_adaptive over render_kernel,
 // `fast_scatter` the kFastScatter sampler. Returns cudaGetLastError() after
 // the launch.
 extern "C" int rtx_render(
@@ -1107,17 +1195,9 @@ extern "C" int rtx_render(
       static_cast<float*>(out),
       static_cast<int*>(segs),
       static_cast<int*>(hist)};
-  const bool ad = adaptive != 0, fast = fast_scatter != 0;
-  switch (geometry) {
-    case kSpheres:
-      return static_cast<int>(launch_geometry<kSpheres>(a, ad, fast, s));
-    case kChunks:
-      return static_cast<int>(launch_geometry<kChunks>(a, ad, fast, s));
-    case kBvh:
-      return static_cast<int>(launch_geometry<kBvh>(a, ad, fast, s));
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const Kernel kernel = kernel_for(geometry, adaptive != 0, fast_scatter != 0);
+  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch(kernel, a, s));
 }
 
 extern "C" const char* rtx_error_string(int code) {

@@ -51,7 +51,7 @@ from ..accel.bvh import (
     _triangle_t_one,
     closest_hit_bvh,
 )
-from ..models.geometry import Scene
+from ..models.geometry import BVH, Scene
 from ..ops import rng as rng_ops
 from ..ops import vecmath as vm
 from ..ops.accumulate import accumulate
@@ -88,6 +88,10 @@ SUPER_CHUNKS = 32
 # How the kernel finds a scene's triangles, in the order of the source's
 # Geometry values (kSpheres, kChunks, kBvh).
 GEOMETRIES = ("spheres", "chunks", "bvh")
+
+# The BVH node table's reference to a leaf: ~(leaf row << LEAF_COUNT_BITS
+# | its real slots) (the source's kLeafCountBits).
+LEAF_COUNT_BITS = 3
 
 
 def variant(geometry: str, adaptive: bool = False,
@@ -273,8 +277,8 @@ def clustered_winner(o, d, scene: Scene, tables: KernelTables, counts=None):
     ``triangle_tests``, beside them ``line_triangle_tests`` (the triangles
     of every chunk whose box the ray's line meets: what the reference's
     gate, without the bound, would test), and for the BVH ``_traverse``'s
-    ``slabs`` and ``prims`` (those with the parked lanes' root tests,
-    ``parked`` of them)."""
+    counts (with the parked lanes' root tests, ``parked`` of them: each
+    one slab, one pop, one pop reject and ``ROOT_BYTES``)."""
     b = o.shape[0]
     dev = o.device
     inv_d = 1.0 / d
@@ -343,14 +347,13 @@ def clustered_winner(o, d, scene: Scene, tables: KernelTables, counts=None):
             add("line_triangle_tests", weighted(t_near <= t_far, n_tris))
     elif tables.geometry == "bvh":
         inf = torch.full((b,), INF, dtype=torch.float32, device=dev)
-        sentinel = None
         if counts is not None:
             counts["parked"] = counts.get("parked", 0) + int((~live).sum())
-            sentinel = int(scene.chunks.num_tris.sum())
         t_t, i_t = _traverse(
             o, d, scene.tri_bvh,
             lambda o_, d_, idx: _triangle_t_one(o_, d_, scene, idx), inf,
-            torch.zeros((b,), dtype=torch.int64, device=dev), counts, sentinel,
+            torch.zeros((b,), dtype=torch.int64, device=dev), counts,
+            tables.bvh_sentinel,
         )
     else:
         return best_t, best
@@ -378,8 +381,9 @@ def plain_block_size(cfg: RenderConfig, scene: Scene, n: int) -> int:
 
 def _padded_pixel_blocks(block: int, start: int, stop: int) -> np.ndarray:
     """(nb, block) pixel indices covering pixels ``start .. stop - 1``;
-    padding lanes repeat the last pixel (they are traced and counted, then
-    dropped), as the JAX package's XLA path lays out the whole image."""
+    padding lanes repeat the last pixel (they are traced and counted in the
+    segment total, then dropped), as the JAX package's XLA path lays out
+    the whole image."""
     n = stop - start
     idx = start + np.minimum(np.arange(_round_up(n, block)), n - 1)
     return idx.reshape(-1, block)
@@ -393,9 +397,12 @@ def render_block(
     pix_idx: torch.Tensor,
     intersect_fn=None,
     with_bounce_counts: bool = False,
+    n_real: int | None = None,
 ):
     """One flat block of pixels -> ``(mean radiance (B, 3), segments (B,))``
-    plus, with ``with_bounce_counts``, the (max_bounce + 1,) live counts.
+    plus, with ``with_bounce_counts``, the (max_bounce + 1,) live counts of
+    its first ``n_real`` pixels (all of them by default; a block's padding
+    lanes come last).
 
     ``pix_idx`` holds global pixel indices ``y * width + x``. The spp loop
     is sequential: one PCG state runs through all of a pixel's samples
@@ -410,16 +417,17 @@ def render_block(
     total = torch.zeros((pix_idx.shape[0], 3), dtype=torch.float32, device=dev)
     segs = torch.zeros(pix_idx.shape[0], dtype=torch.int32, device=dev)
     counts = torch.zeros(cfg.max_bounce + 1, dtype=torch.int32, device=dev)
+    bounces = torch.arange(cfg.max_bounce + 1, device=dev)
     for _ in range(cfg.spp):
         state, origin, direction = generate_rays(state, camera, fp, cfg.width)
-        state, light, s, c = trace(
+        state, light, s = trace(
             state, origin, direction, scene, cfg.max_bounce,
-            intersect_fn=intersect_fn, with_bounce_counts=True,
-            fast_scatter=cfg.fast_scatter,
+            intersect_fn=intersect_fn, fast_scatter=cfg.fast_scatter,
         )
         total = total + light
         segs = segs + s
-        counts = counts + c
+        # a path is live at bounce index b iff it traced more than b segments
+        counts += (s[:n_real, None] > bounces).sum(0, dtype=torch.int32)
     mean = vm.div(total, float(cfg.spp))
     if with_bounce_counts:
         return mean, segs, counts
@@ -431,11 +439,12 @@ def _render_frame_plain(scene, camera, cfg, frame, y0, y1, intersect_fn):
     imgs, segs, counts = [], [], []
     start, stop = y0 * cfg.width, y1 * cfg.width
     block_size = plain_block_size(cfg, scene, stop - start)
-    for block in _padded_pixel_blocks(block_size, start, stop):
+    for i, block in enumerate(_padded_pixel_blocks(block_size, start, stop)):
         pix = torch.from_numpy(block).to(dev)
         img, s, c = render_block(scene, camera, cfg, frame, pix,
                                  intersect_fn=intersect_fn,
-                                 with_bounce_counts=True)
+                                 with_bounce_counts=True,
+                                 n_real=stop - start - i * block_size)
         imgs.append(img)
         segs.append(s)
         counts.append(c)
@@ -469,11 +478,12 @@ def render_frames_plain(
     with it, each frame folds into the running average
     (``ops/accumulate.py``). Returns ``(image (H, W, 3) f32, total segments
     (int64 0-d), per-pixel segments (H, W) int32, per-bounce live counts
-    (max_bounce + 1,) int32 or None)``. With exact spp, like the JAX
-    package's XLA path, the total and the histogram include the padding
-    lanes of the last pixel block; the per-pixel map does not. A block
-    holds at most ``plain_block_size`` pixels, so where many triangles cut
-    it, the padding and the total can be smaller than the XLA path's.
+    (max_bounce + 1,) int32 or None)``. The histogram counts real pixels
+    only, as the kernel's does, so it sums to the per-pixel map. With exact
+    spp, like the JAX package's XLA path, the total also counts the padding
+    lanes of the last pixel block. A block holds at most
+    ``plain_block_size`` pixels, so where many triangles cut it, the
+    padding and the total can be smaller than the XLA path's.
 
     With ``cfg.adaptive_spp`` it runs the refill slot machine
     (``_render_adaptive``) over ``groups``, a (G, P) array of pixel
@@ -700,6 +710,8 @@ def _bind(lib) -> None:
     lib.rtx_render.restype = ci
     lib.rtx_shared_bytes.argtypes = [ci, ci, ci, ci, ci, ci]
     lib.rtx_shared_bytes.restype = ctypes.c_size_t
+    lib.rtx_occupancy.argtypes = [ci, ci, ci, ctypes.c_size_t]
+    lib.rtx_occupancy.restype = ci
 
 
 class PathTraceKernel:
@@ -728,6 +740,26 @@ class PathTraceKernel:
         """Compile the source (if its library is not built yet) and load
         it. Raises if nvcc is missing or fails."""
         return self.library.build()
+
+    def shared_bytes(self, tab: KernelTables, cfg: RenderConfig) -> int:
+        """A launch's dynamic shared memory for tables ``tab``."""
+        return self.library.lib.rtx_shared_bytes(
+            GEOMETRIES.index(tab.geometry), tab.spheres.shape[0],
+            tab.clusters.shape[0],
+            0 if tab.chunks is None else tab.chunks.shape[0],
+            0 if tab.supers is None else tab.supers.shape[0], cfg.max_bounce)
+
+    def blocks_per_sm(self, scene: Scene, cfg: RenderConfig) -> int:
+        """How many blocks of the instantiation that ``geometry(scene, cfg)``
+        and ``cfg`` pick one SM holds at once, at the launch's shared
+        memory (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+        tab = geometry_tables(scene, geometry(scene, cfg))
+        n = self.library.lib.rtx_occupancy(
+            GEOMETRIES.index(tab.geometry), int(cfg.adaptive_spp),
+            int(cfg.fast_scatter), self.shared_bytes(tab, cfg))
+        if n < 0:
+            self.library.check(-n, "occupancy query")
+        return n
 
     def launch(
         self,
@@ -773,10 +805,8 @@ class PathTraceKernel:
         n_clusters = tab.clusters.shape[0]
         n_chunks = 0 if tab.chunks is None else tab.chunks.shape[0]
         n_supers = 0 if tab.supers is None else tab.supers.shape[0]
-        n_nodes = 0 if tab.bvh_nodes is None else tab.bvh_nodes.shape[0]
         code = GEOMETRIES.index(geom)
-        shared = lib.rtx_shared_bytes(code, n_sph, n_clusters, n_chunks,
-                                      n_supers, cfg.max_bounce)
+        shared = self.shared_bytes(tab, cfg)
         if shared > MAX_SHARED_BYTES:
             raise NotImplementedError(
                 f"{n_sph} spheres in {n_clusters} clusters and {n_chunks} "
@@ -803,7 +833,7 @@ class PathTraceKernel:
                 tab.n_hoist, ptr(tab.tri_rows), ptr(tab.tri_normals), ptr(tab.tri_mat),
                 ptr(tab.chunks), n_chunks, ptr(tab.supers), n_supers,
                 SUPER_CHUNKS, ptr(tab.bvh_nodes),
-                ptr(tab.bvh_leaves), n_nodes, ptr(tab.materials),
+                ptr(tab.bvh_leaves), tab.bvh_node_count, ptr(tab.materials),
                 ptr(tab.params), w, h, cfg.spp, cfg.max_bounce,
                 int(frame0) & 0xFFFFFFFF, n_frames, ptr(accum),
                 int(cfg.clamp_accumulate), int(cfg.adaptive_spp),
@@ -856,10 +886,11 @@ class KernelTables:
     # (R, 8) f32: box min, 0, box max, 0 over each run of SUPER_CHUNKS
     # chunks; None for a scene of at most one run
     supers: torch.Tensor | None = None
-    # (N, 8) f32: min, a, max, b with a = left child or ~leaf row, b =
-    # right child (int32 bits)
+    # (1 + internal nodes, 16) f32: ``bvh_node_table``
     bvh_nodes: torch.Tensor | None = None
     bvh_leaves: torch.Tensor | None = None  # (L, 4) int32
+    bvh_node_count: int = 0  # the BVH's nodes: the traversal's pop cap
+    bvh_sentinel: int | None = None  # the leaves' padding index
     # host seconds the sphere clustering took when these were built
     cluster_seconds: float = 0.0
 
@@ -949,6 +980,41 @@ def sphere_tables(scene: Scene) -> dict:
     )
 
 
+def bvh_node_table(bvh: BVH, sentinel: int) -> np.ndarray:
+    """The kernel's BVH node table from ``bvh``'s arrays, on the host:
+    (1 + internal nodes, 16) f32, layout in ``csrc/megakernel.cu``. Row 0
+    holds the root's box and reference; row ``1 + k`` the ``k``-th
+    internal node in node order: its left child's box and reference, then
+    its right child's. A reference to an internal node is its row (>= 1),
+    to a leaf ``~(leaf row << LEAF_COUNT_BITS | real slots)`` < 0, the real
+    slots those below ``sentinel``. References are int32 bits in columns
+    3 and 11 (row 0: column 3); columns 7 and 15 are 0. Raises unless each
+    leaf's real slots come first."""
+    lo, hi, left, right, leaf_row, prims = (
+        getattr(bvh, f).cpu().numpy() for f in (
+            "bounds_min", "bounds_max", "left", "right", "leaf_row",
+            "leaf_prims"))
+    real = prims < sentinel
+    n_real = real.sum(axis=1)
+    if (real != (np.arange(prims.shape[1]) < n_real[:, None])).any():
+        raise ValueError("a BVH leaf has a padding slot before a real one")
+    internal = np.nonzero(leaf_row < 0)[0]
+    row_of = np.zeros(left.shape[0], np.int64)
+    row_of[internal] = np.arange(1, internal.shape[0] + 1)
+    leaf = leaf_row.astype(np.int64)
+    ref = np.where(
+        leaf >= 0,
+        ~((leaf << LEAF_COUNT_BITS) | n_real[np.maximum(leaf, 0)]), row_of,
+    ).astype(np.int32).view(np.float32)
+    table = np.zeros((1 + internal.shape[0], 16), np.float32)
+    table[0, 0:3], table[0, 3], table[0, 4:7] = lo[0], ref[0], hi[0]
+    for k, child in ((0, left[internal]), (8, right[internal])):
+        table[1:, k:k + 3] = lo[child]
+        table[1:, k + 3] = ref[child]
+        table[1:, k + 4:k + 7] = hi[child]
+    return table
+
+
 def geometry_tables(scene: Scene, geom: str) -> KernelTables:
     """The scene's part of the kernel's tables for geometry ``geom``, built
     once a scene: kept on the scene object and found again as long as none
@@ -956,10 +1022,8 @@ def geometry_tables(scene: Scene, geom: str) -> KernelTables:
     frames are scenes of their own and build their own).
 
     The chunk table holds each chunk's first triangle and triangle count as
-    int32 bits in its f32 columns 3 and 7; a BVH node row its child links
-    or leaf row in columns 3 and 7 (an internal node has left and right
-    children >= 0, a leaf has ``leaf_row >= 0``: ``accel/bvh.py
-    build_lbvh``)."""
+    int32 bits in its f32 columns 3 and 7; the BVH's node table is
+    ``bvh_node_table``'s."""
     key = tuple((id(t), t._version) for t in _tensor_leaves(scene))
     cache = scene.__dict__.setdefault("_kernel_tables", {})
     if cache.get("key") != key:
@@ -1035,13 +1099,13 @@ def geometry_tables(scene: Scene, geom: str) -> KernelTables:
                 f"the kernel's BVH leaves hold {LEAF_WIDTH} triangles, this "
                 f"scene's {bvh.leaf_prims.shape[1]}"
             )
-        a = torch.where(bvh.leaf_row >= 0, -1 - bvh.leaf_row, bvh.left)
-        tab.bvh_nodes = torch.cat(
-            [bvh.bounds_min, _int_bits(a), bvh.bounds_max,
-             _int_bits(bvh.right)],
-            dim=1,
-        ).contiguous()
+        # the leaves' padding index is the first padding triangle: the
+        # number of real ones, which the chunks hold
+        tab.bvh_sentinel = int(scene.chunks.num_tris.sum())
+        tab.bvh_nodes = torch.from_numpy(
+            bvh_node_table(bvh, tab.bvh_sentinel)).to(dev)
         tab.bvh_leaves = bvh.leaf_prims.to(torch.int32).contiguous()
+        tab.bvh_node_count = bvh.left.shape[0]
     cache[geom] = tab
     TABLE_BUILDS.builds += 1
     TABLE_BUILDS.seconds += time.perf_counter() - t0

@@ -18,7 +18,8 @@ registers and spill bytes of every kernel entry from ``ptxas -v``.
 Configurations: RTIOW 1920x1080, 16 spp, 4 bounces; Chess at its shipped
 settings (1280x720, 3 spp, 15 bounces); Cornell 512x512, 4 spp, 8 bounces;
 the 70k-triangle mesh 1280x720, 1 spp, 4 bounces; each with exact spp and
-with adaptive refill. ``--super-chunks N`` sets the chunk scan's run length
+with adaptive refill, each of those with the Box-Muller and the fast
+scatter. ``--super-chunks N`` sets the chunk scan's run length
 (a value above the chunk count switches its second level off) on a tree
 that has one.
 """
@@ -114,8 +115,10 @@ def main(argv=None) -> int:
         gen = torch.Generator(device=dev).manual_seed(SEED)
         acc0 = 2.0 * torch.rand((cfg.height, cfg.width, 3), generator=gen,
                                 device=dev)
-        for adaptive in (False, True):
-            vcfg = dataclasses.replace(cfg, adaptive_spp=adaptive)
+        for fast, adaptive in ((False, False), (False, True), (True, False),
+                               (True, True)):
+            vcfg = dataclasses.replace(cfg, adaptive_spp=adaptive,
+                                       fast_scatter=fast)
 
             def call():
                 return rtt.render_frames_and_accumulate(
@@ -136,6 +139,7 @@ def main(argv=None) -> int:
             if not torch.equal(acc, again):
                 raise RuntimeError(f"{name}: two identical calls differ")
             emit(phase="frames", scene=name, adaptive_spp=adaptive,
+                 fast_scatter=fast,
                  width=cfg.width, height=cfg.height, spp=cfg.spp,
                  max_bounce=cfg.max_bounce, frames=K_FRAMES,
                  frame_ms_median=statistics.median(ms), frame_ms_min=min(ms),

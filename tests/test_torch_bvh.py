@@ -194,11 +194,14 @@ def test_closest_hit_bvh_matches_bruteforce():
 
 def _one_ray_counts(o, d, scene, sentinel):
     """One ray at a time, in plain Python, through the port's own slab and
-    triangle tests: the slab tests the traversal needs (the root, then both
-    children of each internal node visited), and the real and all slots of
-    the leaves visited."""
+    triangle tests, with the slab test repeated at each pop: the slab tests
+    the traversal needs (the root, then both children of each internal
+    node visited), the real and all slots of the leaves visited, the pops
+    and pop rejects (the root's pop included), the internal nodes and
+    leaves visited."""
     bvh = scene.tri_bvh
-    slabs = real = slots = 0
+    n = dict(slabs=0, real=0, slots=0, pops=0, pop_rejects=0, internal=0,
+             leaves=0)
     for r in range(o.shape[0]):
         o1, d1 = o[r:r + 1], d[r:r + 1]
         inv = 1.0 / d1
@@ -210,47 +213,295 @@ def _one_ray_counts(o, d, scene, sentinel):
             return bool(((tf >= 0) & (tn <= torch.minimum(tf, best)))[0]), tn
 
         stack = [0]
-        slabs += 1
+        n["slabs"] += 1
         while stack:
             node = stack.pop()
+            n["pops"] += 1
             if not passes(node)[0]:
+                n["pop_rejects"] += 1
                 continue
             row = int(bvh.leaf_row[node])
             if row >= 0:
+                n["leaves"] += 1
                 for p in bvh.leaf_prims[row].tolist():
-                    real += p < sentinel
-                    slots += 1
+                    n["real"] += p < sentinel
+                    n["slots"] += 1
                     t = tbvh._triangle_t_one(o1, d1, scene, torch.tensor([p]))
                     best = torch.minimum(best, t)
                 continue
+            n["internal"] += 1
             left, right = int(bvh.left[node]), int(bvh.right[node])
-            slabs += 2
+            n["slabs"] += 2
             (hl, tnl), (hr, tnr) = passes(left), passes(right)
             if hl and hr:
                 near, far = (left, right) if bool(tnl <= tnr) else (right, left)
                 stack += [far, near]
             elif hl or hr:
                 stack.append(left if hl else right)
-    return slabs, real, slots
+    return n
 
 
 def test_traverse_counts_the_tests_it_needs():
     """``closest_hit_bvh``'s counts (the bound's work in the GPU smoke
     run) against a one-ray-at-a-time recount: the root and the children's
     slab tests, the real triangles of the leaves visited (not their padding
-    slots); a parked ray (origin 1e9, direction +x) costs one root test."""
+    slots), the pops and pop rejects, the nodes visited and the bytes the
+    kernel reads for them; a parked ray (origin 1e9, direction +x) costs
+    one root test, counted as a rejected pop."""
     ts = _mixed_scene(tscene, "tri", device="cpu")
     o, d = (torch.from_numpy(x) for x in _rays(n=48, seed=4))
     o[-4:], d[-4:] = 1.0e9, torch.tensor([1.0, 0.0, 0.0])
     sentinel = int(ts.chunks.num_tris.sum())
     counts = {}
     tbvh.closest_hit_bvh(o, d, ts, counts=counts)
-    slabs, real, slots = _one_ray_counts(o, d, ts, sentinel)
-    assert (counts["slabs"], counts["prims"]) == (slabs, real)
-    assert real < slots  # the leaves visited hold padding slots
+    n = _one_ray_counts(o, d, ts, sentinel)
+    assert (counts["slabs"], counts["prims"]) == (n["slabs"], n["real"])
+    for key in ("pops", "pop_rejects", "internal", "leaves"):
+        assert counts[key] == n[key], key
+    assert counts["fetched_bytes"] == (
+        48 * tbvh.ROOT_BYTES + n["internal"] * tbvh.NODE_ROW_BYTES
+        + n["leaves"] * tbvh.LEAF_ROW_BYTES + n["real"] * tbvh.PRIM_ROW_BYTES)
+    assert n["real"] < n["slots"]  # the leaves visited hold padding slots
+    assert 0 < n["pop_rejects"] < n["pops"]
     parked = {}
     tbvh.closest_hit_bvh(o[-4:], d[-4:], ts, counts=parked)
-    assert parked == {"slabs": 4}
+    assert parked == {"slabs": 4, "prims": 0, "pops": 4, "pop_rejects": 4,
+                      "internal": 0, "leaves": 0,
+                      "fetched_bytes": 4 * tbvh.ROOT_BYTES}
+
+
+# ---- the kernel's node table and its traversal ----------------------------
+
+def _node_table_cases(name, tmp_path):
+    """(BVH, leaves' sentinel) of mesh_scene, a small procedural mesh and a
+    JSON scene with a big OBJ (the loader's BVH rule)."""
+    if name == "json_big_obj":
+        v, f = jproc.trefoil_knot_mesh(5000)
+        lines = [f"v {x:.6f} {y:.6f} {z:.6f}" for x, y, z in v]
+        lines += [f"f {a + 1} {b + 1} {c + 1}" for a, b, c in f]
+        (tmp_path / "knot.obj").write_text("\n".join(lines) + "\n")
+        spec = tmp_path / "knot.json"
+        spec.write_text('{"meshes": [{"obj": "knot.obj", "chunked": false}], '
+                        '"camera": {"position": [0, 1, -6]}}')
+        scene = rtt.load_json_scene(spec, device="cpu")[0]
+    else:
+        kw = {} if name == "mesh_scene" else dict(target_tris=4000)
+        scene = tpresets.mesh_scene(device="cpu", **kw)[0]
+    return scene.tri_bvh, int(scene.chunks.num_tris.sum())
+
+
+@pytest.mark.parametrize("name", ["mesh_scene", "small_mesh", "json_big_obj"])
+def test_node_table_restates_the_bvh(name, tmp_path):
+    """``bvh_node_table`` restates the BVH bit for bit: row 0 the root's
+    box, each internal node's row its children's boxes; each reference
+    decodes to the child node or to the child's leaf row with its count of
+    real slots, and those slots come first."""
+    bvh, sentinel = _node_table_cases(name, tmp_path)
+    lo, hi, left, right, leaf_row, prims = (
+        getattr(bvh, f).numpy() for f in BVH_FIELDS[:5] + ("leaf_prims",))
+    table = tmk.bvh_node_table(bvh, sentinel)
+    internal = np.nonzero(leaf_row < 0)[0]
+    assert table.shape == (1 + len(internal), 16) and table.dtype == np.float32
+    bits = table.view(np.int32)
+    n_real = (prims < sentinel).sum(axis=1)
+    assert (n_real >= 1).all()
+    assert np.array_equal(prims < sentinel,
+                          np.arange(prims.shape[1]) < n_real[:, None])
+
+    def same(a, b):
+        return np.array_equal(a.view(np.int32), b.view(np.int32))
+
+    def decodes(refs, nodes):
+        leaf = leaf_row[nodes] >= 0
+        if (refs[~leaf] < 1).any():
+            return False
+        ok_int = np.array_equal(internal[refs[~leaf] - 1], nodes[~leaf])
+        v = ~refs[leaf]
+        rows = v >> tmk.LEAF_COUNT_BITS
+        return (ok_int and (refs[leaf] < 0).all()
+                and np.array_equal(rows, leaf_row[nodes[leaf]])
+                and np.array_equal(v & ((1 << tmk.LEAF_COUNT_BITS) - 1),
+                                   n_real[rows]))
+
+    assert same(table[0, 0:3], lo[0]) and same(table[0, 4:7], hi[0])
+    assert decodes(bits[:1, 3], np.array([0]))
+    assert not bits[0, 7:].any()
+    for col, child in ((0, left[internal]), (8, right[internal])):
+        assert same(table[1:, col:col + 3], lo[child])
+        assert same(table[1:, col + 4:col + 7], hi[child])
+        assert decodes(bits[1:, col + 3], child)
+        assert not bits[1:, col + 7].any()
+    assert int(leaf_row.max()) < 1 << (31 - tmk.LEAF_COUNT_BITS)
+
+
+def _traverse_with_pop_retest(o, d, bvh, prim_t_fn, best_t, best_idx,
+                              counts=None, sentinel=None):
+    """The traversal as the kernel first ran it, kept as the yardstick of
+    the redesigned one: every pop slab-tests its node again, a leaf tests
+    all its slots (padding included); counts as ``tbvh._traverse``'s
+    ``slabs`` and ``prims``."""
+    b = o.shape[0]
+    dev = o.device
+    d_inv = 1.0 / d
+    leaf_width = bvh.leaf_prims.shape[1]
+    n_nodes = bvh.left.shape[0]
+    best_t, best_idx = best_t.clone(), best_idx.clone()
+    stack = torch.zeros((b, tbvh.STACK_DEPTH), dtype=torch.int64, device=dev)
+    # every ray starts with the root on its stack
+    ptr = torch.ones(b, dtype=torch.int64, device=dev)
+    lanes = torch.arange(b, device=dev)
+    if counts is not None:
+        counts["slabs"] = counts.get("slabs", 0) + b
+    for _ in range(4 * n_nodes):
+        if lanes.numel() == 0:
+            break
+        p = ptr[lanes] - 1
+        node = stack[lanes, p]
+        ptr[lanes] = p
+        o_l, d_l, inv_l = o[lanes], d[lanes], d_inv[lanes]
+        bt = best_t[lanes]
+        t_near, t_far = tbvh._slab(o_l, inv_l, bvh.bounds_min[node],
+                                   bvh.bounds_max[node])
+        visit = (t_far >= 0.0) & (t_near <= torch.minimum(t_far, bt))
+        row = bvh.leaf_row[node].long()
+        is_leaf = row >= 0
+
+        # leaves: every slot, in order, strictly nearer wins
+        lf = (visit & is_leaf).nonzero().squeeze(1)
+        if lf.numel():
+            prims = bvh.leaf_prims[row[lf]].long()  # (n, leaf_width)
+            if counts is not None:
+                real = prims.numel() if sentinel is None else int(
+                    (prims < sentinel).sum())
+                counts["prims"] = counts.get("prims", 0) + real
+            t_all = prim_t_fn(o_l[lf, None], d_l[lf, None], prims)
+            bt_f, bi_f = bt[lf], best_idx[lanes[lf]]
+            for j in range(leaf_width):
+                better = t_all[:, j] < bt_f
+                bt_f = torch.where(better, t_all[:, j], bt_f)
+                bi_f = torch.where(better, prims[:, j], bi_f)
+            best_t[lanes[lf]] = bt_f
+            best_idx[lanes[lf]] = bi_f
+
+        # internal nodes: slab-test both children, push the survivors far
+        # first (the near one pops next)
+        it = (visit & ~is_leaf).nonzero().squeeze(1)
+        if it.numel():
+            li = lanes[it]
+            o_i, inv_i, bt_i = o_l[it], inv_l[it], bt[it]
+            l_node = bvh.left[node[it]].long()
+            r_node = bvh.right[node[it]].long()
+            tn_l, tf_l = tbvh._slab(o_i, inv_i, bvh.bounds_min[l_node],
+                                    bvh.bounds_max[l_node])
+            tn_r, tf_r = tbvh._slab(o_i, inv_i, bvh.bounds_min[r_node],
+                                    bvh.bounds_max[r_node])
+            hit_l = (tf_l >= 0.0) & (tn_l <= torch.minimum(tf_l, bt_i))
+            hit_r = (tf_r >= 0.0) & (tn_r <= torch.minimum(tf_r, bt_i))
+            both = hit_l & hit_r
+            l_is_near = tn_l <= tn_r
+            near = torch.where(l_is_near, l_node, r_node)
+            far = torch.where(l_is_near, r_node, l_node)
+            first = torch.where(both, far, torch.where(hit_l, l_node, r_node))
+            any_push = hit_l | hit_r
+            p_i = ptr[li]
+            p0 = torch.clamp(p_i, max=tbvh.STACK_DEPTH - 1)
+            p1 = torch.clamp(p_i + 1, max=tbvh.STACK_DEPTH - 1)
+            stack[li, p0] = torch.where(any_push, first, stack[li, p0])
+            stack[li, p1] = torch.where(both, near, stack[li, p1])
+            ptr[li] = p_i + any_push.long() + both.long()
+            if counts is not None:
+                counts["slabs"] += 2 * it.numel()
+        lanes = lanes[ptr[lanes] > 0]
+    return best_t, best_idx
+
+
+def _mesh_rays(scene, n=10_000, seed=7):
+    """Seeded rays into mesh_scene: from a box around the knot towards it,
+    up from the ground (origins on the ground sphere's top, y = 0), and
+    rays whose direction has a zero component with the origin on a BVH
+    node's face in that axis (their slab with that node is NaN: the node is
+    rejected)."""
+    rs = np.random.RandomState(seed)
+    n_nan = n_ground = n // 5
+    n_box = n - n_nan - n_ground
+    o = rs.uniform(-3.0, 3.0, (n, 3)).astype(np.float32)
+    o[:, 1] = np.abs(o[:, 1])
+    d = (rs.uniform(-0.8, 0.8, (n, 3)) + [0.0, 0.8, 0.0] - o).astype(np.float32)
+    g = slice(n_box, n_box + n_ground)
+    o[g] = rs.uniform(-1.2, 1.2, (n_ground, 3)) * [1.0, 0.0, 0.5]
+    d[g] = rs.normal(size=(n_ground, 3)).astype(np.float32)
+    d[g, 1] = np.abs(d[g, 1]) + 0.5
+    bvh = scene.tri_bvh
+    nan = slice(n_box + n_ground, n)
+    nodes = rs.randint(0, bvh.left.shape[0], n_nan)
+    axis = rs.randint(0, 3, n_nan)
+    face = np.where(rs.rand(n_nan) < 0.5, bvh.bounds_min.numpy()[nodes, axis],
+                    bvh.bounds_max.numpy()[nodes, axis])
+    rows = np.arange(nan.start, n)
+    o[rows, axis] = face
+    d[rows, axis] = 0.0
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return torch.from_numpy(o), torch.from_numpy(d), nodes
+
+
+def test_traversal_equals_the_pop_retest_algorithm():
+    """The redesigned plain traversal (t_near on the stack, no slab test at
+    the pop, real slots only) against the traversal the kernel first ran
+    (kept above): ``(t, index)`` bit for bit on 10^4 seeded rays into
+    mesh_scene, NaN-rule and ground rays included, and the same slab and
+    triangle counts."""
+    scene = tpresets.mesh_scene(device="cpu")[0]
+    bvh = scene.tri_bvh
+    o, d, nodes = _mesh_rays(scene)
+    sentinel = int(scene.chunks.num_tris.sum())
+    nan = slice(o.shape[0] - nodes.shape[0], o.shape[0])
+    t_near, _ = tbvh._slab(o[nan], 1.0 / d[nan], bvh.bounds_min[nodes],
+                           bvh.bounds_max[nodes])
+    assert bool(torch.isnan(t_near).all())  # each meets the NaN rule
+
+    def prim_t(o_, d_, idx):
+        return tbvh._triangle_t_one(o_, d_, scene, idx)
+
+    inf = torch.full((o.shape[0],), float("inf"))
+    zero = torch.zeros(o.shape[0], dtype=torch.int64)
+    new_counts, old_counts = {}, {}
+    t_new, i_new = tbvh._traverse(o, d, bvh, prim_t, inf, zero, new_counts,
+                                  sentinel)
+    t_old, i_old = _traverse_with_pop_retest(o, d, bvh, prim_t, inf, zero,
+                                             old_counts, sentinel)
+    assert torch.equal(t_new.view(torch.int32), t_old.view(torch.int32))
+    assert torch.equal(i_new, i_old)
+    hit = torch.isfinite(t_new)
+    for part in (slice(0, 6000), slice(6000, 8000), nan):
+        assert 0.05 < float(hit[part].double().mean()) < 0.95
+    assert (new_counts["slabs"], new_counts["prims"]) == (
+        old_counts["slabs"], old_counts["prims"])
+
+
+def test_traversal_counts_on_the_mesh_frame():
+    """The counts behind the GPU smoke run's BVH bound, on mesh_scene at
+    160x90 (stats frame 8, 1 spp, 4 bounces: 26,340 live segments): within
+    1% of what the pop-retest traversal counts there (pops 20.87, pop
+    rejects 0.961, internal nodes 18.22, leaves 1.69, slab tests 37.44,
+    triangles 5.31 a live segment; a parked dead lane's root test is no
+    work), and the bytes read by the node table's layout."""
+    scene, cam, cfg = tpresets.mesh_scene(width=160, height=90, device="cpu")
+    counts = {}
+    tmk.render_frames_plain(scene, cam, cfg, 8,
+                            intersect_fn=tmk.plain_intersector(scene, cfg,
+                                                               counts))
+    n, parked = counts["segments"], counts["parked"]
+    assert n == 26_340
+    for key, want in (("pops", 20.87), ("pop_rejects", 0.961),
+                      ("internal", 18.22), ("leaves", 1.69), ("slabs", 37.44),
+                      ("prims", 5.31)):
+        got = (counts[key] - (parked if key in ("pops", "pop_rejects", "slabs")
+                              else 0)) / n
+        assert abs(got - want) <= 0.01 * want, (key, got)
+    assert counts["fetched_bytes"] == (
+        (n + parked) * tbvh.ROOT_BYTES + counts["internal"] * tbvh.NODE_ROW_BYTES
+        + counts["leaves"] * tbvh.LEAF_ROW_BYTES
+        + counts["prims"] * tbvh.PRIM_ROW_BYTES)
 
 
 def _mesh(**kw):
@@ -275,17 +526,37 @@ def test_mesh_scene_identical():
     assert tckpt.state_hash(ts, tc, cfg) == jckpt.state_hash(js, jc, cfg)
 
 
-def test_mesh_scene_frame_matches_xla():
-    """The port's plain BVH path against the JAX package's XLA BVH path:
-    the whole-frame rule, the same segment total and bounce histogram."""
-    js, jc, ts, tc, cfg = _mesh()
+def _mesh_frame_both(**kw):
+    """Frame 3 of the small mesh on the JAX package's XLA BVH path and the
+    port's plain one, held to the whole-frame rule and the same segment
+    total; returns the port's inputs and both bounce histograms."""
+    js, jc, ts, tc, cfg = _mesh(**kw)
     a, a_segs, a_hist = rte.render_frame_with_stats(js, jc, cfg, jnp.uint32(3),
                                                     bounce_stats=True)
     b, b_segs, b_hist = rtt.render_frame_with_stats(ts, tc, cfg, 3,
                                                     bounce_stats=True)
     _tight(np.asarray(a), b.numpy())
     assert int(b_segs) == int(a_segs)
-    assert np.array_equal(b_hist.numpy(), np.asarray(a_hist))
+    return ts, tc, cfg, int(b_segs), np.asarray(a_hist), b_hist
+
+
+def test_mesh_scene_frame_matches_xla():
+    """The port's plain BVH path against the JAX package's XLA BVH path at
+    48x27: the whole-frame rule and the same segment total. The XLA path's
+    histogram also counts the padding lanes of its last pixel block, the
+    port's real pixels only: every real path at bounce 0, summing to the
+    per-pixel segment map."""
+    ts, tc, cfg, segs, _, hist = _mesh_frame_both()
+    seg_map = tmk.render_frames_plain(ts, tc, cfg, 3)[2]
+    assert int(hist[0]) == 48 * 27 * cfg.spp
+    assert int(hist.sum()) == int(seg_map.sum()) < segs
+
+
+def test_mesh_scene_histogram_matches_xla_without_padding():
+    """At 64x32 neither path has padding lanes: the same image, segment
+    total and bounce histogram."""
+    *_, xla_hist, hist = _mesh_frame_both(width=64, height=32)
+    assert np.array_equal(hist.numpy(), xla_hist)
 
 
 def test_mesh_scene_fold_matches_xla():

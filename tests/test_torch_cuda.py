@@ -399,6 +399,32 @@ def test_bvh_kernel_equals_chunk_scan(cuda):
     assert int(a_segs) == int(b_segs) and torch.equal(a_map, b_map)
 
 
+@pytest.mark.parametrize("fast", [False, True])
+@pytest.mark.parametrize("adaptive", [False, True])
+def test_bvh_kernel_equals_plain_bit_for_bit(cuda, adaptive, fast):
+    """mesh_scene (70k triangles) at 192x108, 4 spp, depth 0, through each
+    BVH instantiation: the kernel's traversal and the plain one visit the
+    same nodes and triangles in the same order, so the image, the
+    per-pixel segment map and the histogram are the plain version's bit for
+    bit; one launch of the instantiation counted."""
+    scene, cam, cfg = presets.mesh_scene(width=192, height=108, spp=4,
+                                         max_bounce=0)
+    cfg = dataclasses.replace(cfg, adaptive_spp=adaptive, fast_scatter=fast)
+    name = mk.variant("bvh", adaptive, fast)
+    assert mk.variant(mk.geometry(scene, cfg), adaptive, fast) == name
+    before = mk.KERNEL.variant_launches[name]
+    k, k_segs, k_map, k_hist = mk.render_frames_mega(scene, cam, cfg, 5,
+                                                     collect_stats=True)
+    p, p_segs, p_map, p_hist = mk.render_frames_plain(scene, cam, cfg, 5,
+                                                      collect_stats=True)
+    torch.cuda.synchronize()
+    assert mk.KERNEL.variant_launches[name] == before + 1
+    assert torch.equal(k.view(torch.int32), p.view(torch.int32))
+    assert torch.equal(k_map, p_map) and torch.equal(k_hist, p_hist)
+    assert int(k_segs) == int(p_segs) == 192 * 108 * 4
+    assert mk.KERNEL.blocks_per_sm(scene, cfg) >= 1
+
+
 def _uncull(scene, cfg):
     """The plain version's closest hit without the kernel's culls."""
     from ray_tracing_extended_tpu_torch.accel.bvh import closest_hit_bvh

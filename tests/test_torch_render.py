@@ -384,3 +384,30 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, check=True, cwd=PORT.parent)
     assert out.stdout.strip() == "[]", out.stdout
+
+
+def test_port_exports_every_name_of_the_jax_package():
+    """The port's ``__all__`` holds every name of the JAX package's, and
+    each resolves; ``load_json_scene`` is its one extra name."""
+    assert set(rtt.__all__) - set(rte.__all__) == {"load_json_scene"}
+    assert set(rte.__all__) <= set(rtt.__all__)
+    for name in rtt.__all__:
+        assert getattr(rtt, name) is not None, name
+
+
+def test_bounce_histogram_counts_real_pixels_only():
+    """On a frame whose pixel count is no multiple of the plain path's
+    block (48x27 = 1296 pixels in one block of 1536 lanes), the histogram
+    counts real pixels only, as the kernel's does: every real path at
+    bounce 0, and it sums to the per-pixel segment map; the segment total,
+    like the XLA path's, also counts the padding lanes."""
+    scene, cam, cfg = tpresets.three_sphere_scene(width=48, height=27, spp=2,
+                                                   device="cpu")
+    assert tmk.plain_block_size(cfg, scene, 48 * 27) == 1536
+    img, segs, seg_map, hist = tmk.render_frames_plain(scene, cam, cfg, 4,
+                                                       collect_stats=True)
+    assert int(hist[0]) == 48 * 27 * cfg.spp
+    assert int(hist.sum()) == int(seg_map.sum()) < int(segs)
+    _, segs1, hist1 = rtt.render_frame_with_stats(scene, cam, cfg, 4,
+                                                  bounce_stats=True)
+    assert torch.equal(hist1, hist) and int(segs1) == int(segs)
