@@ -8,14 +8,19 @@
         --checkpoint rtiow.npz --checkpoint-every 4
     python -m ray_tracing_extended_tpu_torch.cli render \\
         --scene preset:three_sphere --device cpu --width 64 --height 36
+    python -m ray_tracing_extended_tpu_torch.cli render --scene preset:rtiow \\
+        --mesh 1x4 --frames 16 --out rtiow.png
 
 Counterpart of ``ray_tracing_extended_tpu/cli.py``'s ``render`` with the
 same flags, plus ``--device`` (default ``cuda``; ``cpu`` takes the plain
 PyTorch path). Scene specs: ``preset:{three_sphere|rtiow|cornell|mesh}``,
 a ``.json`` scene (``scene/json_scene.py``), or an ``.obj`` mesh, which
-renders as ``mesh_scene(obj_path=...)`` through a triangle BVH. Not ported
-yet, and raising: ``.unity`` scenes and ``--mesh`` (multi-GPU); the
-``benchmark`` and ``compare`` commands are not here (ROADMAP.md).
+renders as ``mesh_scene(obj_path=...)`` through a triangle BVH.
+``--mesh SPPxTILES`` renders over SPP x TILES cards
+(``parallel/sharding.py``: TILES bands of rows, SPP frame seeds a step);
+with ``--device cpu`` every band runs on the CPU. Not ported yet, and
+raising: ``.unity`` scenes; the ``benchmark`` and ``compare`` commands are
+not here (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ import dataclasses
 import sys
 
 import numpy as np
+import torch
 
 from .utils.device import resolve_device
 
@@ -82,6 +88,35 @@ def _load_scene(spec: str, args):
     raise SystemExit(f"unrecognized scene spec: {spec}")
 
 
+def _parse_mesh(spec: str, device: str):
+    """'SPPxTILES' (e.g. '1x4', '2x4') -> a ``parallel.sharding.Mesh``:
+    with a CPU ``device`` the CPU SPP x TILES times; else the first SPP x
+    TILES visible cards, and an exit naming how many are visible where
+    there are fewer (a card is never listed twice here)."""
+    from .parallel.sharding import make_mesh
+
+    try:
+        spp_n, tiles_n = (int(v) for v in spec.lower().split("x"))
+    except ValueError:
+        raise SystemExit(
+            f"--mesh expects SPPxTILES (e.g. 1x4, 2x4), got {spec!r}"
+        ) from None
+    if spp_n < 1 or tiles_n < 1:
+        raise SystemExit(f"--mesh {spec}: both counts must be at least 1")
+    need = spp_n * tiles_n
+    dev = torch.device(device)
+    if dev.type == "cpu":
+        return make_mesh([dev] * need, spp_parallel=spp_n)
+    have = torch.cuda.device_count()
+    if need > have:
+        raise SystemExit(
+            f"--mesh {spec} needs {need} CUDA devices, {have} visible "
+            "(torch.cuda.device_count()); render without --mesh on one "
+            "card, or split the frame on the CPU with --device cpu"
+        )
+    return make_mesh(range(need), spp_parallel=spp_n)
+
+
 def cmd_render(args):
     from .progressive import render_progressive
     from .utils.metrics import MetricsLogger
@@ -90,11 +125,7 @@ def cmd_render(args):
         resolve_device(args.device)
     except RuntimeError as e:
         raise SystemExit(str(e)) from None
-    if args.mesh:
-        raise NotImplementedError(
-            "--mesh: multi-GPU rendering is not ported yet (ROADMAP.md Queue "
-            "A item 12)"
-        )
+    mesh = _parse_mesh(args.mesh, args.device) if args.mesh else None
     scene, cam, cfg = _load_scene(args.scene, args)
     cameras = None
     if args.flythrough:
@@ -132,7 +163,7 @@ def cmd_render(args):
                 scene, cam, cfg, frames=args.frames,
                 checkpoint_path=args.checkpoint,
                 checkpoint_every=args.checkpoint_every, resume=args.resume,
-                metrics=metrics, cameras=cameras, batch=args.batch,
+                metrics=metrics, cameras=cameras, mesh=mesh, batch=args.batch,
                 reset_on_move=args.reset_on_move,
             )
     finally:
@@ -186,8 +217,11 @@ def main(argv=None):
     r.add_argument(
         "--reset-on-move", dest="reset_on_move", action="store_true",
         help="restart accumulation when the fly-through camera moves")
-    r.add_argument("--mesh", default=None, metavar="SPPxTILES",
-                   help="multi-GPU split (not ported yet; raises)")
+    r.add_argument(
+        "--mesh", default=None, metavar="SPPxTILES",
+        help="render over SPP x TILES cards: TILES bands of rows, SPP frame "
+             "seeds a step (e.g. 1x4; with --device cpu every band runs on "
+             "the CPU)")
     r.add_argument("--out", default=None, help=".png, or .npy for raw radiance")
     r.add_argument("--tone", default="none", choices=["none", "reinhard", "aces"])
     r.add_argument("--exposure", type=float, default=1.0)

@@ -138,6 +138,17 @@
 // traversal as a __noinline__ function 4-6% slower; without the 8-block
 // bound up to 10% slower with refill and fast scatter (PERF.md).
 //
+// A launch renders a band of the frame's rows, y0 .. y1 - 1 (the whole
+// frame is the band 0 .. height): the grid covers the band only, and a
+// thread's row y is the frame's, so its seed (pix = y * width + x), its
+// camera ray and its tests are the whole-frame launch's; the image, the
+// segment map and the accumulator it reads hold the band's rows. The
+// multi-GPU split (parallel/sharding.py) launches one band a device and
+// stitches the bands into the whole-frame launch's image bit for bit.
+// With refill a band starts and ends on a block row (y0, and y1 unless it
+// is height, multiples of kBlockY), so its warps are the whole frame's
+// warps and vote alike.
+//
 // C interface, loaded with ctypes (kernels/megakernel.py):
 //   rtx_render(geometry, ...) launches on the given stream and returns
 //   cudaGetLastError(); rtx_shared_bytes(geometry, ...) is a launch's
@@ -770,7 +781,9 @@ struct Args {
   int n_nodes;
   const float* __restrict__ mats;
   const float* __restrict__ params;
-  int width, height, spp, max_bounce;
+  // the frame's size; the band's rows y0 .. y1 - 1 (0 and height for the
+  // whole frame), which the grid covers and the image arrays hold
+  int width, height, y0, y1, spp, max_bounce;
   uint32_t frame0;
   int n_frames;
   const float* __restrict__ accum_in;
@@ -851,9 +864,14 @@ render_kernel(const Args a) {
   const float* p = sc.p;
   const int width = a.width, height = a.height;
 
+  // y is the frame's row: the seed, the camera and the tests are the
+  // whole-frame launch's; the image arrays hold the band's rows, at
+  // pix - y0 * width, worked out where they are read and written (kept in
+  // a variable of its own, it cost render_adaptive<kChunks> 8 registers
+  // and render_kernel 4 bytes of spill stores, ptxas -v of nvcc 12.9)
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y * blockDim.y + threadIdx.y;
-  if (x < width && y < height) {
+  const int y = a.y0 + static_cast<int>(blockIdx.y * blockDim.y + threadIdx.y);
+  if (x < width && y < a.y1) {
     const int pix = y * width + x;
     const Vec3 pos = {p[0], p[1], p[2]};
     const Vec3 right = {p[3], p[6], p[9]};
@@ -874,8 +892,9 @@ render_kernel(const Args a) {
     int segs = 0;
     Vec3 acc = {0.0f, 0.0f, 0.0f};
     if (a.accum_in != nullptr) {
-      acc = {a.accum_in[3 * pix], a.accum_in[3 * pix + 1],
-             a.accum_in[3 * pix + 2]};
+      acc = {a.accum_in[3 * (pix - a.y0 * width)],
+             a.accum_in[3 * (pix - a.y0 * width) + 1],
+             a.accum_in[3 * (pix - a.y0 * width) + 2]};
     }
     for (int k = 0; k < a.n_frames; ++k) {
       const uint32_t frame = a.frame0 + static_cast<uint32_t>(k);
@@ -911,10 +930,10 @@ render_kernel(const Args a) {
         }
       }
     }
-    a.out[3 * pix] = acc.x;
-    a.out[3 * pix + 1] = acc.y;
-    a.out[3 * pix + 2] = acc.z;
-    a.segs[pix] = segs;
+    a.out[3 * (pix - a.y0 * width)] = acc.x;
+    a.out[3 * (pix - a.y0 * width) + 1] = acc.y;
+    a.out[3 * (pix - a.y0 * width) + 2] = acc.z;
+    a.segs[pix - a.y0 * width] = segs;
   }
   flush_hist(sc.s_hist, a.hist, a.max_bounce);
 }
@@ -985,10 +1004,11 @@ render_adaptive(const Args a) {
   const uint32_t frame0 = a.frame0;
   const int clamp_accum = a.clamp_accum;
 
-  // Lanes outside the image stay in the loop, owing nothing.
+  // Lanes outside the image (or the band) stay in the loop, owing nothing.
+  // y is the frame's row, as in render_kernel.
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y * blockDim.y + threadIdx.y;
-  const bool in_image = x < width && y < height;
+  const int y = a.y0 + static_cast<int>(blockIdx.y * blockDim.y + threadIdx.y);
+  const bool in_image = x < width && y < a.y1;
   const int pix = in_image ? y * width + x : 0;
   const Vec3 pos = {sc.p[0], sc.p[1], sc.p[2]};
   const Vec3 right = {sc.p[3], sc.p[6], sc.p[9]};
@@ -997,8 +1017,9 @@ render_adaptive(const Args a) {
   const bool with_accum = a.accum_in != nullptr;
   Vec3 acc = {0.0f, 0.0f, 0.0f};
   if (in_image && with_accum) {
-    acc = {a.accum_in[3 * pix], a.accum_in[3 * pix + 1],
-           a.accum_in[3 * pix + 2]};
+    acc = {a.accum_in[3 * (pix - a.y0 * width)],
+           a.accum_in[3 * (pix - a.y0 * width) + 1],
+           a.accum_in[3 * (pix - a.y0 * width) + 2]};
   }
 
   const int quota = n_frames * spp;
@@ -1058,10 +1079,10 @@ render_adaptive(const Args a) {
     acc = fold(acc, div(total, static_cast<float>(n_last)),
                frame0 + static_cast<uint32_t>(n_frames - 1), with_accum,
                clamp_accum);
-    a.out[3 * pix] = acc.x;
-    a.out[3 * pix + 1] = acc.y;
-    a.out[3 * pix + 2] = acc.z;
-    a.segs[pix] = segs;
+    a.out[3 * (pix - a.y0 * width)] = acc.x;
+    a.out[3 * (pix - a.y0 * width) + 1] = acc.y;
+    a.out[3 * (pix - a.y0 * width) + 2] = acc.z;
+    a.segs[pix - a.y0 * width] = segs;
   }
   flush_hist(sc.s_hist, a.hist, max_bounce);
 }
@@ -1107,7 +1128,7 @@ cudaError_t launch(Kernel kernel, const Args& a, cudaStream_t stream) {
   if (err != cudaSuccess) return err;
   const dim3 block(kBlockX, kBlockY);
   const dim3 grid((a.width + kBlockX - 1) / kBlockX,
-                  (a.height + kBlockY - 1) / kBlockY);
+                  (a.y1 - a.y0 + kBlockY - 1) / kBlockY);
   kernel<<<grid, block, smem, stream>>>(a);
   return cudaGetLastError();
 }
@@ -1149,8 +1170,12 @@ extern "C" int rtx_occupancy(int geometry, int adaptive, int fast_scatter,
 // (64-byte aligned rows), the leaf rows and the BVH's node count (the
 // traversal's pop cap is 4 x nodes); the pointers a geometry does not read
 // may be null. `adaptive` picks render_adaptive over render_kernel,
-// `fast_scatter` the kFastScatter sampler. Returns cudaGetLastError() after
-// the launch.
+// `fast_scatter` the kFastScatter sampler. Rows y0 .. y1 - 1 of the
+// width x height frame are rendered (0 <= y0 < y1 <= height; for refill
+// on block rows, see above): out, segs and accum_in hold those y1 - y0
+// rows, and each pixel's seed and camera ray are the whole frame's.
+// Returns cudaGetLastError() after the launch, cudaErrorInvalidValue
+// without one for rows outside those rules.
 extern "C" int rtx_render(
     int geometry, const void* sph, const void* sph_orig, const void* sph_mat,
     int n_sph, const void* clusters, int n_clusters, int n_hoist,
@@ -1158,9 +1183,14 @@ extern "C" int rtx_render(
     const void* chunks, int n_chunks, const void* supers, int n_supers,
     int super_size, const void* bvh_nodes, const void* bvh_leaves,
     int n_nodes, const void* mats, const void* params, int width, int height,
-    int spp, int max_bounce, unsigned int frame0, int n_frames,
+    int y0, int y1, int spp, int max_bounce, unsigned int frame0, int n_frames,
     const void* accum_in, int clamp_accum, int adaptive, int fast_scatter,
     void* out, void* segs, void* hist, void* stream) {
+  const bool off_block_row =
+      y0 % kBlockY != 0 || (y1 != height && y1 % kBlockY != 0);
+  if (y0 < 0 || y0 >= y1 || y1 > height || (adaptive && off_block_row)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool by_chunks = geometry == kChunks;
   const Args a = {
@@ -1186,6 +1216,8 @@ extern "C" int rtx_render(
       static_cast<const float*>(params),
       width,
       height,
+      y0,
+      y1,
       spp,
       max_bounce,
       frame0,

@@ -20,7 +20,10 @@ the CPU it runs ``render_frames_plain``, the same function built from the
 plain modules in ``ops/`` and ``accel/bvh.py`` (the JAX package's XLA
 path, op for op, and for refill the TPU kernel's slot machine, vectorised
 over lanes). Given a scene on a CUDA device it launches the kernel, or
-raises for what the kernel does not do; it never falls back.
+raises for what the kernel does not do; it never falls back. With
+``rows=(y0, y1)`` it renders a band of the frame's rows, each pixel with
+the whole frame's seed and camera ray (``band_rows``; the multi-GPU split
+of ``parallel/sharding.py`` launches one band a device).
 
 Refill makes the image depend on how pixels are grouped: the plain
 version takes the grouping as a (G, P) array of pixel indices, -1 for
@@ -76,9 +79,10 @@ MAX_SHARED_BYTES = 232448
 # many triangles. Images do not depend on the block size.
 MAX_PAIR_ELEMENTS = 1 << 25
 
-# The width of the kernel's 16x8 thread block (the source's kBlockX): a
-# warp is 32 consecutive threads of it, 16 columns by 2 rows.
+# The kernel's 16x8 thread block (the source's kBlockX, kBlockY): a warp
+# is 32 consecutive threads of it, 16 columns by 2 rows.
 BLOCK_X = 16
+BLOCK_Y = 8
 WARP = 32
 
 # The chunk scan's second level: one box over each run of this many chunks
@@ -690,6 +694,28 @@ def _adaptive_block(scene, camera, cfg, frame0, n_frames, groups, offset,
     seg_map[local[valid]] = segs[valid].to(torch.int32)
 
 
+def band_rows(cfg: RenderConfig,
+              rows: tuple[int, int] | None) -> tuple[int, int]:
+    """The rows ``(y0, y1)`` of a launch over ``rows`` (the whole frame for
+    None); raises unless ``0 <= y0 < y1 <= height`` and, with refill, the
+    band starts and ends on a row of the kernel's blocks (``y0``, and ``y1``
+    unless it is the frame's height, multiples of ``BLOCK_Y``): then its
+    warps are the whole-frame launch's and the band's image is that
+    launch's rows bit for bit. Exact spp takes any band."""
+    y0, y1 = (0, cfg.height) if rows is None else (int(rows[0]), int(rows[1]))
+    if not 0 <= y0 < y1 <= cfg.height:
+        raise ValueError(f"rows {rows} outside 0..{cfg.height}")
+    if cfg.adaptive_spp and (
+            y0 % BLOCK_Y or (y1 != cfg.height and y1 % BLOCK_Y)):
+        raise ValueError(
+            f"rows {rows}: with adaptive_spp a band starts and ends on a "
+            f"row of the kernel's {BLOCK_X}x{BLOCK_Y} blocks (multiples of "
+            f"{BLOCK_Y}, or the frame's height), so that its refill warps "
+            "are the whole frame's"
+        )
+    return y0, y1
+
+
 def _check_frames(n_frames: int, accum) -> None:
     if n_frames < 1:
         raise ValueError(f"n_frames must be >= 1, got {n_frames}")
@@ -704,8 +730,8 @@ def _bind(lib) -> None:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.rtx_render.argtypes = [
         ci, vp, vp, vp, ci, vp, ci, ci, vp, vp, vp, vp, ci, vp, ci, ci, vp,
-        vp, ci, vp, vp, ci, ci, ci, ci, ctypes.c_uint, ci, vp, ci, ci, ci,
-        vp, vp, vp, vp,
+        vp, ci, vp, vp, ci, ci, ci, ci, ci, ci, ctypes.c_uint, ci, vp, ci, ci,
+        ci, vp, vp, vp, vp,
     ]
     lib.rtx_render.restype = ci
     lib.rtx_shared_bytes.argtypes = [ci, ci, ci, ci, ci, ci]
@@ -770,20 +796,24 @@ class PathTraceKernel:
         n_frames: int,
         accum: torch.Tensor | None,
         collect_stats: bool,
+        rows: tuple[int, int] | None = None,
     ):
-        """One launch over the whole image, of the instantiation that
-        ``geometry(scene, cfg)`` and ``cfg.adaptive_spp`` /
-        ``cfg.fast_scatter`` pick; returns the same tuple as
-        ``render_frames_plain`` with its default warp grouping (the total
-        and the histogram count real pixels only). Reads nothing back from
-        the device and does not synchronise, except at a scene's first
-        launch, which reads its sphere arrays back to cluster them
-        (``geometry_tables``)."""
+        """One launch over the rows ``rows=(y0, y1)`` of the frame (the
+        whole frame by default; ``band_rows`` says which bands a launch
+        takes), of the instantiation that ``geometry(scene, cfg)`` and
+        ``cfg.adaptive_spp`` / ``cfg.fast_scatter`` pick; returns the same
+        tuple as ``render_frames_plain`` with its default warp grouping
+        (the total and the histogram count real pixels only): ``accum``,
+        the image and the per-pixel map hold ``y1 - y0`` rows. Reads
+        nothing back from the device and does not synchronise, except at a
+        scene's first launch, which reads its sphere arrays back to cluster
+        them (``geometry_tables``)."""
         _check_frames(n_frames, accum)
+        y0, y1 = band_rows(cfg, rows)
         dev = scene.device
         if dev.type != "cuda":
             raise ValueError(f"the CUDA kernel needs a CUDA scene, got {dev}")
-        h, w = cfg.height, cfg.width
+        h, w = y1 - y0, cfg.width
         if accum is not None and (
             accum.device != dev
             or accum.dtype != torch.float32
@@ -791,7 +821,7 @@ class PathTraceKernel:
             or not accum.is_contiguous()
         ):
             raise ValueError(
-                "accum must be a contiguous (H, W, 3) float32 tensor on "
+                f"accum must be a contiguous ({h}, {w}, 3) float32 tensor on "
                 f"{dev}, got {tuple(accum.shape)} {accum.dtype} on {accum.device}"
             )
         if camera.position.device != dev:
@@ -834,7 +864,7 @@ class PathTraceKernel:
                 ptr(tab.chunks), n_chunks, ptr(tab.supers), n_supers,
                 SUPER_CHUNKS, ptr(tab.bvh_nodes),
                 ptr(tab.bvh_leaves), tab.bvh_node_count, ptr(tab.materials),
-                ptr(tab.params), w, h, cfg.spp, cfg.max_bounce,
+                ptr(tab.params), w, cfg.height, y0, y1, cfg.spp, cfg.max_bounce,
                 int(frame0) & 0xFFFFFFFF, n_frames, ptr(accum),
                 int(cfg.clamp_accumulate), int(cfg.adaptive_spp),
                 int(cfg.fast_scatter), ptr(out), ptr(segs), ptr(hist),
@@ -1144,6 +1174,7 @@ def render_frames_mega(
     n_frames: int = 1,
     accum: torch.Tensor | None = None,
     collect_stats: bool = False,
+    rows: tuple[int, int] | None = None,
 ):
     """Render ``n_frames`` frames from ``frame0`` (folded into ``accum``
     when given) -> ``(image, total segments, per-pixel segments, bounce
@@ -1153,14 +1184,22 @@ def render_frames_mega(
     takes the kernel (one launch for all frames): ``render_adaptive`` with
     ``cfg.adaptive_spp``, else ``render_kernel``, each in the instantiation
     of ``geometry(scene, cfg)`` and in its fast one with
-    ``cfg.fast_scatter``."""
+    ``cfg.fast_scatter``.
+
+    ``rows=(y0, y1)`` renders a band of the frame's rows, on both devices
+    under ``band_rows``'s rule: ``accum``, the image and the per-pixel map
+    hold ``y1 - y0`` rows, and they equal those rows of the whole frame's
+    bit for bit (the multi-GPU split, ``parallel/sharding.py``)."""
     dev = scene.device
     if dev.type == "cpu":
+        band_rows(cfg, rows)  # the kernel's rule (launch checks it there)
         return render_frames_plain(
-            scene, camera, cfg, frame0, n_frames, accum, collect_stats
+            scene, camera, cfg, frame0, n_frames, accum, collect_stats,
+            rows=rows,
         )
     if dev.type == "cuda":
         return KERNEL.launch(
-            scene, camera, cfg, frame0, n_frames, accum, collect_stats
+            scene, camera, cfg, frame0, n_frames, accum, collect_stats,
+            rows=rows,
         )
     raise ValueError(f"no render path for device {dev}")

@@ -3,11 +3,12 @@ OnRenderImage (RayTracingManager.cs:49-93) with checkpoint/resume and
 metrics.
 
 Counterpart of ``ray_tracing_extended_tpu/progressive.py``
-(``render_progressive``, single device). Per frame (or per fused chunk of
-``batch`` frames): render on the scene's device, fold into the running
-average with the reference's 1/(frame + 1) weight, optionally checkpoint
-(atomically) and emit one JSONL metrics line. The host waits for the
-device once a frame or chunk, when it reads the segment count.
+(``render_progressive``). Per frame (or per fused chunk of ``batch``
+frames): render on the scene's device, or over a mesh of devices
+(``parallel/sharding.py``), fold into the running average with the
+reference's 1/(frame + 1) weight, optionally checkpoint (atomically) and
+emit one JSONL metrics line. The host waits for the device once a frame or
+chunk, when it reads the segment count.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import torch
 from .models.geometry import Scene
 from .ops.accumulate import accumulate
 from .ops.camera import Camera
+from .parallel import sharding
 from .render import render_frame_with_stats, render_frames_and_accumulate
 from .utils import checkpoint as ckpt
 from .utils.config import RenderConfig
@@ -78,17 +80,24 @@ def render_progressive(
     from an existing checkpoint, rendering ``frames`` more. A checkpoint of
     another scene, camera path, animation or config is refused.
 
-    ``mesh`` (the JAX package's multi-chip band split) is not ported yet
-    and raises.
+    ``mesh``: a ``parallel.sharding.Mesh`` (``make_mesh``); every step
+    renders over it, bands of rows over ``tiles`` and ``spp_size`` frame
+    seeds over ``spp`` (``_render_progressive_sharded``), and the result
+    lies on ``mesh.devices[0, 0]``. With one ``spp`` row the result is the
+    single-device render's bit for bit. An ``spp`` mesh folds its frames'
+    mean once a step, which is the reference's weighting only without the
+    per-frame clamp: it needs HDR mode (``clamp_accumulate=False``).
+    ``batch`` > 1 composes with a ``tiles``-only mesh and a static
+    camera; per-frame ``scenes`` are single-device only.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh=: multi-GPU rendering is not ported yet (ROADMAP.md Queue "
-            "A item 12)"
-        )
     if reset_on_move and cameras is None:
         raise ValueError("reset_on_move requires a cameras sequence")
     if scenes is not None:
+        if mesh is not None:
+            raise ValueError(
+                "per-frame scenes are single-device only (the sharded path "
+                "renders spp_size frame seeds of one scene a step)"
+            )
         if batch > 1:
             raise ValueError(
                 "batch > 1 fuses frames into one launch over a single "
@@ -106,6 +115,20 @@ def render_progressive(
         raise ValueError(
             "batch > 1 fuses frames into one launch under a single "
             "camera; per-frame cameras need batch=1"
+        )
+    if mesh is not None:
+        if batch > 1 and mesh.shape["spp"] != 1:
+            raise ValueError(
+                "batch > 1 composes with the 'tiles' band split only; use "
+                "an spp_parallel=1 mesh (the in-kernel K-frame fold is "
+                "sequential and cannot merge across 'spp' rows)"
+            )
+        return _render_progressive_sharded(
+            scene, camera, cfg, frames, mesh,
+            checkpoint_path=checkpoint_path,
+            checkpoint_every=checkpoint_every, resume=resume,
+            metrics=metrics, cameras=cameras, batch=batch,
+            reset_on_move=reset_on_move,
         )
     dev = (scenes[0] if scenes is not None else scene).device
     start_frame = 0
@@ -216,3 +239,124 @@ def render_progressive(
     if checkpoint_path is not None:
         save(accum, end)
     return accum
+
+
+def _render_progressive_sharded(
+    scene: Scene,
+    camera: Camera,
+    cfg: RenderConfig,
+    frames: int,
+    mesh: sharding.Mesh,
+    checkpoint_path=None,
+    checkpoint_every: int = 0,
+    resume: bool = False,
+    metrics: MetricsLogger | None = None,
+    cameras=None,
+    batch: int = 1,
+    reset_on_move: bool = False,
+):
+    """The progressive driver over a mesh: step ``s`` renders the frame
+    seeds ``s * spp_size .. (s + 1) * spp_size - 1`` over the mesh
+    (``sharding.render_frame_mega_bands``) and folds their mean with the
+    weight 1 / (s + 1), which is the flat average of every frame so far.
+    The average stays in band layout on the mesh's devices; it is gathered
+    for a checkpoint and at the end.
+
+    ``frames`` counts steps and ``cameras`` holds one camera a step: a
+    step's frame seeds share its camera. ``reset_on_move`` restarts the
+    average at a step whose camera differs from the step before.
+    Checkpoints hold the cropped image and the next step, under the JAX
+    package's fingerprint, so a checkpoint of either package resumes in
+    the other.
+
+    ``batch`` > 1 (a ``tiles``-only mesh, a static camera): each chunk is
+    one K-frame launch a band (``sharding.render_frames_mega_sharded``),
+    the single-device batched sequence bit for bit. The band layout does
+    not depend on the chunk's size, so a short last chunk renders as any
+    other."""
+    spp_size = mesh.shape["spp"]
+    if spp_size > 1 and cfg.clamp_accumulate:
+        raise ValueError(
+            "spp-sharded progressive accumulation folds spp_size frames "
+            "per step, which is not bit-equal under the reference's "
+            "per-frame clamp; use HDR mode (clamp_accumulate=False) or "
+            "an spp=1 mesh"
+        )
+    start = 0
+    accum = torch.zeros((cfg.height, cfg.width, 3), dtype=torch.float32)
+    fingerprint = None
+    if checkpoint_path is not None:
+        fingerprint = ckpt.state_hash(
+            scene, cameras if cameras is not None else camera, cfg
+        )
+        if reset_on_move:
+            fingerprint += ":reset_on_move"
+        if resume and os.path.exists(checkpoint_path):
+            accum_np, start = ckpt.load(checkpoint_path, fingerprint)
+            accum = torch.from_numpy(accum_np)
+    end = start + frames
+    if cameras is not None and len(cameras) < end:
+        raise ValueError(
+            f"cameras covers {len(cameras)} steps; rendering steps "
+            f"[{start}, {end}) needs {end} (one camera a step: each step "
+            f"renders {spp_size} frame seeds under it)"
+        )
+    bands = sharding.image_to_bands(accum, cfg, mesh)
+    shape = dict(mesh.shape)
+
+    def save(bands, step):
+        ckpt.save(checkpoint_path, sharding.mega_bands_to_image(bands, cfg),
+                  step, fingerprint)
+
+    if batch > 1:
+        s = start
+        while s < end:
+            k = min(batch, end - s)
+            t0 = time.perf_counter()
+            bands, segs, _ = sharding.render_frames_mega_sharded(
+                scene, camera, cfg, s, bands, k, mesh
+            )
+            segs = int(segs)  # one host sync per chunk
+            wall = time.perf_counter() - t0
+            s += k
+            if metrics is not None:
+                metrics.log(FrameMetrics(
+                    frame=s - 1, wall_s=wall, rays=segs,
+                    pixels=cfg.num_pixels, spp=cfg.spp * k,
+                    extra={"batched_frames": k, "mesh": shape},
+                ))
+            if (checkpoint_path is not None and checkpoint_every
+                    and s // checkpoint_every > (s - k) // checkpoint_every):
+                save(bands, s)
+        if checkpoint_path is not None:
+            save(bands, end)
+        return sharding.mega_bands_to_image(bands, cfg)
+
+    seg0 = start
+    if reset_on_move:
+        while seg0 > 0 and _same_cam(cameras[seg0 - 1], cameras[seg0]):
+            seg0 -= 1
+    for s in range(start, end):
+        cam = cameras[s] if cameras is not None else camera
+        if reset_on_move and s > start and not _same_cam(cameras[s - 1], cam):
+            seg0 = s
+        t0 = time.perf_counter()
+        images, segs = sharding.render_frame_mega_bands(
+            scene, cam, cfg, s * spp_size, mesh
+        )
+        ws = (s - seg0) if reset_on_move else s
+        bands = [accumulate(acc, img, ws, clamp=cfg.clamp_accumulate)
+                 for acc, img in zip(bands, images)]
+        segs = int(segs)  # one host sync per step
+        wall = time.perf_counter() - t0
+        if metrics is not None:
+            metrics.log(FrameMetrics(
+                frame=s, wall_s=wall, rays=segs, pixels=cfg.num_pixels,
+                spp=cfg.spp * spp_size, extra={"mesh": shape},
+            ))
+        if (checkpoint_path is not None and checkpoint_every
+                and (s + 1) % checkpoint_every == 0):
+            save(bands, s + 1)
+    if checkpoint_path is not None:
+        save(bands, end)
+    return sharding.mega_bands_to_image(bands, cfg)

@@ -177,13 +177,48 @@ def test_obj_scene_matches_jax_cli(tmp_path):
 
 def test_unported_specs_raise(tmp_path):
     """What the port does not render yet raises, naming its ROADMAP.md
-    item (``preset:mesh`` and ``.obj`` render: the tests above)."""
+    item (``preset:mesh`` and ``.obj`` render: the tests above; ``--mesh``
+    renders: the tests below)."""
     with pytest.raises(NotImplementedError, match="Queue A item 13"):
         _render("--scene", "Chess.unity")
-    with pytest.raises(NotImplementedError, match="Queue A item 12"):
-        _render("--scene", "preset:three_sphere", "--mesh", "1x2")
     with pytest.raises(SystemExit):
         _render("--scene", "preset:nope")
+
+
+def test_mesh_render_matches_jax_cli(tmp_path):
+    """``render --device cpu --mesh 1x2`` (both bands on the CPU) against
+    the JAX CLI's ``--mesh 1x2`` on its virtual CPU devices, and bit for
+    bit against the port's own render without a mesh; the metrics lines
+    carry the mesh."""
+    a, b, c = tmp_path / "j.npy", tmp_path / "t.npy", tmp_path / "one.npy"
+    metrics = tmp_path / "m.jsonl"
+    args = ["--scene", "preset:three_sphere", *SMALL, "--frames", "3"]
+    assert j_main(["render", *args, "--mesh", "1x2", "--out", str(a)]) == 0
+    assert _render(*args, "--mesh", "1x2", "--out", str(b),
+                   "--metrics", str(metrics)) == 0
+    assert _render(*args, "--out", str(c)) == 0
+    _tight(np.load(a), np.load(b))
+    np.testing.assert_array_equal(np.load(b), np.load(c))
+    lines = [json.loads(x) for x in metrics.read_text().splitlines()]
+    assert [x["frame"] for x in lines] == [0, 1, 2]
+    assert all(x["mesh"] == {"spp": 1, "tiles": 2} for x in lines)
+
+
+def test_mesh_needs_its_cards(monkeypatch):
+    """On the card ``--mesh`` takes the first SPP x TILES visible cards and
+    exits naming how many are visible where there are fewer (a card is
+    never repeated); a malformed spec exits too."""
+    from ray_tracing_extended_tpu_torch import cli
+
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(SystemExit, match="needs 4 CUDA devices, 1 visible"):
+        cli._parse_mesh("1x4", "cuda")
+    for spec in ("1by4", "0x2", "2"):
+        with pytest.raises(SystemExit, match="--mesh"):
+            cli._parse_mesh(spec, "cpu")
+    mesh = cli._parse_mesh("2x3", "cpu")
+    assert mesh.shape == {"spp": 2, "tiles": 3}
+    assert all(d == torch.device("cpu") for d in mesh.devices.flat)
 
 
 def test_entry_points_refuse_a_missing_card(tmp_path):

@@ -1,6 +1,7 @@
 """The CUDA kernels on the card: the path-trace kernel against its plain
-PyTorch version, its launch count and outputs, and what it refuses; the
-two roofline probes against theirs.
+PyTorch version, its launch count and outputs, its band launches against
+its whole-frame launch, and what it refuses; the two roofline probes
+against theirs.
 
 Every test here needs a CUDA device and skips without one. This file
 imports no JAX, so it also runs where only PyTorch is installed:
@@ -381,6 +382,88 @@ def test_mesh_command_on_the_card(cuda, tmp_path):
     grew = {k: after[k] - before.get(k, 0) for k in after
             if after[k] != before.get(k, 0)}
     assert grew == {mk.variant("bvh", adaptive=True): 4}
+
+
+def _band_scene(name, cuda, **small):
+    if name == "rtiow":
+        return _on(cuda, *presets.rtiow_final_scene(**small))
+    return _on(cuda, *_triangle_scene(name, **small))
+
+
+@pytest.mark.parametrize("adaptive", [False, True], ids=["exact", "refill"])
+@pytest.mark.parametrize("name", ["rtiow", "cornell", "mesh"])
+def test_band_launches_equal_whole_frame_launch(cuda, name, adaptive):
+    """Band launches (a 1x4 mesh listing the card four times: bands of 16,
+    16, 16 and 6 rows) of each geometry, stitched, against the whole-frame
+    launch bit for bit: a frame with its total, and a 2-frame fold from a
+    seeded accumulator with its per-pixel map and total; each band against
+    render_frames_plain(rows=...) under bench.py's mb1 gate."""
+    from ray_tracing_extended_tpu_torch.parallel import sharding as sh
+
+    scene, cam, cfg = _band_scene(name, cuda, width=96, height=54, spp=2,
+                                  max_bounce=1)
+    cfg = dataclasses.replace(cfg, adaptive_spp=adaptive)
+    variant = mk.variant(mk.geometry(scene, cfg), adaptive)
+    mesh = sh.make_mesh([cuda] * 4)
+    img, segs, _, _ = mk.render_frames_mega(scene, cam, cfg, 3)
+    before = mk.KERNEL.variant_launches[variant]
+    s_img, s_segs = sh.render_frame_mega_sharded(scene, cam, cfg, 3, mesh)
+    assert mk.KERNEL.variant_launches[variant] == before + 4
+    assert torch.equal(s_img, img) and int(s_segs) == int(segs)
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    acc0 = 2.0 * torch.rand((54, 96, 3), generator=gen, device=cuda)
+    acc, total, seg_map, _ = mk.render_frames_mega(scene, cam, cfg, 2, 2,
+                                                   accum=acc0)
+    bands, b_total, maps = sh.render_frames_mega_sharded(
+        scene, cam, cfg, 2, sh.image_to_bands(acc0, cfg, mesh), 2, mesh)
+    assert [b.shape[0] for b in bands] == [16, 16, 16, 6]
+    assert torch.equal(sh.mega_bands_to_image(bands, cfg), acc)
+    assert torch.equal(torch.cat(maps), seg_map)
+    assert int(b_total) == int(total) == int(seg_map.sum())
+    for band, (y0, y1) in zip(bands, ((0, 16), (16, 32), (32, 48), (48, 54))):
+        p = mk.render_frames_plain(scene, cam, cfg, 2, 2,
+                                   accum=acc0[y0:y1].contiguous(),
+                                   rows=(y0, y1))[0]
+        _, median, channel = _gates(band, p)
+        assert median < 2e-3 and channel < 5e-3, (y0, median, channel)
+
+
+def test_band_launch_rules_on_the_card(cuda, tmp_path):
+    """A refill band off the kernel's block rows raises; a 2x2 mesh's frame
+    is the mean of two launches bit for bit; ``make_mesh()`` takes every
+    visible card; ``render --mesh`` needs as many cards as the mesh names
+    and exits naming how many are visible, and ``--mesh 1x1`` is the render
+    without a mesh."""
+    from ray_tracing_extended_tpu_torch.cli import main
+    from ray_tracing_extended_tpu_torch.ops import vecmath as vm
+    from ray_tracing_extended_tpu_torch.parallel import sharding as sh
+
+    scene, cam, cfg = _on(cuda, *presets.three_sphere_scene(
+        width=40, height=24, spp=2))
+    acfg = dataclasses.replace(cfg, adaptive_spp=True)
+    for rows in ((4, 24), (8, 20)):
+        with pytest.raises(ValueError, match="blocks"):
+            mk.render_frames_mega(scene, cam, acfg, 0, rows=rows)
+    whole = mk.render_frames_mega(scene, cam, acfg, 0)[0]
+    assert torch.equal(mk.render_frames_mega(scene, cam, acfg, 0,
+                                             rows=(8, 24))[0], whole[8:])
+    img, segs = sh.render_frame_mega_sharded(
+        scene, cam, cfg, 6, sh.make_mesh([cuda] * 4, spp_parallel=2))
+    a0, s0, _, _ = mk.render_frames_mega(scene, cam, cfg, 6)
+    a1, s1, _, _ = mk.render_frames_mega(scene, cam, cfg, 7)
+    assert torch.equal(img, vm.div(a0 + a1, 2.0))
+    assert int(segs) == int(s0) + int(s1)
+    n = torch.cuda.device_count()
+    assert sh.make_mesh().shape == {"spp": 1, "tiles": n}
+    args = ["render", "--scene", "preset:three_sphere", "--width", "40",
+            "--height", "24", "--frames", "2"]
+    with pytest.raises(SystemExit, match=f"{n} visible"):
+        main(args + ["--mesh", f"1x{max(4, n + 1)}"])
+    a, b = tmp_path / "a.npy", tmp_path / "b.npy"
+    assert main(args + ["--mesh", "1x1", "--out", str(a)]) == 0
+    assert main(args + ["--out", str(b)]) == 0
+    np.testing.assert_array_equal(np.load(a), np.load(b))
 
 
 def test_bvh_kernel_equals_chunk_scan(cuda):

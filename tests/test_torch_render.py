@@ -342,17 +342,33 @@ def test_bvh_options_render():
 
 def test_unported_options_raise(tmp_path):
     """What is not ported yet raises, naming its ROADMAP.md item: FBX
-    meshes and the multi-GPU split of the progressive renderer. The BVH
-    renders (test_bvh_options_render); adaptive refill and fast scatter
-    are ported (tests/test_torch_adaptive.py)."""
-    scene, cam, cfg = tpresets.three_sphere_scene(width=16, height=8, spp=1,
-                                                   device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A item 12"):
-        rtt.render_progressive(scene, cam, cfg, frames=1, mesh=object())
+    meshes. The BVH renders (test_bvh_options_render); adaptive refill and
+    fast scatter are ported (tests/test_torch_adaptive.py), and so is the
+    multi-GPU split (test_progressive_mesh_matches_jax)."""
     scene_file = tmp_path / "fbx.json"
     scene_file.write_text('{"meshes": [{"fbx": "knight.fbx"}]}')
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         rtt.load_json_scene(scene_file, device="cpu")
+
+
+def test_progressive_mesh_matches_jax():
+    """``render_progressive(mesh=...)`` over a 1x2 mesh of the CPU against
+    the JAX package's over two of its virtual CPU devices (its Pallas
+    kernel in interpret mode), and bit for bit against the port's render
+    without a mesh."""
+    import jax
+
+    from ray_tracing_extended_tpu.parallel.sharding import make_mesh as j_mesh
+    from ray_tracing_extended_tpu_torch.parallel.sharding import make_mesh
+
+    js, jc, cfg = jpresets.three_sphere_scene(width=32, height=16, spp=1)
+    scene, cam = _port(js, jc)
+    a = rte.render_progressive(js, jc, cfg, frames=2,
+                               mesh=j_mesh(jax.devices()[:2]))
+    b = rtt.render_progressive(scene, cam, cfg, frames=2,
+                               mesh=make_mesh(["cpu", "cpu"]))
+    _tight(np.asarray(a), b.numpy())
+    assert torch.equal(b, rtt.render_progressive(scene, cam, cfg, frames=2))
 
 
 def _imports(path):
@@ -368,6 +384,7 @@ def test_port_imports_no_jax():
     files = sorted(PORT.rglob("*.py"))
     assert len(files) >= 20
     for module in ("accel/chunks.py", "scene/json_scene.py", "scene/mesh_io.py",
+                   "parallel/sharding.py",
                    "progressive.py", "cli.py", "utils/checkpoint.py",
                    "utils/device.py", "utils/image.py", "utils/metrics.py",
                    "utils/profiling.py"):
