@@ -9,9 +9,10 @@ codes; primitives are sorted by code; the tree is built top-down by
 splitting each range at the highest differing Morton bit (median fallback
 for equal codes), leaves holding up to ``leaf_width`` primitives in
 fixed-width rows whose unused slots point at the scene's first padding
-(never-hit) primitive. (The JAX package can also build with its native C++
-runtime, which its tests hold identical to the NumPy build; the port has
-no native build.)
+(never-hit) primitive. As in the JAX package, the build runs natively
+(``utils/native.py``, C++ through ctypes: the same arrays bit for bit,
+about 100x faster) unless ``RTE_NATIVE=0`` or no ``g++`` leaves it to
+NumPy; ``LBVH_BUILDS`` records each build's route and host seconds.
 
 The traversal visits the nodes and primitives that the JAX package's
 ``_traverse`` visits, in its order, for each ray: at an internal node
@@ -28,6 +29,9 @@ ray's result.
 
 from __future__ import annotations
 
+import dataclasses
+import time
+
 import numpy as np
 import torch
 
@@ -41,6 +45,7 @@ from ..ops.intersect import (
     ray_spheres_t,
     ray_triangles_t,
 )
+from ..utils import native
 
 LEAF_WIDTH = 4
 STACK_DEPTH = 48  # fits any split-balanced tree of < 2^47 prims
@@ -101,6 +106,47 @@ def _clz64(x: int) -> int:
     return 64 - x.bit_length()
 
 
+@dataclasses.dataclass
+class LbvhBuilds:
+    """Every ``build_lbvh`` call: its route (``"native"`` or ``"numpy"``),
+    its primitives and its host seconds (the library's first-use compile
+    not included)."""
+
+    routes: list = dataclasses.field(default_factory=list)
+    prims: list = dataclasses.field(default_factory=list)
+    seconds: list = dataclasses.field(default_factory=list)
+
+    def record(self, route: str, prims: int, seconds: float) -> None:
+        self.routes.append(route)
+        self.prims.append(prims)
+        self.seconds.append(seconds)
+
+    def reset(self) -> None:
+        self.routes.clear()
+        self.prims.clear()
+        self.seconds.clear()
+
+
+LBVH_BUILDS = LbvhBuilds()
+
+
+def _bvh(bounds_min, bounds_max, left, right, leaf_row, leaf_prims,
+         sentinel: int) -> BVH:
+    _assert_traversable(left, right)
+    # every slot the traversal gathers must be a real primitive index or
+    # the sentinel: the kernel reads its rows unchecked
+    if not (leaf_prims.min() >= 0 and leaf_prims.max() <= sentinel):
+        raise ValueError(f"leaf_prims slot out of range [0, {sentinel}]")
+    return BVH(
+        bounds_min=torch.from_numpy(bounds_min),
+        bounds_max=torch.from_numpy(bounds_max),
+        left=torch.from_numpy(left),
+        right=torch.from_numpy(right),
+        leaf_row=torch.from_numpy(leaf_row),
+        leaf_prims=torch.from_numpy(leaf_prims),
+    )
+
+
 def build_lbvh(
     prim_bmin: np.ndarray,
     prim_bmax: np.ndarray,
@@ -109,11 +155,22 @@ def build_lbvh(
 ) -> BVH:
     """An LBVH over primitive AABBs, as CPU tensors. ``sentinel`` pads the
     fixed-width leaves: the index of a never-hit (padding) primitive of the
-    scene's arrays."""
+    scene's arrays. Built natively where ``utils/native`` has its library,
+    else in NumPy: the same arrays."""
     prim_bmin = np.asarray(prim_bmin, np.float32)
     prim_bmax = np.asarray(prim_bmax, np.float32)
     p = prim_bmin.shape[0]
+    lib = native.NATIVE.library()  # its first-use compile is not timed
+    t0 = time.perf_counter()
     centroid = (prim_bmin + prim_bmax) * 0.5
+    if lib is not None:
+        codes = native.morton_codes(centroid)
+        order = native.argsort_u64(codes)
+        bvh = _bvh(*native.lbvh_build(prim_bmin, prim_bmax, order,
+                                      codes[order], leaf_width, sentinel),
+                   sentinel)
+        LBVH_BUILDS.record("native", p, time.perf_counter() - t0)
+        return bvh
 
     lo = centroid.min(axis=0)
     hi = centroid.max(axis=0)
@@ -174,21 +231,11 @@ def build_lbvh(
             work.append((r_node, m, e))
             work.append((l_node, s, m))
 
-    _assert_traversable(np.array(left, np.int32), np.array(right, np.int32))
-    # every slot the traversal gathers must be a real primitive index or
-    # the sentinel: the kernel reads its rows unchecked
-    lp = np.stack(leaf_prims)
-    assert lp.min() >= 0 and lp.max() <= sentinel, (
-        f"leaf_prims slot out of range [0, {sentinel}]"
-    )
-    return BVH(
-        bounds_min=torch.from_numpy(np.stack(bounds_min)),
-        bounds_max=torch.from_numpy(np.stack(bounds_max)),
-        left=torch.from_numpy(np.array(left, np.int32)),
-        right=torch.from_numpy(np.array(right, np.int32)),
-        leaf_row=torch.from_numpy(np.array(leaf_row, np.int32)),
-        leaf_prims=torch.from_numpy(lp),
-    )
+    bvh = _bvh(np.stack(bounds_min), np.stack(bounds_max),
+               np.array(left, np.int32), np.array(right, np.int32),
+               np.array(leaf_row, np.int32), np.stack(leaf_prims), sentinel)
+    LBVH_BUILDS.record("numpy", p, time.perf_counter() - t0)
+    return bvh
 
 
 # ---------------------------------------------------------- traversal ------

@@ -1,8 +1,10 @@
-"""Command-line entry point of the port: the ``render`` command.
+"""Command-line entry points of the port: ``render`` and ``compare``.
 
     python -m ray_tracing_extended_tpu_torch.cli render \\
         --scene scenes/chess.json --adaptive-spp --frames 16 \\
         --out chess.png --metrics chess.jsonl
+    python -m ray_tracing_extended_tpu_torch.cli render --scene Chess.unity \\
+        --width 1920 --height 1080 --frames 64 --checkpoint chess.npz --resume
     python -m ray_tracing_extended_tpu_torch.cli render --scene preset:rtiow \\
         --spp 16 --adaptive-spp --batch 4 --frames 8 \\
         --checkpoint rtiow.npz --checkpoint-every 4
@@ -10,17 +12,24 @@
         --scene preset:three_sphere --device cpu --width 64 --height 36
     python -m ray_tracing_extended_tpu_torch.cli render --scene preset:rtiow \\
         --mesh 1x4 --frames 16 --out rtiow.png
+    python -m ray_tracing_extended_tpu_torch.cli compare --scene preset:mesh \\
+        --a mega --b bruteforce
 
-Counterpart of ``ray_tracing_extended_tpu/cli.py``'s ``render`` with the
-same flags, plus ``--device`` (default ``cuda``; ``cpu`` takes the plain
-PyTorch path). Scene specs: ``preset:{three_sphere|rtiow|cornell|mesh}``,
-a ``.json`` scene (``scene/json_scene.py``), or an ``.obj`` mesh, which
-renders as ``mesh_scene(obj_path=...)`` through a triangle BVH.
-``--mesh SPPxTILES`` renders over SPP x TILES cards
-(``parallel/sharding.py``: TILES bands of rows, SPP frame seeds a step);
-with ``--device cpu`` every band runs on the CPU. Not ported yet, and
-raising: ``.unity`` scenes; the ``benchmark`` and ``compare`` commands are
-not here (ROADMAP.md).
+Counterpart of ``ray_tracing_extended_tpu/cli.py`` with the same flags,
+plus ``--device`` (default ``cuda``; ``cpu`` takes the plain PyTorch path).
+Scene specs: ``preset:{three_sphere|rtiow|cornell|mesh}``, a ``.unity``
+scene (``scene/unity.py``; needs PyYAML), a ``.json`` scene
+(``scene/json_scene.py``; its meshes may be ``.obj`` or binary ``.fbx``),
+or an ``.obj`` mesh, which renders as ``mesh_scene(obj_path=...)``
+through a triangle BVH. ``--mesh SPPxTILES`` renders over SPP x TILES
+cards (``parallel/sharding.py``: TILES bands of rows, SPP frame seeds a
+step); with ``--device cpu`` every band runs on the CPU.
+
+``compare`` renders one frame under two intersectors and gives the JAX
+command's verdict, and names the path each side took (on the card the
+kernel's instantiation: some pairs take the same one). The JAX CLI's
+``benchmark`` command is not here: it runs the TPU benchmark
+(``bench.py``), and the port's benchmark is ROADMAP.md's Queue A item 8.
 """
 
 from __future__ import annotations
@@ -70,10 +79,9 @@ def _load_scene(spec: str, args):
             cfg = dataclasses.replace(cfg, **overrides)
         return scene, cam, cfg.validate()
     if spec.endswith(".unity"):
-        raise NotImplementedError(
-            f"{spec}: the Unity scene importer is not ported yet (ROADMAP.md "
-            "Queue A item 13); use the scene's JSON mirror in scenes/"
-        )
+        from .scene.unity import load_unity_scene
+
+        return load_unity_scene(spec, overrides=overrides, device=args.device)
     if spec.endswith(".json"):
         from .scene.json_scene import load_json_scene
 
@@ -117,14 +125,18 @@ def _parse_mesh(spec: str, device: str):
     return make_mesh(range(need), spp_parallel=spp_n)
 
 
+def _check_device(device: str) -> None:
+    try:
+        resolve_device(device)
+    except RuntimeError as e:
+        raise SystemExit(str(e)) from None
+
+
 def cmd_render(args):
     from .progressive import render_progressive
     from .utils.metrics import MetricsLogger
 
-    try:
-        resolve_device(args.device)
-    except RuntimeError as e:
-        raise SystemExit(str(e)) from None
+    _check_device(args.device)
     mesh = _parse_mesh(args.mesh, args.device) if args.mesh else None
     scene, cam, cfg = _load_scene(args.scene, args)
     cameras = None
@@ -181,30 +193,77 @@ def cmd_render(args):
     return 0
 
 
+def cmd_compare(args):
+    """Render the same frame with two intersectors and report agreement:
+    the JAX command's statistics, thresholds and exit codes (0 agree, 1
+    not). The verdict keys on the median pixel and the image mean (median
+    per-pixel rel. < 2e-3, mean |d| < 0.1, means within 3%, no NaN): two
+    paths that round one draw differently decorrelate knife-edge paths
+    while both stay estimators of the same integral. The line also names
+    each side's path (``kernels/megakernel.path_name``), so a pair that
+    took one path shows as a trivial comparison."""
+    from .kernels.megakernel import path_name
+    from .render import render_frame
+
+    _check_device(args.device)
+    scene, cam, cfg = _load_scene(args.scene, args)
+    imgs, paths = [], []
+    for which in (args.a, args.b):
+        c = dataclasses.replace(cfg, intersector=which)
+        paths.append(path_name(scene, c))
+        imgs.append(render_frame(scene, cam, c, args.frame).cpu().numpy())
+    a, b = imgs
+    d = np.abs(a - b)
+    rel = (d / (1.0 + np.abs(b))).max(axis=-1)
+    med = float(np.median(rel))
+    mean_rel = abs(a.mean() - b.mean()) / max(b.mean(), 1e-9)
+    same = " (one path: a trivial comparison)" if paths[0] == paths[1] else ""
+    print(
+        f"{args.a} vs {args.b}: median_rel={med:.3e} mean|d|={d.mean():.3e} "
+        f"max|d|={d.max():.3e} frac(rel<3e-3)={(rel < 3e-3).mean():.4f} "
+        f"means {a.mean():.5f}/{b.mean():.5f} (rel {mean_rel:.4f}) "
+        f"paths {paths[0]} / {paths[1]}{same}"
+    )
+    ok = (
+        not np.isnan(a).any()
+        and not np.isnan(b).any()
+        and med < 2e-3
+        and d.mean() < 0.1
+        and mean_rel < 0.03
+    )
+    print("AGREE" if ok else "DISAGREE")
+    return 0 if ok else 1
+
+
+def _add_scene_args(sp) -> None:
+    sp.add_argument("--scene", required=True)
+    sp.add_argument("--device", default="cuda",
+                    help="torch device to render on (default cuda; cpu takes "
+                         "the plain PyTorch path)")
+    sp.add_argument("--width", type=int)
+    sp.add_argument("--height", type=int)
+    sp.add_argument("--spp", type=int)
+    sp.add_argument("--max-bounce", dest="max_bounce", type=int)
+    sp.add_argument("--intersector",
+                    choices=["auto", "bruteforce", "bvh", "mega"])
+    sp.add_argument(
+        "--adaptive-spp", dest="adaptive_spp", action="store_true",
+        help="sample refill: pixels whose warp-mates are still tracing get "
+             "extra samples (>= spp each, per-pixel mean)")
+    sp.add_argument(
+        "--fast-scatter", dest="fast_scatter", action="store_true",
+        help="2-draw unit-vector sampler (the same distribution; breaks "
+             "draw-for-draw reference parity)")
+    sp.add_argument("--hdr", action="store_true",
+                    help="unclamped accumulation (the reference clamps)")
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="ray_tracing_extended_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
 
     r = sub.add_parser("render", help="progressive render")
-    r.add_argument("--scene", required=True)
-    r.add_argument("--device", default="cuda",
-                   help="torch device to render on (default cuda; cpu takes "
-                        "the plain PyTorch path)")
-    r.add_argument("--width", type=int)
-    r.add_argument("--height", type=int)
-    r.add_argument("--spp", type=int)
-    r.add_argument("--max-bounce", dest="max_bounce", type=int)
-    r.add_argument("--intersector", choices=["auto", "bruteforce", "bvh", "mega"])
-    r.add_argument(
-        "--adaptive-spp", dest="adaptive_spp", action="store_true",
-        help="sample refill: pixels whose warp-mates are still tracing get "
-             "extra samples (>= spp each, per-pixel mean)")
-    r.add_argument(
-        "--fast-scatter", dest="fast_scatter", action="store_true",
-        help="2-draw unit-vector sampler (the same distribution; breaks "
-             "draw-for-draw reference parity)")
-    r.add_argument("--hdr", action="store_true",
-                   help="unclamped accumulation (the reference clamps)")
+    _add_scene_args(r)
     r.add_argument(
         "--frames", type=int, default=None,
         help="frames to accumulate (default 1; implied by --flythrough N)")
@@ -233,6 +292,13 @@ def main(argv=None):
                    help="write a torch.profiler Chrome trace to this dir")
     r.add_argument("--verbose", action="store_true")
     r.set_defaults(fn=cmd_render)
+
+    c = sub.add_parser("compare", help="cross-intersector agreement check")
+    _add_scene_args(c)
+    c.add_argument("--a", default="mega")
+    c.add_argument("--b", default="bruteforce")
+    c.add_argument("--frame", type=int, default=0)
+    c.set_defaults(fn=cmd_compare)
 
     args = p.parse_args(argv)
     return args.fn(args)

@@ -1,12 +1,14 @@
-"""Builds one of the package's CUDA sources into a shared library with
-``nvcc`` at first use, and loads it with ctypes.
+"""Builds one of the package's sources into a shared library at first use,
+and loads it with ctypes: the CUDA sources with ``nvcc``, the host
+geometry (``csrc/geometry.cpp``, ``utils/native.py``) with ``g++``.
 
 Every library of the port is built here, from its source in ``csrc/``,
-with the same flags, into ``build/`` beside this package. A library's name
-carries a digest of its source and the flags, so a changed source is
-rebuilt and an unchanged one is loaded as it is. nvcc's output, with
-ptxas's register and spill report (``-Xptxas -v``), is kept beside the
-library, so a later load reports the same.
+into ``build/`` beside this package; every CUDA source with the same
+flags. A library's name carries a digest of its source and the flags, so
+a changed source is rebuilt and an unchanged one is loaded as it is. The
+compiler's output, for nvcc with ptxas's register and spill report
+(``-Xptxas -v``), is kept beside the library, so a later load reports the
+same.
 """
 
 from __future__ import annotations
@@ -32,6 +34,10 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# Flags of the host geometry library: the JAX package's own (its
+# utils/native.py), with no -march=native and no -ffast-math, so the
+# Morton quantisation rounds as NumPy does.
+GXX_FLAGS = ("-O3", "-shared", "-fPIC")
 
 
 def find_nvcc() -> str:
@@ -52,15 +58,17 @@ def find_nvcc() -> str:
 class BuildInfo:
     library: Path
     seconds: float  # 0.0 when an up-to-date library was already there
-    # nvcc's output, including ptxas's register report
+    # the compiler's output (nvcc's includes ptxas's register report)
     log: str
 
 
-def build_library(source: Path, name: str) -> BuildInfo:
-    """Compile ``source`` into ``build/lib<name>_<digest>.so`` unless that
-    library is there already. Raises if nvcc is missing or fails."""
+def build_library(source: Path, name: str, compiler: str | None = None,
+                  flags: tuple = NVCC_FLAGS) -> BuildInfo:
+    """Compile ``source`` with ``compiler`` (default nvcc) and ``flags``
+    into ``build/lib<name>_<digest>.so`` unless that library is there
+    already. Raises if the compiler is missing or fails."""
     digest = hashlib.sha256(
-        source.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        source.read_bytes() + " ".join(flags).encode()
     ).hexdigest()[:16]
     lib_path = BUILD_DIR / f"lib{name}_{digest}.so"
     log_path = lib_path.with_suffix(".log")
@@ -69,14 +77,15 @@ def build_library(source: Path, name: str) -> BuildInfo:
         return BuildInfo(lib_path, 0.0, log)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
+    cmd = [compiler or find_nvcc(), *flags, "-o", str(tmp), str(source)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - t0
     log = proc.stdout + proc.stderr
     if proc.returncode != 0:
         raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}"
+            f"{Path(cmd[0]).name} failed ({proc.returncode}): "
+            f"{' '.join(cmd)}\n{log}"
         )
     log_path.write_text(log)
     os.replace(tmp, lib_path)

@@ -145,6 +145,21 @@ def plain_intersector(scene: Scene, cfg: RenderConfig, counts=None):
     )
 
 
+def path_name(scene: Scene, cfg: RenderConfig) -> str:
+    """What renders ``scene`` under ``cfg``: on a CUDA device the kernel's
+    instantiation (``variant``), on the CPU the plain version's closest-hit
+    function (``plain_intersector``) and its geometry. Several intersector
+    names can take one path: on the card every name on a scene without a
+    triangle BVH, and every name but ``"bruteforce"`` on a scene with
+    one."""
+    if scene.device.type == "cuda":
+        return variant(geometry(scene, cfg), cfg.adaptive_spp,
+                       cfg.fast_scatter)
+    if plain_intersector(scene, cfg) is closest_hit_bvh:
+        return "plain closest_hit_bvh"
+    return f"plain closest_hit_clustered<{geometry(scene, cfg)}>"
+
+
 # ------------------------------ plain version -------------------------------
 
 

@@ -27,6 +27,7 @@ from .render import render_frame_with_stats, render_frames_and_accumulate
 from .utils import checkpoint as ckpt
 from .utils.config import RenderConfig
 from .utils.metrics import FrameMetrics, MetricsLogger
+from .utils.profiling import check_launch
 
 
 def _layout(scene: Scene):
@@ -212,6 +213,7 @@ def render_progressive(
         # the run); otherwise the reference's global 1/(f + 1)
         wf = (f - seg0) if reset_on_move else f
         accum = accumulate(accum, cur, wf, clamp=cfg.clamp_accumulate)
+        check_launch(f, 1, {"accumulator": accum})
         # Welford step, skipped on a weight-1 restart: M2 is 0 at n = 1,
         # and the stale prev would corrupt the restarted signal
         if want_stats and not (reset_on_move and f == seg0):
@@ -302,6 +304,7 @@ def _render_progressive_sharded(
             f"renders {spp_size} frame seeds under it)"
         )
     bands = sharding.image_to_bands(accum, cfg, mesh)
+    rows = sharding._bands(cfg, mesh)
     shape = dict(mesh.shape)
 
     def save(bands, step):
@@ -316,6 +319,8 @@ def _render_progressive_sharded(
             bands, segs, _ = sharding.render_frames_mega_sharded(
                 scene, camera, cfg, s, bands, k, mesh
             )
+            for band, (y0, _) in zip(bands, rows):
+                check_launch(s, k, {"accumulator": band}, row0=y0)
             segs = int(segs)  # one host sync per chunk
             wall = time.perf_counter() - t0
             s += k
@@ -347,6 +352,9 @@ def _render_progressive_sharded(
         ws = (s - seg0) if reset_on_move else s
         bands = [accumulate(acc, img, ws, clamp=cfg.clamp_accumulate)
                  for acc, img in zip(bands, images)]
+        for band, img, (y0, _) in zip(bands, images, rows):
+            check_launch(s * spp_size, spp_size,
+                         {"image": img, "accumulator": band}, row0=y0)
         segs = int(segs)  # one host sync per step
         wall = time.perf_counter() - t0
         if metrics is not None:

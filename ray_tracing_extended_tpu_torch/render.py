@@ -18,7 +18,8 @@ choice (``kernels/megakernel.py`` ``plain_intersector`` on the CPU,
 ``geometry`` on the card, which traverses a triangle BVH and always scans
 spheres). Scenes load from JSON files with
 ``scene.json_scene.load_json_scene``; ``progressive.render_progressive``
-drives these functions frame after frame.
+drives these functions frame after frame. Inside
+``utils.profiling.debug_mode`` each call checks what its launch wrote.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from .kernels.megakernel import render_block, render_frames_mega
 from .models.geometry import Scene
 from .ops.camera import Camera
 from .utils.config import RenderConfig
+from .utils.profiling import check_launch
 
 __all__ = [
     "render_and_accumulate",
@@ -61,6 +63,7 @@ def render_frame_with_stats(
     img, segs, _, hist = render_frames_mega(
         scene, camera, cfg, frame, collect_stats=bounce_stats
     )
+    check_launch(frame, 1, {"image": img})
     if bounce_stats:
         return img, segs, hist
     return img, segs
@@ -96,6 +99,7 @@ def render_frames_and_accumulate(
     img, segs, seg_map, _ = render_frames_mega(
         scene, camera, cfg, frame0, n_frames, accum=accum
     )
+    check_launch(frame0, n_frames, {"accumulator": img})
     if segs_map:
         return img, segs, seg_map
     return img, segs

@@ -29,9 +29,11 @@ Material fields default to the reference's defaults
 (RayTracingMaterial.cs:21-28); ``flag`` takes 0-3 or the names "none",
 "checker", "invisibleLight", "dielectric". ``camera.rotation`` (a 3x3
 local-to-world matrix, rows nested, columns right/up/forward) may stand in
-for ``lookAt``. A mesh entry ``{"npz": "file.npz", "group": "g000", ...}``
-is a baked world-space triangle soup (arrays ``<group>_pos`` and
-``<group>_nrm`` of shape (N, 3, 3)) and becomes one chunk.
+for ``lookAt``. A mesh entry names an ``"obj"`` or a binary ``"fbx"`` file
+(``scene/fbx.py``: its model transforms and unit scale applied before
+``transform``); ``{"npz": "file.npz", "group": "g000", ...}`` is a baked
+world-space triangle soup (arrays ``<group>_pos`` and ``<group>_nrm`` of
+shape (N, 3, 3)) and becomes one chunk.
 """
 
 from __future__ import annotations
@@ -48,6 +50,7 @@ from ..models.scene import Material, SceneBuilder
 from ..ops.camera import camera_from_matrix, look_at
 from ..utils.config import RenderConfig
 from ..utils.device import DEFAULT_DEVICE
+from .fbx import load_fbx
 from .mesh_io import load_obj
 
 _FLAGS = {"none": 0, "checker": 1, "invisiblelight": 2, "dielectric": 3}
@@ -149,18 +152,16 @@ def load_json_scene(path, overrides: dict | None = None,
                 tri_pos, np.asarray(data[f"{g}_nrm"], np.float32), material
             )
             n_baked_tris += len(tri_pos)
-        elif "obj" in m:
-            v, f, n = load_obj(path.parent / m["obj"])
+        elif "obj" in m or "fbx" in m:
+            if "obj" in m:
+                v, f, n = load_obj(path.parent / m["obj"])
+            else:
+                v, f, n = load_fbx(path.parent / m["fbx"])
             any_big_mesh |= len(f) > 4096
             b.add_mesh(
                 v, f, material, normals=n,
                 transform=_transform_matrix(m.get("transform") or {}),
                 chunked=bool(m.get("chunked", True)),
-            )
-        elif "fbx" in m:
-            raise NotImplementedError(
-                f"mesh {m['fbx']!r}: the FBX importer is not ported yet "
-                "(ROADMAP.md Queue A item 13); use an OBJ or NPZ mesh"
             )
         else:
             raise ValueError("mesh entry needs 'obj', 'fbx' or 'npz'")

@@ -176,11 +176,14 @@ def test_obj_scene_matches_jax_cli(tmp_path):
 
 
 def test_unported_specs_raise(tmp_path):
-    """What the port does not render yet raises, naming its ROADMAP.md
-    item (``preset:mesh`` and ``.obj`` render: the tests above; ``--mesh``
+    """Every scene spec of the JAX CLI is ported: a ``.unity`` spec reaches
+    the Unity importer (tests/test_torch_importers.py renders one), so a
+    missing file raises, as in the JAX CLI; an unknown preset exits
+    (``preset:mesh`` and ``.obj`` render: the tests above; ``--mesh``
     renders: the tests below)."""
-    with pytest.raises(NotImplementedError, match="Queue A item 13"):
-        _render("--scene", "Chess.unity")
+    missing = str(tmp_path / "Chess.unity")
+    with pytest.raises(FileNotFoundError, match="Chess.unity"):
+        _render("--scene", missing)
     with pytest.raises(SystemExit):
         _render("--scene", "preset:nope")
 

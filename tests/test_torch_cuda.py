@@ -689,3 +689,119 @@ def test_pairblock_kernel_matches_plain(cuda, variant):
     assert k.shape == (16, 128)
     assert torch.equal(k.view(torch.int32), p.view(torch.int32))
     assert pairblock.LAUNCHES[variant] == before + 1
+
+
+# ---- the scene entry: native LBVH, FBX and Unity scenes, compare, debug ----
+def test_mesh_scene_builds_its_lbvh_natively(cuda):
+    """The card machine's host builds the LBVH natively (nvcc needs a host
+    g++ too), the same arrays as the NumPy build."""
+    import os
+
+    from ray_tracing_extended_tpu_torch.accel.bvh import LBVH_BUILDS
+
+    LBVH_BUILDS.reset()
+    built = presets.mesh_scene(target_tris=4000, device=cuda)[0].tri_bvh
+    os.environ["RTE_NATIVE"] = "0"
+    try:
+        plain = presets.mesh_scene(target_tris=4000, device=cuda)[0].tri_bvh
+    finally:
+        del os.environ["RTE_NATIVE"]
+    assert LBVH_BUILDS.routes == ["native", "numpy"]
+    for f in ("bounds_min", "bounds_max", "left", "right", "leaf_row",
+              "leaf_prims"):
+        assert torch.equal(getattr(built, f), getattr(plain, f)), f
+
+
+def test_fbx_mesh_scene_on_the_card(cuda, tmp_path):
+    """A JSON scene whose mesh is a binary FBX: the BVH instantiations,
+    bit for bit the image of the same arrays built by ``add_mesh``."""
+    import json
+
+    from ray_tracing_extended_tpu_torch.models.scene import Material, SceneBuilder
+    from ray_tracing_extended_tpu_torch.scene.fbx import load_fbx
+    from ray_tracing_extended_tpu_torch.scene.procedural import trefoil_knot_mesh
+    from scene_writers import write_mesh_fbx
+
+    v, f = trefoil_knot_mesh(target_tris=5000)
+    write_mesh_fbx(tmp_path / "knot.fbx", [dict(vertices=v, polygons=f,
+                                                rotation=(0, 0, 20))])
+    (tmp_path / "s.json").write_text(json.dumps({
+        "camera": {"position": [0, 0.3, -3], "lookAt": [0, 0, 0]},
+        "environment": {"enabled": True, "skyColourZenith": [0.5, 0.7, 1.0],
+                        "skyColourHorizon": [1, 1, 1]},
+        "meshes": [{"fbx": "knot.fbx", "material": {"colour": [0.8, 0.5, 0.2],
+                                                     "smoothness": 0.7}}]}))
+    scene, cam, cfg = rtt.load_json_scene(
+        tmp_path / "s.json", overrides=dict(width=128, height=72, spp=2),
+        device=cuda)
+    lv, lf, ln = load_fbx(tmp_path / "knot.fbx")
+    b = SceneBuilder(env=scene.env.to("cpu"))
+    # placed as the JSON loader places a mesh: an identity transform
+    b.add_mesh(lv, lf, Material(colour=(0.8, 0.5, 0.2), smoothness=0.7),
+               normals=ln, transform=np.eye(4))
+    ref = b.build(build_bvh="tri", device=cuda)
+    for adaptive in (False, True):
+        c = dataclasses.replace(cfg, adaptive_spp=adaptive)
+        mk.KERNEL.reset_counts()
+        img = rtt.render_frame(scene, cam, c, 3)
+        assert dict(mk.KERNEL.variant_launches) == {
+            mk.variant("bvh", adaptive): 1}
+        assert torch.isfinite(img).all() and float(img.mean()) > 0.01
+        assert torch.equal(img, rtt.render_frame(ref, cam, c, 3))
+
+
+def test_unity_scene_and_its_mirror_on_the_card(cuda, tmp_path):
+    """``render --scene x.unity`` on the card (the chunk instantiation), and
+    its exported JSON mirror through the same command, bit for bit."""
+    pytest.importorskip("yaml")
+    from ray_tracing_extended_tpu_torch.cli import main
+    from ray_tracing_extended_tpu_torch.scene.export import export_unity_scene
+    from scene_writers import demo_unity_scene
+
+    src = tmp_path / "demo.unity"
+    demo_unity_scene(src)
+    export_unity_scene(src, tmp_path / "demo.json")
+    images = []
+    for name in ("demo.unity", "demo.json"):
+        out = tmp_path / f"{name}.npy"
+        mk.KERNEL.reset_counts()
+        assert main(["render", "--scene", str(tmp_path / name), "--width",
+                     "192", "--height", "108", "--frames", "4", "--batch",
+                     "2", "--out", str(out)]) == 0
+        assert dict(mk.KERNEL.variant_launches) == {mk.VARIANT_TRIANGLES: 2}
+        images.append(np.load(out))
+    assert np.isfinite(images[0]).all() and images[0].mean() > 0.01
+    assert np.array_equal(images[0], images[1])
+
+
+def test_compare_on_the_card(cuda, capsys):
+    """``compare`` of the mesh: the BVH instantiation against the chunk
+    scan, named in the line; exits 0."""
+    from ray_tracing_extended_tpu_torch.cli import main
+
+    mk.KERNEL.reset_counts()
+    assert main(["compare", "--scene", "preset:mesh", "--width", "192",
+                 "--height", "108", "--a", "mega", "--b", "bruteforce"]) == 0
+    out = capsys.readouterr().out.strip().splitlines()
+    assert out[-1] == "AGREE"
+    assert out[0].endswith(f"paths {mk.VARIANT_BVH} / {mk.VARIANT_TRIANGLES}")
+    assert dict(mk.KERNEL.variant_launches) == {mk.VARIANT_BVH: 1,
+                                                mk.VARIANT_TRIANGLES: 1}
+
+
+def test_debug_mode_on_the_card(cuda):
+    """A NaN in the accumulator raises and names the frames and the pixel;
+    a clean K-frame launch passes with the same result, synchronised."""
+    from ray_tracing_extended_tpu_torch.utils.profiling import debug_mode
+
+    scene, cam, cfg = _on(cuda, *presets.rtiow_final_scene(
+        width=96, height=54, spp=2))
+    acc = torch.rand((54, 96, 3), device=cuda)
+    ref = rtt.render_frames_and_accumulate(scene, cam, cfg, acc, 1, 4)[0]
+    with debug_mode(disable_jit=True):
+        out = rtt.render_frames_and_accumulate(scene, cam, cfg, acc, 1, 4)[0]
+        assert torch.equal(out, ref)
+        acc[20, 30, 0] = float("inf")
+        with pytest.raises(FloatingPointError,
+                           match=r"y=20, x=30 \(channel 0\) of frames 1-4"):
+            rtt.render_frames_and_accumulate(scene, cam, cfg, acc, 1, 4)

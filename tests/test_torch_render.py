@@ -341,13 +341,21 @@ def test_bvh_options_render():
 
 
 def test_unported_options_raise(tmp_path):
-    """What is not ported yet raises, naming its ROADMAP.md item: FBX
-    meshes. The BVH renders (test_bvh_options_render); adaptive refill and
-    fast scatter are ported (tests/test_torch_adaptive.py), and so is the
-    multi-GPU split (test_progressive_mesh_matches_jax)."""
+    """Every option of the JAX package is ported: an FBX mesh reaches the
+    FBX reader (tests/test_torch_importers.py loads one), so a missing file
+    raises as the JAX loader's does. The BVH renders
+    (test_bvh_options_render); adaptive refill and fast scatter are ported
+    (tests/test_torch_adaptive.py), and so is the multi-GPU split
+    (test_progressive_mesh_matches_jax)."""
+    from ray_tracing_extended_tpu.scene.json_scene import (
+        load_json_scene as j_load_json_scene,
+    )
+
     scene_file = tmp_path / "fbx.json"
     scene_file.write_text('{"meshes": [{"fbx": "knight.fbx"}]}')
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(FileNotFoundError):
+        j_load_json_scene(scene_file)
+    with pytest.raises(FileNotFoundError, match="knight.fbx"):
         rtt.load_json_scene(scene_file, device="cpu")
 
 
