@@ -154,6 +154,9 @@
 //   cudaGetLastError(); rtx_shared_bytes(geometry, ...) is a launch's
 //   dynamic shared memory; rtx_occupancy(geometry, ...) the blocks of an
 //   instantiation one SM holds; rtx_error_string(code) names an error.
+//   Built with -DRTX_PROBES, the same source is the probe library: the
+//   profiling instantiations (Probe, below) behind rtx_render_probe in
+//   place of the production ones behind rtx_render.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -620,21 +623,23 @@ __device__ __forceinline__ void test_spheres(Spheres sph, int first, int end,
   }
 }
 
-// One segment of a path (ops/trace.py trace_segment): the closest hit,
-// then the flags, the scatter, emission and roulette; or the environment
-// light on a miss. Updates the ray, throughput and incoming light and
-// returns whether the path goes on. `camera_ray` is bounce index 0.
-template <Geometry kGeom, Scatter kScatter>
-__device__ __forceinline__ bool trace_segment(
-    const float* p, Spheres sph, Triangles tri,
-    const float* __restrict__ mats, bool camera_ray, uint32_t& state, Vec3& o,
-    Vec3& d, Vec3& colour, Vec3& incoming) {
-  // closest hit: the hoisted spheres, then each cluster behind its gate
-  // (a finite best_t is a sphere's here, so `best` is a slot wherever the
-  // tie rule reads it)
-  float best_t = __int_as_float(0x7f800000);
-  int best = -1;
-  const Vec3 inv_d = {1.0f / d.x, 1.0f / d.y, 1.0f / d.z};
+// Profiling instantiations (tools/profile_mega.py; the TPU kernel's
+// dup_intersect and dup_fetch knobs, megakernel.py:463-466): each does one
+// part of a segment's work twice and folds the second result so that it
+// cannot change the image, so the frame-time delta against the production
+// instantiation (kNone) is that part's cost. Only the probe library
+// (-DRTX_PROBES) compiles them.
+enum Probe : int { kNone = 0, kDupIntersect = 1, kDupFetch = 2 };
+
+// The closest hit of a ray: the hoisted spheres, then each cluster behind
+// its gate (a finite best_t is a sphere's there, so `best` is a slot
+// wherever the tie rule reads it), then the triangles. best_t starts at
+// +inf, best and best_tri at -1.
+template <Geometry kGeom>
+__device__ __forceinline__ void closest_hit(Spheres sph, Triangles tri,
+                                            Vec3 o, Vec3 d, Vec3 inv_d,
+                                            float& best_t, int& best,
+                                            int& best_tri) {
   test_spheres(sph, 0, sph.n_hoist, o, d, best_t, best);
   for (int k = 0; k < sph.n_clusters; ++k) {
     const float4 lo = sph.clusters[2 * k];
@@ -644,7 +649,6 @@ __device__ __forceinline__ bool trace_segment(
     test_spheres(sph, first, first + __float_as_int(hi.w), o, d, best_t,
                  best);
   }
-  int best_tri = -1;
   if constexpr (kGeom == kChunks) {
     closest_triangle(tri, o, d, inv_d, best_t, best_tri);
   }
@@ -655,6 +659,77 @@ __device__ __forceinline__ bool trace_segment(
       best_t = h.t;
       best_tri = h.i;
     }
+  }
+}
+
+// `idx` again, as an index the compiler cannot prove equal to it (the TPU
+// kernel's where(code < -1, code + 1, code), megakernel.py:1467). Where the
+// fetch reads it, idx >= 0 is known and the select alone would fold, so
+// idx first passes through an empty asm statement the optimizer cannot see
+// through.
+__device__ __forceinline__ int unproven(int idx) {
+  asm volatile("" : "+r"(idx));
+  return idx < -1 ? idx + 1 : idx;
+}
+
+// kDupFetch's second fetch: everything the winner's fetch reads (the
+// sphere's row and material index, or the triangle's rows, vertex normals
+// and material index; then the 14 floats of the material row), through
+// unproven indices, summed into one value. Every load feeds the sum: one
+// left out would be dead code and its cost not measured.
+template <Geometry kGeom>
+__device__ __forceinline__ float fetch_again(Spheres sph, Triangles tri,
+                                             const float* __restrict__ mats,
+                                             int best, int best_tri) {
+  float sum;
+  int mat_idx;
+  if (kGeom != kSpheres && best_tri >= 0) {
+    const int i = unproven(best_tri);
+    const float4 r0 = __ldg(tri.rows + kTri4 * i);
+    const float4 r1 = __ldg(tri.rows + kTri4 * i + 1);
+    const float4 r2 = __ldg(tri.rows + kTri4 * i + 2);
+    sum = r0.x + r0.y + r0.z + r0.w + r1.x + r1.y + r1.z + r1.w + r2.x +
+          r2.y + r2.z + r2.w;
+    const float* n = tri.normals + kTriNrm * i;
+#pragma unroll
+    for (int j = 0; j < kTriNrm; ++j) sum += __ldg(n + j);
+    mat_idx = __ldg(tri.mat + i);
+  } else {
+    const int i = unproven(best);
+    const float4 s = sph.rows[i];
+    sum = s.x + s.y + s.z + s.w;
+    mat_idx = sph.mat[i];
+  }
+  const float* m = mats + kMat * mat_idx;
+#pragma unroll
+  for (int j = 0; j < 14; ++j) sum += __ldg(m + j);
+  return sum;
+}
+
+// One segment of a path (ops/trace.py trace_segment): the closest hit,
+// then the flags, the scatter, emission and roulette; or the environment
+// light on a miss. Updates the ray, throughput and incoming light and
+// returns whether the path goes on. `camera_ray` is bounce index 0.
+template <Geometry kGeom, Scatter kScatter, Probe kProbe = kNone>
+__device__ __forceinline__ bool trace_segment(
+    const float* p, Spheres sph, Triangles tri,
+    const float* __restrict__ mats, bool camera_ray, uint32_t& state, Vec3& o,
+    Vec3& d, Vec3& colour, Vec3& incoming) {
+  float best_t = __int_as_float(0x7f800000);
+  int best = -1;
+  int best_tri = -1;
+  const Vec3 inv_d = {1.0f / d.x, 1.0f / d.y, 1.0f / d.z};
+  closest_hit<kGeom>(sph, tri, o, d, inv_d, best_t, best, best_tri);
+  if constexpr (kProbe == kDupIntersect) {
+    // the TPU kernel's dup_intersect (megakernel.py:2030-2043): the whole
+    // closest hit again from an origin the compiler cannot prove equal,
+    // folded so that it cannot change t (t2 + 1e30 is beyond any hit); the
+    // first pass's winner stays
+    float best_t2 = __int_as_float(0x7f800000);
+    int best2 = -1, best_tri2 = -1;
+    closest_hit<kGeom>(sph, tri, Vec3{o.x + 1e-30f, o.y, o.z}, d, inv_d,
+                       best_t2, best2, best_tri2);
+    best_t = fminf(best_t, best_t2 + 1e30f);
   }
   if (best < 0 && best_tri < 0) {
     incoming = add(incoming, mul(environment(p, d), colour));
@@ -687,6 +762,13 @@ __device__ __forceinline__ bool trace_segment(
     const float cx = fx - 2.0f * floorf(fx / 2.0f);
     const float cz = fz - 2.0f * floorf(fz / 2.0f);
     if (cx != cz) base = {__ldg(m + 3), __ldg(m + 4), __ldg(m + 5)};
+  }
+  if constexpr (kProbe == kDupFetch) {
+    // the TPU kernel's dup_fetch (megakernel.py:1463-1469), folded so that
+    // it cannot change the colour (|sum| + 1e30 is above any colour; fminf
+    // drops a NaN operand)
+    base.x = fminf(base.x, fabsf(fetch_again<kGeom>(sph, tri, mats, best,
+                                                    best_tri)) + 1e30f);
   }
 
   // scatter (RayTracing.shader:325-330): 1 lottery draw + 6 direction
@@ -729,7 +811,7 @@ __device__ __forceinline__ bool trace_segment(
 }
 
 // One camera sample's path (ops/trace.py trace). Returns its incoming light.
-template <Geometry kGeom, Scatter kScatter>
+template <Geometry kGeom, Scatter kScatter, Probe kProbe = kNone>
 __device__ Vec3 trace_path(const float* p, Spheres sph, Triangles tri,
                            const float* __restrict__ mats, int max_bounce,
                            uint32_t& state, Vec3 o, Vec3 d, int& segs,
@@ -739,8 +821,9 @@ __device__ Vec3 trace_path(const float* p, Spheres sph, Triangles tri,
   for (int bounce = 0; bounce <= max_bounce; ++bounce) {
     ++segs;
     if (s_hist != nullptr) atomicAdd(&s_hist[bounce], 1);
-    if (!trace_segment<kGeom, kScatter>(p, sph, tri, mats, bounce == 0, state,
-                                        o, d, colour, incoming)) {
+    if (!trace_segment<kGeom, kScatter, kProbe>(p, sph, tri, mats,
+                                                bounce == 0, state, o, d,
+                                                colour, incoming)) {
       break;
     }
   }
@@ -856,7 +939,7 @@ __device__ __forceinline__ Staged stage_scene(float4* smem4, const Args& a) {
 // than through the helpers render_adaptive uses below: with them, ptxas
 // (nvcc 12.9, sm_90a) spilled more in the triangle instantiation and took
 // fewer registers than it needs in the sphere one.
-template <Geometry kGeom, Scatter kScatter>
+template <Geometry kGeom, Scatter kScatter, Probe kProbe = kNone>
 __global__ void __launch_bounds__(kBlockX * kBlockY, kGeom == kBvh ? 8 : 0)
 render_kernel(const Args a) {
   extern __shared__ float4 smem4[];
@@ -909,7 +992,7 @@ render_kernel(const Args a) {
         random_point_in_circle(state, p[16], jx, jy);
         const Vec3 target = add(add(fp, scale(right, jx)), scale(up, jy));
         const Vec3 dir = normalize(sub(target, origin));
-        total = add(total, trace_path<kGeom, kScatter>(
+        total = add(total, trace_path<kGeom, kScatter, kProbe>(
                                p, sc.sph, sc.tri, a.mats, a.max_bounce, state,
                                origin, dir, segs,
                                a.hist != nullptr ? sc.s_hist : nullptr));
@@ -993,7 +1076,7 @@ __device__ __forceinline__ Vec3 div(Vec3 v, float n) {
 // warp-synchronous through two votes a slot. Per-lane state lives in
 // registers: the RNG state, the ray, throughput, incoming and banked light,
 // the running average, the completed-sample count, frame and bounce index.
-template <Geometry kGeom, Scatter kScatter>
+template <Geometry kGeom, Scatter kScatter, Probe kProbe = kNone>
 __global__ void __launch_bounds__(kBlockX * kBlockY, kGeom == kBvh ? 8 : 0)
 render_adaptive(const Args a) {
   extern __shared__ float4 smem4[];
@@ -1059,7 +1142,7 @@ render_adaptive(const Args a) {
     if (live) {
       ++segs;
       if (s_hist != nullptr) atomicAdd(&s_hist[bounce], 1);
-      const bool goes_on = trace_segment<kGeom, kScatter>(
+      const bool goes_on = trace_segment<kGeom, kScatter, kProbe>(
           sc.p, sc.sph, sc.tri, a.mats, bounce == 0, state, o, d, colour,
           incoming);
       if (!goes_on || bounce >= max_bounce) {
@@ -1089,25 +1172,42 @@ render_adaptive(const Args a) {
 
 using Kernel = void (*)(const Args);
 
+// The instantiation for a Probe value, or null. The production library
+// compiles the twelve of kNone; the probe library (-DRTX_PROBES) the twelve
+// of kDupIntersect and kDupFetch instead, with the Box-Muller sampler only.
 template <Geometry kGeom>
-Kernel kernel_of(bool adaptive, bool fast_scatter) {
+Kernel kernel_of(int probe, bool adaptive, bool fast_scatter) {
+#ifdef RTX_PROBES
+  if (fast_scatter) return nullptr;
+  if (probe == kDupIntersect) {
+    return adaptive ? render_adaptive<kGeom, kBoxMuller, kDupIntersect>
+                    : render_kernel<kGeom, kBoxMuller, kDupIntersect>;
+  }
+  if (probe == kDupFetch) {
+    return adaptive ? render_adaptive<kGeom, kBoxMuller, kDupFetch>
+                    : render_kernel<kGeom, kBoxMuller, kDupFetch>;
+  }
+  return nullptr;
+#else
+  if (probe != kNone) return nullptr;
   if (fast_scatter) {
     return adaptive ? render_adaptive<kGeom, kFastScatter>
                     : render_kernel<kGeom, kFastScatter>;
   }
   return adaptive ? render_adaptive<kGeom, kBoxMuller>
                   : render_kernel<kGeom, kBoxMuller>;
+#endif
 }
 
-// The instantiation for a Geometry value, or null.
-Kernel kernel_for(int geometry, bool adaptive, bool fast_scatter) {
+// The instantiation for a Geometry and a Probe value, or null.
+Kernel kernel_for(int geometry, int probe, bool adaptive, bool fast_scatter) {
   switch (geometry) {
     case kSpheres:
-      return kernel_of<kSpheres>(adaptive, fast_scatter);
+      return kernel_of<kSpheres>(probe, adaptive, fast_scatter);
     case kChunks:
-      return kernel_of<kChunks>(adaptive, fast_scatter);
+      return kernel_of<kChunks>(probe, adaptive, fast_scatter);
     case kBvh:
-      return kernel_of<kBvh>(adaptive, fast_scatter);
+      return kernel_of<kBvh>(probe, adaptive, fast_scatter);
     default:
       return nullptr;
   }
@@ -1151,7 +1251,8 @@ extern "C" size_t rtx_shared_bytes(int geometry, int n_sph, int n_clusters,
 // code.
 extern "C" int rtx_occupancy(int geometry, int adaptive, int fast_scatter,
                              size_t smem) {
-  const Kernel kernel = kernel_for(geometry, adaptive != 0, fast_scatter != 0);
+  const Kernel kernel =
+      kernel_for(geometry, kNone, adaptive != 0, fast_scatter != 0);
   if (kernel == nullptr) return -static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = allow_shared(kernel, smem);
   int blocks = 0;
@@ -1176,7 +1277,16 @@ extern "C" int rtx_occupancy(int geometry, int adaptive, int fast_scatter,
 // rows, and each pixel's seed and camera ray are the whole frame's.
 // Returns cudaGetLastError() after the launch, cudaErrorInvalidValue
 // without one for rows outside those rules.
+//
+// The probe library's entry is rtx_render_probe(probe, geometry, ...): the
+// same arguments after a Probe value (kDupIntersect or kDupFetch), with
+// fast_scatter 0; cudaErrorInvalidValue for any other.
+#ifdef RTX_PROBES
+extern "C" int rtx_render_probe(
+    int probe,
+#else
 extern "C" int rtx_render(
+#endif
     int geometry, const void* sph, const void* sph_orig, const void* sph_mat,
     int n_sph, const void* clusters, int n_clusters, int n_hoist,
     const void* tri_rows, const void* tri_normals, const void* tri_mat,
@@ -1186,6 +1296,9 @@ extern "C" int rtx_render(
     int y0, int y1, int spp, int max_bounce, unsigned int frame0, int n_frames,
     const void* accum_in, int clamp_accum, int adaptive, int fast_scatter,
     void* out, void* segs, void* hist, void* stream) {
+#ifndef RTX_PROBES
+  const int probe = kNone;
+#endif
   const bool off_block_row =
       y0 % kBlockY != 0 || (y1 != height && y1 % kBlockY != 0);
   if (y0 < 0 || y0 >= y1 || y1 > height || (adaptive && off_block_row)) {
@@ -1227,7 +1340,8 @@ extern "C" int rtx_render(
       static_cast<float*>(out),
       static_cast<int*>(segs),
       static_cast<int*>(hist)};
-  const Kernel kernel = kernel_for(geometry, adaptive != 0, fast_scatter != 0);
+  const Kernel kernel =
+      kernel_for(geometry, probe, adaptive != 0, fast_scatter != 0);
   if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(launch(kernel, a, s));
 }

@@ -4,9 +4,10 @@ geometry (``csrc/geometry.cpp``, ``utils/native.py``) with ``g++``.
 
 Every library of the port is built here, from its source in ``csrc/``,
 into ``build/`` beside this package; every CUDA source with the same
-flags. A library's name carries a digest of its source and the flags, so
-a changed source is rebuilt and an unchanged one is loaded as it is. The
-compiler's output, for nvcc with ptxas's register and spill report
+flags, to which the profiling library of ``csrc/megakernel.cu`` adds
+``-DRTX_PROBES``. A library's name carries a digest of its source and the
+flags, so a changed source is rebuilt and an unchanged one is loaded as it
+is. The compiler's output, for nvcc with ptxas's register and spill report
 (``-Xptxas -v``), is kept beside the library, so a later load reports the
 same.
 """
@@ -97,18 +98,20 @@ class CudaLibrary:
 
     ``bind(lib)`` sets the argument and result types of the source's own C
     functions on the loaded ``ctypes.CDLL``; every source also exports
-    ``rtx_error_string(code)``, bound here."""
+    ``rtx_error_string(code)``, bound here. ``flags`` are the compiler's
+    (a second library of one source adds a ``-D`` to ``NVCC_FLAGS``)."""
 
-    def __init__(self, source: str, name: str, bind):
+    def __init__(self, source: str, name: str, bind, flags: tuple = NVCC_FLAGS):
         self.source = CSRC / source
         self.name = name
+        self.flags = flags
         self._bind = bind
         self.build_info: BuildInfo | None = None
         self._lib = None
 
     def build(self) -> BuildInfo:
         if self._lib is None:
-            info = build_library(self.source, self.name)
+            info = build_library(self.source, self.name, flags=self.flags)
             lib = ctypes.CDLL(str(info.library))
             lib.rtx_error_string.argtypes = [ctypes.c_int]
             lib.rtx_error_string.restype = ctypes.c_char_p

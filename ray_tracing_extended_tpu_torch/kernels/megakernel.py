@@ -15,6 +15,14 @@ pixel, ``render_adaptive`` runs the adaptive sample refill
 their quota trace extra samples while any lane of the warp is still short
 of it. ``variant`` names the twelve instantiations.
 
+The same source built with ``-DRTX_PROBES`` is the probe library: twelve
+profiling instantiations (``PROBE_VARIANTS``), each with one of the TPU
+kernel's profiling knobs ``dup_intersect`` and ``dup_fetch``
+(``megakernel.py:463-466``): a segment's closest hit, or its winner's
+fetch, done twice, the second result folded so that the image cannot
+change. ``render_frame_mega`` takes the knobs as the JAX function does;
+``tools/profile_mega.py`` times them against the production kernel.
+
 ``render_frames_mega`` is the wrapper the renderer calls. Given a scene on
 the CPU it runs ``render_frames_plain``, the same function built from the
 plain modules in ``ops/`` and ``accel/bvh.py`` (the JAX package's XLA
@@ -66,9 +74,9 @@ from ..ops.intersect import (
     ray_spheres_t,
     ray_triangles_t,
 )
-from ..ops.trace import trace, trace_segment
+from ..ops.trace import dup_intersect, trace, trace_segment
 from ..utils.config import RenderConfig
-from .build import BuildInfo, CudaLibrary
+from .build import NVCC_FLAGS, BuildInfo, CudaLibrary
 from .pack import SUB, pack_spheres
 
 # Dynamic shared memory one block may use on Hopper (227 KB).
@@ -98,19 +106,35 @@ GEOMETRIES = ("spheres", "chunks", "bvh")
 LEAF_COUNT_BITS = 3
 
 
+# The profiling knobs, in the order of the source's Probe values after
+# kNone (kDupIntersect, kDupFetch).
+PROBES = ("dup_intersect", "dup_fetch")
+
+
 def variant(geometry: str, adaptive: bool = False,
-            fast_scatter: bool = False) -> str:
-    """The name of one instantiation of the source's kernels."""
+            fast_scatter: bool = False, probe: str | None = None) -> str:
+    """The name of one instantiation of the source's kernels; with
+    ``probe`` (one of ``PROBES``) a profiling one, its sampler named, as
+    ``render_kernel<kSpheres, kBoxMuller, kDupIntersect>``."""
     name = "render_adaptive" if adaptive else "render_kernel"
     args = f"k{geometry.capitalize()}"
     if fast_scatter:
         args += ", kFastScatter"
+    elif probe is not None:
+        args += ", kBoxMuller"
+    if probe is not None:
+        args += ", k" + "".join(w.capitalize() for w in probe.split("_"))
     return f"{name}<{args}>"
 
 
-# Every instantiation the source compiles.
+# Every instantiation the source compiles: the production library's, and
+# the probe library's (Box-Muller only).
 VARIANTS = tuple(
     variant(g, a, f) for a in (False, True) for f in (False, True)
+    for g in GEOMETRIES
+)
+PROBE_VARIANTS = tuple(
+    variant(g, a, probe=p) for p in PROBES for a in (False, True)
     for g in GEOMETRIES
 )
 VARIANT_SPHERES = variant("spheres")
@@ -417,6 +441,7 @@ def render_block(
     intersect_fn=None,
     with_bounce_counts: bool = False,
     n_real: int | None = None,
+    dup_fetch: bool = False,
 ):
     """One flat block of pixels -> ``(mean radiance (B, 3), segments (B,))``
     plus, with ``with_bounce_counts``, the (max_bounce + 1,) live counts of
@@ -427,7 +452,8 @@ def render_block(
     is sequential: one PCG state runs through all of a pixel's samples
     (RayTracing.shader:374-385). ``cfg.fast_scatter`` picks the 2-draw
     scatter sampler; ``cfg.adaptive_spp`` is not read here (see
-    ``render_frames_plain``)."""
+    ``render_frames_plain``). ``dup_fetch`` sets that profiling knob
+    (``ops/trace.fetch_again``)."""
     x = pix_idx % cfg.width
     y = pix_idx // cfg.width
     state = rng_ops.seed(pix_idx, frame)
@@ -442,6 +468,7 @@ def render_block(
         state, light, s = trace(
             state, origin, direction, scene, cfg.max_bounce,
             intersect_fn=intersect_fn, fast_scatter=cfg.fast_scatter,
+            dup_fetch=dup_fetch,
         )
         total = total + light
         segs = segs + s
@@ -453,7 +480,8 @@ def render_block(
     return mean, segs
 
 
-def _render_frame_plain(scene, camera, cfg, frame, y0, y1, intersect_fn):
+def _render_frame_plain(scene, camera, cfg, frame, y0, y1, intersect_fn,
+                        dup_fetch):
     dev = scene.device
     imgs, segs, counts = [], [], []
     start, stop = y0 * cfg.width, y1 * cfg.width
@@ -463,7 +491,8 @@ def _render_frame_plain(scene, camera, cfg, frame, y0, y1, intersect_fn):
         img, s, c = render_block(scene, camera, cfg, frame, pix,
                                  intersect_fn=intersect_fn,
                                  with_bounce_counts=True,
-                                 n_real=stop - start - i * block_size)
+                                 n_real=stop - start - i * block_size,
+                                 dup_fetch=dup_fetch)
         imgs.append(img)
         segs.append(s)
         counts.append(c)
@@ -489,6 +518,7 @@ def render_frames_plain(
     rows: tuple[int, int] | None = None,
     groups: np.ndarray | None = None,
     intersect_fn=None,
+    probe: str | None = None,
 ):
     """The plain PyTorch version of the kernel, on the scene's device.
 
@@ -515,11 +545,18 @@ def render_frames_plain(
     made of whole groups. This makes a full-width check of the kernel
     affordable at large sizes. ``intersect_fn`` is the closest-hit
     function (``ops/trace.trace_segment``); by default the one
-    ``plain_intersector`` picks for ``cfg.intersector``.
+    ``plain_intersector`` picks for ``cfg.intersector``. ``probe``, one of
+    ``PROBES``, sets that profiling knob (``ops/trace.dup_intersect`` on
+    the closest-hit function, or ``ops/trace.fetch_again``); the image,
+    maps and histogram are those without it.
     """
     _check_frames(n_frames, accum)
+    _check_probe(probe)
     if intersect_fn is None:
         intersect_fn = plain_intersector(scene, cfg)
+    if probe == "dup_intersect":
+        intersect_fn = dup_intersect(intersect_fn)
+    dup_fetch = probe == "dup_fetch"
     y0, y1 = (0, cfg.height) if rows is None else rows
     if not 0 <= y0 < y1 <= cfg.height:
         raise ValueError(f"rows {rows} outside 0..{cfg.height}")
@@ -527,14 +564,15 @@ def render_frames_plain(
         if groups is None:
             groups = warp_groups(cfg.width, cfg.height)
         return _render_adaptive(scene, camera, cfg, frame0, n_frames, accum,
-                                collect_stats, y0, y1, groups, intersect_fn)
+                                collect_stats, y0, y1, groups, intersect_fn,
+                                dup_fetch)
     total = 0
     segs_map = 0
     hist = 0
     for k in range(n_frames):
         frame = (int(frame0) + k) & 0xFFFFFFFF
         img, s, m, h = _render_frame_plain(scene, camera, cfg, frame, y0, y1,
-                                           intersect_fn)
+                                           intersect_fn, dup_fetch)
         if accum is not None:
             img = accum = accumulate(accum, img, frame, clamp=cfg.clamp_accumulate)
         total = total + s
@@ -588,7 +626,7 @@ def _band_groups(groups: np.ndarray, width: int, y0: int, y1: int):
 
 
 def _render_adaptive(scene, camera, cfg, frame0, n_frames, accum,
-                     collect_stats, y0, y1, groups, intersect_fn):
+                     collect_stats, y0, y1, groups, intersect_fn, dup_fetch):
     """Adaptive sample refill, the TPU kernel's slot loop
     (``megakernel.py:1802-2134``) vectorised over lanes, one lane a pixel.
 
@@ -614,7 +652,8 @@ def _render_adaptive(scene, camera, cfg, frame0, n_frames, accum,
     for g0 in range(0, band.shape[0], per_block):
         pix = torch.from_numpy(band[g0:g0 + per_block]).to(dev)
         _adaptive_block(scene, camera, cfg, int(frame0), n_frames, pix,
-                        y0 * w, acc, img, seg_map, hist, intersect_fn)
+                        y0 * w, acc, img, seg_map, hist, intersect_fn,
+                        dup_fetch)
     return (
         img.reshape(y1 - y0, w, 3),
         seg_map.sum(dtype=torch.int64),
@@ -624,7 +663,7 @@ def _render_adaptive(scene, camera, cfg, frame0, n_frames, accum,
 
 
 def _adaptive_block(scene, camera, cfg, frame0, n_frames, groups, offset,
-                    acc_in, img, seg_map, hist, intersect_fn):
+                    acc_in, img, seg_map, hist, intersect_fn, dup_fetch):
     """The slot machine over one block of groups ((Gb, P) pixel indices);
     writes its pixels of ``img``, ``seg_map`` and ``hist`` (band-local
     pixel index = global index - ``offset``)."""
@@ -689,6 +728,7 @@ def _adaptive_block(scene, camera, cfg, frame0, n_frames, groups, offset,
             state[pi], o[pi], d[pi], incoming[pi], colour[pi],
             torch.ones_like(bc_i, dtype=torch.bool), bc_i, scene,
             intersect_fn=intersect_fn, fast_scatter=cfg.fast_scatter,
+            dup_fetch=dup_fetch,
         )
         cont = cont & (bc_i < mb)
         died = ~cont
@@ -738,25 +778,41 @@ def _check_frames(n_frames: int, accum) -> None:
         raise ValueError("n_frames > 1 requires an accumulator image")
 
 
+def _check_probe(probe) -> None:
+    if probe is not None and probe not in PROBES:
+        raise ValueError(f"probe must be None or one of {PROBES}, got {probe!r}")
+
+
 # --------------------------------- kernel -----------------------------------
 
 
+_VP, _CI = ctypes.c_void_p, ctypes.c_int
+# rtx_render's arguments; rtx_render_probe takes a Probe value before them
+_RENDER_ARGTYPES = [
+    _CI, _VP, _VP, _VP, _CI, _VP, _CI, _CI, _VP, _VP, _VP, _VP, _CI, _VP, _CI,
+    _CI, _VP, _VP, _CI, _VP, _VP, _CI, _CI, _CI, _CI, _CI, _CI, ctypes.c_uint,
+    _CI, _VP, _CI, _CI, _CI, _VP, _VP, _VP, _VP,
+]
+
+
 def _bind(lib) -> None:
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.rtx_render.argtypes = [
-        ci, vp, vp, vp, ci, vp, ci, ci, vp, vp, vp, vp, ci, vp, ci, ci, vp,
-        vp, ci, vp, vp, ci, ci, ci, ci, ci, ci, ctypes.c_uint, ci, vp, ci, ci,
-        ci, vp, vp, vp, vp,
-    ]
-    lib.rtx_render.restype = ci
-    lib.rtx_shared_bytes.argtypes = [ci, ci, ci, ci, ci, ci]
+    lib.rtx_render.argtypes = _RENDER_ARGTYPES
+    lib.rtx_render.restype = _CI
+    lib.rtx_shared_bytes.argtypes = [_CI] * 6
     lib.rtx_shared_bytes.restype = ctypes.c_size_t
-    lib.rtx_occupancy.argtypes = [ci, ci, ci, ctypes.c_size_t]
-    lib.rtx_occupancy.restype = ci
+    lib.rtx_occupancy.argtypes = [_CI, _CI, _CI, ctypes.c_size_t]
+    lib.rtx_occupancy.restype = _CI
+
+
+def _bind_probes(lib) -> None:
+    lib.rtx_render_probe.argtypes = [_CI] + _RENDER_ARGTYPES
+    lib.rtx_render_probe.restype = _CI
 
 
 class PathTraceKernel:
-    """Builds, loads and launches ``csrc/megakernel.cu``.
+    """Builds, loads and launches ``csrc/megakernel.cu``: the production
+    library, and at the first launch with a profiling knob the probe library
+    (the same source with ``-DRTX_PROBES``).
 
     ``variant_launches`` counts the kernel launches this object made, by
     instantiation (``variant``); only ``launch`` adds to it."""
@@ -764,6 +820,9 @@ class PathTraceKernel:
     def __init__(self):
         self.variant_launches: collections.Counter = collections.Counter()
         self.library = CudaLibrary("megakernel.cu", "megakernel", _bind)
+        self.probe_library = CudaLibrary(
+            "megakernel.cu", "megakernel_probes", _bind_probes,
+            flags=NVCC_FLAGS + ("-DRTX_PROBES",))
 
     @property
     def build_info(self) -> BuildInfo | None:
@@ -812,6 +871,7 @@ class PathTraceKernel:
         accum: torch.Tensor | None,
         collect_stats: bool,
         rows: tuple[int, int] | None = None,
+        probe: str | None = None,
     ):
         """One launch over the rows ``rows=(y0, y1)`` of the frame (the
         whole frame by default; ``band_rows`` says which bands a launch
@@ -822,8 +882,19 @@ class PathTraceKernel:
         the image and the per-pixel map hold ``y1 - y0`` rows. Reads
         nothing back from the device and does not synchronise, except at a
         scene's first launch, which reads its sphere arrays back to cluster
-        them (``geometry_tables``)."""
+        them (``geometry_tables``).
+
+        ``probe``, one of ``PROBES``, launches that profiling instantiation
+        from the probe library, built at first use; with the Box-Muller
+        sampler only (fast scatter raises). A failing build or launch
+        raises: there is no fall back to the production kernel."""
         _check_frames(n_frames, accum)
+        _check_probe(probe)
+        if probe is not None and cfg.fast_scatter:
+            raise NotImplementedError(
+                "the probe library compiles the profiling instantiations "
+                "with the Box-Muller sampler only: fast_scatter=False"
+            )
         y0, y1 = band_rows(cfg, rows)
         dev = scene.device
         if dev.type != "cuda":
@@ -843,7 +914,9 @@ class PathTraceKernel:
             raise ValueError(
                 f"camera on {camera.position.device}, scene on {dev}"
             )
-        lib = self.library.lib
+        library = self.library if probe is None else self.probe_library
+        render = (library.lib.rtx_render if probe is None else functools.partial(
+            library.lib.rtx_render_probe, 1 + PROBES.index(probe)))
         geom = geometry(scene, cfg)
         tab = scene_tables(scene, camera, cfg)
         n_sph = tab.spheres.shape[0]
@@ -872,7 +945,7 @@ class PathTraceKernel:
             return None if t is None or t.numel() == 0 else t.data_ptr()
 
         with torch.cuda.device(dev):
-            rc = lib.rtx_render(
+            rc = render(
                 code, ptr(tab.spheres), ptr(tab.sphere_orig),
                 ptr(tab.sphere_mat), n_sph, ptr(tab.clusters), n_clusters,
                 tab.n_hoist, ptr(tab.tri_rows), ptr(tab.tri_normals), ptr(tab.tri_mat),
@@ -885,9 +958,9 @@ class PathTraceKernel:
                 int(cfg.fast_scatter), ptr(out), ptr(segs), ptr(hist),
                 torch.cuda.current_stream(dev).cuda_stream,
             )
-        self.library.check(rc, "megakernel")
+        library.check(rc, "megakernel")
         self.variant_launches[variant(
-            geom, cfg.adaptive_spp, cfg.fast_scatter
+            geom, cfg.adaptive_spp, cfg.fast_scatter, probe
         )] += 1
         return out, segs.sum(dtype=torch.int64), segs, hist
 
@@ -1190,6 +1263,7 @@ def render_frames_mega(
     accum: torch.Tensor | None = None,
     collect_stats: bool = False,
     rows: tuple[int, int] | None = None,
+    probe: str | None = None,
 ):
     """Render ``n_frames`` frames from ``frame0`` (folded into ``accum``
     when given) -> ``(image, total segments, per-pixel segments, bounce
@@ -1204,17 +1278,57 @@ def render_frames_mega(
     ``rows=(y0, y1)`` renders a band of the frame's rows, on both devices
     under ``band_rows``'s rule: ``accum``, the image and the per-pixel map
     hold ``y1 - y0`` rows, and they equal those rows of the whole frame's
-    bit for bit (the multi-GPU split, ``parallel/sharding.py``)."""
+    bit for bit (the multi-GPU split, ``parallel/sharding.py``).
+
+    ``probe``, one of ``PROBES``, sets that profiling knob: on the card the
+    probe library's instantiation (``PathTraceKernel.launch``), on the CPU
+    the plain version's (``render_frames_plain``); the outputs are those
+    without it."""
     dev = scene.device
     if dev.type == "cpu":
         band_rows(cfg, rows)  # the kernel's rule (launch checks it there)
         return render_frames_plain(
             scene, camera, cfg, frame0, n_frames, accum, collect_stats,
-            rows=rows,
+            rows=rows, probe=probe,
         )
     if dev.type == "cuda":
         return KERNEL.launch(
             scene, camera, cfg, frame0, n_frames, accum, collect_stats,
-            rows=rows,
+            rows=rows, probe=probe,
         )
     raise ValueError(f"no render path for device {dev}")
+
+
+def render_frame_mega(
+    scene: Scene,
+    camera: Camera,
+    cfg: RenderConfig,
+    frame,
+    stub_fetch: bool = False,
+    stub_intersect: bool = False,
+    dup_intersect: bool = False,
+    dup_fetch: bool = False,
+):
+    """One frame through the path-trace kernel (on the CPU its plain
+    version) -> ``(image (H, W, 3) f32, total segments)``: the JAX package's
+    ``render_frame_mega`` (``megakernel.py:2285``) with its profiling
+    knobs. ``dup_intersect`` runs each segment's closest hit twice,
+    ``dup_fetch`` its winner's fetch; the image and total are those without
+    the knob (``render_frames_mega(..., probe=)``). No caller sets both, and
+    both raise. ``stub_fetch`` and ``stub_intersect`` raise
+    NotImplementedError (ROADMAP.md "Not ported")."""
+    if stub_fetch or stub_intersect:
+        raise NotImplementedError(
+            "stub_fetch and stub_intersect are not ported (ROADMAP.md, "
+            "\"Not ported\"): stub_fetch returns constants from the TPU "
+            "kernel's fetch table, which the port does not have, and both "
+            "change the rays' paths; tools/profile_mega.py uses dup_intersect "
+            "and dup_fetch"
+        )
+    if dup_intersect and dup_fetch:
+        raise ValueError("set at most one of dup_intersect and dup_fetch")
+    probe = ("dup_intersect" if dup_intersect
+             else "dup_fetch" if dup_fetch else None)
+    img, total, _, _ = render_frames_mega(scene, camera, cfg, frame,
+                                          probe=probe)
+    return img, total

@@ -35,6 +35,10 @@ class HitRecord:
     point: torch.Tensor  # (B, 3) f32
     normal: torch.Tensor  # (B, 3) f32
     mat_idx: torch.Tensor  # (B,) int64, 0 on a miss
+    # (B,) int64: the winner, a sphere's index below the scene's sphere
+    # count and a triangle's from there on (the profiling knob dup_fetch
+    # reads its rows again, ops/trace.py)
+    index: torch.Tensor
 
 
 def _pair_dots(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -157,4 +161,5 @@ def hit_record(o, d, scene: Scene, t, best) -> HitRecord:
         scene.triangles.mat_idx[tri_idx],
     ).long()
     mat_idx = torch.where(hit, mat_idx, 0)
-    return HitRecord(hit=hit, t=t, point=point, normal=normal, mat_idx=mat_idx)
+    return HitRecord(hit=hit, t=t, point=point, normal=normal, mat_idx=mat_idx,
+                     index=best)

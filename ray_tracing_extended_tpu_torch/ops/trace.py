@@ -15,6 +15,8 @@ on a miss, the environment light and death.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from ..models.geometry import Scene
@@ -28,6 +30,52 @@ from .materials import checker_colour, passthrough_mask, scatter
 PASSTHROUGH_EPS = 0.001
 
 
+def dup_intersect(intersect_fn):
+    """``intersect_fn`` under the profiling knob ``dup_intersect`` (the TPU
+    kernel's, ``megakernel.py:2030-2043``; the CUDA kernel's
+    ``kDupIntersect``): the closest hit a second time from the origin with
+    ``x + 1e-30``, folded as ``t = fmin(t, t2 + 1e30)``, which changes no
+    hit's distance; the first call's winner and hit record stay."""
+
+    def fn(o, d, scene):
+        hit = intersect_fn(o, d, scene)
+        o2 = torch.cat([o[:, :1] + 1e-30, o[:, 1:]], dim=1)
+        t2 = intersect_fn(o2, d, scene).t
+        return dataclasses.replace(hit, t=torch.fmin(hit.t, t2 + 1e30))
+
+    return fn
+
+
+def fetch_again(scene: Scene, index, base):
+    """``base`` (B, 3) under the profiling knob ``dup_fetch`` (the TPU
+    kernel's, ``megakernel.py:1463-1469``; the CUDA kernel's ``kDupFetch``
+    and its ``fetch_again``): the winner's rows (a sphere's centre and
+    radius, or a triangle's vertex, edges, normal and vertex normals), its
+    material index and the 14 values of its material, read a second time
+    through the index ``where(index < -1, index + 1, index)`` and summed,
+    folded into the red channel as ``fmin(r, |sum| + 1e30)``, which changes
+    no colour (``fmin`` drops a NaN operand)."""
+    i = torch.where(index < -1, index + 1, index)
+    sph, tri = scene.spheres, scene.triangles
+    s = sph.count
+    is_sphere = i < s
+    si = torch.clamp(i, max=s - 1)
+    ti = torch.clamp(i - s, 0, tri.count - 1)
+    sph_sum = sph.center[si].sum(-1) + sph.radius[si]
+    tri_sum = sum(getattr(tri, f)[ti].sum(-1) for f in (
+        "pos_a", "edge_ab", "edge_ac", "n", "normal_a", "normal_b",
+        "normal_c"))
+    mat = scene.materials.take(
+        torch.where(is_sphere, sph.mat_idx[si], tri.mat_idx[ti]))
+    total = torch.where(is_sphere, sph_sum, tri_sum) + sum(
+        getattr(mat, f).to(torch.float32).reshape(i.shape[0], -1).sum(-1)
+        for f in ("colour", "emission_colour", "specular_colour",
+                  "emission_strength", "smoothness", "specular_probability",
+                  "ior", "flag"))
+    red = torch.fmin(base[:, :1], total.abs()[:, None] + 1e30)
+    return torch.cat([red, base[:, 1:]], dim=1)
+
+
 def trace_segment(
     state: torch.Tensor,
     o: torch.Tensor,
@@ -39,6 +87,7 @@ def trace_segment(
     scene: Scene,
     intersect_fn=None,
     fast_scatter: bool = False,
+    dup_fetch: bool = False,
 ):
     """One bounce of the loop for a batch of lanes: the closest hit of each
     ``alive`` lane and what follows from it.
@@ -47,7 +96,8 @@ def trace_segment(
     the adaptive slot machine sit at different bounces). Returns ``(state,
     o, d, incoming, colour, continues)``: ``continues`` marks the lanes
     whose path goes on (an invisible-light passthrough, or a scatter that
-    survived roulette); the bounce budget is the caller's."""
+    survived roulette); the bounce budget is the caller's. ``dup_fetch``
+    sets the profiling knob of that name (``fetch_again``)."""
     if intersect_fn is None:
         intersect_fn = closest_hit_bruteforce
     # dead lanes are parked far away, pointing away from the scene (+x,
@@ -61,6 +111,8 @@ def trace_segment(
     mat = scene.materials.take(hit.mat_idx)
 
     base_colour = checker_colour(mat, hit.point)
+    if dup_fetch:
+        base_colour = fetch_again(scene, hit.index, base_colour)
     passthru = passthrough_mask(mat, bounce_idx, did_hit)
     scattering = did_hit & ~passthru
 
@@ -105,13 +157,15 @@ def trace(
     intersect_fn=None,
     with_bounce_counts: bool = False,
     fast_scatter: bool = False,
+    dup_fetch: bool = False,
 ):
     """Trace a batch of rays to completion.
 
     ``state`` (B,) PCG states; ``origin``/``direction`` (B, 3) with unit
     directions. Bounces run ``0..max_bounce`` inclusive. ``intersect_fn``
     ``(o, d, scene) -> HitRecord`` defaults to the brute-force scan;
-    ``fast_scatter`` picks the 2-draw unit-vector sampler.
+    ``fast_scatter`` picks the 2-draw unit-vector sampler; ``dup_fetch``
+    sets the profiling knob of that name (``trace_segment``).
 
     Returns ``(state, incoming_light (B, 3), segments (B,) int32)``: a
     segment is one scene intersection of a live lane. With
@@ -136,6 +190,7 @@ def trace(
         state, o, d, incoming, colour, alive = trace_segment(
             state, o, d, incoming, colour, alive, bounce_idx, scene,
             intersect_fn=intersect_fn, fast_scatter=fast_scatter,
+            dup_fetch=dup_fetch,
         )
 
     if with_bounce_counts:

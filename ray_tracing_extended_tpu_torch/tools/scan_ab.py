@@ -12,8 +12,10 @@ and compare two trees only within one run of commands on one card, in turns
 (parent, change, change, parent). Per configuration it prints one JSON line:
 the K = 4 frame fold from a seeded accumulator (frame0 = 1), its CUDA-event
 time a frame (median and least of ``--reps`` calls after a warm-up), the
-segment total and the image mean; first a line with the card, and the
-registers and spill bytes of every kernel entry from ``ptxas -v``.
+segment total and the image mean; first a line with the card, the
+registers and spill bytes of every kernel entry from ``ptxas -v``, and a
+digest of each entry's SASS (``cuobjdump -sass``, branch labels numbered
+within the entry), equal on two trees exactly where their machine code is.
 
 Configurations: RTIOW 1920x1080, 16 spp, 4 bounces; Chess at its shipped
 settings (1280x720, 3 spp, 15 bounces); Cornell 512x512, 4 spp, 8 bounces;
@@ -28,8 +30,10 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import hashlib
 import json
 import re
+import shutil
 import statistics
 import subprocess
 from pathlib import Path
@@ -40,25 +44,59 @@ SEED = 0
 K_FRAMES = 4
 
 
+def _entry(ln: str):
+    """The kernel entry a line names, ``render_kernel<geometry,scatter>``,
+    or None."""
+    m = re.search(r"(render_kernel|render_adaptive)IL\w*?E(\d)EL\w*?E(\d)E", ln)
+    return f"{m.group(1)}<{m.group(2)},{m.group(3)}>" if m else None
+
+
 def _ptxas(log: str) -> dict:
     """{entry: [registers, spill store bytes, spill load bytes]} from
     ``ptxas -v``; an entry's stack line is the one right after its
     "Function properties" line."""
     out, entry, own = {}, None, False
     for ln in log.splitlines():
-        m = re.search(r"(render_kernel|render_adaptive)IL\w*?E(\d)EL\w*?E(\d)E",
-                      ln)
         if "Compiling entry function" in ln:
-            entry = f"{m.group(1)}<{m.group(2)},{m.group(3)}>" if m else None
+            entry = _entry(ln)
             if entry:
                 out[entry] = [None, None, None]
         elif "Function properties for" in ln:
-            own = bool(m) and entry == f"{m.group(1)}<{m.group(2)},{m.group(3)}>"
+            own = entry is not None and _entry(ln) == entry
         elif entry and (r := re.search(r"Used (\d+) registers", ln)):
             out[entry][0] = int(r.group(1))
         elif entry and own and "bytes spill stores" in ln:
             out[entry][1] = int(re.search(r"(\d+) bytes spill stores", ln).group(1))
             out[entry][2] = int(re.search(r"(\d+) bytes spill loads", ln).group(1))
+    return out
+
+
+def _sass(library: Path) -> dict:
+    """{entry: sha256 prefix of its SASS} from ``cuobjdump -sass`` beside
+    nvcc (None without one); each ``.L_x_N`` branch label is renumbered in
+    its order within the entry, so the digest does not depend on the
+    entries around it."""
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    tool = Path(nvcc).with_name("cuobjdump")
+    if not tool.exists():
+        return None
+    text = subprocess.run([str(tool), "-sass", str(library)],
+                          capture_output=True, text=True, check=True).stdout
+    bodies, entry = {}, None
+    for ln in text.splitlines():
+        if "Function :" in ln:
+            entry = _entry(ln)
+            if entry:
+                bodies[entry] = []
+        elif entry:
+            bodies[entry].append(ln.strip())
+    out = {}
+    for entry, lines in bodies.items():
+        labels = {}
+        body = re.sub(r"\.L_x_\d+",
+                      lambda m: labels.setdefault(m.group(0), f"L{len(labels)}"),
+                      "\n".join(lines))
+        out[entry] = hashlib.sha256(body.encode()).hexdigest()[:16]
     return out
 
 
@@ -97,7 +135,8 @@ def main(argv=None) -> int:
     info = mk.KERNEL.build()
     emit(phase="build", gpu=smi, package=str(Path(rtt.__file__).parent),
          super_chunks=getattr(mk, "SUPER_CHUNKS", None),
-         build_s=info.seconds, ptxas=_ptxas(info.log))
+         build_s=info.seconds, ptxas=_ptxas(info.log),
+         sass=_sass(info.library))
 
     dev = torch.device("cuda", 0)
     scenes = {

@@ -1,7 +1,7 @@
 """The CUDA kernels on the card: the path-trace kernel against its plain
 PyTorch version, its launch count and outputs, its band launches against
-its whole-frame launch, and what it refuses; the two roofline probes
-against theirs.
+its whole-frame launch, and what it refuses; its profiling instantiations
+against their production twins; the two roofline probes against theirs.
 
 Every test here needs a CUDA device and skips without one. This file
 imports no JAX, so it also runs where only PyTorch is installed:
@@ -20,6 +20,7 @@ import ray_tracing_extended_tpu_torch as rtt
 from ray_tracing_extended_tpu_torch.kernels import megakernel as mk
 from ray_tracing_extended_tpu_torch.models import presets
 from ray_tracing_extended_tpu_torch.tools import pairblock_roofline as pairblock
+from ray_tracing_extended_tpu_torch.tools import profile_mega
 from ray_tracing_extended_tpu_torch.tools import vpu_roofline as vpu
 
 pytestmark = pytest.mark.cuda
@@ -805,3 +806,75 @@ def test_debug_mode_on_the_card(cuda):
         with pytest.raises(FloatingPointError,
                            match=r"y=20, x=30 \(channel 0\) of frames 1-4"):
             rtt.render_frames_and_accumulate(scene, cam, cfg, acc, 1, 4)
+
+
+@pytest.mark.parametrize("adaptive", [False, True], ids=["exact", "refill"])
+@pytest.mark.parametrize("name", ["rtiow", "cornell", "chess", "mesh"])
+def test_dup_instantiations_equal_their_twins(cuda, name, adaptive):
+    """Each profiling instantiation of the probe library (dup_intersect,
+    dup_fetch) renders its production twin's image, per-pixel segments and
+    total bit for bit, in a frame and in a K = 4 fold; each launch is
+    counted under its own name."""
+    if name == "rtiow":
+        scene, cam, cfg = presets.rtiow_final_scene(width=96, height=54, spp=4)
+    else:
+        scene, cam, cfg = _triangle_scene(name, width=96, height=54, spp=2)
+    cfg = dataclasses.replace(cfg, adaptive_spp=adaptive)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    acc0 = 2.0 * torch.rand((54, 96, 3), generator=gen, device=cuda)
+    ref = (mk.render_frames_mega(scene, cam, cfg, 3),
+           mk.render_frames_mega(scene, cam, cfg, 1, 4, accum=acc0))
+    mk.KERNEL.reset_counts()
+    for probe in mk.PROBES:
+        out = (mk.render_frames_mega(scene, cam, cfg, 3, probe=probe),
+               mk.render_frames_mega(scene, cam, cfg, 1, 4, accum=acc0,
+                                     probe=probe))
+        for (img, total, seg_map, _), (r_img, r_total, r_map, _) in zip(out, ref):
+            assert torch.equal(img, r_img), probe
+            assert torch.equal(seg_map, r_map), probe
+            assert int(total) == int(r_total), probe
+    geom = mk.geometry(scene, cfg)
+    assert dict(mk.KERNEL.variant_launches) == {
+        mk.variant(geom, adaptive, probe=p): 2 for p in mk.PROBES}
+
+
+@pytest.mark.parametrize("probe", ["dup_intersect", "dup_fetch"])
+def test_dup_instantiations_match_plain_with_the_knob(cuda, probe):
+    """A profiling instantiation against the plain version with the same
+    knob: bench.py's mb1 gate (RTIOW, exact and refill), and
+    ``render_frame_mega`` with the knob returns its frame and total."""
+    scene, cam, cfg = presets.rtiow_final_scene(width=96, height=54, spp=4,
+                                                max_bounce=1)
+    cam = cam.replace(defocus_strength=0.0)
+    for adaptive in (False, True):
+        vcfg = dataclasses.replace(cfg, adaptive_spp=adaptive)
+        k, k_total = mk.render_frame_mega(scene, cam, vcfg, 5, **{probe: True})
+        p = mk.render_frames_plain(scene, cam, vcfg, 5, probe=probe)[0]
+        _, median, channel = _gates(k, p)
+        assert median < 2e-3 and channel < 5e-3, (median, channel)
+        assert int(k_total) == int(mk.render_frames_mega(scene, cam, vcfg, 5)[1])
+
+
+def test_profiling_refuses_fast_scatter_and_stubs(cuda):
+    """The probe library holds the Box-Muller instantiations only; the TPU
+    kernel's stubs are not ported."""
+    scene, cam, cfg = presets.three_sphere_scene(width=16, height=8, spp=1)
+    with pytest.raises(NotImplementedError, match="Box-Muller"):
+        mk.render_frames_mega(
+            scene, cam, dataclasses.replace(cfg, fast_scatter=True), 0,
+            probe="dup_fetch")
+    with pytest.raises(NotImplementedError, match="Not ported"):
+        mk.render_frame_mega(scene, cam, cfg, 0, stub_intersect=True)
+
+
+def test_profile_mega_tool_on_the_card(cuda, capsys):
+    """The tool on the card: a small Cornell box, exact and refill, with
+    the three variants' lines and the split."""
+    for extra in ([], ["--adaptive-spp"]):
+        assert profile_mega.main(["--scene", "preset:cornell", "--width", "64",
+                                  "--height", "64", "--reps", "3", *extra]) == 0
+        out = capsys.readouterr().out.splitlines()
+        assert torch.cuda.get_device_name(0) in out[0]
+        assert [ln.split()[0] for ln in out[1:4]] == [
+            "full", "dup_intersect", "dup_fetch"]
+        assert out[4].startswith("intersect ~ ")
