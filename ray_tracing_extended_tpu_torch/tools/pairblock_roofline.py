@@ -87,6 +87,41 @@ def _encode(tq, idx):
     return torch.where(tq >= 0.0, bits.view(torch.float32), _INF)
 
 
+def root_value(b: torch.Tensor, disc: torch.Tensor, idx,
+               variant: str = "full") -> torch.Tensor:
+    """A root-taking variant's value from ``b`` and ``disc = b^2 - cc``, as
+    the kernel's ``pair``: ``tq = -b - sqrt(disc)`` taken only where
+    ``disc >= 0``, then ``tq`` (noenc) or its wide encode where ``tq >= 0``,
+    else +inf. Where ``disc < 0`` the unguarded root would be NaN and miss
+    as well, so the guard changes no value."""
+    tq = torch.where(disc >= 0.0, -b - vm.sqrt(disc), -_INF)
+    if variant == "noenc":
+        return torch.where(tq >= 0.0, tq, _INF)
+    return _encode(tq, idx)
+
+
+def pair_disc(cx, cy, cz, r2, o, d):
+    """The pair test's ``(b, disc = b^2 - cc)`` an element (all arguments
+    broadcast): the sphere's centre ``cx, cy, cz`` and ``r2`` = r^2, the
+    ray's origin ``o`` and direction ``d`` as three tensors each."""
+    ocx, ocy, ocz = o[0] - cx, o[1] - cy, o[2] - cz
+    b = ocx * d[0] + ocy * d[1] + ocz * d[2]
+    cc = ocx * ocx + ocy * ocy + ocz * ocz - r2
+    return b, b * b - cc
+
+
+def pair_test(cx, cy, cz, r2, idx, o, d, variant: str = "full"):
+    """One pair test an element (arguments as ``pair_disc``'s, and the
+    encode's ``idx``): the value the kernel's ``pair`` gives, +inf on a
+    miss."""
+    b, disc = pair_disc(cx, cy, cz, r2, o, d)
+    if variant == "twophase":
+        return torch.where((disc >= 0.0) & (b < 0.0), -b, _INF)
+    if variant == "nosqrt":
+        return _encode(-b - disc * 0.5, idx)  # exact on every device
+    return root_value(b, disc, idx, variant)
+
+
 def pairblock_plain(rays: torch.Tensor, cols: torch.Tensor,
                     variant: str = "full", steps: int = STEPS,
                     grid: int = GRID) -> torch.Tensor:
@@ -98,24 +133,12 @@ def pairblock_plain(rays: torch.Tensor, cols: torch.Tensor,
     dev = rays.device
     o = [rays[k * RS:(k + 1) * RS] for k in range(3)]  # (RS, 128) each
     d = [rays[(3 + k) * RS:(4 + k) * RS] for k in range(3)]
-    half = torch.tensor(0.5, dtype=torch.float32, device=dev)
     g = torch.arange(RS, device=dev)
     best = torch.full((RS, LANES), _INF, dtype=torch.float32, device=dev)
 
-    def test(q, idx, ox, oy, oz, dx, dy, dz):
-        ocx, ocy, ocz = ox - q[..., 0:1], oy - q[..., 1:2], oz - q[..., 2:3]
-        b = ocx * dx + ocy * dy + ocz * dz
-        cc = ocx * ocx + ocy * ocy + ocz * ocz - q[..., 4:5]
-        if variant == "twophase":
-            disc = b * b - cc
-            return torch.where((disc >= 0.0) & (b < 0.0), -b, _INF)
-        if variant == "nosqrt":
-            tq = -b - (b * b - cc) * half
-        else:
-            tq = -b - vm.sqrt(b * b - cc)
-        if variant == "noenc":
-            return torch.where(tq >= 0.0, tq, _INF)
-        return _encode(tq, idx)
+    def test(q, idx, o, d):
+        return pair_test(*(q[..., k:k + 1] for k in (0, 1, 2, 4)), idx, o, d,
+                         variant)
 
     if variant == "multirow":
         # every row against one cluster's spheres: (SUB, RS, 128)
@@ -125,7 +148,7 @@ def pairblock_plain(rays: torch.Tensor, cols: torch.Tensor,
                 c = (it * 7 + v) % NCL
                 q = cols[c][:, None, :]  # (SUB, 1, 8)
                 idx = ((c << 5) | k).to(torch.int32)[:, None, None]
-                enc = test(q, idx, *(x[None] for x in o), *(x[None] for x in d))
+                enc = test(q, idx, [x[None] for x in o], [x[None] for x in d])
                 best = torch.minimum(enc.amin(dim=0), best)
     else:
         fuse = int(variant[-1]) if variant.startswith("multisub") else 1
@@ -136,8 +159,8 @@ def pairblock_plain(rays: torch.Tensor, cols: torch.Tensor,
                 c = (it * 7 + g * 3 + v) % (NCL // fuse)  # (RS,)
                 q = table[c]  # (RS, fuse * SUB, 8)
                 idx = ((c[:, None] << 5) | s[None, :]).to(torch.int32)[..., None]
-                enc = test(q, idx, *(x[:, None] for x in o),
-                           *(x[:, None] for x in d))
+                enc = test(q, idx, [x[:, None] for x in o],
+                           [x[:, None] for x in d])
                 visit_min = enc.amin(dim=1)
                 best = (visit_min if variant == "nomin"
                         else torch.minimum(visit_min, best))

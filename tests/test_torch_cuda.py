@@ -11,6 +11,7 @@ imports no JAX, so it also runs where only PyTorch is installed:
 
 import dataclasses
 import pathlib
+import re
 
 import numpy as np
 import pytest
@@ -682,14 +683,23 @@ def test_vpu_kernel_matches_plain(cuda):
 @pytest.mark.parametrize("variant", pairblock.VARIANTS)
 def test_pairblock_kernel_matches_plain(cuda, variant):
     """Each pair-block variant's kernel against the plain version on the
-    same CUDA tensors, bit for bit, at reduced steps and grid."""
+    same CUDA tensors, bit for bit, one launch counted each: steps 1 and 3
+    (fewer than the kernel's kSplit threads a ray), kSplit + 1 (a remainder)
+    and the tool's 64, on grids of 1 and 2."""
+    split = int(re.search(r"constexpr int kSplit = (\d+);",
+                          pairblock.LIBRARY.source.read_text()).group(1))
     rays, cols = (torch.from_numpy(a).to(cuda) for a in pairblock.make_inputs())
     before = pairblock.LAUNCHES[variant]
-    k = pairblock.pairblock(rays, cols, variant, steps=3, grid=2)
-    p = pairblock.pairblock_plain(rays, cols, variant, steps=3, grid=2)
-    assert k.shape == (16, 128)
-    assert torch.equal(k.view(torch.int32), p.view(torch.int32))
-    assert pairblock.LAUNCHES[variant] == before + 1
+    cases = [(steps, grid) for steps in (1, 3, split + 1, pairblock.STEPS)
+             for grid in (1, 2)]
+    for steps, grid in cases:
+        k = pairblock.pairblock(rays, cols, variant, steps=steps, grid=grid)
+        p = pairblock.pairblock_plain(rays, cols, variant, steps=steps,
+                                      grid=grid)
+        assert k.shape == (8 * grid, 128)
+        assert torch.equal(k.view(torch.int32), p.view(torch.int32)), (
+            steps, grid)
+    assert pairblock.LAUNCHES[variant] == before + len(cases)
 
 
 # ---- the scene entry: native LBVH, FBX and Unity scenes, compare, debug ----

@@ -132,6 +132,109 @@ def test_pairblock_matches_jax_kernel_interpret(monkeypatch, variant):
     assert tpb.LAUNCHES[variant] == 0
 
 
+# The root only where disc >= 0 (the kernel's and the plain version's
+# form) against the unguarded numpy float32 formula, bit for bit: where
+# disc < 0 the unguarded root is NaN, the hit test fails and both give
+# +inf; -0.0 >= 0 holds, so -0.0 takes the same root.
+ROOT_VARIANTS = ("full", "noenc", "nomin", "multisub2", "multisub4",
+                 "multirow")
+_F32 = np.float32
+
+
+def _unguarded(b, disc, idx, variant):
+    with np.errstate(invalid="ignore"):
+        tq = -b - np.sqrt(disc)
+    assert tq.dtype == np.float32
+    if variant == "noenc":
+        return np.where(tq >= 0, tq, _F32(np.inf))
+    enc = ((tq.view(np.int32) & ~2047) | idx).view(np.float32)
+    return np.where(tq >= 0, enc, _F32(np.inf))
+
+
+def _same_bits(ours, ref):
+    ours = ours.numpy()
+    assert ours.dtype == ref.dtype == np.float32
+    assert np.array_equal(ours.view(np.int32), ref.view(np.int32)), (ours, ref)
+
+
+# (b, disc): disc +0.0 and -0.0 with b of either sign and zero, denormal
+# discs of either sign, disc < 0 with b < 0, a hit, a root behind the origin
+EDGE_B_DISC = [
+    (-3.0, 0.0), (-3.0, -0.0), (0.0, 0.0), (0.0, -0.0), (-0.0, 0.0),
+    (-0.0, -0.0), (2.0, -0.0), (0.0, 2.0 ** -149), (-1e-20, 2.0 ** -140),
+    (-0.0, 2.0 ** -126), (1e-30, 2.0 ** -149), (-5.0, -(2.0 ** -149)),
+    (-5.0, -3.0), (-1e-3, -1e-30), (-5.0, 1.0), (5.0, 1.0), (0.3, 1.5),
+]
+
+
+@pytest.mark.parametrize("variant", ROOT_VARIANTS)
+def test_pairblock_guarded_root_matches_unguarded_on_edges(variant):
+    b, disc = (np.array(x, np.float32) for x in zip(*EDGE_B_DISC))
+    idx = np.arange(len(b), dtype=np.int32) * 37
+    ours = tpb.root_value(torch.from_numpy(b), torch.from_numpy(disc),
+                          torch.from_numpy(idx), variant)
+    ref = _unguarded(b, disc, idx, variant)
+    _same_bits(ours, ref)
+    assert np.isfinite(ref).sum() >= 4  # hits among the cases
+
+
+def test_pairblock_guarded_root_matches_unguarded_sweep():
+    """A seeded sweep of b and disc over magnitudes 2^-149 to 2^60, both
+    signs, with the exact zeros mixed in."""
+    rng = np.random.default_rng(11)
+    n = 200_000
+    mant = rng.uniform(1.0, 2.0, size=(2, n))
+    expo = rng.integers(-149, 61, size=(2, n))
+    sign = rng.choice([-1.0, 1.0], size=(2, n))
+    b, disc = (sign * np.ldexp(mant, expo)).astype(np.float32)
+    disc[::97] = 0.0
+    disc[1::97] = -0.0
+    b[2::89] = -0.0
+    idx = rng.integers(0, 512, size=n, dtype=np.int32)
+    for variant in ("full", "noenc"):
+        ours = tpb.root_value(torch.from_numpy(b), torch.from_numpy(disc),
+                              torch.from_numpy(idx), variant)
+        _same_bits(ours, _unguarded(b, disc, idx, variant))
+
+
+# (centre, r^2, origin, direction, what disc is there): the pair test from
+# the ray and the sphere
+EDGE_GEOMETRY = {
+    "tangent": ((0, 0, 0), 1.0, (1, 0, -5), (0, 0, 1), "zero"),
+    "denormal_disc": ((0, 0, 0), 2.0 ** -127, (0, 2.0 ** -64, 0), (1, 0, 0),
+                      "denormal"),
+    "miss_in_front": ((0, 0, 0), 1.0, (2, 0, -5), (0, 0, 1), "negative"),
+    "origin_inside": ((0, 0, 0), 1.0, (0.1, 0.2, 0.3), (0.6, 0, 0.8),
+                      "positive"),
+    "hit": ((0, 0, 0), 1.0, (0, 0, -5), (0, 0, 1), "positive"),
+    "behind": ((0, 0, 0), 1.0, (0, 0, 5), (0, 0, 1), "positive"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(EDGE_GEOMETRY))
+def test_pairblock_guarded_pair_test_matches_unguarded(case):
+    centre, r2, o, d, kind = EDGE_GEOMETRY[case]
+    c = [np.array([x], np.float32) for x in centre]
+    o = [np.array([x], np.float32) for x in o]
+    d = [np.array([x], np.float32) for x in d]
+    r2 = np.array([r2], np.float32)
+    oc = [o[k] - c[k] for k in range(3)]
+    b = oc[0] * d[0] + oc[1] * d[1] + oc[2] * d[2]
+    cc = oc[0] * oc[0] + oc[1] * oc[1] + oc[2] * oc[2] - r2
+    disc = b * b - cc
+    assert {"zero": disc == 0, "negative": disc < 0,
+            "positive": disc >= 2.0 ** -126,
+            "denormal": (disc > 0) & (disc < 2.0 ** -126)}[kind].all()
+    assert case != "miss_in_front" or (b < 0).all()
+    assert case != "origin_inside" or (cc < 0).all()
+    idx = np.array([(5 << 5) | 7], np.int32)
+    t = torch.from_numpy
+    for variant in ROOT_VARIANTS:
+        ours = tpb.pair_test(*map(t, c), t(r2), t(idx), tuple(map(t, o)),
+                             tuple(map(t, d)), variant)
+        _same_bits(ours, _unguarded(b, disc, idx, variant))
+
+
 def test_pairblock_inputs_and_counts():
     """The JAX tool's rng(7) sequence, and its pair count."""
     rays, cols = tpb.make_inputs()
