@@ -1,4 +1,5 @@
-"""Command-line entry points of the port: ``render`` and ``compare``.
+"""Command-line entry points of the port: ``render``, ``benchmark`` and
+``compare``.
 
     python -m ray_tracing_extended_tpu_torch.cli render \\
         --scene scenes/chess.json --adaptive-spp --frames 16 \\
@@ -14,6 +15,7 @@
         --mesh 1x4 --frames 16 --out rtiow.png
     python -m ray_tracing_extended_tpu_torch.cli compare --scene preset:mesh \\
         --a mega --b bruteforce
+    python -m ray_tracing_extended_tpu_torch.cli benchmark
 
 Counterpart of ``ray_tracing_extended_tpu/cli.py`` with the same flags,
 plus ``--device`` (default ``cuda``; ``cpu`` takes the plain PyTorch path).
@@ -27,9 +29,14 @@ step); with ``--device cpu`` every band runs on the CPU.
 
 ``compare`` renders one frame under two intersectors and gives the JAX
 command's verdict, and names the path each side took (on the card the
-kernel's instantiation: some pairs take the same one). The JAX CLI's
-``benchmark`` command is not here: it runs the TPU benchmark
-(``bench.py``), and the port's benchmark is ROADMAP.md's Queue A item 8.
+kernel's instantiation: some pairs take the same one).
+
+``benchmark`` runs the port's canonical benchmark
+(``ray_tracing_extended_tpu_torch/bench.py``, the counterpart of the repo's
+``bench.py``, which the JAX CLI's ``benchmark`` runs): its gates, four
+secondary JSON lines, then the headline line (Mrays/s on RTIOW 1080p, 4
+bounces, 16 spp) last, on ``--device`` (default ``cuda``). Without CUDA it
+prints an error line and exits 1; it never falls back to the CPU.
 """
 
 from __future__ import annotations
@@ -193,6 +200,13 @@ def cmd_render(args):
     return 0
 
 
+def cmd_benchmark(args):
+    from .bench import run
+
+    run(args.device)
+    return 0
+
+
 def cmd_compare(args):
     """Render the same frame with two intersectors and report agreement:
     the JAX command's statistics, thresholds and exit codes (0 agree, 1
@@ -292,6 +306,11 @@ def main(argv=None):
                    help="write a torch.profiler Chrome trace to this dir")
     r.add_argument("--verbose", action="store_true")
     r.set_defaults(fn=cmd_render)
+
+    b = sub.add_parser("benchmark", help="canonical Mrays/s benchmark")
+    b.add_argument("--device", default="cuda",
+                   help="torch device to measure (default cuda)")
+    b.set_defaults(fn=cmd_benchmark)
 
     c = sub.add_parser("compare", help="cross-intersector agreement check")
     _add_scene_args(c)

@@ -19,15 +19,22 @@
 // o - a forms, as the TPU kernel does; the plain version in the expanded
 // forms) and where the device's transcendentals round differently.
 //
-// Two kernels, each instantiated for three scene geometries, always with
-// the sphere tables in shared memory: kSpheres (spheres only); kChunks (the
-// chunk table, each chunk's AABB and triangle range, in shared memory too;
-// the triangles of the chunks that pass the gate below run the
-// backface-culled Moller-Trumbore test on 12-float rows read through the
-// read-only cache); kBvh (the triangles through the scene's LBVH in global
-// memory, below). And for the scatter sampler (kBoxMuller: the reference's
-// three Box-Muller Gaussians, 6 draws; kFastScatter: the TPU kernel's
-// 2-draw (z, phi) map, cfg.fast_scatter):
+// Two kernels, each instantiated for three scene geometries: kSpheres
+// (spheres only); kChunks (the chunk table, each chunk's AABB and triangle
+// range, beside the sphere tables; the triangles of the chunks that pass the
+// gate below run the backface-culled Moller-Trumbore test on 12-float rows
+// read through the read-only cache); kBvh (the triangles through the
+// scene's LBVH in global memory, below). For the scatter sampler
+// (kBoxMuller: the reference's three Box-Muller Gaussians, 6 draws;
+// kFastScatter: the TPU kernel's 2-draw (z, phi) map, cfg.fast_scatter).
+// And for where the sphere and chunk tables live (Tables): kStaged, copied
+// into each block's shared memory; kGlobal, read in place through the
+// read-only path, for a scene whose tables pass a block's 227 KB (about
+// 9,000 spheres; the TPU kernel's counterpart falls back to the XLA path,
+// render.py _use_megakernel). The two routes run the same operations in the
+// same order, so their outputs are equal bit for bit; the global route pays
+// a warp's divergent reads (lanes in different clusters read up to 32 rows
+// where the staged route broadcasts one).
 //   render_kernel<kGeom, kScatter>: exactly spp samples a pixel, a loop
 //   over samples and bounces per thread.
 //   render_adaptive<kGeom, kScatter>: the adaptive sample refill
@@ -84,10 +91,10 @@
 // their gates plus the gates themselves, about pixels x samples x segments
 // x (boxes + gated spheres + gated triangles), and warp divergence: lanes
 // of one warp in different clusters and chunks, and long and short paths.
-// What this version does about it: the tables in shared memory, loaded
-// once per block and read as warp-wide broadcasts; the culls above; with
-// refill, lanes that would idle behind a warp-mate's long path trace extra
-// samples instead. No front-to-back order, no path regeneration across
+// What this version does about it: the tables in shared memory where they
+// fit, loaded once per block and read as warp-wide broadcasts; the culls
+// above; with refill, lanes that would idle behind a warp-mate's long path
+// trace extra samples instead. No front-to-back order, no path regeneration across
 // warps.
 //
 // kBvh, for big meshes (mesh_scene's 70,016 triangles in one chunk, which
@@ -225,6 +232,26 @@ enum Scatter : bool { kBoxMuller = false, kFastScatter = true };
 // How a scene's triangles are found (the C interface's `geometry`).
 enum Geometry : int { kSpheres = 0, kChunks = 1, kBvh = 2 };
 
+// Where a launch reads the scene's float4 tables (sphere rows, sphere
+// clusters, chunks, the boxes over runs of chunks) and the spheres' scene and
+// material indices (the C interface's `tables`): kStaged, copied into the
+// block's shared memory; kGlobal, read in place through the read-only path
+// (__ldg), for a scene whose tables do not fit a block's shared memory
+// (kernels/megakernel.py picks the route by shared_bytes). The parameters and
+// the block's bounce histogram are staged on both routes.
+enum Tables : int { kStaged = 0, kGlobal = 1 };
+
+// A read of one of those tables: a plain load where the block staged it
+// (LDS), a read-only global load where it did not (LDG).
+template <Tables kTab, typename T>
+__device__ __forceinline__ T table_load(const T* p) {
+  if constexpr (kTab == kGlobal) {
+    return __ldg(p);
+  } else {
+    return *p;
+  }
+}
+
 struct Vec3 {
   float x, y, z;
 };
@@ -354,15 +381,17 @@ __device__ Vec3 refract_dir(Vec3 d, Vec3 n, float ior, float u_fresnel) {
 // ---- triangles (kChunks and kBvh) ----
 
 // The scene's triangles in global memory, and the chunk table the kernel
-// stages in shared memory (kChunks) or the BVH in global memory (kBvh).
+// stages in shared memory (kChunks; in global memory on the kGlobal route)
+// or the BVH in global memory (kBvh).
+template <Tables kTab>
 struct Triangles {
   const float4* __restrict__ rows;  // kTri floats (kTri4 float4s) a triangle
   const float* __restrict__ normals;  // kTriNrm floats a triangle
   const int* __restrict__ mat;  // material index a triangle
-  const float4* chunks;  // shared memory, two float4s a chunk
+  const float4* chunks;  // two float4s a chunk
   int n_chunks;
-  // shared memory, two float4s (box min, box max) over each run of
-  // super_size chunks; n_supers == 0: no second level
+  // two float4s (box min, box max) over each run of super_size chunks;
+  // n_supers == 0: no second level
   const float4* supers;
   int n_supers, super_size;
   const float4* __restrict__ nodes;  // kNodeRow4 float4s a row
@@ -404,7 +433,8 @@ __device__ __forceinline__ bool box_gate(float4 lo, float4 hi, Vec3 o,
 // run of chunks is entered only if the box over it passes the same gate.
 // Moller-Trumbore in the direct form: a hit iff det >= 1e-6 and t, u, v,
 // w >= 0.
-__device__ __forceinline__ void closest_triangle(Triangles tri, Vec3 o,
+template <Tables kTab>
+__device__ __forceinline__ void closest_triangle(Triangles<kTab> tri, Vec3 o,
                                                  Vec3 d, Vec3 inv_d,
                                                  float& best_t,
                                                  int& best_tri) {
@@ -412,7 +442,8 @@ __device__ __forceinline__ void closest_triangle(Triangles tri, Vec3 o,
   for (int s = 0; s < n_outer; ++s) {
     int c = 0, c_end = tri.n_chunks;
     if (tri.n_supers > 0) {
-      if (!box_gate(tri.supers[2 * s], tri.supers[2 * s + 1], o, inv_d,
+      if (!box_gate(table_load<kTab>(tri.supers + 2 * s),
+                    table_load<kTab>(tri.supers + 2 * s + 1), o, inv_d,
                     best_t)) {
         continue;
       }
@@ -420,8 +451,8 @@ __device__ __forceinline__ void closest_triangle(Triangles tri, Vec3 o,
       c_end = min(c + tri.super_size, tri.n_chunks);
     }
     for (; c < c_end; ++c) {
-      const float4 lo = tri.chunks[2 * c];
-      const float4 hi = tri.chunks[2 * c + 1];
+      const float4 lo = table_load<kTab>(tri.chunks + 2 * c);
+      const float4 hi = table_load<kTab>(tri.chunks + 2 * c + 1);
       if (!box_gate(lo, hi, o, inv_d, best_t)) continue;
       const int first = __float_as_int(lo.w);
       const int end = first + __float_as_int(hi.w);
@@ -476,7 +507,8 @@ __device__ __forceinline__ bool bvh_box(float4 lo, float4 hi, Vec3 o,
 // copy: calling this helper instead raises render_kernel<kChunks>'s spill
 // stores from 12 to 16 bytes and its spill loads from 20 to 24 (ptxas -v,
 // nvcc 12.9, both scatters); the other instantiations do not move.
-__device__ __forceinline__ float triangle_t(Triangles tri, int i, Vec3 o,
+template <Tables kTab>
+__device__ __forceinline__ float triangle_t(Triangles<kTab> tri, int i, Vec3 o,
                                             Vec3 d) {
   const float4 r0 = __ldg(tri.rows + kTri4 * i);
   const float4 r1 = __ldg(tri.rows + kTri4 * i + 1);
@@ -507,8 +539,9 @@ __device__ __forceinline__ int2 entry(int ref, float t_near) {
 
 // Closest triangle through the BVH (accel/bvh.py _traverse): the
 // traversal's own best starts at +inf.
-__device__ __forceinline__ TriangleHit closest_triangle_bvh(Triangles tri,
-                                                            Vec3 o, Vec3 d) {
+template <Tables kTab>
+__device__ __forceinline__ TriangleHit closest_triangle_bvh(
+    Triangles<kTab> tri, Vec3 o, Vec3 d) {
   const Vec3 inv_d = {1.0f / d.x, 1.0f / d.y, 1.0f / d.z};
   float t_best = __int_as_float(0x7f800000);
   int i_best = 0;
@@ -568,7 +601,8 @@ __device__ __forceinline__ TriangleHit closest_triangle_bvh(Triangles tri,
 // Shading normal of triangle i where the ray hits it (ops/intersect.py
 // _triangle_normal_at): barycentrics in the direct form, the vertex normals
 // interpolated and normalised.
-__device__ __forceinline__ Vec3 triangle_normal(Triangles tri, int i,
+template <Tables kTab>
+__device__ __forceinline__ Vec3 triangle_normal(Triangles<kTab> tri, int i,
                                                 Vec3 o, Vec3 d) {
   const float4 r0 = __ldg(tri.rows + kTri4 * i);
   const float4 r1 = __ldg(tri.rows + kTri4 * i + 1);
@@ -589,25 +623,41 @@ __device__ __forceinline__ Vec3 triangle_normal(Triangles tri, int i,
   return normalize(raw);
 }
 
-// The sphere tables a block stages in shared memory, in clustered order:
-// the hoisted spheres in slots [0, n_hoist), then each cluster's spheres.
+// The sphere tables, in clustered order: the hoisted spheres in slots
+// [0, n_hoist), then each cluster's spheres; in the block's shared memory
+// (kStaged) or in global memory (kGlobal).
+template <Tables kTab>
 struct Spheres {
   const float4* rows;  // cx, cy, cz, r^2
   const float4* clusters;  // two float4s a cluster
   const int* orig;  // the slot's sphere index in the scene
   const int* mat;  // the slot's material index
   int n_hoist, n_clusters;
+  __device__ __forceinline__ float4 row(int i) const {
+    return table_load<kTab>(rows + i);
+  }
+  __device__ __forceinline__ float4 cluster(int i) const {
+    return table_load<kTab>(clusters + i);
+  }
+  __device__ __forceinline__ int orig_of(int i) const {
+    return table_load<kTab>(orig + i);
+  }
+  __device__ __forceinline__ int mat_of(int i) const {
+    return table_load<kTab>(mat + i);
+  }
 };
 
 // Spheres [first, end) against the ray: the nearest root t >= 0 wins, and
 // on an exact tie the sphere of lower scene index. Two slots a loop step
 // (4 and 1 were slower on RTIOW, see the header's card).
-__device__ __forceinline__ void test_spheres(Spheres sph, int first, int end,
+template <Tables kTab>
+__device__ __forceinline__ void test_spheres(Spheres<kTab> sph, int first,
+                                             int end,
                                              Vec3 o, Vec3 d, float& best_t,
                                              int& best) {
 #pragma unroll 2
   for (int i = first; i < end; ++i) {
-    const float4 s = sph.rows[i];
+    const float4 s = sph.row(i);
     const Vec3 oc = {o.x - s.x, o.y - s.y, o.z - s.z};
     const float b = dot(oc, d);
     const float cc = dot(oc, oc) - s.w;
@@ -615,7 +665,8 @@ __device__ __forceinline__ void test_spheres(Spheres sph, int first, int end,
     if (disc >= 0.0f) {
       const float t = -b - sqrtf(disc);
       if (t >= 0.0f &&
-          (t < best_t || (t == best_t && sph.orig[i] < sph.orig[best]))) {
+          (t < best_t ||
+           (t == best_t && sph.orig_of(i) < sph.orig_of(best)))) {
         best_t = t;
         best = i;
       }
@@ -635,15 +686,16 @@ enum Probe : int { kNone = 0, kDupIntersect = 1, kDupFetch = 2 };
 // its gate (a finite best_t is a sphere's there, so `best` is a slot
 // wherever the tie rule reads it), then the triangles. best_t starts at
 // +inf, best and best_tri at -1.
-template <Geometry kGeom>
-__device__ __forceinline__ void closest_hit(Spheres sph, Triangles tri,
+template <Geometry kGeom, Tables kTab>
+__device__ __forceinline__ void closest_hit(Spheres<kTab> sph,
+                                            Triangles<kTab> tri,
                                             Vec3 o, Vec3 d, Vec3 inv_d,
                                             float& best_t, int& best,
                                             int& best_tri) {
   test_spheres(sph, 0, sph.n_hoist, o, d, best_t, best);
   for (int k = 0; k < sph.n_clusters; ++k) {
-    const float4 lo = sph.clusters[2 * k];
-    const float4 hi = sph.clusters[2 * k + 1];
+    const float4 lo = sph.cluster(2 * k);
+    const float4 hi = sph.cluster(2 * k + 1);
     if (!box_gate(lo, hi, o, inv_d, best_t)) continue;
     const int first = __float_as_int(lo.w);
     test_spheres(sph, first, first + __float_as_int(hi.w), o, d, best_t,
@@ -677,8 +729,9 @@ __device__ __forceinline__ int unproven(int idx) {
 // and material index; then the 14 floats of the material row), through
 // unproven indices, summed into one value. Every load feeds the sum: one
 // left out would be dead code and its cost not measured.
-template <Geometry kGeom>
-__device__ __forceinline__ float fetch_again(Spheres sph, Triangles tri,
+template <Geometry kGeom, Tables kTab>
+__device__ __forceinline__ float fetch_again(Spheres<kTab> sph,
+                                             Triangles<kTab> tri,
                                              const float* __restrict__ mats,
                                              int best, int best_tri) {
   float sum;
@@ -696,9 +749,9 @@ __device__ __forceinline__ float fetch_again(Spheres sph, Triangles tri,
     mat_idx = __ldg(tri.mat + i);
   } else {
     const int i = unproven(best);
-    const float4 s = sph.rows[i];
+    const float4 s = sph.row(i);
     sum = s.x + s.y + s.z + s.w;
-    mat_idx = sph.mat[i];
+    mat_idx = sph.mat_of(i);
   }
   const float* m = mats + kMat * mat_idx;
 #pragma unroll
@@ -710,9 +763,9 @@ __device__ __forceinline__ float fetch_again(Spheres sph, Triangles tri,
 // then the flags, the scatter, emission and roulette; or the environment
 // light on a miss. Updates the ray, throughput and incoming light and
 // returns whether the path goes on. `camera_ray` is bounce index 0.
-template <Geometry kGeom, Scatter kScatter, Probe kProbe = kNone>
+template <Geometry kGeom, Scatter kScatter, Probe kProbe, Tables kTab>
 __device__ __forceinline__ bool trace_segment(
-    const float* p, Spheres sph, Triangles tri,
+    const float* p, Spheres<kTab> sph, Triangles<kTab> tri,
     const float* __restrict__ mats, bool camera_ray, uint32_t& state, Vec3& o,
     Vec3& d, Vec3& colour, Vec3& incoming) {
   float best_t = __int_as_float(0x7f800000);
@@ -743,9 +796,9 @@ __device__ __forceinline__ bool trace_segment(
     normal = triangle_normal(tri, best_tri, o, d);
     mat_idx = __ldg(tri.mat + best_tri);
   } else {
-    const float4 s = sph.rows[best];
+    const float4 s = sph.row(best);
     normal = normalize(sub(point, Vec3{s.x, s.y, s.z}));
-    mat_idx = sph.mat[best];
+    mat_idx = sph.mat_of(best);
   }
   const float* m = mats + kMat * mat_idx;
   const int flag = static_cast<int>(__ldg(m + 13));
@@ -811,8 +864,9 @@ __device__ __forceinline__ bool trace_segment(
 }
 
 // One camera sample's path (ops/trace.py trace). Returns its incoming light.
-template <Geometry kGeom, Scatter kScatter, Probe kProbe = kNone>
-__device__ Vec3 trace_path(const float* p, Spheres sph, Triangles tri,
+template <Geometry kGeom, Scatter kScatter, Probe kProbe, Tables kTab>
+__device__ Vec3 trace_path(const float* p, Spheres<kTab> sph,
+                           Triangles<kTab> tri,
                            const float* __restrict__ mats, int max_bounce,
                            uint32_t& state, Vec3 o, Vec3 d, int& segs,
                            int* s_hist) {
@@ -821,9 +875,8 @@ __device__ Vec3 trace_path(const float* p, Spheres sph, Triangles tri,
   for (int bounce = 0; bounce <= max_bounce; ++bounce) {
     ++segs;
     if (s_hist != nullptr) atomicAdd(&s_hist[bounce], 1);
-    if (!trace_segment<kGeom, kScatter, kProbe>(p, sph, tri, mats,
-                                                bounce == 0, state, o, d,
-                                                colour, incoming)) {
+    if (!trace_segment<kGeom, kScatter, kProbe, kTab>(
+            p, sph, tri, mats, bounce == 0, state, o, d, colour, incoming)) {
       break;
     }
   }
@@ -876,29 +929,53 @@ struct Args {
   int* __restrict__ hist;
 };
 
-// Dynamic shared memory, in bytes: the float4 tables first (super boxes,
-// chunks, sphere clusters, spheres), then the parameters, the spheres'
-// scene and material indices and the block's bounce histogram.
-size_t shared_bytes(int n_sph, int n_clusters, int n_chunks, int n_supers,
-                    int max_bounce) {
+// Dynamic shared memory, in bytes. kStaged: the float4 tables first (super
+// boxes, chunks, sphere clusters, spheres), then the parameters, the
+// spheres' scene and material indices and the block's bounce histogram.
+// kGlobal: the parameters and the histogram only.
+size_t shared_bytes(Tables tables, int n_sph, int n_clusters, int n_chunks,
+                    int n_supers, int max_bounce) {
+  if (tables == kGlobal) {
+    return 4 * (kParams + static_cast<size_t>(max_bounce) + 1);
+  }
   const size_t float4s = 2 * (static_cast<size_t>(n_supers) + n_chunks +
                               n_clusters) + n_sph;
   return 16 * float4s +
          4 * (kParams + 2 * static_cast<size_t>(n_sph) + max_bounce + 1);
 }
 
-// The block's view of the scene after staging it in shared memory.
+// The block's view of the scene after staging it.
+template <Tables kTab>
 struct Staged {
   const float* p;  // parameters
-  Spheres sph;
+  Spheres<kTab> sph;
   int* s_hist;  // the block's bounce histogram
-  Triangles tri;
+  Triangles<kTab> tri;
 };
 
-// Every thread of the block takes part: stages the tables, zeroes the
+// Every thread of the block takes part: stages the tables (kStaged) or only
+// the parameters (kGlobal, whose tables stay where Args points), zeroes the
 // histogram and waits for the block. rtx_render passes n_chunks and
 // n_supers as 0 unless the geometry is kChunks.
-__device__ __forceinline__ Staged stage_scene(float4* smem4, const Args& a) {
+template <Tables kTab>
+__device__ __forceinline__ Staged<kTab> stage_scene(float4* smem4,
+                                                    const Args& a) {
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int n_threads = blockDim.x * blockDim.y;
+  if constexpr (kTab == kGlobal) {
+    float* p = reinterpret_cast<float*>(smem4);
+    int* s_hist = reinterpret_cast<int*>(p + kParams);
+    for (int i = tid; i < kParams; i += n_threads) p[i] = a.params[i];
+    for (int i = tid; i <= a.max_bounce; i += n_threads) s_hist[i] = 0;
+    __syncthreads();
+    return {p,
+            {a.sph, a.clusters, a.sph_orig, a.sph_mat, a.n_hoist,
+             a.n_clusters},
+            s_hist,
+            {a.tri_rows, a.tri_normals, a.tri_mat, a.chunks, a.n_chunks,
+             a.supers, a.n_supers, a.super_size, a.bvh_nodes, a.bvh_leaves,
+             a.n_nodes}};
+  }
   float4* supers = smem4;
   float4* chunks = supers + 2 * a.n_supers;
   float4* clusters = chunks + 2 * a.n_chunks;
@@ -908,8 +985,6 @@ __device__ __forceinline__ Staged stage_scene(float4* smem4, const Args& a) {
   int* mat = orig + a.n_sph;
   int* s_hist = mat + a.n_sph;
 
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  const int n_threads = blockDim.x * blockDim.y;
   for (int i = tid; i < 2 * a.n_supers; i += n_threads) supers[i] = a.supers[i];
   for (int i = tid; i < 2 * a.n_chunks; i += n_threads) chunks[i] = a.chunks[i];
   for (int i = tid; i < 2 * a.n_clusters; i += n_threads) {
@@ -939,11 +1014,12 @@ __device__ __forceinline__ Staged stage_scene(float4* smem4, const Args& a) {
 // than through the helpers render_adaptive uses below: with them, ptxas
 // (nvcc 12.9, sm_90a) spilled more in the triangle instantiation and took
 // fewer registers than it needs in the sphere one.
-template <Geometry kGeom, Scatter kScatter, Probe kProbe = kNone>
+template <Geometry kGeom, Scatter kScatter, Probe kProbe = kNone,
+          Tables kTab = kStaged>
 __global__ void __launch_bounds__(kBlockX * kBlockY, kGeom == kBvh ? 8 : 0)
 render_kernel(const Args a) {
   extern __shared__ float4 smem4[];
-  const Staged sc = stage_scene(smem4, a);
+  const Staged<kTab> sc = stage_scene<kTab>(smem4, a);
   const float* p = sc.p;
   const int width = a.width, height = a.height;
 
@@ -992,7 +1068,7 @@ render_kernel(const Args a) {
         random_point_in_circle(state, p[16], jx, jy);
         const Vec3 target = add(add(fp, scale(right, jx)), scale(up, jy));
         const Vec3 dir = normalize(sub(target, origin));
-        total = add(total, trace_path<kGeom, kScatter, kProbe>(
+        total = add(total, trace_path<kGeom, kScatter, kProbe, kTab>(
                                p, sc.sph, sc.tri, a.mats, a.max_bounce, state,
                                origin, dir, segs,
                                a.hist != nullptr ? sc.s_hist : nullptr));
@@ -1076,11 +1152,12 @@ __device__ __forceinline__ Vec3 div(Vec3 v, float n) {
 // warp-synchronous through two votes a slot. Per-lane state lives in
 // registers: the RNG state, the ray, throughput, incoming and banked light,
 // the running average, the completed-sample count, frame and bounce index.
-template <Geometry kGeom, Scatter kScatter, Probe kProbe = kNone>
+template <Geometry kGeom, Scatter kScatter, Probe kProbe = kNone,
+          Tables kTab = kStaged>
 __global__ void __launch_bounds__(kBlockX * kBlockY, kGeom == kBvh ? 8 : 0)
 render_adaptive(const Args a) {
   extern __shared__ float4 smem4[];
-  const Staged sc = stage_scene(smem4, a);
+  const Staged<kTab> sc = stage_scene<kTab>(smem4, a);
   int* s_hist = a.hist != nullptr ? sc.s_hist : nullptr;
   const int width = a.width, height = a.height, spp = a.spp;
   const int max_bounce = a.max_bounce, n_frames = a.n_frames;
@@ -1142,7 +1219,7 @@ render_adaptive(const Args a) {
     if (live) {
       ++segs;
       if (s_hist != nullptr) atomicAdd(&s_hist[bounce], 1);
-      const bool goes_on = trace_segment<kGeom, kScatter, kProbe>(
+      const bool goes_on = trace_segment<kGeom, kScatter, kProbe, kTab>(
           sc.p, sc.sph, sc.tri, a.mats, bounce == 0, state, o, d, colour,
           incoming);
       if (!goes_on || bounce >= max_bounce) {
@@ -1172,13 +1249,14 @@ render_adaptive(const Args a) {
 
 using Kernel = void (*)(const Args);
 
-// The instantiation for a Probe value, or null. The production library
-// compiles the twelve of kNone; the probe library (-DRTX_PROBES) the twelve
-// of kDupIntersect and kDupFetch instead, with the Box-Muller sampler only.
+// The instantiation for a Probe and a Tables value, or null. The production
+// library compiles the twenty-four of kNone, twelve a route; the probe
+// library (-DRTX_PROBES) the twelve of kDupIntersect and kDupFetch instead,
+// with the Box-Muller sampler and staged tables only.
 template <Geometry kGeom>
-Kernel kernel_of(int probe, bool adaptive, bool fast_scatter) {
+Kernel kernel_of(int probe, int tables, bool adaptive, bool fast_scatter) {
 #ifdef RTX_PROBES
-  if (fast_scatter) return nullptr;
+  if (fast_scatter || tables != kStaged) return nullptr;
   if (probe == kDupIntersect) {
     return adaptive ? render_adaptive<kGeom, kBoxMuller, kDupIntersect>
                     : render_kernel<kGeom, kBoxMuller, kDupIntersect>;
@@ -1190,6 +1268,15 @@ Kernel kernel_of(int probe, bool adaptive, bool fast_scatter) {
   return nullptr;
 #else
   if (probe != kNone) return nullptr;
+  if (tables == kGlobal) {
+    if (fast_scatter) {
+      return adaptive ? render_adaptive<kGeom, kFastScatter, kNone, kGlobal>
+                      : render_kernel<kGeom, kFastScatter, kNone, kGlobal>;
+    }
+    return adaptive ? render_adaptive<kGeom, kBoxMuller, kNone, kGlobal>
+                    : render_kernel<kGeom, kBoxMuller, kNone, kGlobal>;
+  }
+  if (tables != kStaged) return nullptr;
   if (fast_scatter) {
     return adaptive ? render_adaptive<kGeom, kFastScatter>
                     : render_kernel<kGeom, kFastScatter>;
@@ -1199,15 +1286,16 @@ Kernel kernel_of(int probe, bool adaptive, bool fast_scatter) {
 #endif
 }
 
-// The instantiation for a Geometry and a Probe value, or null.
-Kernel kernel_for(int geometry, int probe, bool adaptive, bool fast_scatter) {
+// The instantiation for a Geometry, a Probe and a Tables value, or null.
+Kernel kernel_for(int geometry, int probe, int tables, bool adaptive,
+                  bool fast_scatter) {
   switch (geometry) {
     case kSpheres:
-      return kernel_of<kSpheres>(probe, adaptive, fast_scatter);
+      return kernel_of<kSpheres>(probe, tables, adaptive, fast_scatter);
     case kChunks:
-      return kernel_of<kChunks>(probe, adaptive, fast_scatter);
+      return kernel_of<kChunks>(probe, tables, adaptive, fast_scatter);
     case kBvh:
-      return kernel_of<kBvh>(probe, adaptive, fast_scatter);
+      return kernel_of<kBvh>(probe, tables, adaptive, fast_scatter);
     default:
       return nullptr;
   }
@@ -1221,8 +1309,9 @@ cudaError_t allow_shared(Kernel kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
-cudaError_t launch(Kernel kernel, const Args& a, cudaStream_t stream) {
-  const size_t smem = shared_bytes(a.n_sph, a.n_clusters, a.n_chunks,
+cudaError_t launch(Kernel kernel, Tables tables, const Args& a,
+                   cudaStream_t stream) {
+  const size_t smem = shared_bytes(tables, a.n_sph, a.n_clusters, a.n_chunks,
                                    a.n_supers, a.max_bounce);
   const cudaError_t err = allow_shared(kernel, smem);
   if (err != cudaSuccess) return err;
@@ -1235,13 +1324,15 @@ cudaError_t launch(Kernel kernel, const Args& a, cudaStream_t stream) {
 
 }  // namespace
 
-// A launch's dynamic shared memory; `geometry` is a Geometry value. The
-// chunk table and its second level are staged by kChunks only.
-extern "C" size_t rtx_shared_bytes(int geometry, int n_sph, int n_clusters,
-                                   int n_chunks, int n_supers,
+// A launch's dynamic shared memory; `geometry` is a Geometry value,
+// `tables` a Tables value. The chunk table and its second level are staged
+// by kChunks only.
+extern "C" size_t rtx_shared_bytes(int geometry, int tables, int n_sph,
+                                   int n_clusters, int n_chunks, int n_supers,
                                    int max_bounce) {
   const bool chunks = geometry == kChunks;
-  return shared_bytes(n_sph, n_clusters, chunks ? n_chunks : 0,
+  return shared_bytes(tables == kGlobal ? kGlobal : kStaged, n_sph,
+                      n_clusters, chunks ? n_chunks : 0,
                       chunks ? n_supers : 0, max_bounce);
 }
 
@@ -1249,10 +1340,10 @@ extern "C" size_t rtx_shared_bytes(int geometry, int n_sph, int n_clusters,
 // bytes of dynamic shared memory
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or minus a CUDA error
 // code.
-extern "C" int rtx_occupancy(int geometry, int adaptive, int fast_scatter,
-                             size_t smem) {
+extern "C" int rtx_occupancy(int geometry, int tables, int adaptive,
+                             int fast_scatter, size_t smem) {
   const Kernel kernel =
-      kernel_for(geometry, kNone, adaptive != 0, fast_scatter != 0);
+      kernel_for(geometry, kNone, tables, adaptive != 0, fast_scatter != 0);
   if (kernel == nullptr) return -static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = allow_shared(kernel, smem);
   int blocks = 0;
@@ -1263,8 +1354,9 @@ extern "C" int rtx_occupancy(int geometry, int adaptive, int fast_scatter,
   return err == cudaSuccess ? blocks : -static_cast<int>(err);
 }
 
-// `geometry` picks the instantiation (0 kSpheres, 1 kChunks, 2 kBvh).
-// Every geometry takes the sphere tables (16-byte aligned; empty for a
+// `geometry` picks the instantiation (0 kSpheres, 1 kChunks, 2 kBvh) and
+// `tables` its route (0 kStaged, 1 kGlobal: tables past a block's shared
+// memory). Every geometry takes the sphere tables (16-byte aligned; empty for a
 // scene without spheres). kChunks and kBvh need the triangle tables
 // (tri_rows 16-byte aligned), kChunks the chunk table and, with n_supers
 // > 0, a box over each run of super_size chunks; kBvh the node table
@@ -1280,14 +1372,15 @@ extern "C" int rtx_occupancy(int geometry, int adaptive, int fast_scatter,
 //
 // The probe library's entry is rtx_render_probe(probe, geometry, ...): the
 // same arguments after a Probe value (kDupIntersect or kDupFetch), with
-// fast_scatter 0; cudaErrorInvalidValue for any other.
+// fast_scatter 0 and tables 0; cudaErrorInvalidValue for any other.
 #ifdef RTX_PROBES
 extern "C" int rtx_render_probe(
     int probe,
 #else
 extern "C" int rtx_render(
 #endif
-    int geometry, const void* sph, const void* sph_orig, const void* sph_mat,
+    int geometry, int tables, const void* sph, const void* sph_orig,
+    const void* sph_mat,
     int n_sph, const void* clusters, int n_clusters, int n_hoist,
     const void* tri_rows, const void* tri_normals, const void* tri_mat,
     const void* chunks, int n_chunks, const void* supers, int n_supers,
@@ -1341,9 +1434,10 @@ extern "C" int rtx_render(
       static_cast<int*>(segs),
       static_cast<int*>(hist)};
   const Kernel kernel =
-      kernel_for(geometry, probe, adaptive != 0, fast_scatter != 0);
+      kernel_for(geometry, probe, tables, adaptive != 0, fast_scatter != 0);
   if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(launch(kernel, a, s));
+  return static_cast<int>(
+      launch(kernel, tables == kGlobal ? kGlobal : kStaged, a, s));
 }
 
 extern "C" const char* rtx_error_string(int code) {

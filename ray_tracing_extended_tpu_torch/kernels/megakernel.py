@@ -13,7 +13,12 @@ with the reference's Box-Muller scatter or the 2-draw fast one
 pixel, ``render_adaptive`` runs the adaptive sample refill
 (``cfg.adaptive_spp``), a slot loop in which a warp's lanes that have met
 their quota trace extra samples while any lane of the warp is still short
-of it. ``variant`` names the twelve instantiations.
+of it. Each of those twelve has two routes for the scene's tables
+(``TABLES``): ``"staged"``, copied into each block's shared memory, and
+``"global"``, read in place from global memory, for a scene whose tables
+pass ``MAX_SHARED_BYTES`` (about 9,000 spheres). ``table_route`` picks the
+route by size (``launch_shared_bytes``); a test forces one with
+``tables=``. ``variant`` names the twenty-four instantiations.
 
 The same source built with ``-DRTX_PROBES`` is the probe library: twelve
 profiling instantiations (``PROBE_VARIANTS``), each with one of the TPU
@@ -79,8 +84,12 @@ from ..utils.config import RenderConfig
 from .build import NVCC_FLAGS, BuildInfo, CudaLibrary
 from .pack import SUB, pack_spheres
 
-# Dynamic shared memory one block may use on Hopper (227 KB).
+# Dynamic shared memory one block may use on Hopper (227 KB): a scene whose
+# staged tables need more takes the global route (``table_route``).
 MAX_SHARED_BYTES = 232448
+
+# The source's kParams: the launch's camera and environment parameters, f32.
+N_PARAMS = 32
 
 # The plain path's (pixels x primitives) temporaries hold at most this many
 # elements each (128 MB in f32): its pixel block shrinks for scenes with
@@ -110,28 +119,47 @@ LEAF_COUNT_BITS = 3
 # kNone (kDupIntersect, kDupFetch).
 PROBES = ("dup_intersect", "dup_fetch")
 
+# Where a launch reads the scene's sphere and chunk tables, in the order of
+# the source's Tables values (kStaged, kGlobal): copied into each block's
+# shared memory, or in place in global memory.
+TABLES = ("staged", "global")
+
 
 def variant(geometry: str, adaptive: bool = False,
-            fast_scatter: bool = False, probe: str | None = None) -> str:
+            fast_scatter: bool = False, probe: str | None = None,
+            tables: str = "staged") -> str:
     """The name of one instantiation of the source's kernels; with
     ``probe`` (one of ``PROBES``) a profiling one, its sampler named, as
-    ``render_kernel<kSpheres, kBoxMuller, kDupIntersect>``."""
+    ``render_kernel<kSpheres, kBoxMuller, kDupIntersect>``; with
+    ``tables="global"`` one of the global route, its sampler named, as
+    ``render_kernel<kSpheres, kBoxMuller, kGlobal>``."""
+    if tables not in TABLES:
+        raise ValueError(f"tables must be one of {TABLES}, got {tables!r}")
+    if probe is not None and tables != "staged":
+        raise ValueError("the profiling instantiations stage their tables")
     name = "render_adaptive" if adaptive else "render_kernel"
     args = f"k{geometry.capitalize()}"
     if fast_scatter:
         args += ", kFastScatter"
-    elif probe is not None:
+    elif probe is not None or tables != "staged":
         args += ", kBoxMuller"
     if probe is not None:
         args += ", k" + "".join(w.capitalize() for w in probe.split("_"))
+    if tables != "staged":
+        args += ", k" + tables.capitalize()
     return f"{name}<{args}>"
 
 
-# Every instantiation the source compiles: the production library's, and
-# the probe library's (Box-Muller only).
+# Every instantiation the source compiles: the production library's, on
+# the staged route and on the global one, and the probe library's
+# (Box-Muller only, staged).
 VARIANTS = tuple(
     variant(g, a, f) for a in (False, True) for f in (False, True)
     for g in GEOMETRIES
+)
+GLOBAL_VARIANTS = tuple(
+    variant(g, a, f, tables="global") for a in (False, True)
+    for f in (False, True) for g in GEOMETRIES
 )
 PROBE_VARIANTS = tuple(
     variant(g, a, probe=p) for p in PROBES for a in (False, True)
@@ -153,32 +181,69 @@ def geometry(scene: Scene, cfg: RenderConfig) -> str:
     return "chunks" if scene.has_triangles else "spheres"
 
 
-def plain_intersector(scene: Scene, cfg: RenderConfig, counts=None):
+def plain_intersector(scene: Scene, cfg: RenderConfig, counts=None,
+                      direct: bool = False):
     """The plain path's closest-hit function for ``cfg.intersector``:
     ``closest_hit_clustered`` on the tables of ``geometry(scene, cfg)``,
     the function the kernel computes for this scene and config. One case
     the kernel has no counterpart of keeps the JAX package's XLA path:
     ``"auto"`` and ``"bvh"`` on a scene with a sphere BVH traverse it
     (``closest_hit_bvh``). ``counts``, a dict, gathers the tests the
-    clustered scan needs (``closest_hit_clustered``)."""
+    clustered scan needs (``closest_hit_clustered``); ``direct`` takes the
+    kernel's test forms there (``clustered_winner``)."""
     if cfg.intersector in ("auto", "bvh") and scene.sphere_bvh is not None:
         return closest_hit_bvh
     return functools.partial(
         closest_hit_clustered,
         tables=geometry_tables(scene, geometry(scene, cfg)), counts=counts,
+        direct=direct,
     )
+
+
+def launch_shared_bytes(tab: KernelTables, max_bounce: int,
+                        tables: str = "staged") -> int:
+    """A launch's dynamic shared memory for tables ``tab`` on the route
+    ``tables``, in bytes (the source's ``shared_bytes``, which
+    ``PathTraceKernel.shared_bytes`` asks): staged, 16 bytes a float4 row
+    (a sphere; two a cluster, a chunk of a chunk scan, a box over a run of
+    chunks) and 4 bytes a parameter, a sphere's scene index, its material
+    index and a bounce of the histogram; global, the parameters and the
+    histogram only."""
+    if tables not in TABLES:
+        raise ValueError(f"tables must be one of {TABLES}, got {tables!r}")
+    words = N_PARAMS + max_bounce + 1
+    if tables == "global":
+        return 4 * words
+    n_sph = tab.spheres.shape[0]
+    rows = n_sph + 2 * tab.clusters.shape[0]
+    if tab.geometry == "chunks":
+        rows += 2 * tab.chunks.shape[0]
+        if tab.supers is not None:
+            rows += 2 * tab.supers.shape[0]
+    return 16 * rows + 4 * (words + 2 * n_sph)
+
+
+def table_route(tab: KernelTables, cfg: RenderConfig) -> str:
+    """The route of a launch over tables ``tab``: ``"staged"`` if they fit
+    a block's shared memory (``launch_shared_bytes`` within
+    ``MAX_SHARED_BYTES``), else ``"global"``. Reads nothing from the
+    device."""
+    fits = launch_shared_bytes(tab, cfg.max_bounce) <= MAX_SHARED_BYTES
+    return "staged" if fits else "global"
 
 
 def path_name(scene: Scene, cfg: RenderConfig) -> str:
     """What renders ``scene`` under ``cfg``: on a CUDA device the kernel's
-    instantiation (``variant``), on the CPU the plain version's closest-hit
-    function (``plain_intersector``) and its geometry. Several intersector
+    instantiation (``variant``, on the route ``table_route`` picks), on the
+    CPU the plain version's closest-hit function (``plain_intersector``)
+    and its geometry. Several intersector
     names can take one path: on the card every name on a scene without a
     triangle BVH, and every name but ``"bruteforce"`` on a scene with
     one."""
     if scene.device.type == "cuda":
-        return variant(geometry(scene, cfg), cfg.adaptive_spp,
-                       cfg.fast_scatter)
+        geom = geometry(scene, cfg)
+        return variant(geom, cfg.adaptive_spp, cfg.fast_scatter,
+                       tables=table_route(geometry_tables(scene, geom), cfg))
     if plain_intersector(scene, cfg) is closest_hit_bvh:
         return "plain closest_hit_bvh"
     return f"plain closest_hit_clustered<{geometry(scene, cfg)}>"
@@ -291,18 +356,40 @@ def _members(group_of: np.ndarray, n_groups: int, pad: int) -> np.ndarray:
 
 
 def closest_hit_clustered(o, d, scene: Scene, tables: KernelTables,
-                          counts=None) -> HitRecord:
+                          counts=None, direct: bool = False) -> HitRecord:
     """The kernel's closest hit in plain PyTorch (``clustered_winner``) as
     a hit record."""
     return hit_record(o, d, scene,
-                      *clustered_winner(o, d, scene, tables, counts))
+                      *clustered_winner(o, d, scene, tables, counts, direct))
 
 
-def clustered_winner(o, d, scene: Scene, tables: KernelTables, counts=None):
+def kernel_sphere_t(o, d, spheres) -> torch.Tensor:
+    """Hit distances of every (ray, sphere) pair, (B, S), +inf on a miss,
+    in the kernel's direct form (``csrc/megakernel.cu`` test_spheres, the
+    TPU kernel's): ``oc = o - c``, ``b = dot(oc, d)``, ``cc = dot(oc, oc) -
+    r^2``, the root ``-b - sqrt(b^2 - cc)`` where that is not negative.
+    ``ops/intersect.ray_spheres_t`` is the JAX package's expanded form of
+    the same quadratic; the two round differently."""
+    r = spheres.radius
+    oc = o[:, None, :] - spheres.center[None, :, :]
+    b = vm.dot(oc, d[:, None, :])
+    cc = vm.dot(oc, oc) - (r * r)[None, :]
+    disc = b * b - cc
+    t = -b - vm.sqrt(torch.clamp(disc, min=0.0))
+    valid = (disc >= 0.0) & (t >= 0.0) & (r > 0.0)[None, :]
+    return torch.where(valid, t, INF)
+
+
+def clustered_winner(o, d, scene: Scene, tables: KernelTables, counts=None,
+                     direct: bool = False):
     """The kernel's closest hit in plain PyTorch -> ``(t (B,), index (B,))``
     as ``hit_record`` takes them: ``closest_hit_bruteforce`` behind the
     kernel's culls, with its pair tests (so a distance is computed by the
-    same operations whether or not a cull comes first).
+    same operations whether or not a cull comes first). With ``direct`` the
+    sphere and chunk-scan triangle tests take the kernel's direct forms
+    instead (``kernel_sphere_t``; ``accel/bvh._triangle_t_one``, the BVH's
+    test), so that the kernel and this function run the same arithmetic op
+    for op (``bench.py``'s gate (a)); the culls and counts are the same.
 
     Spheres: the hoisted ones, then each sub-cluster of ``tables.clusters``
     in table order behind the t-bounded slab test (``_gated_visits``,
@@ -341,7 +428,7 @@ def clustered_winner(o, d, scene: Scene, tables: KernelTables, counts=None):
         return (mask * weights.to(torch.int64)[None, :]).sum(dim=1)
 
     # spheres: hoisted (column n_clusters, always tested), then clusters
-    t_sph = ray_spheres_t(o, d, scene.spheres)
+    t_sph = (kernel_sphere_t if direct else ray_spheres_t)(o, d, scene.spheres)
     nearest = _group_min(t_sph, tables.cluster_members)
     tested = torch.zeros((b, n_clusters + 2), dtype=torch.bool, device=dev)
     tested[:, n_clusters] = True
@@ -363,7 +450,12 @@ def clustered_winner(o, d, scene: Scene, tables: KernelTables, counts=None):
     if tables.geometry == "chunks":
         ch = tables.chunks
         n_chunks = ch.shape[0]
-        t_tri = ray_triangles_t(o, d, scene.triangles)
+        if direct:
+            t_tri = _triangle_t_one(
+                o[:, None, :], d[:, None, :], scene,
+                torch.arange(scene.triangles.count, device=dev)[None, :])
+        else:
+            t_tri = ray_triangles_t(o, d, scene.triangles)
         nearest = _group_min(t_tri, tables.chunk_members)
         t_near, t_far = _slab_interval(o, inv_d, ch[:, 0:3], ch[:, 4:7])
         outer = None
@@ -789,7 +881,7 @@ def _check_probe(probe) -> None:
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
 # rtx_render's arguments; rtx_render_probe takes a Probe value before them
 _RENDER_ARGTYPES = [
-    _CI, _VP, _VP, _VP, _CI, _VP, _CI, _CI, _VP, _VP, _VP, _VP, _CI, _VP, _CI,
+    _CI, _CI, _VP, _VP, _VP, _CI, _VP, _CI, _CI, _VP, _VP, _VP, _VP, _CI, _VP, _CI,
     _CI, _VP, _VP, _CI, _VP, _VP, _CI, _CI, _CI, _CI, _CI, _CI, ctypes.c_uint,
     _CI, _VP, _CI, _CI, _CI, _VP, _VP, _VP, _VP,
 ]
@@ -798,9 +890,9 @@ _RENDER_ARGTYPES = [
 def _bind(lib) -> None:
     lib.rtx_render.argtypes = _RENDER_ARGTYPES
     lib.rtx_render.restype = _CI
-    lib.rtx_shared_bytes.argtypes = [_CI] * 6
+    lib.rtx_shared_bytes.argtypes = [_CI] * 7
     lib.rtx_shared_bytes.restype = ctypes.c_size_t
-    lib.rtx_occupancy.argtypes = [_CI, _CI, _CI, ctypes.c_size_t]
+    lib.rtx_occupancy.argtypes = [_CI, _CI, _CI, _CI, ctypes.c_size_t]
     lib.rtx_occupancy.restype = _CI
 
 
@@ -811,11 +903,12 @@ def _bind_probes(lib) -> None:
 
 class PathTraceKernel:
     """Builds, loads and launches ``csrc/megakernel.cu``: the production
-    library, and at the first launch with a profiling knob the probe library
-    (the same source with ``-DRTX_PROBES``).
+    library (both routes), and at the first launch with a profiling knob
+    the probe library (the same source with ``-DRTX_PROBES``).
 
     ``variant_launches`` counts the kernel launches this object made, by
-    instantiation (``variant``); only ``launch`` adds to it."""
+    instantiation (``variant``, which names the route); only ``launch``
+    adds to it."""
 
     def __init__(self):
         self.variant_launches: collections.Counter = collections.Counter()
@@ -841,22 +934,29 @@ class PathTraceKernel:
         it. Raises if nvcc is missing or fails."""
         return self.library.build()
 
-    def shared_bytes(self, tab: KernelTables, cfg: RenderConfig) -> int:
-        """A launch's dynamic shared memory for tables ``tab``."""
+    def shared_bytes(self, tab: KernelTables, cfg: RenderConfig,
+                     tables: str = "staged") -> int:
+        """A launch's dynamic shared memory for tables ``tab`` on the route
+        ``tables``, as the source computes it (``launch_shared_bytes`` is
+        its Python mirror)."""
         return self.library.lib.rtx_shared_bytes(
-            GEOMETRIES.index(tab.geometry), tab.spheres.shape[0],
+            GEOMETRIES.index(tab.geometry), TABLES.index(tables),
+            tab.spheres.shape[0],
             tab.clusters.shape[0],
             0 if tab.chunks is None else tab.chunks.shape[0],
             0 if tab.supers is None else tab.supers.shape[0], cfg.max_bounce)
 
     def blocks_per_sm(self, scene: Scene, cfg: RenderConfig) -> int:
-        """How many blocks of the instantiation that ``geometry(scene, cfg)``
-        and ``cfg`` pick one SM holds at once, at the launch's shared
-        memory (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+        """How many blocks of the instantiation that ``geometry(scene, cfg)``,
+        ``cfg`` and ``table_route`` pick one SM holds at once, at the
+        launch's shared memory
+        (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
         tab = geometry_tables(scene, geometry(scene, cfg))
+        tables = table_route(tab, cfg)
         n = self.library.lib.rtx_occupancy(
-            GEOMETRIES.index(tab.geometry), int(cfg.adaptive_spp),
-            int(cfg.fast_scatter), self.shared_bytes(tab, cfg))
+            GEOMETRIES.index(tab.geometry), TABLES.index(tables),
+            int(cfg.adaptive_spp), int(cfg.fast_scatter),
+            self.shared_bytes(tab, cfg, tables))
         if n < 0:
             self.library.check(-n, "occupancy query")
         return n
@@ -872,11 +972,16 @@ class PathTraceKernel:
         collect_stats: bool,
         rows: tuple[int, int] | None = None,
         probe: str | None = None,
+        tables: str | None = None,
     ):
         """One launch over the rows ``rows=(y0, y1)`` of the frame (the
         whole frame by default; ``band_rows`` says which bands a launch
-        takes), of the instantiation that ``geometry(scene, cfg)`` and
-        ``cfg.adaptive_spp`` / ``cfg.fast_scatter`` pick; returns the same
+        takes), of the instantiation that ``geometry(scene, cfg)``,
+        ``cfg.adaptive_spp`` / ``cfg.fast_scatter`` and the route pick: by
+        default ``table_route``'s, the staged tables where they fit a
+        block's shared memory and the global ones where they do not;
+        ``tables`` (one of ``TABLES``) forces one, which the tests and
+        ``chip_smoke.py`` do on scenes that fit. Returns the same
         tuple as ``render_frames_plain`` with its default warp grouping
         (the total and the histogram count real pixels only): ``accum``,
         the image and the per-pixel map hold ``y1 - y0`` rows. Reads
@@ -886,10 +991,13 @@ class PathTraceKernel:
 
         ``probe``, one of ``PROBES``, launches that profiling instantiation
         from the probe library, built at first use; with the Box-Muller
-        sampler only (fast scatter raises). A failing build or launch
-        raises: there is no fall back to the production kernel."""
+        sampler only (fast scatter raises) and staged tables. A failing
+        build or launch raises: there is no fall back to the production
+        kernel, nor from one route to the other."""
         _check_frames(n_frames, accum)
         _check_probe(probe)
+        if tables is not None and tables not in TABLES:
+            raise ValueError(f"tables must be one of {TABLES}, got {tables!r}")
         if probe is not None and cfg.fast_scatter:
             raise NotImplementedError(
                 "the probe library compiles the profiling instantiations "
@@ -924,13 +1032,11 @@ class PathTraceKernel:
         n_chunks = 0 if tab.chunks is None else tab.chunks.shape[0]
         n_supers = 0 if tab.supers is None else tab.supers.shape[0]
         code = GEOMETRIES.index(geom)
-        shared = self.shared_bytes(tab, cfg)
-        if shared > MAX_SHARED_BYTES:
+        route = tables or table_route(tab, cfg)
+        if probe is not None and route != "staged":
             raise NotImplementedError(
-                f"{n_sph} spheres in {n_clusters} clusters and {n_chunks} "
-                f"triangle chunks need {shared} bytes of shared memory, over "
-                f"{MAX_SHARED_BYTES}; build the scene with build_bvh=\"tri\" "
-                "to render its triangles through the BVH instantiation"
+                "the probe library compiles the profiling instantiations "
+                "with staged tables only: a scene within MAX_SHARED_BYTES"
             )
 
         out = torch.empty((h, w, 3), dtype=torch.float32, device=dev)
@@ -946,8 +1052,9 @@ class PathTraceKernel:
 
         with torch.cuda.device(dev):
             rc = render(
-                code, ptr(tab.spheres), ptr(tab.sphere_orig),
-                ptr(tab.sphere_mat), n_sph, ptr(tab.clusters), n_clusters,
+                code, TABLES.index(route), ptr(tab.spheres),
+                ptr(tab.sphere_orig), ptr(tab.sphere_mat), n_sph,
+                ptr(tab.clusters), n_clusters,
                 tab.n_hoist, ptr(tab.tri_rows), ptr(tab.tri_normals), ptr(tab.tri_mat),
                 ptr(tab.chunks), n_chunks, ptr(tab.supers), n_supers,
                 SUPER_CHUNKS, ptr(tab.bvh_nodes),
@@ -960,7 +1067,7 @@ class PathTraceKernel:
             )
         library.check(rc, "megakernel")
         self.variant_launches[variant(
-            geom, cfg.adaptive_spp, cfg.fast_scatter, probe
+            geom, cfg.adaptive_spp, cfg.fast_scatter, probe, route
         )] += 1
         return out, segs.sum(dtype=torch.int64), segs, hist
 
@@ -1264,6 +1371,7 @@ def render_frames_mega(
     collect_stats: bool = False,
     rows: tuple[int, int] | None = None,
     probe: str | None = None,
+    tables: str | None = None,
 ):
     """Render ``n_frames`` frames from ``frame0`` (folded into ``accum``
     when given) -> ``(image, total segments, per-pixel segments, bounce
@@ -1273,7 +1381,11 @@ def render_frames_mega(
     takes the kernel (one launch for all frames): ``render_adaptive`` with
     ``cfg.adaptive_spp``, else ``render_kernel``, each in the instantiation
     of ``geometry(scene, cfg)`` and in its fast one with
-    ``cfg.fast_scatter``.
+    ``cfg.fast_scatter``, on the route ``table_route`` picks: the staged
+    tables where they fit a block's shared memory, the global ones where
+    they do not. ``tables`` (one of ``TABLES``) forces a route on the card
+    (the outputs are the same bit for bit); the plain version has no
+    routes and only checks the value.
 
     ``rows=(y0, y1)`` renders a band of the frame's rows, on both devices
     under ``band_rows``'s rule: ``accum``, the image and the per-pixel map
@@ -1287,6 +1399,8 @@ def render_frames_mega(
     dev = scene.device
     if dev.type == "cpu":
         band_rows(cfg, rows)  # the kernel's rule (launch checks it there)
+        if tables is not None and tables not in TABLES:
+            raise ValueError(f"tables must be one of {TABLES}, got {tables!r}")
         return render_frames_plain(
             scene, camera, cfg, frame0, n_frames, accum, collect_stats,
             rows=rows, probe=probe,
@@ -1294,7 +1408,7 @@ def render_frames_mega(
     if dev.type == "cuda":
         return KERNEL.launch(
             scene, camera, cfg, frame0, n_frames, accum, collect_stats,
-            rows=rows, probe=probe,
+            rows=rows, probe=probe, tables=tables,
         )
     raise ValueError(f"no render path for device {dev}")
 

@@ -11,7 +11,11 @@ The scene's device picks the path: on the CPU the plain PyTorch path
 path, and for ``adaptive_spp`` of the TPU kernel's slot machine), on a
 CUDA device the hand-written kernel (``kernels/megakernel.py``), in
 exact-spp, adaptive-refill (``cfg.adaptive_spp``) and fast-scatter
-(``cfg.fast_scatter``) modes, with no other route. ``cfg.intersector``
+(``cfg.fast_scatter``) modes, with its scene tables staged in each block's
+shared memory, or, for a scene whose tables pass it (``MAX_SHARED_BYTES``,
+about 9,000 spheres), read in place from global memory: the same
+arithmetic and the same image (``table_route``). Nothing falls back to
+the plain path on the card. ``cfg.intersector``
 keeps the JAX package's meaning: ``"auto"`` and ``"bvh"`` traverse the
 BVHs a scene has, ``"bruteforce"`` scans, ``"mega"`` takes the kernel's
 choice (``kernels/megakernel.py`` ``plain_intersector`` on the CPU,

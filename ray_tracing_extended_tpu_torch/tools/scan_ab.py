@@ -45,10 +45,14 @@ K_FRAMES = 4
 
 
 def _entry(ln: str):
-    """The kernel entry a line names, ``render_kernel<geometry,scatter>``,
-    or None."""
+    """The kernel entry a line names, ``render_kernel<geometry,scatter>``
+    (``render_kernel<geometry,scatter,global>`` on the global table route
+    of a tree that has one), or None."""
     m = re.search(r"(render_kernel|render_adaptive)IL\w*?E(\d)EL\w*?E(\d)E", ln)
-    return f"{m.group(1)}<{m.group(2)},{m.group(3)}>" if m else None
+    if not m:
+        return None
+    route = ",global" if re.search(r"TablesE1E", ln) else ""
+    return f"{m.group(1)}<{m.group(2)},{m.group(3)}{route}>"
 
 
 def _ptxas(log: str) -> dict:
