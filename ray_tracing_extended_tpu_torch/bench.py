@@ -361,7 +361,7 @@ def run_gates(dev, sizes) -> str:
     # sphere test, rounds otherwise and parts from the kernel from the
     # first bounce on: PERF.md)
     scene, cam, cfg = rtiow_final_scene(**sizes["gate_a"], device=dev)
-    plain = plain_intersector(scene, cfg, direct=dev.type == "cuda")
+    plain = plain_intersector(scene, cam, cfg, direct=dev.type == "cuda")
     gate_kernel_vs_plain(
         render_frames_mega(scene, cam, cfg, 3)[0],
         render_frames_plain(scene, cam, cfg, 3, intersect_fn=plain)[0])

@@ -57,7 +57,19 @@
 //   spheres, through the clustered tables of kernels/pack.py (the TPU
 //   kernel's pack_scene): the hoisted spheres (RTIOW's ground and heroes)
 //   first, so their hit bounds every later test; then each sub-cluster of
-//   up to 32 spheres behind its box. The TPU kernel votes a cluster in or
+//   up to 32 spheres behind its box, nearest box first: the launch takes
+//   the cluster rows in its camera's front-to-back order (the TPU kernel's
+//   _f2b, megakernel.py:2512-2533; kernels/megakernel.py front_to_back), so
+//   an early near hit culls the boxes behind it. Over more than 32
+//   clusters, in the kSpheres instantiations, a second level, the TPU
+//   kernel's hierarchical cull
+//   (megakernel.py:998-1019): one super box over each run of 32 clusters of
+//   the table's Morton order, the supers nearest first and the clusters
+//   within each nearest first (_f2b_within), a run skipped whole when its
+//   super fails the gate. Without it the flat loop slab-tested every
+//   cluster box on every segment: 450 a segment on 14,401 spheres, 3,121
+//   on 99,857, 80% and 96% of the scan's operations (a CPU count on
+//   RTIOW's camera rays). The TPU kernel votes a cluster in or
 //   out for a whole tile of rays; a Hopper thread branches on its own
 //   test, so a warp pays for the union of its lanes' clusters (a warp's 32
 //   camera rays are neighbours and pass the same few). No vote is cast, so
@@ -90,12 +102,16 @@
 // What bounds it on this card: FP32 ALU throughput of the tests that pass
 // their gates plus the gates themselves, about pixels x samples x segments
 // x (boxes + gated spheres + gated triangles), and warp divergence: lanes
-// of one warp in different clusters and chunks, and long and short paths.
-// What this version does about it: the tables in shared memory where they
-// fit, loaded once per block and read as warp-wide broadcasts; the culls
-// above; with refill, lanes that would idle behind a warp-mate's long path
-// trace extra samples instead. No front-to-back order, no path regeneration across
-// warps.
+// of one warp in different clusters and chunks, and long and short paths;
+// past the shared-memory limit the latency of those lanes' divergent L2
+// reads of cluster rows. What this version does about it: the tables in
+// shared memory where they fit, loaded once per block and read as
+// warp-wide broadcasts; the culls above, whose two levels and visit order
+// keep the box tests a segment near the gated spheres' count rather than
+// the cluster count (and the rows read with them); with refill, lanes that
+// would idle behind a warp-mate's long path trace extra samples instead.
+// The order is the camera's, as the TPU kernel's: a bounce ray starts
+// elsewhere. No path regeneration across warps.
 //
 // kBvh, for big meshes (mesh_scene's 70,016 triangles in one chunk, which
 // the chunk scan would test in full every segment). It replaces the TPU
@@ -625,7 +641,9 @@ __device__ __forceinline__ Vec3 triangle_normal(Triangles<kTab> tri, int i,
 
 // The sphere tables, in clustered order: the hoisted spheres in slots
 // [0, n_hoist), then each cluster's spheres; in the block's shared memory
-// (kStaged) or in global memory (kGlobal).
+// (kStaged) or in global memory (kGlobal). The cluster rows come in the
+// launch camera's visit order; the super rows, in global memory on both
+// routes, too.
 template <Tables kTab>
 struct Spheres {
   const float4* rows;  // cx, cy, cz, r^2
@@ -633,6 +651,10 @@ struct Spheres {
   const int* orig;  // the slot's sphere index in the scene
   const int* mat;  // the slot's material index
   int n_hoist, n_clusters;
+  // two float4s a super: (box min, first cluster row), (box max, cluster
+  // count); n_supers == 0: no second level
+  const float4* __restrict__ supers;
+  int n_supers;
   __device__ __forceinline__ float4 row(int i) const {
     return table_load<kTab>(rows + i);
   }
@@ -683,9 +705,14 @@ __device__ __forceinline__ void test_spheres(Spheres<kTab> sph, int first,
 enum Probe : int { kNone = 0, kDupIntersect = 1, kDupFetch = 2 };
 
 // The closest hit of a ray: the hoisted spheres, then each cluster behind
-// its gate (a finite best_t is a sphere's there, so `best` is a slot
-// wherever the tie rule reads it), then the triangles. best_t starts at
-// +inf, best and best_tri at -1.
+// its gate in the rows' (visit) order, in the sphere instantiations with a
+// second level, each run of clusters behind its super's gate (a finite
+// best_t is a sphere's there, so `best` is a slot wherever the tie rule
+// reads it), then the triangles. best_t starts at +inf, best and best_tri
+// at -1. The triangle instantiations compile the flat loop only: with the
+// second level in them as well (inline, or a __noinline__ helper), Chess,
+// which has no sphere, took 3-6% longer a frame and their ptxas -v moved
+// (PERF.md section 6).
 template <Geometry kGeom, Tables kTab>
 __device__ __forceinline__ void closest_hit(Spheres<kTab> sph,
                                             Triangles<kTab> tri,
@@ -693,13 +720,25 @@ __device__ __forceinline__ void closest_hit(Spheres<kTab> sph,
                                             float& best_t, int& best,
                                             int& best_tri) {
   test_spheres(sph, 0, sph.n_hoist, o, d, best_t, best);
-  for (int k = 0; k < sph.n_clusters; ++k) {
-    const float4 lo = sph.cluster(2 * k);
-    const float4 hi = sph.cluster(2 * k + 1);
-    if (!box_gate(lo, hi, o, inv_d, best_t)) continue;
-    const int first = __float_as_int(lo.w);
-    test_spheres(sph, first, first + __float_as_int(hi.w), o, d, best_t,
-                 best);
+  const int n_outer =
+      kGeom == kSpheres && sph.n_supers > 0 ? sph.n_supers : 1;
+  for (int s = 0; s < n_outer; ++s) {
+    int k = 0, k_end = sph.n_clusters;
+    if (kGeom == kSpheres && sph.n_supers > 0) {
+      const float4 lo = __ldg(sph.supers + 2 * s);
+      const float4 hi = __ldg(sph.supers + 2 * s + 1);
+      if (!box_gate(lo, hi, o, inv_d, best_t)) continue;
+      k = __float_as_int(lo.w);
+      k_end = k + __float_as_int(hi.w);
+    }
+    for (; k < k_end; ++k) {
+      const float4 lo = sph.cluster(2 * k);
+      const float4 hi = sph.cluster(2 * k + 1);
+      if (!box_gate(lo, hi, o, inv_d, best_t)) continue;
+      const int first = __float_as_int(lo.w);
+      test_spheres(sph, first, first + __float_as_int(hi.w), o, d, best_t,
+                   best);
+    }
   }
   if constexpr (kGeom == kChunks) {
     closest_triangle(tri, o, d, inv_d, best_t, best_tri);
@@ -905,6 +944,8 @@ struct Args {
   int n_sph;
   const float4* __restrict__ clusters;  // two float4s a cluster
   int n_clusters, n_hoist;
+  const float4* __restrict__ sph_supers;  // two float4s a run of clusters
+  int n_sph_supers;
   const float4* __restrict__ tri_rows;
   const float* __restrict__ tri_normals;
   const int* __restrict__ tri_mat;
@@ -970,7 +1011,7 @@ __device__ __forceinline__ Staged<kTab> stage_scene(float4* smem4,
     __syncthreads();
     return {p,
             {a.sph, a.clusters, a.sph_orig, a.sph_mat, a.n_hoist,
-             a.n_clusters},
+             a.n_clusters, a.sph_supers, a.n_sph_supers},
             s_hist,
             {a.tri_rows, a.tri_normals, a.tri_mat, a.chunks, a.n_chunks,
              a.supers, a.n_supers, a.super_size, a.bvh_nodes, a.bvh_leaves,
@@ -999,7 +1040,8 @@ __device__ __forceinline__ Staged<kTab> stage_scene(float4* smem4,
   for (int i = tid; i <= a.max_bounce; i += n_threads) s_hist[i] = 0;
   __syncthreads();
   return {p,
-          {rows, clusters, orig, mat, a.n_hoist, a.n_clusters},
+          {rows, clusters, orig, mat, a.n_hoist, a.n_clusters, a.sph_supers,
+           a.n_sph_supers},
           s_hist,
           {a.tri_rows, a.tri_normals, a.tri_mat, chunks, a.n_chunks, supers,
            a.n_supers, a.super_size, a.bvh_nodes, a.bvh_leaves, a.n_nodes}};
@@ -1357,7 +1399,9 @@ extern "C" int rtx_occupancy(int geometry, int tables, int adaptive,
 // `geometry` picks the instantiation (0 kSpheres, 1 kChunks, 2 kBvh) and
 // `tables` its route (0 kStaged, 1 kGlobal: tables past a block's shared
 // memory). Every geometry takes the sphere tables (16-byte aligned; empty for a
-// scene without spheres). kChunks and kBvh need the triangle tables
+// scene without spheres), the clusters in visit order, and with
+// n_sph_supers > 0 a super row over each run of them (read in global memory
+// on both routes). kChunks and kBvh need the triangle tables
 // (tri_rows 16-byte aligned), kChunks the chunk table and, with n_supers
 // > 0, a box over each run of super_size chunks; kBvh the node table
 // (64-byte aligned rows), the leaf rows and the BVH's node count (the
@@ -1382,7 +1426,7 @@ extern "C" int rtx_render(
     int geometry, int tables, const void* sph, const void* sph_orig,
     const void* sph_mat,
     int n_sph, const void* clusters, int n_clusters, int n_hoist,
-    const void* tri_rows, const void* tri_normals, const void* tri_mat,
+    const void* sph_supers, int n_sph_supers, const void* tri_rows, const void* tri_normals, const void* tri_mat,
     const void* chunks, int n_chunks, const void* supers, int n_supers,
     int super_size, const void* bvh_nodes, const void* bvh_leaves,
     int n_nodes, const void* mats, const void* params, int width, int height,
@@ -1407,6 +1451,8 @@ extern "C" int rtx_render(
       static_cast<const float4*>(clusters),
       n_clusters,
       n_hoist,
+      static_cast<const float4*>(sph_supers),
+      n_sph_supers,
       static_cast<const float4*>(tri_rows),
       static_cast<const float*>(tri_normals),
       static_cast<const int*>(tri_mat),

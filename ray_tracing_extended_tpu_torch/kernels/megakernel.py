@@ -106,6 +106,11 @@ WARP = 32
 # (the TPU kernel's super-cluster of 32 sub-clusters).
 SUPER_CHUNKS = 32
 
+# The sphere scan's second level: one box over each run of this many sphere
+# clusters in table (Morton) order (the TPU's SUPER, pack.py:44), built
+# where a scene has more than one run (``sphere_tables``).
+SUPER_CLUSTERS = 32
+
 # How the kernel finds a scene's triangles, in the order of the source's
 # Geometry values (kSpheres, kChunks, kBvh).
 GEOMETRIES = ("spheres", "chunks", "bvh")
@@ -181,23 +186,28 @@ def geometry(scene: Scene, cfg: RenderConfig) -> str:
     return "chunks" if scene.has_triangles else "spheres"
 
 
-def plain_intersector(scene: Scene, cfg: RenderConfig, counts=None,
-                      direct: bool = False):
+def plain_through_sphere_bvh(scene: Scene, cfg: RenderConfig) -> bool:
+    """Whether the plain path takes the one case the kernel has no
+    counterpart of, the JAX package's XLA path: ``"auto"`` and ``"bvh"`` on
+    a scene with a sphere BVH traverse it (``closest_hit_bvh``)."""
+    return cfg.intersector in ("auto", "bvh") and scene.sphere_bvh is not None
+
+
+def plain_intersector(scene: Scene, camera: Camera, cfg: RenderConfig,
+                      counts=None, direct: bool = False):
     """The plain path's closest-hit function for ``cfg.intersector``:
-    ``closest_hit_clustered`` on the tables of ``geometry(scene, cfg)``,
-    the function the kernel computes for this scene and config. One case
-    the kernel has no counterpart of keeps the JAX package's XLA path:
-    ``"auto"`` and ``"bvh"`` on a scene with a sphere BVH traverse it
-    (``closest_hit_bvh``). ``counts``, a dict, gathers the tests the
-    clustered scan needs (``closest_hit_clustered``); ``direct`` takes the
-    kernel's test forms there (``clustered_winner``)."""
-    if cfg.intersector in ("auto", "bvh") and scene.sphere_bvh is not None:
+    ``closest_hit_clustered`` on the tables of ``geometry(scene, cfg)`` in
+    ``camera``'s visit order (``visit_tables``), the function a launch from
+    that camera computes for this scene and config; ``closest_hit_bvh``
+    where ``plain_through_sphere_bvh``. ``counts``, a dict, gathers the
+    tests the clustered scan needs (``closest_hit_clustered``); ``direct``
+    takes the kernel's test forms there (``clustered_winner``)."""
+    if plain_through_sphere_bvh(scene, cfg):
         return closest_hit_bvh
     return functools.partial(
         closest_hit_clustered,
-        tables=geometry_tables(scene, geometry(scene, cfg)), counts=counts,
-        direct=direct,
-    )
+        tables=visit_tables(scene, geometry(scene, cfg), camera),
+        counts=counts, direct=direct)
 
 
 def launch_shared_bytes(tab: KernelTables, max_bounce: int,
@@ -244,7 +254,7 @@ def path_name(scene: Scene, cfg: RenderConfig) -> str:
         geom = geometry(scene, cfg)
         return variant(geom, cfg.adaptive_spp, cfg.fast_scatter,
                        tables=table_route(geometry_tables(scene, geom), cfg))
-    if plain_intersector(scene, cfg) is closest_hit_bvh:
+    if plain_through_sphere_bvh(scene, cfg):
         return "plain closest_hit_bvh"
     return f"plain closest_hit_clustered<{geometry(scene, cfg)}>"
 
@@ -274,10 +284,12 @@ def _gated_visits(t_near, t_far, nearest, best0, outer=None):
     ``best`` is the nearest hit so far: ``best0`` (B,) before the first
     box, then the least of it and ``nearest`` (B, K, the nearest hit among
     a box's members, +inf for none) of the boxes visited. -> ``(visit (B,
-    K) bool, None)``. With ``outer = (t_near, t_far, size)``, the intervals
-    (B, R) of a box over each run of ``size`` boxes, a run is entered only
-    if its outer box passes the same test, with ``best`` as it is then:
-    -> ``(visit, entered (B, R) bool)``.
+    K) bool, None)``. With ``outer = (t_near, t_far, starts)``, the
+    intervals (B, R) of a box over each of R consecutive runs of boxes and
+    the (R,) int64 index of each run's first box (0 first, ascending), a
+    run is entered only if its outer box passes the same test, with
+    ``best`` as it is at its first box: -> ``(visit, entered (B, R)
+    bool)``.
 
     Computed without a loop over boxes. A box skipped for ``t_near > best``
     holds, as a rule, nothing nearer than ``best``; then ``best`` before
@@ -292,8 +304,10 @@ def _gated_visits(t_near, t_far, nearest, best0, outer=None):
     n = t_near.shape[1]
     line = (t_far >= 0.0) & (t_near <= t_far)
     if outer is not None:
-        o_near, o_far, size = outer
-        run_of = torch.arange(n, device=t_near.device) // size
+        o_near, o_far, starts = outer
+        run_of = torch.zeros(n, dtype=torch.int64, device=t_near.device)
+        run_of[starts[1:]] = 1
+        run_of = run_of.cumsum(0)
         o_line = (o_far >= 0.0) & (o_near <= o_far)
         line = line & o_line[:, run_of]
 
@@ -313,7 +327,7 @@ def _gated_visits(t_near, t_far, nearest, best0, outer=None):
         visit = ln & (tn <= before)
         entered = None
         if outer is not None:
-            entered = of(o_line) & (of(o_near) <= before[:, ::size])
+            entered = of(o_line) & (of(o_near) <= before[:, starts])
             visit &= entered[:, run_of]
         return visit, entered, counted & ~visit & (m < before)
 
@@ -392,10 +406,14 @@ def clustered_winner(o, d, scene: Scene, tables: KernelTables, counts=None,
     for op (``bench.py``'s gate (a)); the culls and counts are the same.
 
     Spheres: the hoisted ones, then each sub-cluster of ``tables.clusters``
-    in table order behind the t-bounded slab test (``_gated_visits``,
-    ``_slab_interval`` for the NaN rule); among the spheres tested the
-    nearest wins, the lower scene index on a tie, so the clustered order
-    decides no tie. Then the triangles, by ``tables.geometry``: each chunk
+    in the order of its rows (``visit_tables``: a camera's front-to-back
+    order, or table order) behind the t-bounded slab test
+    (``_gated_visits``, ``_slab_interval`` for the NaN rule); with
+    ``tables.sph_supers`` a run of clusters is entered only if its super
+    box passes the same test. Among the spheres tested the nearest wins,
+    the lower scene index on a tie, so the order decides no tie (it decides
+    only which near-ties a box's entry culls). Then the triangles, by
+    ``tables.geometry``: each chunk
     in index order behind the same test (spheres first, so the best hit is
     often finite already), a strictly nearer triangle winning and the lower
     index a tie; or through the triangle BVH (``accel/bvh._traverse``, from
@@ -403,7 +421,9 @@ def clustered_winner(o, d, scene: Scene, tables: KernelTables, counts=None,
 
     ``counts``, a dict, if given, gains what the scan does for the rays
     that are live (the plain path parks dead lanes at 1e9): ``segments``,
-    ``cluster_slabs``, ``sphere_tests``, ``chunk_slabs``,
+    ``cluster_slabs`` (with supers, every super box and the cluster boxes
+    of the supers entered; ``super_slabs`` the former), ``sphere_tests``,
+    ``chunk_slabs``,
     ``triangle_tests``, beside them ``line_triangle_tests`` (the triangles
     of every chunk whose box the ray's line meets: what the reference's
     gate, without the bound, would test), and for the BVH ``_traverse``'s
@@ -427,25 +447,35 @@ def clustered_winner(o, d, scene: Scene, tables: KernelTables, counts=None,
         # matrix product)
         return (mask * weights.to(torch.int64)[None, :]).sum(dim=1)
 
-    # spheres: hoisted (column n_clusters, always tested), then clusters
+    # spheres: hoisted (column n_clusters, always tested), then clusters in
+    # the order of their rows; nearest and tested by table index
     t_sph = (kernel_sphere_t if direct else ray_spheres_t)(o, d, scene.spheres)
     nearest = _group_min(t_sph, tables.cluster_members)
     tested = torch.zeros((b, n_clusters + 2), dtype=torch.bool, device=dev)
     tested[:, n_clusters] = True
+    cl, su, row_of = tables.clusters, tables.sph_supers, tables.cluster_order
+    entered = None
     if n_clusters:
-        cl = tables.clusters
         t_near, t_far = _slab_interval(o, inv_d, cl[:, 0:3], cl[:, 4:7])
-        tested[:, :n_clusters] = _gated_visits(
-            t_near, t_far, nearest[:, :n_clusters], nearest[:, n_clusters]
-        )[0]
+        outer = None
+        if su is not None:
+            outer = (*_slab_interval(o, inv_d, su[:, 0:3], su[:, 4:7]),
+                     _int_column(su, 3).to(torch.int64))
+        visit, entered = _gated_visits(t_near, t_far, nearest[:, row_of],
+                                       nearest[:, n_clusters], outer)
+        tested[:, row_of] = visit
     t_sph = torch.where(tested[:, tables.cluster_of], t_sph, INF)
     best_t, best = torch.min(t_sph, dim=1)
     if counts is not None:
-        add("cluster_slabs", torch.full((b,), n_clusters, device=dev))
+        if entered is None:
+            add("cluster_slabs", torch.full((b,), n_clusters, device=dev))
+        else:
+            add("cluster_slabs",
+                su.shape[0] + weighted(entered, _int_column(su, 7)))
+            add("super_slabs", torch.full((b,), su.shape[0], device=dev))
         # a cluster's live slots, int32 bits in its row's last column
-        sizes = tables.clusters[:, 7].contiguous().view(torch.int32)
-        add("sphere_tests", tables.n_hoist
-            + weighted(tested[:, :n_clusters], sizes))
+        add("sphere_tests", tables.n_hoist + weighted(
+            tested[:, row_of], _int_column(cl, 7)))
 
     if tables.geometry == "chunks":
         ch = tables.chunks
@@ -462,7 +492,7 @@ def clustered_winner(o, d, scene: Scene, tables: KernelTables, counts=None,
         if tables.supers is not None:
             su = tables.supers
             outer = (*_slab_interval(o, inv_d, su[:, 0:3], su[:, 4:7]),
-                     SUPER_CHUNKS)
+                     torch.arange(0, n_chunks, SUPER_CHUNKS, device=dev))
         visit = torch.zeros((b, n_chunks + 1), dtype=torch.bool, device=dev)
         visit[:, :n_chunks], entered = _gated_visits(
             t_near, t_far, nearest, best_t, outer
@@ -637,7 +667,8 @@ def render_frames_plain(
     made of whole groups. This makes a full-width check of the kernel
     affordable at large sizes. ``intersect_fn`` is the closest-hit
     function (``ops/trace.trace_segment``); by default the one
-    ``plain_intersector`` picks for ``cfg.intersector``. ``probe``, one of
+    ``plain_intersector`` picks for ``cfg.intersector`` and ``camera``
+    (the kernel's visit order). ``probe``, one of
     ``PROBES``, sets that profiling knob (``ops/trace.dup_intersect`` on
     the closest-hit function, or ``ops/trace.fetch_again``); the image,
     maps and histogram are those without it.
@@ -645,7 +676,7 @@ def render_frames_plain(
     _check_frames(n_frames, accum)
     _check_probe(probe)
     if intersect_fn is None:
-        intersect_fn = plain_intersector(scene, cfg)
+        intersect_fn = plain_intersector(scene, camera, cfg)
     if probe == "dup_intersect":
         intersect_fn = dup_intersect(intersect_fn)
     dup_fetch = probe == "dup_fetch"
@@ -881,7 +912,8 @@ def _check_probe(probe) -> None:
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
 # rtx_render's arguments; rtx_render_probe takes a Probe value before them
 _RENDER_ARGTYPES = [
-    _CI, _CI, _VP, _VP, _VP, _CI, _VP, _CI, _CI, _VP, _VP, _VP, _VP, _CI, _VP, _CI,
+    _CI, _CI, _VP, _VP, _VP, _CI, _VP, _CI, _CI, _VP, _CI, _VP, _VP, _VP, _VP,
+    _CI, _VP, _CI,
     _CI, _VP, _VP, _CI, _VP, _VP, _CI, _CI, _CI, _CI, _CI, _CI, ctypes.c_uint,
     _CI, _VP, _CI, _CI, _CI, _VP, _VP, _VP, _VP,
 ]
@@ -987,7 +1019,8 @@ class PathTraceKernel:
         the image and the per-pixel map hold ``y1 - y0`` rows. Reads
         nothing back from the device and does not synchronise, except at a
         scene's first launch, which reads its sphere arrays back to cluster
-        them (``geometry_tables``).
+        them (``geometry_tables``); the camera's visit order is made on the
+        device (``visit_tables``).
 
         ``probe``, one of ``PROBES``, launches that profiling instantiation
         from the probe library, built at first use; with the Box-Muller
@@ -1031,6 +1064,7 @@ class PathTraceKernel:
         n_clusters = tab.clusters.shape[0]
         n_chunks = 0 if tab.chunks is None else tab.chunks.shape[0]
         n_supers = 0 if tab.supers is None else tab.supers.shape[0]
+        n_sph_supers = 0 if tab.sph_supers is None else tab.sph_supers.shape[0]
         code = GEOMETRIES.index(geom)
         route = tables or table_route(tab, cfg)
         if probe is not None and route != "staged":
@@ -1054,8 +1088,9 @@ class PathTraceKernel:
             rc = render(
                 code, TABLES.index(route), ptr(tab.spheres),
                 ptr(tab.sphere_orig), ptr(tab.sphere_mat), n_sph,
-                ptr(tab.clusters), n_clusters,
-                tab.n_hoist, ptr(tab.tri_rows), ptr(tab.tri_normals), ptr(tab.tri_mat),
+                ptr(tab.clusters), n_clusters, tab.n_hoist,
+                ptr(tab.sph_supers), n_sph_supers,
+                ptr(tab.tri_rows), ptr(tab.tri_normals), ptr(tab.tri_mat),
                 ptr(tab.chunks), n_chunks, ptr(tab.supers), n_supers,
                 SUPER_CHUNKS, ptr(tab.bvh_nodes),
                 ptr(tab.bvh_leaves), tab.bvh_node_count, ptr(tab.materials),
@@ -1081,7 +1116,10 @@ class KernelTables:
 
     Spheres are in clustered order (``kernels/pack.py``): the hoisted ones
     first, then each sub-cluster's live slots, sub-cluster after
-    sub-cluster. Only real spheres have a slot."""
+    sub-cluster. Only real spheres have a slot. ``geometry_tables`` holds
+    the clusters, and their supers, in that table order; ``visit_tables``
+    in a camera's visit order (the sphere rows do not move: a cluster row
+    names its slots)."""
 
     geometry: str
     spheres: torch.Tensor  # (N, 4) f32: cx, cy, cz, r^2
@@ -1091,12 +1129,19 @@ class KernelTables:
     # as int32 bits); the box is the sub-cluster's, one ulp wider each way
     clusters: torch.Tensor
     n_hoist: int
+    # (R, 8) f32: box min, first cluster row, box max, cluster count (int32
+    # bits): one super over each run of SUPER_CLUSTERS clusters in table
+    # order, its box the union of theirs; None for at most one run, and for
+    # the triangle geometries (their kernels scan the clusters in one level)
+    sph_supers: torch.Tensor | None
     # (S,) int64, by the scene's sphere index: its cluster, K for a hoisted
     # sphere, K + 1 for a padding sphere
     cluster_of: torch.Tensor
     # (K + 1, M) int64: the scene indices of each cluster's spheres, row K
     # the hoisted ones, filled up with S
     cluster_members: torch.Tensor
+    # (K,) int64: the table index of each row of ``clusters``
+    cluster_order: torch.Tensor
     materials: torch.Tensor  # (M, 16) f32
     params: torch.Tensor | None = None  # (32,) f32, set a launch
     tri_rows: torch.Tensor | None = None  # (T, 12) f32: a, b - a, c - a, n
@@ -1140,6 +1185,11 @@ def _int_bits(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.int32)[:, None].view(torch.float32)
 
 
+def _int_column(rows: torch.Tensor, c: int) -> torch.Tensor:
+    """Column ``c`` of f32 ``rows``, read as the int32 it holds."""
+    return rows[:, c].contiguous().view(torch.int32)
+
+
 def _tensor_leaves(tree):
     if dataclasses.is_dataclass(tree):
         for f in dataclasses.fields(tree):
@@ -1156,7 +1206,10 @@ def sphere_tables(scene: Scene) -> dict:
     its live slots and an empty one is dropped, so a scene without spheres
     has no cluster. A box is widened by one ulp each way: ``c - r`` and
     ``c + r`` round to nearest, so the sub-cluster's own box can miss its
-    sphere's surface by half an ulp."""
+    sphere's surface by half an ulp. Over more than ``SUPER_CLUSTERS``
+    clusters, one super a run of that many in table order, its box the
+    union of theirs (the JAX package's ``_supers``, ``pack.py:698-730``;
+    the hoisted spheres stay hoisted, tested before either level)."""
     dev = scene.device
     sph = scene.spheres
     centers = sph.center.cpu().numpy()
@@ -1191,6 +1244,19 @@ def sphere_tables(scene: Scene) -> dict:
     r = radii[order]
     rows = np.concatenate([centers[order], (r * r)[:, None]], axis=1)
     clusters = np.stack(boxes) if boxes else np.zeros((0, 8), np.float32)
+    supers = None
+    if n_clusters > SUPER_CLUSTERS:
+        supers = np.stack([
+            np.concatenate([
+                run[:, 0:3].min(axis=0),
+                np.int32([k0]).view(np.float32),
+                run[:, 4:7].max(axis=0),
+                np.int32([len(run)]).view(np.float32),
+            ])
+            for k0 in range(0, n_clusters, SUPER_CLUSTERS)
+            for run in [clusters[k0:k0 + SUPER_CLUSTERS]]
+        ])
+        supers = torch.from_numpy(supers).to(dev)
     order_t = torch.from_numpy(order).to(dev)
     return dict(
         spheres=torch.from_numpy(rows.astype(np.float32)).to(dev),
@@ -1198,6 +1264,8 @@ def sphere_tables(scene: Scene) -> dict:
         sphere_mat=sph.mat_idx[order_t].to(torch.int32).contiguous(),
         clusters=torch.from_numpy(clusters).to(dev),
         n_hoist=pack.n_hoist,
+        sph_supers=supers,
+        cluster_order=torch.arange(n_clusters, device=dev),
         cluster_of=torch.from_numpy(cluster_of).to(dev),
         cluster_members=torch.from_numpy(
             _members(cluster_of, n_clusters + 1, centers.shape[0])).to(dev),
@@ -1260,8 +1328,8 @@ def geometry_tables(scene: Scene, geom: str) -> KernelTables:
     t0 = time.perf_counter()
     dev = scene.device
     mat = scene.materials
-    if "spheres" not in cache:
-        cache["spheres"] = sphere_tables(scene)
+    if "sphere_tables" not in cache:
+        cache["sphere_tables"] = sphere_tables(scene)
     tab = KernelTables(
         geometry=geom,
         materials=torch.cat(
@@ -1274,9 +1342,12 @@ def geometry_tables(scene: Scene, geom: str) -> KernelTables:
             ],
             dim=1,
         ).contiguous(),
-        **cache["spheres"],
+        **cache["sphere_tables"],
     )
     if geom != "spheres":
+        # the triangle instantiations scan the sphere clusters in one level
+        # (csrc/megakernel.cu closest_hit)
+        tab.sph_supers = None
         tri = scene.triangles
         tab.tri_rows = torch.cat(
             [tri.pos_a, tri.edge_ab, tri.edge_ac, tri.n], dim=1
@@ -1338,10 +1409,74 @@ def geometry_tables(scene: Scene, geom: str) -> KernelTables:
     return tab
 
 
+def _boxdist2(pos: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor):
+    """Squared distance from the point ``pos`` (3,) to each box ``lo``,
+    ``hi`` (N, 3), clipped per axis (the JAX package's ``_boxdist2``,
+    ``megakernel.py:2512-2515``): 0 for a box that holds it."""
+    e = torch.minimum(torch.maximum(pos[None, :], lo), hi) - pos[None, :]
+    e = e * e
+    return (e[:, 0] + e[:, 1]) + e[:, 2]
+
+
+def front_to_back(tab: KernelTables, position: torch.Tensor) -> dict:
+    """The sphere clusters of ``tab`` (in table order) in the visit order
+    of a camera at ``position``, the TPU kernel's rule
+    (``megakernel.py:2512-2533``, ``sperm_sup`` ``:2568``): the nearest box
+    first by ``_boxdist2``, a tie to the lower table index. With supers,
+    the supers in that order and each one's clusters in that order within
+    it (``_f2b_within``); without, all clusters (``_f2b``). -> the fields
+    ``clusters`` (the rows gathered into visit order), ``sph_supers`` (the
+    supers' rows gathered, column 3 the first row of their run in the
+    gathered clusters) and ``cluster_order`` (each row's table index).
+    Made on the device: no value is read back."""
+    cl, su = tab.clusters, tab.sph_supers
+    k = cl.shape[0]
+    d2 = _boxdist2(position, cl[:, 0:3], cl[:, 4:7])
+    if su is None:
+        order = torch.argsort(d2, stable=True)
+        return dict(clusters=cl[order], cluster_order=order)
+    r, size = su.shape[0], SUPER_CLUSTERS
+    sup_order = torch.argsort(_boxdist2(position, su[:, 0:3], su[:, 4:7]),
+                              stable=True)
+    # the last run's missing clusters sort last within it
+    within = torch.argsort(F.pad(d2, (0, r * size - k), value=INF)
+                           .reshape(r, size), dim=1, stable=True)
+    # a cluster's visit key: its super's rank, then its rank within it
+    rank = torch.argsort(sup_order)[:, None] * size + torch.argsort(within, dim=1)
+    order = torch.argsort(rank.reshape(-1)[:k])
+    counts = _int_column(su, 7)[sup_order]
+    rows = su[sup_order]
+    rows[:, 3] = (torch.cumsum(counts, 0, dtype=torch.int32)
+                  - counts).view(torch.float32)
+    return dict(clusters=cl[order], sph_supers=rows, cluster_order=order)
+
+
+def visit_tables(scene: Scene, geom: str, camera: Camera) -> KernelTables:
+    """``geometry_tables(scene, geom)`` with its sphere clusters in the
+    visit order of ``camera`` (``front_to_back``), as a launch from that
+    camera takes them. Kept beside the scene's tables, one camera at a
+    time, and found again while the camera's position is the same tensor,
+    not written in place (the way ``geometry_tables`` keeps a scene's): a
+    still camera pays for its order once."""
+    tab = geometry_tables(scene, geom)
+    if tab.clusters.shape[0] < 2:
+        return tab
+    pos = camera.position
+    cache = scene.__dict__["_kernel_tables"]
+    kept = cache.get(("visit", geom))
+    if (kept is not None and kept[0] is tab and kept[1] is pos
+            and kept[2] == pos._version):
+        return kept[3]
+    out = dataclasses.replace(tab, **front_to_back(tab, pos))
+    cache[("visit", geom)] = (tab, pos, pos._version, out)
+    return out
+
+
 def scene_tables(scene: Scene, camera: Camera, cfg: RenderConfig) -> KernelTables:
     """The scene, camera and config flattened into the kernel's tables, for
-    ``geometry(scene, cfg)``: the scene's part from ``geometry_tables``,
-    the camera's and the environment's parameters made anew."""
+    ``geometry(scene, cfg)``: the scene's part from ``geometry_tables`` with
+    its clusters in the camera's visit order (``visit_tables``), the
+    camera's and the environment's parameters made anew."""
     env = scene.env
     params = torch.cat(
         [
@@ -1354,7 +1489,7 @@ def scene_tables(scene: Scene, camera: Camera, cfg: RenderConfig) -> KernelTable
         ]
     ).to(torch.float32)
     return dataclasses.replace(
-        geometry_tables(scene, geometry(scene, cfg)), params=params
+        visit_tables(scene, geometry(scene, cfg), camera), params=params
     )
 
 

@@ -17,17 +17,21 @@ from the same spheres:
   * dead slots carry r^2 = -1e30: the discriminant goes negative, no
     ``r > 0`` test is needed.
 
-Left out, because they serve TPU mechanisms the CUDA kernel has no use
-for: the triangle sub-clusters (the kernel gates triangles by the scene's
-chunks or walks its BVH), the fetch tables (``fetch_tab``, ``fetch_tab2``,
-``sph_attr``, ``tri_attr``: operands of the one-hot and winner fetches; a
-CUDA thread reads its winner's row by index), the super-cluster boxes and
-``features`` (code specialisation at trace time). The JAX package drops the
-hoist when it would leave the regular spheres in more than one
-super-cluster, because only its flat sub loop can skip the trailing hoisted
-block; the port has no super level for spheres, so that guard has no
-counterpart here and scenes of more than about 900 spheres keep their
-hoist.
+The super-cluster boxes of spheres are built from these sub-clusters by
+``kernels/megakernel.py`` (``sphere_tables``: one box over each run of 32
+of the port's clusters), and a launch visits both levels nearest box first
+from its camera (``front_to_back``). Left out, because they serve TPU
+mechanisms the CUDA kernel has no use for: the triangle sub-clusters (the
+kernel gates triangles by the scene's chunks or walks its BVH), the fetch
+tables (``fetch_tab``, ``fetch_tab2``, ``sph_attr``, ``tri_attr``: operands
+of the one-hot and winner fetches; a CUDA thread reads its winner's row by
+index) and ``features`` (code specialisation at trace time). The JAX
+package drops the hoist when it would leave the regular spheres in more
+than one super-cluster, because only its flat sub loop can skip the
+trailing hoisted block; the port tests the hoisted spheres before either
+level, so that guard has no counterpart here and every scene keeps its
+hoist (without it RTIOW's r = 1000 ground would sit in a cluster whose box
+every ray enters).
 """
 
 from __future__ import annotations

@@ -1,11 +1,14 @@
-"""Sphere scenes wider than a thread block's shared memory, for tests and
-``chip_smoke.py``: the RTIOW cover scene's rule over a wider grid.
+"""Sphere scenes wider than a thread block's shared memory: the RTIOW
+cover scene's rule over a wider grid, for the tests, ``chip_smoke.py`` and
+``tools/scan_ab.py``.
 
-No feature of either package: neither has a preset this large. Both build
-it from the same seed through their own ``SceneBuilder``, so the arrays are
-equal; the camera, sky and config are ``rtiow_final_scene``'s. NumPy only:
-``presets`` is the package's ``models.presets`` module, whose
-``SceneBuilder``, ``Material``, ``look_at`` and ``RenderConfig`` are used.
+No preset of either package: neither has one this large. Every function
+takes the ``presets`` module it builds through (this package's
+``models.presets``, or the JAX package's in the tests, whose
+``SceneBuilder``, ``Material``, ``look_at`` and ``RenderConfig`` are used),
+so both packages build the same arrays from the same seed, and an older
+tree of this package builds the same scene (``tools/scan_ab.py``). The
+camera, sky and config are ``rtiow_final_scene``'s. NumPy only.
 """
 
 from __future__ import annotations

@@ -21,9 +21,25 @@ Configurations: RTIOW 1920x1080, 16 spp, 4 bounces; Chess at its shipped
 settings (1280x720, 3 spp, 15 bounces); Cornell 512x512, 4 spp, 8 bounces;
 the 70k-triangle mesh 1280x720, 1 spp, 4 bounces; each with exact spp and
 with adaptive refill, each of those with the Box-Muller and the fast
-scatter. ``--super-chunks N`` sets the chunk scan's run length
-(a value above the chunk count switches its second level off) on a tree
-that has one.
+scatter; and the RTIOW rule over wider grids (``models/wide_scenes.py`` of
+this file's tree, built through the measured tree's presets: ``wide14k``,
+14,401 spheres, and ``wide100k``, 99,857; RTIOW's camera and config),
+exact and refill with the Box-Muller scatter. ``--super-chunks N`` sets
+the chunk scan's run length (a value above the chunk count switches its
+second level off) on a tree that has one.
+
+Each line also holds the host gap of a one-frame call
+(``host_gap_ms_median``): a lone call's wall time to
+``torch.cuda.synchronize()`` (``one_frame_wall_ms``) less the CUDA-event
+time of the same call queued behind the K-frame one
+(``one_frame_device_ms``: the card is busy while the host prepares it, so
+the events hold its device work only; events around a lone call would
+hold the host's time too, the card idle between them).
+
+``--images DIR`` keeps each configuration's folded image as
+``DIR/<label>_<configuration>.npy``; with ``--against LABEL`` each line
+also says how many pixels differ from that label's image of the same
+configuration (``pixels_moved``) and by how much at most.
 """
 
 from __future__ import annotations
@@ -31,13 +47,16 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import hashlib
+import importlib.util
 import json
 import re
 import shutil
 import statistics
 import subprocess
+import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 SEED = 0
@@ -104,14 +123,30 @@ def _sass(library: Path) -> dict:
     return out
 
 
+def _wide_scenes():
+    """``models/wide_scenes.py`` of this file's tree, loaded by its path: it
+    builds through the ``presets`` module it is given, so a measured tree
+    that lacks it gets the same scene."""
+    path = Path(__file__).resolve().parents[1] / "models" / "wide_scenes.py"
+    spec = importlib.util.spec_from_file_location("_scan_ab_wide_scenes", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--label", default="tree")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--super-chunks", type=int, default=None)
     ap.add_argument("--only", default=None,
-                    help="comma-separated scene names (rtiow, chess, cornell, mesh)")
+                    help="comma-separated scene names (rtiow, chess, cornell, "
+                    "mesh, wide14k, wide100k)")
     ap.add_argument("--out", default=None, help="append the lines to this file")
+    ap.add_argument("--images", default=None,
+                    help="keep each configuration's image in this directory")
+    ap.add_argument("--against", default=None,
+                    help="count the pixels that differ from this label's images")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("scan_ab needs a CUDA device")
@@ -143,6 +178,7 @@ def main(argv=None) -> int:
          sass=_sass(info.library))
 
     dev = torch.device("cuda", 0)
+    wide = _wide_scenes()
     scenes = {
         "rtiow": lambda: presets.rtiow_final_scene(
             width=1920, height=1080, max_bounce=4, spp=16),
@@ -151,45 +187,79 @@ def main(argv=None) -> int:
         "cornell": lambda: presets.cornell_box_scene(
             width=512, height=512, max_bounce=8, spp=4),
         "mesh": lambda: presets.mesh_scene(),
+        "wide14k": lambda: wide.wide_sphere_scene(
+            presets, wide.HALF_PAST_LIMIT, spp=16),
+        "wide100k": lambda: wide.wide_sphere_scene(
+            presets, wide.HALF_100K, spp=16),
     }
+    images = Path(args.images) if args.images else None
+    if images:
+        images.mkdir(parents=True, exist_ok=True)
     only = args.only.split(",") if args.only else list(scenes)
     for name in only:
         scene, cam, cfg = scenes[name]()
         gen = torch.Generator(device=dev).manual_seed(SEED)
         acc0 = 2.0 * torch.rand((cfg.height, cfg.width, 3), generator=gen,
                                 device=dev)
-        for fast, adaptive in ((False, False), (False, True), (True, False),
-                               (True, True)):
+        modes = ((False, False), (False, True))
+        if not name.startswith("wide"):
+            modes += ((True, False), (True, True))
+        for fast, adaptive in modes:
             vcfg = dataclasses.replace(cfg, adaptive_spp=adaptive,
                                        fast_scatter=fast)
 
-            def call():
+            def call(n_frames=K_FRAMES):
                 return rtt.render_frames_and_accumulate(
-                    scene, cam, vcfg, acc0, 1, K_FRAMES)
+                    scene, cam, vcfg, acc0, 1, n_frames)
 
             mk.KERNEL.reset_counts()
             acc, segs = call()
+            call(1)
             torch.cuda.synchronize()
-            ms = []
+            ms, one_wall, one_device = [], [], []
             for _ in range(args.reps):
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record()
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+                ev[0].record()
                 again, _ = call()
-                end.record()
+                ev[1].record()
+                # queued behind the K-frame call: the card is busy while the
+                # host prepares it, so its events hold its device time only
+                ev[2].record()
+                call(1)
+                ev[3].record()
                 torch.cuda.synchronize()
-                ms.append(start.elapsed_time(end) / K_FRAMES)
+                ms.append(ev[0].elapsed_time(ev[1]) / K_FRAMES)
+                one_device.append(ev[2].elapsed_time(ev[3]))
+                t0 = time.perf_counter()
+                call(1)
+                torch.cuda.synchronize()
+                one_wall.append((time.perf_counter() - t0) * 1e3)
+            gap = [w - d for w, d in zip(one_wall, one_device)]
             if not torch.equal(acc, again):
                 raise RuntimeError(f"{name}: two identical calls differ")
+            moved = {}
+            config = (f"{name}_{'refill' if adaptive else 'exact'}"
+                      f"{'_fast' if fast else ''}")
+            if images:
+                img = acc.cpu().numpy()
+                np.save(images / f"{args.label}_{config}.npy", img)
+                ref = images / f"{args.against}_{config}.npy"
+                if args.against and ref.exists():
+                    ref = np.load(ref)
+                    moved = dict(against=args.against, pixels_moved=int(
+                        (img != ref).any(axis=-1).sum()),
+                        max_abs_moved=float(np.abs(img - ref).max()))
             emit(phase="frames", scene=name, adaptive_spp=adaptive,
                  fast_scatter=fast,
                  width=cfg.width, height=cfg.height, spp=cfg.spp,
                  max_bounce=cfg.max_bounce, frames=K_FRAMES,
                  frame_ms_median=statistics.median(ms), frame_ms_min=min(ms),
-                 frame_ms_all=ms, segments=int(segs),
+                 frame_ms_all=ms, one_frame_wall_ms=one_wall,
+                 one_frame_device_ms=one_device,
+                 host_gap_ms_median=statistics.median(gap), segments=int(segs),
                  image_mean=float(acc.mean()),
                  image_mean_f64=float(acc.double().mean()),
-                 launches=dict(mk.KERNEL.variant_launches))
+                 launches=dict(mk.KERNEL.variant_launches), **moved)
     if args.out:
         with open(args.out, "a") as f:
             f.write("\n".join(lines) + "\n")

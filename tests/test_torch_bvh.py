@@ -488,8 +488,8 @@ def test_traversal_counts_on_the_mesh_frame():
     scene, cam, cfg = tpresets.mesh_scene(width=160, height=90, device="cpu")
     counts = {}
     tmk.render_frames_plain(scene, cam, cfg, 8,
-                            intersect_fn=tmk.plain_intersector(scene, cfg,
-                                                               counts))
+                            intersect_fn=tmk.plain_intersector(
+                                scene, cam, cfg, counts))
     n, parked = counts["segments"], counts["parked"]
     assert n == 26_340
     for key, want in (("pops", 20.87), ("pop_rejects", 0.961),

@@ -538,7 +538,7 @@ def test_clustered_scan_against_plain_with_and_without_culls(cuda, name,
         scene, cam, cfg = presets.rtiow_final_scene(width=96, height=54, spp=4)
     else:
         scene, cam, cfg = _triangle_scene(name, width=96, height=54, spp=4)
-    fn = mk.plain_intersector(scene, cfg)
+    fn = mk.plain_intersector(scene, cam, cfg)
     assert fn.func is mk.closest_hit_clustered
     assert fn.keywords["tables"].geometry == mk.geometry(scene, cfg)
     still = cam.replace(defocus_strength=0.0)

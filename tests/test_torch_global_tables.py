@@ -17,7 +17,6 @@ PyTorch is installed:
 
 import dataclasses
 import pathlib
-import sys
 
 import numpy as np
 import pytest
@@ -27,8 +26,7 @@ import ray_tracing_extended_tpu_torch as rtt
 from ray_tracing_extended_tpu_torch.kernels import megakernel as mk
 from ray_tracing_extended_tpu_torch.models import presets as tpresets
 
-sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent))
-from wide_scenes import (  # noqa: E402
+from ray_tracing_extended_tpu_torch.models.wide_scenes import (
     HALF_100K,
     HALF_PAST_LIMIT,
     rtiow_camera_and_config,

@@ -426,14 +426,16 @@ def _visits_one_by_one(t_near, t_far, nearest, best0, outer=None):
     visit = np.zeros((n_rays, n), bool)
     entered = None
     if outer is not None:
-        o_near, o_far, size = outer[0].tolist(), outer[1].tolist(), outer[2]
+        o_near, o_far = outer[0].tolist(), outer[1].tolist()
+        starts = outer[2].tolist()
+        run_of = np.searchsorted(starts, np.arange(n), side="right") - 1
         entered = np.zeros((n_rays, len(o_near[0])), bool)
     for r in range(n_rays):
         best = float(best0[r])
         for k in range(n):
             if outer is not None:
-                run = k // size
-                if k % size == 0:
+                run = run_of[k]
+                if k == starts[run]:
                     entered[r, run] = (o_far[r][run] >= 0.0 and o_near[r][run]
                                        <= min(o_far[r][run], best))
                 if not entered[r, run]:
@@ -444,14 +446,22 @@ def _visits_one_by_one(t_near, t_far, nearest, best0, outer=None):
     return visit, entered
 
 
-@pytest.mark.parametrize("with_outer", [False, True])
+# The outer runs' first boxes: runs of 32, 32 and 6 boxes, the chunk scan's
+# layout; and 32, 6 and 32, a sphere scan's short last run of clusters
+# where a camera's visit order can put it
+OUTER_STARTS = {True: [0, 32, 64], "short_run_inside": [0, 32, 38]}
+
+
+@pytest.mark.parametrize("with_outer", [False, *OUTER_STARTS])
 def test_gated_visits_match_a_loop_over_boxes(with_outer):
     """The plain version's gate without a loop over boxes against the loop
     the kernel runs, on random slab intervals: boxes behind the origin,
     empty intervals, boxes without a hit, and members that rounding puts
-    before their box's entry (the rays that take the loop)."""
+    before their box's entry (the rays that take the loop); with outer
+    boxes over the runs of ``OUTER_STARTS``."""
     rs = np.random.RandomState(13)
-    n_rays, n, size = 300, 70, 32
+    n_rays, n = 300, 70
+    starts = np.array(OUTER_STARTS.get(with_outer, [0]))
     t_near = rs.uniform(-2.0, 6.0, (n_rays, n)).astype(np.float32)
     t_far = (t_near + rs.uniform(-0.5, 3.0, (n_rays, n))).astype(np.float32)
     inside = rs.uniform(0.0, 1.0, (n_rays, n)).astype(np.float32)
@@ -464,15 +474,12 @@ def test_gated_visits_match_a_loop_over_boxes(with_outer):
                      rs.uniform(0.0, 6.0, n_rays)).astype(np.float32)
     outer = None
     if with_outer:
-        n_runs = -(-n // size)
-        pad = n_runs * size - n
-        near_p = np.pad(t_near, ((0, 0), (0, pad)), constant_values=np.inf)
-        far_p = np.pad(t_far, ((0, 0), (0, pad)), constant_values=-np.inf)
-        o_near = near_p.reshape(n_rays, n_runs, size).min(axis=2)
-        o_far = far_p.reshape(n_rays, n_runs, size).max(axis=2)
+        o_near = np.minimum.reduceat(t_near, starts, axis=1)
+        o_far = np.maximum.reduceat(t_far, starts, axis=1)
         # some runs culled whole
-        o_far[rs.rand(n_rays, n_runs) < 0.2] = -1.0
-        outer = (torch.from_numpy(o_near), torch.from_numpy(o_far), size)
+        o_far[rs.rand(n_rays, len(starts)) < 0.2] = -1.0
+        outer = (torch.from_numpy(o_near), torch.from_numpy(o_far),
+                 torch.from_numpy(starts))
     args = [torch.from_numpy(x) for x in (t_near, t_far, nearest, best0)]
     visit, entered = tmk._gated_visits(*args, outer)
     want, want_entered = _visits_one_by_one(*args, outer)

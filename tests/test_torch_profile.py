@@ -95,7 +95,7 @@ def test_dup_intersect_folds_a_second_closest_hit():
 
     def closest(o, d, s):
         calls.append(o.clone())
-        return tmk.plain_intersector(scene, cfg)(o, d, s)
+        return tmk.plain_intersector(scene, cam, cfg)(o, d, s)
 
     o = torch.tensor([[0.0, 1.0, -3.0], [0.5, 1.0, 1e9]])
     d = torch.tensor([[0.0, 0.0, 1.0], [1.0, 0.0, 0.0]])

@@ -210,7 +210,7 @@ def test_clustered_plain_frames_match_xla_and_tpu_kernel():
     tab = tmk.geometry_tables(ts, "spheres")
     assert tab.n_hoist == 2 and tab.clusters.shape[0] == 3
     counts = {}
-    fn = tmk.plain_intersector(ts, cfg, counts)
+    fn = tmk.plain_intersector(ts, tc, cfg, counts)
     assert fn.func is tmk.closest_hit_clustered
     b = tmk.render_frames_plain(ts, tc, cfg, 3, intersect_fn=fn)[0].numpy()
     # the default path is that function, and the culls do cull
