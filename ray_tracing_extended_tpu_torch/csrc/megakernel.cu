@@ -35,21 +35,34 @@
 // same order, so their outputs are equal bit for bit; the global route pays
 // a warp's divergent reads (lanes in different clusters read up to 32 rows
 // where the staged route broadcasts one).
-//   render_kernel<kGeom, kScatter>: exactly spp samples a pixel, a loop
-//   over samples and bounces per thread.
+//   render_kernel<kGeom, kScatter>: exactly spp samples a pixel.
 //   render_adaptive<kGeom, kScatter>: the adaptive sample refill
-//   (cfg.adaptive_spp). A slot loop: each slot, a dead lane that owes
-//   samples, or whose warp has a lane that does (one __any_sync), starts
-//   its next camera sample, then every live lane traces one segment. The
-//   quota is n_frames * spp; a lane folds a frame after spp completed
-//   samples, so extra samples continue the last frame, whose mean divides
-//   by what it completed. At most quota * (max_bounce + 1) slots; a sample
-//   in flight at the bound is dropped. The TPU kernel votes over a TS x TS
-//   tile; here the group is the warp (16 x 2 pixels of the 16 x 8 block),
-//   the unit whose lanes idle while warp-mates finish long paths. Lanes
-//   outside the image stay in the loop with nothing owed: a full-mask vote
-//   needs all 32, and the loop's exit is decided by a vote, so it is
-//   warp-uniform.
+//   (cfg.adaptive_spp).
+// Both run one slot loop (render_slots), the TPU kernel's persistent-lane
+// scheduling with sample re-seeding (megakernel.py:30-41, :1709-1760):
+// each slot, a dead lane that the schedule re-seeds starts its next camera
+// sample, then every live lane traces one segment. The quota is n_frames *
+// spp; a lane folds a frame after spp completed samples. The schedule
+// (Schedule) says which dead lanes start a sample:
+//   kExact (render_kernel): a lane that owes one itself, at once, so it
+//   never waits for its warp-mates' longer paths. Each lane draws, sums
+//   and folds exactly as a nested loop over frames, samples and bounces
+//   would, so the images are that loop's bit for bit, without its idle
+//   lanes (under it a warp ran each sample for as long as its longest
+//   path).
+//   kLockstep (render_kernel<kBvh>): such a lane once no lane of its warp
+//   is live: the nested loop's schedule, bit for bit the same images,
+//   faster on the mesh than kExact (see kBvh below).
+//   kRefill (render_adaptive): also a lane whose warp has a lane that
+//   still owes samples (one __any_sync); its extra samples continue the
+//   last frame, whose mean divides by what it completed. At most quota *
+//   (max_bounce + 1) slots; a sample in flight at the bound is dropped.
+//   The TPU kernel votes over a TS x TS tile; here the group is the warp
+//   (16 x 2 pixels of the 16 x 8 block), the unit whose lanes idle while
+//   warp-mates finish long paths.
+// Lanes outside the image stay in the loop with nothing owed: a full-mask
+// vote needs all 32, and the loop's exit is decided by a vote, so it is
+// warp-uniform.
 //
 // The two scans of a segment, both behind the TPU kernel's t-bounded slab
 // test (megakernel.py tile_hits: a box is entered iff t_far >= 0 and
@@ -71,15 +84,15 @@
 //   on 99,857, 80% and 96% of the scan's operations (a CPU count on
 //   RTIOW's camera rays). The TPU kernel votes a cluster in or
 //   out for a whole tile of rays; a Hopper thread branches on its own
-//   test, so a warp pays for the union of its lanes' clusters (a warp's 32
-//   camera rays are neighbours and pass the same few). No vote is cast, so
-//   the scan may sit in a loop lanes leave one by one (render_kernel) or
-//   under render_adaptive's `if (live)`. Only real spheres have a slot;
-//   one 16-byte shared-memory load a sphere; the square root only where
-//   disc >= 0. (Skipping it also where b > 0, whose root -b - sqrt(disc)
-//   is negative whatever the square root, gave the same images and cost
-//   1.5-3% of a RTIOW 1080p frame on an NVIDIA H100 80GB HBM3 at 700 W:
-//   the second condition's branch outweighs the roots it saves.) The
+//   test, so a warp pays for the union of its live lanes' clusters (a
+//   warp's 32 camera rays are neighbours and pass the same few; in the
+//   slot loop its lanes may sit at different bounces). No vote is cast, so
+//   the scan runs under the slot loop's `if (live)`. Only real spheres
+//   have a slot; one 16-byte shared-memory load a sphere; the square root
+//   only where disc >= 0. (Skipping it also where b > 0, whose root -b -
+//   sqrt(disc) is negative whatever the square root, gave the same images
+//   and cost 1.5-3% of a RTIOW 1080p frame on an NVIDIA H100 80GB HBM3 at
+//   700 W: the second condition's branch outweighs the roots it saves.) The
 //   nearest sphere wins and, on an exact tie, the one of lower index in
 //   the scene, so the clustered order decides nothing.
 //   chunks (kChunks), in index order behind the same test, two 16-byte
@@ -108,10 +121,12 @@
 // shared memory where they fit, loaded once per block and read as
 // warp-wide broadcasts; the culls above, whose two levels and visit order
 // keep the box tests a segment near the gated spheres' count rather than
-// the cluster count (and the rows read with them); with refill, lanes that
-// would idle behind a warp-mate's long path trace extra samples instead.
-// The order is the camera's, as the TPU kernel's: a bounce ray starts
-// elsewhere. No path regeneration across warps.
+// the cluster count (and the rows read with them); the slot loop, in which
+// a lane whose path ended starts its next sample at once instead of idling
+// behind a warp-mate's long path (kExact; with refill it also traces extra
+// samples once its own are done). The order is the camera's, as the TPU
+// kernel's: a bounce ray starts elsewhere. No path is handed to another
+// lane or warp: a warp's live lanes stay its own.
 //
 // kBvh, for big meshes (mesh_scene's 70,016 triangles in one chunk, which
 // the chunk scan would test in full every segment). It replaces the TPU
@@ -160,6 +175,13 @@
 // tree's depth + 1 (23.5 KB a block), was 5-8% slower exact; the
 // traversal as a __noinline__ function 4-6% slower; without the 8-block
 // bound up to 10% slower with refill and fast scatter (PERF.md).
+// The exact kBvh kernels start a warp's samples together (kLockstep). A
+// lane re-seeded at once (kExact) walks a camera ray's path beside its
+// warp-mates' bounce rays, and the warp pays the longer walk of the two
+// each slot. mesh_scene 1280x720, 1 spp, 4 bounces, K = 4 frames a
+// launch, tools/scan_ab.py on an NVIDIA H100 80GB HBM3 at 700 W: kExact
+// 1.68-1.80 ms a frame (six runs), the nested loop 1.61-1.75, kLockstep
+// 1.54-1.63 (ten pairs with the nested loop; PERF.md).
 //
 // A launch renders a band of the frame's rows, y0 .. y1 - 1 (the whole
 // frame is the band 0 .. height): the grid covers the band only, and a
@@ -902,26 +924,6 @@ __device__ __forceinline__ bool trace_segment(
   return true;
 }
 
-// One camera sample's path (ops/trace.py trace). Returns its incoming light.
-template <Geometry kGeom, Scatter kScatter, Probe kProbe, Tables kTab>
-__device__ Vec3 trace_path(const float* p, Spheres<kTab> sph,
-                           Triangles<kTab> tri,
-                           const float* __restrict__ mats, int max_bounce,
-                           uint32_t& state, Vec3 o, Vec3 d, int& segs,
-                           int* s_hist) {
-  Vec3 incoming = {0.0f, 0.0f, 0.0f};
-  Vec3 colour = {1.0f, 1.0f, 1.0f};
-  for (int bounce = 0; bounce <= max_bounce; ++bounce) {
-    ++segs;
-    if (s_hist != nullptr) atomicAdd(&s_hist[bounce], 1);
-    if (!trace_segment<kGeom, kScatter, kProbe, kTab>(
-            p, sph, tri, mats, bounce == 0, state, o, d, colour, incoming)) {
-      break;
-    }
-  }
-  return incoming;
-}
-
 // Adds the block's histogram to the launch's; every thread takes part.
 __device__ __forceinline__ void flush_hist(const int* s_hist, int* hist,
                                            int max_bounce) {
@@ -1047,98 +1049,6 @@ __device__ __forceinline__ Staged<kTab> stage_scene(float4* smem4,
            a.n_supers, a.super_size, a.bvh_nodes, a.bvh_leaves, a.n_nodes}};
 }
 
-// Both kernels' launch bounds: 128 threads a block, and for kBvh 8 blocks
-// an SM (at most 64 registers a thread); a minimum of 0, none given, for
-// the others, which ptxas then compiles as before (a minimum of 1 moves
-// their registers and spills).
-//
-// Exactly spp samples a pixel. Raygen and the fold are written out rather
-// than through the helpers render_adaptive uses below: with them, ptxas
-// (nvcc 12.9, sm_90a) spilled more in the triangle instantiation and took
-// fewer registers than it needs in the sphere one.
-template <Geometry kGeom, Scatter kScatter, Probe kProbe = kNone,
-          Tables kTab = kStaged>
-__global__ void __launch_bounds__(kBlockX * kBlockY, kGeom == kBvh ? 8 : 0)
-render_kernel(const Args a) {
-  extern __shared__ float4 smem4[];
-  const Staged<kTab> sc = stage_scene<kTab>(smem4, a);
-  const float* p = sc.p;
-  const int width = a.width, height = a.height;
-
-  // y is the frame's row: the seed, the camera and the tests are the
-  // whole-frame launch's; the image arrays hold the band's rows, at
-  // pix - y0 * width, worked out where they are read and written (kept in
-  // a variable of its own, it cost render_adaptive<kChunks> 8 registers
-  // and render_kernel 4 bytes of spill stores, ptxas -v of nvcc 12.9)
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = a.y0 + static_cast<int>(blockIdx.y * blockDim.y + threadIdx.y);
-  if (x < width && y < a.y1) {
-    const int pix = y * width + x;
-    const Vec3 pos = {p[0], p[1], p[2]};
-    const Vec3 right = {p[3], p[6], p[9]};
-    const Vec3 up = {p[4], p[7], p[10]};
-
-    // focus point: position + rotation @ (lx, ly, focus)
-    const float u = (static_cast<float>(x) + 0.5f) / static_cast<float>(width);
-    const float v = (static_cast<float>(y) + 0.5f) / static_cast<float>(height);
-    const float lx = (u - 0.5f) * p[12];
-    const float ly = (v - 0.5f) * p[13];
-    const float focus = p[14];
-    const Vec3 fp = {
-        p[0] + (lx * p[3] + ly * p[4] + focus * p[5]),
-        p[1] + (lx * p[6] + ly * p[7] + focus * p[8]),
-        p[2] + (lx * p[9] + ly * p[10] + focus * p[11]),
-    };
-
-    int segs = 0;
-    Vec3 acc = {0.0f, 0.0f, 0.0f};
-    if (a.accum_in != nullptr) {
-      acc = {a.accum_in[3 * (pix - a.y0 * width)],
-             a.accum_in[3 * (pix - a.y0 * width) + 1],
-             a.accum_in[3 * (pix - a.y0 * width) + 2]};
-    }
-    for (int k = 0; k < a.n_frames; ++k) {
-      const uint32_t frame = a.frame0 + static_cast<uint32_t>(k);
-      uint32_t state = static_cast<uint32_t>(pix) + frame * kFrameSeedStride;
-      Vec3 total = {0.0f, 0.0f, 0.0f};
-      for (int sample = 0; sample < a.spp; ++sample) {
-        // raygen (RayTracing.shader:377-382): defocus disc on the origin,
-        // diverge disc on the target
-        float cx, cy, jx, jy;
-        random_point_in_circle(state, p[15], cx, cy);
-        const Vec3 origin = add(add(pos, scale(right, cx)), scale(up, cy));
-        random_point_in_circle(state, p[16], jx, jy);
-        const Vec3 target = add(add(fp, scale(right, jx)), scale(up, jy));
-        const Vec3 dir = normalize(sub(target, origin));
-        total = add(total, trace_path<kGeom, kScatter, kProbe, kTab>(
-                               p, sc.sph, sc.tri, a.mats, a.max_bounce, state,
-                               origin, dir, segs,
-                               a.hist != nullptr ? sc.s_hist : nullptr));
-      }
-      const float n = static_cast<float>(a.spp);
-      const Vec3 mean = {total.x / n, total.y / n, total.z / n};
-      if (a.accum_in == nullptr) {
-        acc = mean;
-      } else {
-        // ops/accumulate.py: prev (1 - w) + cur w, w = 1 / (frame + 1)
-        const float w = 1.0f / (__uint2float_rn(frame) + 1.0f);
-        const float keep = 1.0f - w;
-        acc = {acc.x * keep + mean.x * w, acc.y * keep + mean.y * w,
-               acc.z * keep + mean.z * w};
-        if (a.clamp_accum) {
-          acc = {fminf(fmaxf(acc.x, 0.0f), 1.0f), fminf(fmaxf(acc.y, 0.0f), 1.0f),
-                 fminf(fmaxf(acc.z, 0.0f), 1.0f)};
-        }
-      }
-    }
-    a.out[3 * (pix - a.y0 * width)] = acc.x;
-    a.out[3 * (pix - a.y0 * width) + 1] = acc.y;
-    a.out[3 * (pix - a.y0 * width) + 2] = acc.z;
-    a.segs[pix - a.y0 * width] = segs;
-  }
-  flush_hist(sc.s_hist, a.hist, a.max_bounce);
-}
-
 // The pixel's point on the focus plane: position + rotation @ (lx, ly,
 // focus) (ops/camera.py focus_points).
 __device__ __forceinline__ Vec3 focus_point(const float* p, int x, int y,
@@ -1190,15 +1100,38 @@ __device__ __forceinline__ Vec3 div(Vec3 v, float n) {
   return {v.x / n, v.y / n, v.z / n};
 }
 
-// The adaptive sample refill (see the header): a slot loop whose lanes are
-// warp-synchronous through two votes a slot. Per-lane state lives in
-// registers: the RNG state, the ray, throughput, incoming and banked light,
-// the running average, the completed-sample count, frame and bounce index.
-template <Geometry kGeom, Scatter kScatter, Probe kProbe = kNone,
-          Tables kTab = kStaged>
-__global__ void __launch_bounds__(kBlockX * kBlockY, kGeom == kBvh ? 8 : 0)
-render_adaptive(const Args a) {
-  extern __shared__ float4 smem4[];
+// Which dead lanes a slot loop re-seeds (see the header): kExact, a lane
+// that owes samples itself; kLockstep, such a lane once no lane of its warp
+// is live, so a warp's lanes start their samples together (the nested
+// loop's schedule); kRefill, also a lane whose warp has one that owes
+// samples.
+enum Schedule : int { kExact = 0, kLockstep = 1, kRefill = 2 };
+
+// The slot loop of both kernels: each slot, the dead lanes the schedule
+// re-seeds start their next camera sample, and every live lane traces one
+// segment. Per-lane state lives in registers: the RNG state, the ray,
+// throughput, incoming and banked light, the running average, the
+// completed-sample count, frame and bounce index.
+//
+// A lane's draws, sums and folds are the nested loop's (for frame, for
+// sample, for bounce) in the same order, whatever its warp-mates do: its
+// stream restarts at pix + frame * 719393 at each frame's first sample;
+// sample k's 4 camera draws follow sample k - 1's last scatter or
+// roulette draw; `total` adds each sample's light in sample order, and a
+// frame is folded before the next frame's seed. So kExact and kLockstep
+// render what that loop rendered, bit for bit, and count the same segments
+// and bounces.
+//
+// The loop's bound is quota * (max_bounce + 1) slots. An exact warp never
+// reaches it: under kExact a lane traces one of its own segments a slot,
+// and it has at most that many; under kLockstep each of the warp's
+// samples takes at most max_bounce + 1 slots. A refill lane may reach it
+// (its extra samples); a sample in flight there is dropped. The exit is
+// one vote a slot, so it is warp-uniform and every lane of the warp, those
+// outside the image too, stays in the loop until its warp leaves.
+template <Schedule kSched, Geometry kGeom, Scatter kScatter, Probe kProbe,
+          Tables kTab>
+__device__ __forceinline__ void render_slots(float4* smem4, const Args& a) {
   const Staged<kTab> sc = stage_scene<kTab>(smem4, a);
   int* s_hist = a.hist != nullptr ? sc.s_hist : nullptr;
   const int width = a.width, height = a.height, spp = a.spp;
@@ -1206,8 +1139,12 @@ render_adaptive(const Args a) {
   const uint32_t frame0 = a.frame0;
   const int clamp_accum = a.clamp_accum;
 
-  // Lanes outside the image (or the band) stay in the loop, owing nothing.
-  // y is the frame's row, as in render_kernel.
+  // y is the frame's row: the seed, the camera and the tests are the
+  // whole-frame launch's; the image arrays hold the band's rows, at
+  // pix - y0 * width, worked out where they are read and written (kept in
+  // a variable of its own, it cost render_adaptive<kChunks> 8 registers,
+  // ptxas -v of nvcc 12.9). Lanes outside the image (or the band) stay in
+  // the loop, owing nothing.
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const int y = a.y0 + static_cast<int>(blockIdx.y * blockDim.y + threadIdx.y);
   const bool in_image = x < width && y < a.y1;
@@ -1233,11 +1170,19 @@ render_adaptive(const Args a) {
   bool live = false;
   int ns = 0, fk = 0, bounce = 0, segs = 0;
   for (int slot = 0; slot < n_slots; ++slot) {
-    // the votes: every lane of the warp casts both, every slot (neither
-    // may sit behind a short-circuit)
+    // the votes: every lane of the warp casts each, every slot (none may
+    // sit behind a short-circuit)
     const bool undone = in_image && ns < quota;
-    const bool group_undone = __any_sync(kFullMask, undone);
-    const bool need = in_image && !live && group_undone;
+    bool need;
+    if constexpr (kSched == kRefill) {
+      const bool group_undone = __any_sync(kFullMask, undone);
+      need = in_image && !live && group_undone;
+    } else if constexpr (kSched == kLockstep) {
+      const bool warp_live = __any_sync(kFullMask, live);
+      need = undone && !warp_live;
+    } else {
+      need = !live && undone;
+    }
     if (!__any_sync(kFullMask, live || need)) break;
 
     if (need) {
@@ -1276,7 +1221,8 @@ render_adaptive(const Args a) {
   }
 
   if (in_image) {
-    // the last frame's mean over the samples it completed (>= spp)
+    // the last frame's mean over the samples it completed (spp with exact
+    // spp, at least spp with kRefill)
     const int n_last = max(ns - (n_frames - 1) * spp, 1);
     acc = fold(acc, div(total, static_cast<float>(n_last)),
                frame0 + static_cast<uint32_t>(n_frames - 1), with_accum,
@@ -1287,6 +1233,31 @@ render_adaptive(const Args a) {
     a.segs[pix - a.y0 * width] = segs;
   }
   flush_hist(sc.s_hist, a.hist, max_bounce);
+}
+
+// Both kernels' launch bounds: 128 threads a block, and for kBvh 8 blocks
+// an SM (at most 64 registers a thread); a minimum of 0, none given, for
+// the others, which ptxas then compiles as before (a minimum of 1 moves
+// their registers and spills).
+//
+// Exactly spp samples a pixel; kBvh starts a warp's samples together (see
+// the header).
+template <Geometry kGeom, Scatter kScatter, Probe kProbe = kNone,
+          Tables kTab = kStaged>
+__global__ void __launch_bounds__(kBlockX * kBlockY, kGeom == kBvh ? 8 : 0)
+render_kernel(const Args a) {
+  extern __shared__ float4 smem4[];
+  constexpr Schedule kSched = kGeom == kBvh ? kLockstep : kExact;
+  render_slots<kSched, kGeom, kScatter, kProbe, kTab>(smem4, a);
+}
+
+// The adaptive sample refill (cfg.adaptive_spp).
+template <Geometry kGeom, Scatter kScatter, Probe kProbe = kNone,
+          Tables kTab = kStaged>
+__global__ void __launch_bounds__(kBlockX * kBlockY, kGeom == kBvh ? 8 : 0)
+render_adaptive(const Args a) {
+  extern __shared__ float4 smem4[];
+  render_slots<kRefill, kGeom, kScatter, kProbe, kTab>(smem4, a);
 }
 
 using Kernel = void (*)(const Args);

@@ -9,11 +9,15 @@ The source has two kernels, each instantiated for three scene geometries
 (``geometry``): spheres only, triangles by chunk scan, and triangles
 through the scene's triangle BVH (the TPU kernel's big-mesh mode); and
 with the reference's Box-Muller scatter or the 2-draw fast one
-(``cfg.fast_scatter``): ``render_kernel`` traces exactly ``spp`` samples a
-pixel, ``render_adaptive`` runs the adaptive sample refill
-(``cfg.adaptive_spp``), a slot loop in which a warp's lanes that have met
-their quota trace extra samples while any lane of the warp is still short
-of it. Each of those twelve has two routes for the scene's tables
+(``cfg.fast_scatter``). Both run one slot loop, in which a lane whose path
+ended starts its next camera sample at once (through a BVH, once its warp's
+paths have all ended): ``render_kernel`` traces exactly ``spp`` samples a
+pixel, bit for bit a loop over samples and bounces
+(``warp_schedule_counts`` counts what the two schedules cost a warp),
+``render_adaptive`` runs the adaptive sample refill
+(``cfg.adaptive_spp``), in which a warp's lanes that have met their quota
+trace extra samples while any lane of the warp is still short of it. Each
+of those twelve has two routes for the scene's tables
 (``TABLES``): ``"staged"``, copied into each block's shared memory, and
 ``"global"``, read in place from global memory, for a scene whose tables
 pass ``MAX_SHARED_BYTES`` (about 9,000 spheres). ``table_route`` picks the
@@ -370,11 +374,12 @@ def _members(group_of: np.ndarray, n_groups: int, pad: int) -> np.ndarray:
 
 
 def closest_hit_clustered(o, d, scene: Scene, tables: KernelTables,
-                          counts=None, direct: bool = False) -> HitRecord:
+                          counts=None, direct: bool = False,
+                          visits=None) -> HitRecord:
     """The kernel's closest hit in plain PyTorch (``clustered_winner``) as
     a hit record."""
-    return hit_record(o, d, scene,
-                      *clustered_winner(o, d, scene, tables, counts, direct))
+    return hit_record(o, d, scene, *clustered_winner(
+        o, d, scene, tables, counts, direct, visits))
 
 
 def kernel_sphere_t(o, d, spheres) -> torch.Tensor:
@@ -395,7 +400,7 @@ def kernel_sphere_t(o, d, spheres) -> torch.Tensor:
 
 
 def clustered_winner(o, d, scene: Scene, tables: KernelTables, counts=None,
-                     direct: bool = False):
+                     direct: bool = False, visits=None):
     """The kernel's closest hit in plain PyTorch -> ``(t (B,), index (B,))``
     as ``hit_record`` takes them: ``closest_hit_bruteforce`` behind the
     kernel's culls, with its pair tests (so a distance is computed by the
@@ -428,7 +433,12 @@ def clustered_winner(o, d, scene: Scene, tables: KernelTables, counts=None,
     of every chunk whose box the ray's line meets: what the reference's
     gate, without the bound, would test), and for the BVH ``_traverse``'s
     counts (with the parked lanes' root tests, ``parked`` of them: each
-    one slab, one pop, one pop reject and ``ROOT_BYTES``)."""
+    one slab, one pop, one pop reject and ``ROOT_BYTES``).
+
+    ``visits``, a list, if given, gains one entry a call: ``(live (B,)
+    bool, the cluster rows each ray tested (B, K) bool, in the rows' order,
+    the chunks it tested (B, C) bool or None for the other geometries)``,
+    from which ``warp_schedule_counts`` counts a warp's unions."""
     b = o.shape[0]
     dev = o.device
     inv_d = 1.0 / d
@@ -464,6 +474,8 @@ def clustered_winner(o, d, scene: Scene, tables: KernelTables, counts=None,
         visit, entered = _gated_visits(t_near, t_far, nearest[:, row_of],
                                        nearest[:, n_clusters], outer)
         tested[:, row_of] = visit
+    if visits is not None:
+        visits.append([o[:, 0] < 1e8, tested[:, row_of], None])
     t_sph = torch.where(tested[:, tables.cluster_of], t_sph, INF)
     best_t, best = torch.min(t_sph, dim=1)
     if counts is not None:
@@ -497,6 +509,8 @@ def clustered_winner(o, d, scene: Scene, tables: KernelTables, counts=None,
         visit[:, :n_chunks], entered = _gated_visits(
             t_near, t_far, nearest, best_t, outer
         )
+        if visits is not None:
+            visits[-1][2] = visit[:, :n_chunks]
         t_tri = torch.where(visit[:, tables.chunk_of], t_tri, INF)
         t_t, i_t = torch.min(t_tri, dim=1)
         if counts is not None:
@@ -731,6 +745,160 @@ def tile_groups(width: int, height: int, ts: int) -> np.ndarray:
     x = xs[None, :, None, :]
     pix = np.where((y < height) & (x < width), y * width + x, -1)
     return pix.reshape(-1, ts * ts)
+
+
+# The exact kernel's two warp schedules (``schedule_counts``): a loop over
+# samples and bounces, and the slot loop.
+SCHEDULES = ("nested", "slots")
+
+
+def _slot_iterations(key, packed, sizes, base) -> tuple[int, int]:
+    """Records grouped into slots by ``key`` (R,) -> ``(slots, iterations)``:
+    a slot runs ``base`` plus the ``sizes`` of the union of its records'
+    members (``packed``, (R, bytes) uint8, each record's members as
+    ``np.packbits`` of a (R, len(sizes)) bool array)."""
+    order = np.argsort(key, kind="stable")
+    k = key[order]
+    starts = np.flatnonzero(np.r_[True, k[1:] != k[:-1]]) if k.size else k
+    iterations = starts.size * base
+    if sizes.size and starts.size:
+        union = np.bitwise_or.reduceat(packed[order], starts, axis=0)
+        members = np.unpackbits(union, axis=1, count=sizes.size)
+        iterations += int(members.sum(0, dtype=np.int64) @ sizes)
+    return int(starts.size), int(iterations)
+
+
+def schedule_counts(lane, nested_slot, spheres, sphere_sizes, n_hoist,
+                    triangles=None, triangle_sizes=None) -> dict:
+    """How the exact kernel's warps spend their slots under two schedules,
+    from the segments its lanes trace: one record a segment, each lane's
+    records in the order it traces them. ``lane`` (R,) is the record's
+    lane (its warp is ``lane // WARP``), ``nested_slot`` (R,) its slot in a
+    loop over samples and bounces (``sample * (max_bounce + 1) +
+    bounce``); ``spheres`` (R, K) bool the sphere clusters the segment
+    tested, of ``sphere_sizes`` (K,) spheres each, beside the ``n_hoist``
+    hoisted spheres every segment tests; ``triangles`` (R, C) bool and
+    ``triangle_sizes`` (C,) the chunks and their triangles, or None.
+
+    ``"nested"``, for each sample, for each bounce (the kernel's
+    ``kLockstep``): a warp runs a sample's bounce while one of its lanes is
+    on that path, so each (warp, ``nested_slot``) is a slot. ``"slots"``,
+    the slot loop (``kExact``): a lane whose path ended starts its next
+    sample in the next slot, so it traces its k-th segment in its warp's
+    slot k, and each (warp, k) is a slot. For
+    each schedule: ``slots``, ``lanes_per_slot`` (live lanes a slot),
+    ``lane_segments`` (R_lanes,) (each lane's live slots, by lane id), and
+    ``sphere_iterations`` / ``triangle_iterations``: what a warp's scan
+    runs a slot, the hoisted spheres and the union of its live lanes'
+    tested clusters' spheres (chunks' triangles), summed over slots.
+    Beside them ``segments`` and the lanes' own tests summed
+    (``lane_sphere_tests``, ``lane_triangle_tests``)."""
+    lane = np.asarray(lane, np.int64)
+    nested_slot = np.asarray(nested_slot, np.int64)
+    sphere_sizes = np.asarray(sphere_sizes, np.int64)
+    spheres = np.asarray(spheres, bool)
+    n = lane.size
+    n_lanes = int(lane.max(initial=-1)) + 1
+    # k: how many of its lane's records come before a record
+    order = np.argsort(lane, kind="stable")
+    starts = np.searchsorted(lane[order], lane[order], side="left")
+    k = np.empty(n, np.int64)
+    k[order] = np.arange(n) - starts
+    warp = lane // WARP
+    slot_of = {
+        "nested": warp * (int(nested_slot.max(initial=0)) + 1) + nested_slot,
+        "slots": warp * (int(k.max(initial=0)) + 1) + k,
+    }
+    lane_segments = {
+        "nested": np.bincount(lane, minlength=n_lanes),
+        "slots": np.zeros(n_lanes, np.int64),
+    }
+    np.maximum.at(lane_segments["slots"], lane, k + 1)
+    parts = [("sphere", np.packbits(spheres, axis=1), sphere_sizes, n_hoist)]
+    out = {"segments": n,
+           "lane_sphere_tests": n * n_hoist + int(
+               spheres.sum(0, dtype=np.int64) @ sphere_sizes)}
+    if triangles is not None:
+        triangles = np.asarray(triangles, bool)
+        triangle_sizes = np.asarray(triangle_sizes, np.int64)
+        parts.append(("triangle", np.packbits(triangles, axis=1),
+                      triangle_sizes, 0))
+        out["lane_triangle_tests"] = int(
+            triangles.sum(0, dtype=np.int64) @ triangle_sizes)
+    for name, key in slot_of.items():
+        res = {"lane_segments": lane_segments[name]}
+        for part, packed, sizes, base in parts:
+            res["slots"], res[f"{part}_iterations"] = _slot_iterations(
+                key, packed, sizes, base)
+        res["lanes_per_slot"] = n / max(res["slots"], 1)
+        out[name] = res
+    return out
+
+
+def warp_schedule_counts(scene: Scene, camera: Camera, cfg: RenderConfig,
+                         rows: tuple[int, int] | None = None,
+                         frame: int = 0) -> dict:
+    """The exact kernel's warp schedules counted on the plain version: frame
+    ``frame``'s rows ``rows`` (whole warp rows, even bounds; the whole frame
+    for None) traced as ``render_frames_plain`` traces them, each segment's
+    tested clusters and chunks recorded (``clustered_winner``'s
+    ``visits``), then ``schedule_counts`` over the kernel's warps
+    (``warp_groups``). Returns its dict with each schedule's
+    ``lane_segments`` as a ``segment_map`` ((y1 - y0, W) int32, the live
+    slots of each pixel), ``warps``, and ``ratios``: the slot loop's slots
+    and iterations over the nested loop's (None where that is 0). The
+    sphere geometry and the chunk scan only: a BVH lane's walk is its
+    own."""
+    y0, y1 = (0, cfg.height) if rows is None else rows
+    if not 0 <= y0 < y1 <= cfg.height:
+        raise ValueError(f"rows {rows} outside 0..{cfg.height}")
+    geom = geometry(scene, cfg)
+    if geom == "bvh" or plain_through_sphere_bvh(scene, cfg):
+        raise ValueError("warp_schedule_counts counts the clustered scans only")
+    tables = visit_tables(scene, geom, camera)
+    w, mb = cfg.width, cfg.max_bounce
+    groups = _band_groups(warp_groups(w, cfg.height), w, y0, y1)
+    lanes = groups.reshape(-1)
+    real = np.flatnonzero(lanes >= 0)
+    block = plain_block_size(cfg, scene, real.size)
+    rec = collections.defaultdict(list)
+    visits = []
+    fn = functools.partial(closest_hit_clustered, tables=tables, visits=visits)
+    for i in range(0, real.size, block):
+        ids = real[i:i + block]
+        pix = torch.from_numpy(lanes[ids]).to(scene.device)
+        state = rng_ops.seed(pix, frame)
+        fp = focus_points(camera, pix % w, pix // w, w, cfg.height)
+        for sample in range(cfg.spp):
+            state, o, d = generate_rays(state, camera, fp, w)
+            state = trace(state, o, d, scene, mb, intersect_fn=fn,
+                          fast_scatter=cfg.fast_scatter)[0]
+            for bounce, (live, sph, tri) in enumerate(visits):
+                live = live.cpu().numpy()
+                rec["lane"].append(ids[live])
+                rec["slot"].append(np.full(int(live.sum()),
+                                           sample * (mb + 1) + bounce))
+                rec["spheres"].append(sph.cpu().numpy()[live])
+                if tri is not None:
+                    rec["triangles"].append(tri.cpu().numpy()[live])
+            visits.clear()
+    cat = {k: np.concatenate(v) for k, v in rec.items()}
+    sizes = _int_column(tables.clusters, 7).cpu().numpy()
+    tri_sizes = None
+    if geom == "chunks":
+        tri_sizes = _int_column(tables.chunks, 7).cpu().numpy()
+    out = schedule_counts(cat["lane"], cat["slot"], cat["spheres"], sizes,
+                          tables.n_hoist, cat.get("triangles"), tri_sizes)
+    for name in SCHEDULES:
+        seg_map = np.zeros((y1 - y0) * w, np.int32)
+        seg_map[lanes[real] - y0 * w] = out[name].pop("lane_segments")[real]
+        out[name]["segment_map"] = seg_map.reshape(y1 - y0, w)
+    out["warps"] = int(groups.shape[0])
+    out["ratios"] = {
+        key: out["slots"][key] / out["nested"][key] if out["nested"][key]
+        else None for key in ("slots", "sphere_iterations",
+                              "triangle_iterations") if key in out["nested"]}
+    return out
 
 
 def _band_groups(groups: np.ndarray, width: int, y0: int, y1: int):

@@ -294,14 +294,92 @@ def test_refill_and_fast_scatter_match_plain_gates(cuda, name, adaptive, fast):
     assert mk.KERNEL.variant_launches[name_k] == before + 3
 
 
+def _exact_case(name, cuda):
+    """A scene for the exact kernel's bit-for-bit tests -> ``(scene, camera,
+    config, rows)``: rows of the frame the checks compare (None: the
+    whole frame). Chess is a crop, a band of its shipped 1280x720 frame
+    (3 spp, 15 bounces, defocus 180); the 14,401-sphere scene takes the
+    global route."""
+    from ray_tracing_extended_tpu_torch.models.wide_scenes import (
+        HALF_PAST_LIMIT,
+        wide_sphere_scene,
+    )
+
+    small = dict(spp=2, max_bounce=4, device=cuda)
+    if name.startswith("rtiow"):
+        w, h = (96, 54) if name == "rtiow_96" else (192, 108)
+        return (*presets.rtiow_final_scene(width=w, height=h, **small), None)
+    if name == "chess":
+        return (*rtt.load_json_scene(SCENES / "chess.json", device=cuda),
+                (352, 368))
+    if name == "wide":
+        return (*wide_sphere_scene(presets, HALF_PAST_LIMIT, width=96,
+                                   height=54, **small), None)
+    return (*_triangle_scene(name, width=96, height=54, **small), None)
+
+
+def _bits_equal(a, b):
+    return torch.equal(a.contiguous().view(torch.int32),
+                       b.contiguous().view(torch.int32))
+
+
+@pytest.mark.parametrize("name", ["rtiow_96", "rtiow_192", "cornell", "chess",
+                                  "mesh", "wide"])
+def test_exact_kernel_equals_plain_bit_for_bit(cuda, name):
+    """The exact kernel's slot loop draws, sums and folds each lane as a
+    loop over frames, samples and bounces does: against
+    ``render_frames_plain`` in the kernel's test forms
+    (``plain_intersector(..., direct=True)``) a frame's image, segment map
+    and histogram, and a K = 4 fold from a seeded accumulator in both clamp
+    modes, are equal bit for bit; so is the fold of a band launch to the
+    whole-frame launch's rows. One launch of the instantiation a call."""
+    scene, cam, cfg, rows = _exact_case(name, cuda)
+    fn = mk.plain_intersector(scene, cam, cfg, direct=True)
+    v = mk.path_name(scene, cfg)
+    geom = mk.geometry(scene, cfg)
+    route = "global" if name == "wide" else "staged"
+    assert v == mk.variant(geom, tables=route)
+    sl = slice(None) if rows is None else slice(*rows)
+    before = mk.KERNEL.variant_launches[v]
+    k_img, k_segs, k_map, k_hist = mk.render_frames_mega(
+        scene, cam, cfg, 5, collect_stats=True, rows=rows)
+    p_img, _, p_map, p_hist = mk.render_frames_plain(
+        scene, cam, cfg, 5, collect_stats=True, rows=rows, intersect_fn=fn)
+    assert _bits_equal(k_img, p_img)
+    assert torch.equal(k_map, p_map) and torch.equal(k_hist, p_hist)
+    assert int(k_segs) == int(k_map.sum()) == int(k_hist.sum())
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    acc0 = 2.0 * torch.rand((cfg.height, cfg.width, 3), generator=gen,
+                            device=cuda)
+    band = (10, 27) if rows is None else (rows[0] + 3, rows[1] - 5)
+    for clamp in (False, True):
+        ccfg = dataclasses.replace(cfg, clamp_accumulate=clamp)
+        k, _, k_map, _ = mk.render_frames_mega(scene, cam, ccfg, 2, 4,
+                                               accum=acc0)
+        p, _, p_map, _ = mk.render_frames_plain(
+            scene, cam, ccfg, 2, 4, accum=acc0[sl].contiguous(), rows=rows,
+            intersect_fn=fn)
+        assert _bits_equal(k[sl], p) and torch.equal(k_map[sl], p_map)
+        b, b_segs, b_map, _ = mk.render_frames_mega(
+            scene, cam, ccfg, 2, 4, accum=acc0[slice(*band)].contiguous(),
+            rows=band)
+        assert _bits_equal(b, k[slice(*band)])
+        assert torch.equal(b_map, k_map[slice(*band)])
+        assert int(b_segs) == int(b_map.sum())
+        if clamp:
+            assert float(k.min()) >= 0.0 and float(k.max()) <= 1.0
+    torch.cuda.synchronize()
+    assert mk.KERNEL.variant_launches[v] == before + 5
+
+
 @pytest.mark.parametrize("fast", [False, True])
 @pytest.mark.parametrize("name", ["rtiow", "cornell", "chess", "mesh"])
 def test_refill_at_depth_zero_equals_exact_kernel(cuda, name, fast):
     """At max_bounce 0 every sample is one segment, so all lanes of a warp
     finish their quota in the same slot and refill adds no sample. The
     refill kernel then gives the exact kernel's image, segment map and
-    histogram bit for bit: its staging, raygen and fold (separate helpers)
-    agree with render_kernel's written-out copy."""
+    histogram bit for bit: the two schedules of one slot loop differ only
+    in which dead lanes start a sample."""
     if name == "rtiow":
         scene, cam, cfg = presets.rtiow_final_scene(width=100, height=54, spp=3)
     else:
