@@ -82,19 +82,40 @@
 //   super fails the gate. Without it the flat loop slab-tested every
 //   cluster box on every segment: 450 a segment on 14,401 spheres, 3,121
 //   on 99,857, 80% and 96% of the scan's operations (a CPU count on
-//   RTIOW's camera rays). The TPU kernel votes a cluster in or
-//   out for a whole tile of rays; a Hopper thread branches on its own
-//   test, so a warp pays for the union of its live lanes' clusters (a
-//   warp's 32 camera rays are neighbours and pass the same few; in the
-//   slot loop its lanes may sit at different bounces). No vote is cast, so
-//   the scan runs under the slot loop's `if (live)`. Only real spheres
-//   have a slot; one 16-byte shared-memory load a sphere; the square root
-//   only where disc >= 0. (Skipping it also where b > 0, whose root -b -
+//   RTIOW's camera rays). The TPU kernel votes a cluster in or out for
+//   a whole tile of rays, then tests the cluster's spheres across the
+//   tile's rays. A cluster holds at most 32 spheres, a warp's width, so
+//   the kSpheres instantiations do the same on a warp (closest_sphere_warp,
+//   scan_cluster_warp): the vote is a __ballot_sync of the live lanes'
+//   gates; lane j holds the cluster's slot first + j (one 16-byte row; on
+//   the global route one coalesced 512-byte read a visit, where a lane
+//   walking the cluster alone read 32 rows one after another); then, for
+//   each lane r in the ballot, the warp takes r's ray and best t from
+//   lane r by shuffle, every lane runs the pair test on its own sphere,
+//   and lane r adopts the candidates' nearest: a __reduce_min_sync over the
+//   t bits (t >= 0, so they order as the floats do once -0 reads as +0),
+//   and on an exact tie a second one over the scene index. A visit of k
+//   lanes costs k such ray steps, where a lane-by-lane loop cost the
+//   cluster's 32 sphere steps whatever k (a warp's camera rays are
+//   neighbours and pass the same few clusters; in the slot loop its lanes
+//   sit at different bounces and pass different ones). The scan runs on
+//   every lane of the warp, before the slot loop's `if (live)`: a lane
+//   that is not live casts false in every vote and holds a sphere for the
+//   others. A visit of at least kWarpScanMax lanes runs the per-lane loop
+//   instead (see its note). The triangle instantiations keep that
+//   per-lane loop over a flat cluster list (closest_hit): each lane
+//   branches on its own gate, so a warp pays for the union of its live
+//   lanes' clusters. Only real spheres have a slot; the square root only
+//   where disc >= 0. (Skipping it also where b > 0, whose root -b -
 //   sqrt(disc) is negative whatever the square root, gave the same images
 //   and cost 1.5-3% of a RTIOW 1080p frame on an NVIDIA H100 80GB HBM3 at
-//   700 W: the second condition's branch outweighs the roots it saves.) The
-//   nearest sphere wins and, on an exact tie, the one of lower index in
-//   the scene, so the clustered order decides nothing.
+//   700 W: the second condition's branch outweighs the roots it saves.)
+//   The nearest sphere wins and, on an exact tie, the one of lower index
+//   in the scene: a lexicographic minimum of (t, scene index), which
+//   neither the clustered order nor the order of a ballot's rays decides.
+//   Each lane's best is updated before the next cluster's gate, so every
+//   gate sees the best t of the lane-by-lane scan and the two give the
+//   same tests and the same images, bit for bit.
 //   chunks (kChunks), in index order behind the same test, two 16-byte
 //   loads a chunk: a chunk behind the origin, or beyond the best hit so
 //   far (spheres are tested first), is skipped. The reference's gate
@@ -121,12 +142,15 @@
 // shared memory where they fit, loaded once per block and read as
 // warp-wide broadcasts; the culls above, whose two levels and visit order
 // keep the box tests a segment near the gated spheres' count rather than
-// the cluster count (and the rows read with them); the slot loop, in which
-// a lane whose path ended starts its next sample at once instead of idling
-// behind a warp-mate's long path (kExact; with refill it also traces extra
-// samples once its own are done). The order is the camera's, as the TPU
-// kernel's: a bounce ray starts elsewhere. No path is handed to another
-// lane or warp: a warp's live lanes stay its own.
+// the cluster count (and the rows read with them); in the sphere
+// instantiations the warp-cooperative cluster scan, whose steps follow
+// the lanes that entered a cluster rather than the cluster's size; the
+// slot loop, in which a lane whose path ended starts its next sample at
+// once instead of idling behind a warp-mate's long path (kExact; with
+// refill it also traces extra samples once its own are done). The order
+// is the camera's, as the TPU kernel's: a bounce ray starts elsewhere. No
+// path is handed to another lane or warp: a warp's live lanes stay its
+// own, and only their rays are lent to the cluster scan's steps.
 //
 // kBvh, for big meshes (mesh_scene's 70,016 triangles in one chunk, which
 // the chunk scan would test in full every segment). It replaces the TPU
@@ -263,6 +287,7 @@ constexpr uint32_t kFrameSeedStride = 719393u;
 constexpr float kTwoPiFast = static_cast<float>(2.0 * 3.14159265);
 
 constexpr unsigned kFullMask = 0xffffffffu;
+constexpr int kWarp = 32;
 
 // The scatter's unit-vector sampler.
 enum Scatter : bool { kBoxMuller = false, kFastScatter = true };
@@ -726,34 +751,149 @@ __device__ __forceinline__ void test_spheres(Spheres<kTab> sph, int first,
 // (-DRTX_PROBES) compiles them.
 enum Probe : int { kNone = 0, kDupIntersect = 1, kDupFetch = 2 };
 
-// The closest hit of a ray: the hoisted spheres, then each cluster behind
-// its gate in the rows' (visit) order, in the sphere instantiations with a
-// second level, each run of clusters behind its super's gate (a finite
-// best_t is a sphere's there, so `best` is a slot wherever the tie rule
-// reads it), then the triangles. best_t starts at +inf, best and best_tri
-// at -1. The triangle instantiations compile the flat loop only: with the
-// second level in them as well (inline, or a __noinline__ helper), Chess,
-// which has no sphere, took 3-6% longer a frame and their ptxas -v moved
-// (PERF.md section 6).
-template <Geometry kGeom, Tables kTab>
-__device__ __forceinline__ void closest_hit(Spheres<kTab> sph,
-                                            Triangles<kTab> tri,
-                                            Vec3 o, Vec3 d, Vec3 inv_d,
-                                            float& best_t, int& best,
-                                            int& best_tri) {
+// A cluster visit of at least this many lanes runs the per-lane loop
+// (test_spheres, a sphere a step on the lanes whose gate passed), a
+// smaller one the warp-cooperative scan (a ray a step, one sphere a lane;
+// see the header). A ray step costs two to three sphere steps (seven
+// shuffles, a vote and the loop's control beside the same pair test), so
+// the cooperative scan pays only for visits of few lanes. RTIOW 1080p
+// exact, K = 4, frame ms on an NVIDIA H100 80GB HBM3 at 700 W
+// (tools/scan_ab.py, two runs each, the parent 7.09-7.22): every visit
+// cooperative 8.24-8.35; from 24 lanes 6.86-6.90, 16 6.72-6.77, 12
+// 6.67-6.80, 8 6.70-6.78 (PERF.md). Two rays a step spilled 56 / 100
+// bytes and was no faster.
+constexpr int kWarpScanMax = 12;
+
+// One sphere cluster, slots [first, first + count) (count <= kWarp), for
+// the rays of the lanes set in `m`, the ballot of its gate; every lane of
+// the warp calls it. Lane j holds slot first + j (lanes j >= count hold
+// none and never propose a hit); then, a ray a step, the owner lane's ray
+// and best t come by shuffle, every lane runs test_spheres' pair test on
+// its sphere, and a lane proposes its t if it is a root t >= 0 no farther
+// than the ray's best. The owner takes the candidates' lexicographic
+// minimum of (t, scene index) by test_spheres' rule, so the ray's best is
+// what test_spheres would leave, whatever the order of the slots.
+template <Tables kTab>
+__device__ __forceinline__ void scan_cluster_warp(Spheres<kTab> sph,
+                                                  unsigned m, int first,
+                                                  int count, Vec3 o, Vec3 d,
+                                                  float& best_t, int& best) {
+  const int lane = (threadIdx.y * kBlockX + threadIdx.x) & (kWarp - 1);
+  if (__popc(m) >= kWarpScanMax) {
+    if ((m >> lane) & 1u) {
+      test_spheres(sph, first, first + count, o, d, best_t, best);
+    }
+    return;
+  }
+  const bool holds = lane < count;
+  const float4 s =
+      holds ? sph.row(first + lane) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  do {
+    const int r = __ffs(m) - 1;
+    m &= m - 1u;
+    const Vec3 ro = {__shfl_sync(kFullMask, o.x, r),
+                     __shfl_sync(kFullMask, o.y, r),
+                     __shfl_sync(kFullMask, o.z, r)};
+    const Vec3 rd = {__shfl_sync(kFullMask, d.x, r),
+                     __shfl_sync(kFullMask, d.y, r),
+                     __shfl_sync(kFullMask, d.z, r)};
+    const float r_best = __shfl_sync(kFullMask, best_t, r);
+    // test_spheres' pair test, operand for operand
+    const Vec3 oc = {ro.x - s.x, ro.y - s.y, ro.z - s.z};
+    const float b = dot(oc, rd);
+    const float cc = dot(oc, oc) - s.w;
+    const float disc = b * b - cc;
+    float t = 0.0f;
+    bool candidate = false;
+    if (holds && disc >= 0.0f) {
+      t = -b - sqrtf(disc);
+      candidate = t >= 0.0f && t <= r_best;
+    }
+    if (__ballot_sync(kFullMask, candidate) == 0u) continue;
+    // t >= 0, so its bits order as the floats do once -0 is +0; a lane
+    // without a candidate keys above every float
+    const unsigned key =
+        candidate ? __float_as_uint(t) & 0x7fffffffu : 0xffffffffu;
+    const unsigned nearest = __reduce_min_sync(kFullMask, key);
+    unsigned at = __ballot_sync(kFullMask, key == nearest);
+    if (at & (at - 1u)) {
+      // an exact tie in t: the lower scene index
+      const int orig =
+          key == nearest ? sph.orig_of(first + lane) : 0x7fffffff;
+      const int lowest = __reduce_min_sync(kFullMask, orig);
+      at = __ballot_sync(kFullMask, key == nearest && orig == lowest);
+    }
+    const int w = __ffs(at) - 1;
+    const float t_w = __shfl_sync(kFullMask, t, w);
+    if (lane == r) {
+      const int i = first + w;
+      if (t_w < best_t ||
+          (t_w == best_t && sph.orig_of(i) < sph.orig_of(best))) {
+        best_t = t_w;
+        best = i;
+      }
+    }
+  } while (m != 0u);
+}
+
+// The sphere instantiations' closest hit, run by every lane of the warp
+// (`live` lanes hold a ray; the others cast false in every vote and take
+// part in the shuffles): the hoisted spheres on each lane, then each
+// cluster in the rows' (visit) order behind the ballot of its gate, with a
+// second level each run of clusters behind its super's gate (a lane whose
+// super failed casts false for the run's clusters), scan_cluster_warp for
+// a cluster that any lane entered. A lane's best is updated before the
+// next gate, so each gate sees the best t of the per-lane scan.
+template <Tables kTab>
+__device__ __forceinline__ void closest_sphere_warp(Spheres<kTab> sph,
+                                                    bool live, Vec3 o, Vec3 d,
+                                                    Vec3 inv_d, float& best_t,
+                                                    int& best) {
   test_spheres(sph, 0, sph.n_hoist, o, d, best_t, best);
-  const int n_outer =
-      kGeom == kSpheres && sph.n_supers > 0 ? sph.n_supers : 1;
+  const int n_outer = sph.n_supers > 0 ? sph.n_supers : 1;
   for (int s = 0; s < n_outer; ++s) {
     int k = 0, k_end = sph.n_clusters;
-    if (kGeom == kSpheres && sph.n_supers > 0) {
+    bool entered = live;
+    if (sph.n_supers > 0) {
       const float4 lo = __ldg(sph.supers + 2 * s);
       const float4 hi = __ldg(sph.supers + 2 * s + 1);
-      if (!box_gate(lo, hi, o, inv_d, best_t)) continue;
+      entered = live && box_gate(lo, hi, o, inv_d, best_t);
+      if (!__any_sync(kFullMask, entered)) continue;
       k = __float_as_int(lo.w);
       k_end = k + __float_as_int(hi.w);
     }
     for (; k < k_end; ++k) {
+      const float4 lo = sph.cluster(2 * k);
+      const float4 hi = sph.cluster(2 * k + 1);
+      const unsigned m = __ballot_sync(
+          kFullMask, entered && box_gate(lo, hi, o, inv_d, best_t));
+      if (m != 0u) {
+        scan_cluster_warp(sph, m, __float_as_int(lo.w), __float_as_int(hi.w),
+                          o, d, best_t, best);
+      }
+    }
+  }
+}
+
+// The closest hit of a ray. kSpheres: closest_sphere_warp, on every lane
+// of the warp. The triangle geometries, on a live lane: the hoisted
+// spheres, then each cluster behind its gate in the rows' (visit) order,
+// one level, each lane on its own; then the triangles. They keep that
+// flat loop: with the second level in them as well (inline, or a
+// __noinline__ helper), Chess, which has no sphere, took 3-6% longer a
+// frame and their ptxas -v moved (PERF.md section 6). best_t starts at
+// +inf, best and best_tri at -1.
+template <Geometry kGeom, Tables kTab>
+__device__ __forceinline__ void closest_hit(Spheres<kTab> sph,
+                                            Triangles<kTab> tri, bool live,
+                                            Vec3 o, Vec3 d, Vec3 inv_d,
+                                            float& best_t, int& best,
+                                            int& best_tri) {
+  if constexpr (kGeom == kSpheres) {
+    closest_sphere_warp(sph, live, o, d, inv_d, best_t, best);
+  } else {
+    test_spheres(sph, 0, sph.n_hoist, o, d, best_t, best);
+    for (int k = 0; k < sph.n_clusters; ++k) {
       const float4 lo = sph.cluster(2 * k);
       const float4 hi = sph.cluster(2 * k + 1);
       if (!box_gate(lo, hi, o, inv_d, best_t)) continue;
@@ -761,16 +901,16 @@ __device__ __forceinline__ void closest_hit(Spheres<kTab> sph,
       test_spheres(sph, first, first + __float_as_int(hi.w), o, d, best_t,
                    best);
     }
-  }
-  if constexpr (kGeom == kChunks) {
-    closest_triangle(tri, o, d, inv_d, best_t, best_tri);
-  }
-  if constexpr (kGeom == kBvh) {
-    // closest_hit_bvh's merge: strictly nearer, so a sphere keeps a tie
-    const TriangleHit h = closest_triangle_bvh(tri, o, d);
-    if (h.t < best_t) {
-      best_t = h.t;
-      best_tri = h.i;
+    if constexpr (kGeom == kChunks) {
+      closest_triangle(tri, o, d, inv_d, best_t, best_tri);
+    }
+    if constexpr (kGeom == kBvh) {
+      // closest_hit_bvh's merge: strictly nearer, so a sphere keeps a tie
+      const TriangleHit h = closest_triangle_bvh(tri, o, d);
+      if (h.t < best_t) {
+        best_t = h.t;
+        best_tri = h.i;
+      }
     }
   }
 }
@@ -820,20 +960,15 @@ __device__ __forceinline__ float fetch_again(Spheres<kTab> sph,
   return sum;
 }
 
-// One segment of a path (ops/trace.py trace_segment): the closest hit,
-// then the flags, the scatter, emission and roulette; or the environment
-// light on a miss. Updates the ray, throughput and incoming light and
-// returns whether the path goes on. `camera_ray` is bounce index 0.
-template <Geometry kGeom, Scatter kScatter, Probe kProbe, Tables kTab>
-__device__ __forceinline__ bool trace_segment(
-    const float* p, Spheres<kTab> sph, Triangles<kTab> tri,
-    const float* __restrict__ mats, bool camera_ray, uint32_t& state, Vec3& o,
-    Vec3& d, Vec3& colour, Vec3& incoming) {
-  float best_t = __int_as_float(0x7f800000);
-  int best = -1;
-  int best_tri = -1;
+// A segment's closest hit (ops/trace.py trace_segment's first half), from
+// best_t = +inf and best = best_tri = -1; `live` as closest_hit takes it.
+template <Geometry kGeom, Probe kProbe, Tables kTab>
+__device__ __forceinline__ void segment_hit(Spheres<kTab> sph,
+                                            Triangles<kTab> tri, bool live,
+                                            Vec3 o, Vec3 d, float& best_t,
+                                            int& best, int& best_tri) {
   const Vec3 inv_d = {1.0f / d.x, 1.0f / d.y, 1.0f / d.z};
-  closest_hit<kGeom>(sph, tri, o, d, inv_d, best_t, best, best_tri);
+  closest_hit<kGeom>(sph, tri, live, o, d, inv_d, best_t, best, best_tri);
   if constexpr (kProbe == kDupIntersect) {
     // the TPU kernel's dup_intersect (megakernel.py:2030-2043): the whole
     // closest hit again from an origin the compiler cannot prove equal,
@@ -841,10 +976,23 @@ __device__ __forceinline__ bool trace_segment(
     // first pass's winner stays
     float best_t2 = __int_as_float(0x7f800000);
     int best2 = -1, best_tri2 = -1;
-    closest_hit<kGeom>(sph, tri, Vec3{o.x + 1e-30f, o.y, o.z}, d, inv_d,
-                       best_t2, best2, best_tri2);
+    closest_hit<kGeom>(sph, tri, live, Vec3{o.x + 1e-30f, o.y, o.z}, d,
+                       inv_d, best_t2, best2, best_tri2);
     best_t = fminf(best_t, best_t2 + 1e30f);
   }
+}
+
+// The rest of a segment after its closest hit (ops/trace.py
+// trace_segment): the flags, the scatter, emission and roulette; or the
+// environment light on a miss. Updates the ray, throughput and incoming
+// light and returns whether the path goes on. `camera_ray` is bounce
+// index 0.
+template <Geometry kGeom, Scatter kScatter, Probe kProbe, Tables kTab>
+__device__ __forceinline__ bool shade_segment(
+    const float* p, Spheres<kTab> sph, Triangles<kTab> tri,
+    const float* __restrict__ mats, bool camera_ray, uint32_t& state, Vec3& o,
+    Vec3& d, Vec3& colour, Vec3& incoming, float best_t, int best,
+    int best_tri) {
   if (best < 0 && best_tri < 0) {
     incoming = add(incoming, mul(environment(p, d), colour));
     return false;
@@ -922,6 +1070,26 @@ __device__ __forceinline__ bool trace_segment(
   o = new_o;
   d = new_d;
   return true;
+}
+
+// One segment of a path (ops/trace.py trace_segment) on a live lane, for
+// the triangle geometries: its closest hit, then the rest. (The sphere
+// instantiations call the two halves apart, the hit on every lane.) With
+// the hit's locals declared here, inside the slot loop's `if (live)`, their
+// SASS is the one before the sphere scan went across the warp; declared
+// before that branch, as the sphere instantiations need them, it was not.
+template <Geometry kGeom, Scatter kScatter, Probe kProbe, Tables kTab>
+__device__ __forceinline__ bool trace_segment(
+    const float* p, Spheres<kTab> sph, Triangles<kTab> tri,
+    const float* __restrict__ mats, bool camera_ray, uint32_t& state, Vec3& o,
+    Vec3& d, Vec3& colour, Vec3& incoming) {
+  float best_t = __int_as_float(0x7f800000);
+  int best = -1;
+  int best_tri = -1;
+  segment_hit<kGeom, kProbe>(sph, tri, true, o, d, best_t, best, best_tri);
+  return shade_segment<kGeom, kScatter, kProbe, kTab>(
+      p, sph, tri, mats, camera_ray, state, o, d, colour, incoming, best_t,
+      best, best_tri);
 }
 
 // Adds the block's histogram to the launch's; every thread takes part.
@@ -1203,12 +1371,27 @@ __device__ __forceinline__ void render_slots(float4* smem4, const Args& a) {
       bounce = 0;
       live = true;
     }
+    float best_t = __int_as_float(0x7f800000);
+    int best = -1, best_tri = -1;
+    if constexpr (kGeom == kSpheres) {
+      // the sphere scan's votes and shuffles take every lane of the warp,
+      // so the closest hit comes before `if (live)`
+      segment_hit<kGeom, kProbe>(sc.sph, sc.tri, live, o, d, best_t, best,
+                                 best_tri);
+    }
     if (live) {
       ++segs;
       if (s_hist != nullptr) atomicAdd(&s_hist[bounce], 1);
-      const bool goes_on = trace_segment<kGeom, kScatter, kProbe, kTab>(
-          sc.p, sc.sph, sc.tri, a.mats, bounce == 0, state, o, d, colour,
-          incoming);
+      bool goes_on;
+      if constexpr (kGeom == kSpheres) {
+        goes_on = shade_segment<kGeom, kScatter, kProbe, kTab>(
+            sc.p, sc.sph, sc.tri, a.mats, bounce == 0, state, o, d, colour,
+            incoming, best_t, best, best_tri);
+      } else {
+        goes_on = trace_segment<kGeom, kScatter, kProbe, kTab>(
+            sc.p, sc.sph, sc.tri, a.mats, bounce == 0, state, o, d, colour,
+            incoming);
+      }
       if (!goes_on || bounce >= max_bounce) {
         // the sample is complete: bank its light
         total = add(total, incoming);
@@ -1238,7 +1421,10 @@ __device__ __forceinline__ void render_slots(float4* smem4, const Args& a) {
 // Both kernels' launch bounds: 128 threads a block, and for kBvh 8 blocks
 // an SM (at most 64 registers a thread); a minimum of 0, none given, for
 // the others, which ptxas then compiles as before (a minimum of 1 moves
-// their registers and spills).
+// their registers and spills). The kSpheres ones with a minimum of 7 (72
+// registers, no spill where ptxas otherwise takes 64 and stores 16-20
+// bytes of spills) were as fast on RTIOW exact, 2-4% slower with fast
+// scatter and 2% slower past the shared-memory limit (PERF.md).
 //
 // Exactly spp samples a pixel; kBvh starts a warp's samples together (see
 // the header).

@@ -110,6 +110,12 @@ WARP = 32
 # (the TPU kernel's super-cluster of 32 sub-clusters).
 SUPER_CHUNKS = 32
 
+# The source's kWarpScanMax: in the kSpheres instantiations a cluster visit
+# whose gate ballot holds fewer live lanes runs the warp-cooperative scan (a
+# ray a step, one sphere a lane), one with at least this many the per-lane
+# loop (a sphere a step); chosen on the card (the source says why).
+WARP_SCAN_MAX = 12
+
 # The sphere scan's second level: one box over each run of this many sphere
 # clusters in table (Morton) order (the TPU's SUPER, pack.py:44), built
 # where a scene has more than one run (``sphere_tables``).
@@ -768,8 +774,32 @@ def _slot_iterations(key, packed, sizes, base) -> tuple[int, int]:
     return int(starts.size), int(iterations)
 
 
+def _cluster_visits(key, spheres, sizes,
+                    warp_scan_max) -> tuple[np.ndarray, int]:
+    """Records grouped into slots by ``key`` (R,) -> ``(visit_lanes,
+    ray_steps)``: a (slot, cluster) pair is a visit when ``spheres`` (R, K)
+    bool has a record of the slot that tested the cluster; its k lanes are
+    those records. ``visit_lanes`` (WARP,) int64 counts the visits of k =
+    1 .. WARP lanes; ``ray_steps`` is what the kSpheres cluster loop runs
+    for them: k ray steps a visit of fewer than ``warp_scan_max`` lanes,
+    the cluster's ``sizes`` sphere steps one of more."""
+    hist = np.zeros(WARP, np.int64)
+    if not (sizes.size and key.size):
+        return hist, 0
+    order = np.argsort(key, kind="stable")
+    k = key[order]
+    starts = np.flatnonzero(np.r_[True, k[1:] != k[:-1]])
+    # a slot holds at most one record a lane: at most WARP lanes a visit
+    lanes = np.add.reduceat(spheres[order].view(np.uint8), starts, axis=0,
+                            dtype=np.int64)
+    hist += np.bincount(lanes[lanes > 0], minlength=WARP + 1)[1:]
+    steps = np.where(lanes >= warp_scan_max, sizes[None, :], lanes)
+    return hist, int(steps.sum())
+
+
 def schedule_counts(lane, nested_slot, spheres, sphere_sizes, n_hoist,
-                    triangles=None, triangle_sizes=None) -> dict:
+                    triangles=None, triangle_sizes=None,
+                    warp_scan_max: int = WARP_SCAN_MAX) -> dict:
     """How the exact kernel's warps spend their slots under two schedules,
     from the segments its lanes trace: one record a segment, each lane's
     records in the order it traces them. ``lane`` (R,) is the record's
@@ -791,8 +821,16 @@ def schedule_counts(lane, nested_slot, spheres, sphere_sizes, n_hoist,
     ``sphere_iterations`` / ``triangle_iterations``: what a warp's scan
     runs a slot, the hoisted spheres and the union of its live lanes'
     tested clusters' spheres (chunks' triangles), summed over slots.
-    Beside them ``segments`` and the lanes' own tests summed
-    (``lane_sphere_tests``, ``lane_triangle_tests``)."""
+    The kSpheres kernels' warp-cooperative cluster scan: ``visit_lanes``
+    (WARP,) int64, the (slot, cluster) visits with k = 1 .. WARP live
+    lanes that passed the cluster's gate, and ``sphere_ray_steps``, the
+    steps its cluster loop runs for them (k a visit under
+    ``warp_scan_max`` lanes, the cluster's size at or above; the hoisted
+    spheres are ``n_hoist`` steps a slot in either scan, as in
+    ``sphere_iterations``), against ``cluster_sphere_steps``, the per-lane
+    cluster loop's (``sphere_iterations`` less the hoisted). Beside them
+    ``segments`` and the lanes' own tests summed (``lane_sphere_tests``,
+    ``lane_triangle_tests``)."""
     lane = np.asarray(lane, np.int64)
     nested_slot = np.asarray(nested_slot, np.int64)
     sphere_sizes = np.asarray(sphere_sizes, np.int64)
@@ -830,6 +868,11 @@ def schedule_counts(lane, nested_slot, spheres, sphere_sizes, n_hoist,
         for part, packed, sizes, base in parts:
             res["slots"], res[f"{part}_iterations"] = _slot_iterations(
                 key, packed, sizes, base)
+        hist, res["sphere_ray_steps"] = _cluster_visits(
+            key, spheres, sphere_sizes, warp_scan_max)
+        res["visit_lanes"] = hist.tolist()
+        res["cluster_sphere_steps"] = (res["sphere_iterations"]
+                                       - res["slots"] * n_hoist)
         res["lanes_per_slot"] = n / max(res["slots"], 1)
         out[name] = res
     return out

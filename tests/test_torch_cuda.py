@@ -746,6 +746,148 @@ def test_lower_scene_index_wins_a_tie_in_any_slot_order(cuda):
         assert int((img[..., 2] > img[..., 0])[hit].sum()) == 0
 
 
+def _scan_vs_plain(scene, cam, cfg, tables, rows=None):
+    """The sphere kernel of ``cfg`` on the route ``tables`` against the
+    plain version in the kernel's test forms: a frame's image, segment map
+    and histogram, and a K = 3 fold from a seeded accumulator in both clamp
+    modes, bit for bit; over the band ``rows`` where given. One launch of
+    the instantiation a call."""
+    v = mk.variant("spheres", cfg.adaptive_spp, cfg.fast_scatter,
+                   tables=tables)
+    fn = mk.plain_intersector(scene, cam, cfg, direct=True)
+    before = mk.KERNEL.variant_launches[v]
+    k_img, k_segs, k_map, k_hist = mk.render_frames_mega(
+        scene, cam, cfg, 5, collect_stats=True, rows=rows, tables=tables)
+    p_img, _, p_map, p_hist = mk.render_frames_plain(
+        scene, cam, cfg, 5, collect_stats=True, rows=rows, intersect_fn=fn)
+    assert _bits_equal(k_img, p_img)
+    assert torch.equal(k_map, p_map) and torch.equal(k_hist, p_hist)
+    assert int(k_segs) == int(k_map.sum())
+    h = cfg.height if rows is None else rows[1] - rows[0]
+    gen = torch.Generator(device=k_img.device).manual_seed(11)
+    acc0 = 2.0 * torch.rand((h, cfg.width, 3), generator=gen,
+                            device=k_img.device)
+    for clamp in (False, True):
+        ccfg = dataclasses.replace(cfg, clamp_accumulate=clamp)
+        k, _, k_map, _ = mk.render_frames_mega(
+            scene, cam, ccfg, 2, 3, accum=acc0, rows=rows, tables=tables)
+        p, _, p_map, _ = mk.render_frames_plain(
+            scene, cam, ccfg, 2, 3, accum=acc0, rows=rows, intersect_fn=fn)
+        assert _bits_equal(k, p) and torch.equal(k_map, p_map)
+    torch.cuda.synchronize()
+    assert mk.KERNEL.variant_launches[v] == before + 3
+    return k_map
+
+
+def _stacked_spheres_scene(device):
+    """40 coincident spheres (one centre and radius, 40 colours), five more
+    coincident at a second centre, and 30 scattered ones: the packer puts
+    the 40 in two clusters and the five in one of 16 spheres, beside one
+    of 27; the lower scene index must win every tie."""
+    from ray_tracing_extended_tpu_torch.models.scene import (
+        Material,
+        SceneBuilder,
+    )
+
+    rs = np.random.RandomState(3)
+    b = SceneBuilder(env=presets._gradient_sky())
+    for i in range(40):
+        b.add_sphere((0.0, 0.0, 0.0), 0.6,
+                     Material.lambertian((0.1 + 0.02 * i, 0.5, 0.2)))
+    for c in rs.uniform(-3.0, 3.0, (30, 3)):
+        b.add_sphere(c, 0.3, Material.lambertian((0.2, 0.3, 0.9)))
+    for i in range(5):
+        b.add_sphere((1.5, 0.5, 0.0), 0.4,
+                     Material.metal((0.9, 0.2 * i, 0.1), smoothness=0.7))
+    cam = rtt.look_at((0.5, 1.0, -6.0), (0.5, 0.2, 0.0), fov_y_deg=50.0,
+                      focus_distance=6.0, defocus_strength=0.0,
+                      diverge_strength=0.3, device=device)
+    return b.build(device=device), cam
+
+
+SCAN_MODES = [(a, f, t) for a in (False, True) for f in (False, True)
+              for t in mk.TABLES]
+SCAN_IDS = [f"{'refill' if a else 'exact'}-{'fast' if f else 'bm'}-{t}"
+            for a, f, t in SCAN_MODES]
+
+
+@pytest.mark.parametrize("adaptive, fast, tables", SCAN_MODES, ids=SCAN_IDS)
+def test_warp_scan_on_short_clusters_and_coincident_spheres(
+        cuda, adaptive, fast, tables):
+    """The warp-cooperative cluster scan where a cluster holds fewer than
+    32 spheres (lanes without a sphere) and where coincident spheres tie
+    exactly in one cluster and across two: both kernels, both scatters,
+    both table routes, bit for bit the plain version."""
+    scene, cam = _stacked_spheres_scene(cuda)
+    tab = mk.geometry_tables(scene, "spheres")
+    bits = tab.clusters[:, [3, 7]].contiguous().view(torch.int32).cpu()
+    sizes = bits[:, 1].tolist()
+    assert min(sizes) < 32 and max(sizes) <= 32
+    cluster_of = {}
+    for k, (first, n) in enumerate(bits.tolist()):
+        for i in tab.sphere_orig[first:first + n].tolist():
+            cluster_of[i] = k
+    assert len({cluster_of[i] for i in range(40)}) == 2
+    assert len({cluster_of[i] for i in range(70, 75)}) == 1
+    cfg = rtt.RenderConfig(width=96, height=54, spp=2, max_bounce=4,
+                           adaptive_spp=adaptive, fast_scatter=fast)
+    k_map = _scan_vs_plain(scene, cam, cfg, tables)
+    assert int((k_map > cfg.spp).sum()) > 500  # camera rays that hit a sphere
+
+
+def _surface_camera_scene(device, inside):
+    """Two coincident unit spheres at the origin (a lambertian one, then a
+    glass one), a glass sphere and a metal one beside them, over a ground
+    sphere; the camera sits inside the unit spheres, or on their surface,
+    looking in, so that its rays' roots there are exactly 0."""
+    from ray_tracing_extended_tpu_torch.models.scene import (
+        Material,
+        SceneBuilder,
+    )
+
+    b = SceneBuilder(env=presets._gradient_sky())
+    b.add_sphere((0.0, 0.0, 0.0), 1.0, Material.lambertian((0.8, 0.3, 0.3)))
+    b.add_sphere((0.0, 0.0, 0.0), 1.0, Material.dielectric(1.5))
+    b.add_sphere((1.6, 0.0, 1.0), 0.6, Material.dielectric(1.5))
+    b.add_sphere((-1.6, 0.0, 1.0), 0.6, Material.metal((0.7, 0.7, 0.9), 0.9))
+    b.add_sphere((0.0, -101.0, 0.0), 100.0,
+                 Material.lambertian((0.5, 0.5, 0.5)))
+    z = -0.5 if inside else -1.0
+    cam = rtt.look_at((0.0, 0.0, z), (0.0, 0.0, 2.0), fov_y_deg=70.0,
+                      focus_distance=2.0, defocus_strength=0.0,
+                      diverge_strength=0.0, device=device)
+    return b.build(device=device), cam
+
+
+@pytest.mark.parametrize("adaptive, fast, tables", SCAN_MODES, ids=SCAN_IDS)
+@pytest.mark.parametrize("inside", [True, False], ids=["inside", "surface"])
+def test_warp_scan_with_the_camera_in_a_sphere(cuda, inside, adaptive, fast,
+                                               tables):
+    """A camera inside a sphere (every root of it behind the origin) and on
+    its surface (the roots of the rays into it are 0, a tie between the
+    two coincident spheres there): both kernels, both scatters, both
+    table routes, bit for bit the plain version."""
+    scene, cam = _surface_camera_scene(cuda, inside)
+    cfg = rtt.RenderConfig(width=96, height=54, spp=2, max_bounce=4,
+                           adaptive_spp=adaptive, fast_scatter=fast)
+    _scan_vs_plain(scene, cam, cfg, tables)
+
+
+@pytest.mark.parametrize("adaptive, fast, tables", SCAN_MODES, ids=SCAN_IDS)
+def test_warp_scan_band_with_lanes_outside_the_image(cuda, adaptive, fast,
+                                                     tables):
+    """RTIOW 96x54 on a band launch whose last warps reach past the band
+    (exact: rows 10-26, a warp with one row in and one out; refill: rows 8
+    to the end, whose last block rows lie past the frame): their lanes
+    cast every vote of the scan and hold spheres in it. Both kernels, both
+    scatters, both table routes, bit for bit the plain version's band."""
+    scene, cam, cfg = presets.rtiow_final_scene(width=96, height=54, spp=2,
+                                                max_bounce=4, device=cuda)
+    cfg = dataclasses.replace(cfg, adaptive_spp=adaptive, fast_scatter=fast)
+    rows = (8, 54) if adaptive else (10, 27)
+    _scan_vs_plain(scene, cam, cfg, tables, rows=rows)
+
+
 def test_vpu_kernel_matches_plain(cuda):
     """The vpu probe's kernel against its plain version on the card, bit for
     bit, at a reduced step count; one launch counted."""

@@ -6,13 +6,15 @@ samples and bounces kept it idle until its warp's longest path ended.
 ``kernels/megakernel.schedule_counts`` counts both schedules from the
 segments the lanes trace (slots, live lanes a slot, the sphere and triangle
 tests a warp's scan runs: the union of its live lanes' clusters and
-chunks); ``warp_schedule_counts`` records those segments on the plain
-version over the kernel's warps. On the CPU:
+chunks; the live lanes of each cluster visit and the steps of the sphere
+kernels' warp-cooperative cluster scan); ``warp_schedule_counts`` records
+those segments on the plain version over the kernel's warps. On the CPU:
 
     JAX_PLATFORMS=cpu python -m pytest tests/test_torch_schedule.py -q
 """
 
 import pathlib
+import re
 
 import numpy as np
 import pytest
@@ -46,9 +48,9 @@ HAND_LANES = {
 }
 
 
-def _hand_records(order):
-    recs = [(s * 3 + b, lane, clusters)
-            for lane, samples in HAND_LANES.items()
+def _hand_records(order, lanes=HAND_LANES, n_bounce=3):
+    recs = [(s * n_bounce + b, lane, clusters)
+            for lane, samples in lanes.items()
             for s, path in enumerate(samples)
             for b, clusters in enumerate(path)]
     if order == "by_slot":  # as a traced frame appends them
@@ -81,6 +83,91 @@ def test_schedule_counts_of_two_warps_by_hand(order):
         assert [segs[i] for i in (0, 1, 32, 33)] == [4, 3, 4, 2]
         assert segs.sum() == 13
     assert "triangle_iterations" not in nested
+
+
+# Two warps, max_bounce 1 (a nested slot is sample * 2 + bounce), clusters
+# of 4 and 32 spheres, no hoisted sphere; lanes 0-2 in warp 0, lane 32 in
+# warp 1.
+VISIT_LANES = {
+    0: [[{0}], [{0, 1}, {1}]],
+    1: [[{0}, {0}], [{1}]],
+    2: [[{1}], [{0}]],
+    32: [[{1}, {1}], [set()]],
+}
+
+
+@pytest.mark.parametrize("order", ["by_lane", "by_slot"])
+def test_cooperative_scan_counts_of_two_warps_by_hand(order):
+    """The (slot, cluster) visits of the kSpheres kernels' warp-cooperative
+    scan. Nested: warp 0's slot 0 visits cluster 0 with lanes 0 and 1 and
+    cluster 1 with lane 2, slot 1 cluster 0 with lane 1, slot 2 both
+    clusters with two lanes each (0, 2; 0, 1), slot 3 cluster 1 with lane
+    0; warp 1 cluster 1 with lane 32 at slots 0 and 1: five visits of one
+    lane, three of two, 11 ray steps. The slot loop: warp 0's slot 0 as
+    the nested one's, slot 1 cluster 0 with lanes 0-2 and cluster 1 with
+    lane 0, slot 2 cluster 1 with lanes 0 and 1; warp 1 as before: four
+    of one, two of two, one of three, 11 ray steps, the lanes' 11 cluster
+    tests either way. The hybrid (``warp_scan_max``) runs a visit of that
+    many lanes or more as the cluster's 4 or 32 sphere steps; the per-lane
+    loop runs the union's, 172 and 168."""
+    lane, slot, spheres = _hand_records(order, VISIT_LANES, n_bounce=2)
+    assert int(spheres.sum()) == 11
+    for scan_max, steps in ((mk.WARP + 1, (11, 11)), (3, (11, 12)),
+                            (2, (45, 44)), (1, (172, 168))):
+        out = mk.schedule_counts(lane, slot, spheres, [4, 32], 0,
+                                 warp_scan_max=scan_max)
+        nested, slots = out["nested"], out["slots"]
+        assert (nested["slots"], slots["slots"]) == (7, 6)
+        assert nested["visit_lanes"] == [5, 3] + [0] * 30
+        assert slots["visit_lanes"] == [4, 2, 1] + [0] * 29
+        assert (nested["sphere_ray_steps"], slots["sphere_ray_steps"]) == steps
+        assert (nested["cluster_sphere_steps"],
+                slots["cluster_sphere_steps"]) == (172, 168)
+        assert nested["sphere_iterations"] == 172
+    lane, slot, spheres = _hand_records(order)
+    out = mk.schedule_counts(lane, slot, spheres, [5, 7], 1)
+    for res in (out["nested"], out["slots"]):
+        assert res["visit_lanes"] == [8, 1] + [0] * 30
+        assert res["sphere_ray_steps"] == 10
+        assert res["cluster_sphere_steps"] == 55
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_cooperative_scan_steps_are_the_lanes_cluster_tests(seed):
+    """Random records over four warps: without the per-lane branch the
+    cooperative scan runs one ray step a lane a cluster it tested, in
+    either schedule (its visit histogram sums to them); with every visit
+    on the per-lane branch it runs the per-lane loop's steps."""
+    rng = np.random.default_rng(seed)
+    n = 600
+    lane = rng.integers(0, 4 * mk.WARP, n)
+    slot = rng.integers(0, 12, n)
+    # at most one record a lane a nested slot
+    _, keep = np.unique(np.stack([lane, slot]), axis=1, return_index=True)
+    lane, slot = lane[keep], slot[keep]
+    spheres = rng.random((lane.size, 5)) < 0.4
+    sizes = rng.integers(1, 33, 5)
+    lane_visits = int(spheres.sum())
+    for name in mk.SCHEDULES:
+        coop = mk.schedule_counts(lane, slot, spheres, sizes, 3,
+                                  warp_scan_max=mk.WARP + 1)[name]
+        hist = np.array(coop["visit_lanes"])
+        assert int(hist @ np.arange(1, mk.WARP + 1)) == lane_visits
+        assert coop["sphere_ray_steps"] == lane_visits
+        per_lane = mk.schedule_counts(lane, slot, spheres, sizes, 3,
+                                      warp_scan_max=1)[name]
+        assert per_lane["visit_lanes"] == coop["visit_lanes"]
+        assert (per_lane["sphere_ray_steps"]
+                == per_lane["cluster_sphere_steps"]
+                == coop["sphere_iterations"] - 3 * coop["slots"])
+
+
+def test_warp_scan_max_is_the_kernels():
+    """``WARP_SCAN_MAX`` is the source's kWarpScanMax."""
+    src = (pathlib.Path(mk.__file__).resolve().parents[1] / "csrc"
+           / "megakernel.cu").read_text()
+    m = re.search(r"constexpr int kWarpScanMax = (\d+);", src)
+    assert int(m.group(1)) == mk.WARP_SCAN_MAX
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
