@@ -151,6 +151,23 @@
 // is the camera's, as the TPU kernel's: a bounce ray starts elsewhere. No
 // path is handed to another lane or warp: a warp's live lanes stay its
 // own, and only their rays are lent to the cluster scan's steps.
+// How pixels reach threads: as the TPU grid's tiles did, one 16x8 block per
+// 128 pixels and one pixel a thread for the launch, in every kernel. A
+// pixel queue was measured against it (tools/scan_ab.py, 10 pairs, on an
+// NVIDIA H100 80GB HBM3 at 700 W; PERF.md): resident blocks, as many as
+// the SMs hold, whose warps take 16x2 tiles from a counter in global
+// memory, a lane whose pixel is done taking the tile's next pixel. Bit for
+// bit the same images, 0.90x the warp-slots of an exact RTIOW 1080p
+// launch of 4 frames, and 1.034x its frame time; Chess 1.128x, Cornell
+// 1.138x, the wide sphere scenes 1.022-1.039x. The closest hit took the
+// loss (RTIOW 4.88 -> 5.89 ms a frame) while the rest fell (1.72 -> 0.97):
+// lanes of other pixels in a slot, above all of another tile, enter more
+// clusters and chunks, and a slot costs what its live lanes' scans cost
+// together, so the lanes that idle at the end of a tile were the cheaper
+// waste. Whole tiles a warp (its lanes start the next tile together) were
+// within 2% on RTIOW and 3-5% slower on Chess. The refill kernels'
+// group is the warp that votes on extra samples, and the BVH kernels start
+// a warp's samples together on purpose (kLockstep, below).
 //
 // kBvh, for big meshes (mesh_scene's 70,016 triangles in one chunk, which
 // the chunk scan would test in full every segment). It replaces the TPU

@@ -58,6 +58,7 @@ import collections
 import ctypes
 import dataclasses
 import functools
+import heapq
 import time
 
 import numpy as np
@@ -739,6 +740,24 @@ def warp_groups(width: int, height: int) -> np.ndarray:
     return pix.reshape(-1, WARP)
 
 
+def queue_tiles(width: int, y0: int, y1: int) -> int:
+    """The warp tiles of a band of rows ``y0 .. y1 - 1``, a warp's 16x2
+    pixels of ``warp_groups``: what the ``"queue"`` schedule of
+    ``schedule_counts`` hands to its resident warps."""
+    return -(-width // BLOCK_X) * -(-(y1 - y0) // (WARP // BLOCK_X))
+
+
+def band_resident_warps(launch_warps: int, cfg: RenderConfig,
+                        rows: tuple[int, int]) -> int:
+    """A band's share of a whole-frame launch's resident warps: as many
+    warps as hold its tiles at the launch's tiles a warp (at least one),
+    the queue's ``resident_warps`` for ``warp_schedule_counts`` on a
+    band."""
+    share = queue_tiles(cfg.width, *rows) / queue_tiles(cfg.width, 0,
+                                                        cfg.height)
+    return max(1, round(launch_warps * share))
+
+
 def tile_groups(width: int, height: int, ts: int) -> np.ndarray:
     """The TPU kernel's refill groups: (G, ts * ts) pixel indices, one row
     per ts x ts tile (tiles row-major, pixels row-major inside a tile), -1
@@ -753,9 +772,11 @@ def tile_groups(width: int, height: int, ts: int) -> np.ndarray:
     return pix.reshape(-1, ts * ts)
 
 
-# The exact kernel's two warp schedules (``schedule_counts``): a loop over
-# samples and bounces, and the slot loop.
-SCHEDULES = ("nested", "slots")
+# Warp schedules of the exact kernel's work (``schedule_counts``): a loop
+# over samples and bounces, the slot loop with one warp a tile (the
+# kernel's), and the slot loop of resident warps that take warp tiles from a
+# queue (measured on the card as a kernel and not kept: PERF.md).
+SCHEDULES = ("nested", "slots", "queue")
 
 
 def _slot_iterations(key, packed, sizes, base) -> tuple[int, int]:
@@ -797,14 +818,58 @@ def _cluster_visits(key, spheres, sizes,
     return hist, int(steps.sum())
 
 
+def _queue_schedule(lengths: np.ndarray,
+                    resident_warps: int) -> tuple[np.ndarray, np.ndarray]:
+    """List scheduling of warp tiles onto resident warps, the pixel queue
+    of ``schedule_counts``: ``lengths`` (T, WARP) each tile's pixels' live
+    slots in lane order (0: no pixel). A warp starts with every lane wanting
+    a pixel; in a slot its lanes that want one take the tile's next pixels
+    in lane order, and where the tile runs out the warp takes the next tile
+    of the queue (warps in a slot in warp order). A pixel taken in slot s
+    keeps its lane through slot s + length - 1; the lane wants the next one
+    in slot s + length. -> ``(warp, first)`` (T, WARP): each pixel's warp
+    and first slot, -1 where there is no pixel."""
+    n_tiles = lengths.shape[0]
+    pixels = [np.flatnonzero(row) for row in lengths]
+    warp = np.full(lengths.shape, -1, np.int64)
+    first = np.full(lengths.shape, -1, np.int64)
+    free = np.zeros((resident_warps, WARP), np.int64)  # a lane's next slot
+    idle = np.iinfo(np.int64).max  # a lane the queue has no pixel for
+    tile = [-1] * resident_warps
+    cursor = [0] * resident_warps
+    taken = 0  # tiles the queue handed out
+    events = [(0, w) for w in range(resident_warps)]
+    while events:
+        t, w = heapq.heappop(events)
+        for lane in np.flatnonzero(free[w] == t):
+            while tile[w] < 0 or cursor[w] == pixels[tile[w]].size:
+                if taken == n_tiles:
+                    break
+                tile[w], cursor[w] = taken, 0
+                taken += 1
+            g = tile[w]
+            if g < 0 or cursor[w] == pixels[g].size:
+                free[w, lane] = idle
+                continue
+            p = pixels[g][cursor[w]]
+            cursor[w] += 1
+            warp[g, p], first[g, p] = w, t
+            free[w, lane] = t + lengths[g, p]
+        busy = free[w][free[w] != idle]
+        if busy.size:
+            heapq.heappush(events, (int(busy.min()), w))
+    return warp, first
+
+
 def schedule_counts(lane, nested_slot, spheres, sphere_sizes, n_hoist,
                     triangles=None, triangle_sizes=None,
-                    warp_scan_max: int = WARP_SCAN_MAX) -> dict:
-    """How the exact kernel's warps spend their slots under two schedules,
-    from the segments its lanes trace: one record a segment, each lane's
-    records in the order it traces them. ``lane`` (R,) is the record's
-    lane (its warp is ``lane // WARP``), ``nested_slot`` (R,) its slot in a
-    loop over samples and bounces (``sample * (max_bounce + 1) +
+                    warp_scan_max: int = WARP_SCAN_MAX,
+                    resident_warps: int | None = None) -> dict:
+    """How the exact kernel's warps spend their slots under three
+    schedules, from the segments its lanes trace: one record a segment,
+    each lane's records in the order it traces them. ``lane`` (R,) is the
+    record's lane (its warp is ``lane // WARP``), ``nested_slot`` (R,) its
+    slot in a loop over samples and bounces (``sample * (max_bounce + 1) +
     bounce``); ``spheres`` (R, K) bool the sphere clusters the segment
     tested, of ``sphere_sizes`` (K,) spheres each, beside the ``n_hoist``
     hoisted spheres every segment tests; ``triangles`` (R, C) bool and
@@ -813,9 +878,16 @@ def schedule_counts(lane, nested_slot, spheres, sphere_sizes, n_hoist,
     ``"nested"``, for each sample, for each bounce (the kernel's
     ``kLockstep``): a warp runs a sample's bounce while one of its lanes is
     on that path, so each (warp, ``nested_slot``) is a slot. ``"slots"``,
-    the slot loop (``kExact``): a lane whose path ended starts its next
-    sample in the next slot, so it traces its k-th segment in its warp's
-    slot k, and each (warp, k) is a slot. For
+    the slot loop with one warp a tile of 32 lanes (the kernel's
+    ``kExact``): a lane whose path ended starts its next sample in the next
+    slot, so it traces its k-th segment in its warp's slot k, and each
+    (warp, k) is a slot. ``"queue"``, the slot loop of ``resident_warps``
+    warps that take the tiles from a queue (None: one warp a tile): a lane
+    is a tile's pixel, ``lane // WARP`` its tile, and a lane whose pixel is
+    done takes its warp's next pixel in the next slot
+    (``_queue_schedule``), so a pixel taken in its warp's slot s traces its
+    k-th segment in slot s + k. The queue's ``makespan`` is its last warp's
+    slots, ``ideal_slots`` the segments over ``WARP * resident_warps``. For
     each schedule: ``slots``, ``lanes_per_slot`` (live lanes a slot),
     ``lane_segments`` (R_lanes,) (each lane's live slots, by lane id), and
     ``sphere_iterations`` / ``triangle_iterations``: what a warp's scan
@@ -843,15 +915,28 @@ def schedule_counts(lane, nested_slot, spheres, sphere_sizes, n_hoist,
     k = np.empty(n, np.int64)
     k[order] = np.arange(n) - starts
     warp = lane // WARP
+    per_lane = np.zeros(n_lanes, np.int64)
+    np.maximum.at(per_lane, lane, k + 1)
+    n_tiles = -(-n_lanes // WARP)
+    warps = n_tiles if resident_warps is None else resident_warps
+    if warps < 1:
+        raise ValueError(f"resident_warps must be >= 1, got {warps}")
+    q_warp, q_first = _queue_schedule(
+        np.pad(per_lane, (0, n_tiles * WARP - n_lanes)).reshape(-1, WARP),
+        warps)
+    q_warp, q_first = q_warp.reshape(-1), q_first.reshape(-1)
+    q_slot = q_first[lane] + k
+    makespan = int(q_slot.max(initial=-1)) + 1
     slot_of = {
         "nested": warp * (int(nested_slot.max(initial=0)) + 1) + nested_slot,
         "slots": warp * (int(k.max(initial=0)) + 1) + k,
+        "queue": q_warp[lane] * max(makespan, 1) + q_slot,
     }
     lane_segments = {
         "nested": np.bincount(lane, minlength=n_lanes),
-        "slots": np.zeros(n_lanes, np.int64),
+        "slots": per_lane,
+        "queue": per_lane,
     }
-    np.maximum.at(lane_segments["slots"], lane, k + 1)
     parts = [("sphere", np.packbits(spheres, axis=1), sphere_sizes, n_hoist)]
     out = {"segments": n,
            "lane_sphere_tests": n * n_hoist + int(
@@ -875,23 +960,28 @@ def schedule_counts(lane, nested_slot, spheres, sphere_sizes, n_hoist,
                                        - res["slots"] * n_hoist)
         res["lanes_per_slot"] = n / max(res["slots"], 1)
         out[name] = res
+    out["queue"].update(resident_warps=warps, makespan=makespan,
+                        ideal_slots=n / (WARP * warps))
     return out
 
 
 def warp_schedule_counts(scene: Scene, camera: Camera, cfg: RenderConfig,
                          rows: tuple[int, int] | None = None,
-                         frame: int = 0) -> dict:
-    """The exact kernel's warp schedules counted on the plain version: frame
-    ``frame``'s rows ``rows`` (whole warp rows, even bounds; the whole frame
-    for None) traced as ``render_frames_plain`` traces them, each segment's
-    tested clusters and chunks recorded (``clustered_winner``'s
-    ``visits``), then ``schedule_counts`` over the kernel's warps
-    (``warp_groups``). Returns its dict with each schedule's
-    ``lane_segments`` as a ``segment_map`` ((y1 - y0, W) int32, the live
-    slots of each pixel), ``warps``, and ``ratios``: the slot loop's slots
-    and iterations over the nested loop's (None where that is 0). The
-    sphere geometry and the chunk scan only: a BVH lane's walk is its
-    own."""
+                         frame: int = 0, n_frames: int = 1,
+                         resident_warps: int | None = None) -> dict:
+    """The exact kernel's warp schedules counted on the plain version: the
+    ``n_frames`` frames from ``frame`` (one launch's) of rows ``rows``
+    (whole warp rows, even bounds; the whole frame for None) traced as
+    ``render_frames_plain`` traces them, each segment's tested clusters and
+    chunks recorded (``clustered_winner``'s ``visits``), then
+    ``schedule_counts`` over the kernel's warp tiles (``warp_groups``), the
+    queue's on ``resident_warps`` warps (None: one a tile). Returns its
+    dict with each schedule's ``lane_segments`` as a ``segment_map`` ((y1 -
+    y0, W) int32, the live slots of each pixel over the frames), ``warps``
+    (the tiles), and ``ratios``: the slot loop's slots and iterations over
+    the nested loop's, and ``queue_ratios``: the queue's over the slot
+    loop's (None where the divisor is 0). The sphere geometry and the chunk
+    scan only: a BVH lane's walk is its own."""
     y0, y1 = (0, cfg.height) if rows is None else rows
     if not 0 <= y0 < y1 <= cfg.height:
         raise ValueError(f"rows {rows} outside 0..{cfg.height}")
@@ -910,37 +1000,44 @@ def warp_schedule_counts(scene: Scene, camera: Camera, cfg: RenderConfig,
     for i in range(0, real.size, block):
         ids = real[i:i + block]
         pix = torch.from_numpy(lanes[ids]).to(scene.device)
-        state = rng_ops.seed(pix, frame)
         fp = focus_points(camera, pix % w, pix // w, w, cfg.height)
-        for sample in range(cfg.spp):
-            state, o, d = generate_rays(state, camera, fp, w)
-            state = trace(state, o, d, scene, mb, intersect_fn=fn,
-                          fast_scatter=cfg.fast_scatter)[0]
-            for bounce, (live, sph, tri) in enumerate(visits):
-                live = live.cpu().numpy()
-                rec["lane"].append(ids[live])
-                rec["slot"].append(np.full(int(live.sum()),
-                                           sample * (mb + 1) + bounce))
-                rec["spheres"].append(sph.cpu().numpy()[live])
-                if tri is not None:
-                    rec["triangles"].append(tri.cpu().numpy()[live])
-            visits.clear()
+        for f in range(n_frames):
+            state = rng_ops.seed(pix, frame + f)
+            for sample in range(f * cfg.spp, (f + 1) * cfg.spp):
+                state, o, d = generate_rays(state, camera, fp, w)
+                state = trace(state, o, d, scene, mb, intersect_fn=fn,
+                              fast_scatter=cfg.fast_scatter)[0]
+                for bounce, (live, sph, tri) in enumerate(visits):
+                    live = live.cpu().numpy()
+                    rec["lane"].append(ids[live])
+                    rec["slot"].append(np.full(int(live.sum()),
+                                               sample * (mb + 1) + bounce))
+                    rec["spheres"].append(sph.cpu().numpy()[live])
+                    if tri is not None:
+                        rec["triangles"].append(tri.cpu().numpy()[live])
+                visits.clear()
     cat = {k: np.concatenate(v) for k, v in rec.items()}
     sizes = _int_column(tables.clusters, 7).cpu().numpy()
     tri_sizes = None
     if geom == "chunks":
         tri_sizes = _int_column(tables.chunks, 7).cpu().numpy()
     out = schedule_counts(cat["lane"], cat["slot"], cat["spheres"], sizes,
-                          tables.n_hoist, cat.get("triangles"), tri_sizes)
+                          tables.n_hoist, cat.get("triangles"), tri_sizes,
+                          resident_warps=resident_warps)
     for name in SCHEDULES:
         seg_map = np.zeros((y1 - y0) * w, np.int32)
         seg_map[lanes[real] - y0 * w] = out[name].pop("lane_segments")[real]
         out[name]["segment_map"] = seg_map.reshape(y1 - y0, w)
     out["warps"] = int(groups.shape[0])
-    out["ratios"] = {
-        key: out["slots"][key] / out["nested"][key] if out["nested"][key]
-        else None for key in ("slots", "sphere_iterations",
-                              "triangle_iterations") if key in out["nested"]}
+
+    def ratios(a, b):
+        return {key: out[a][key] / out[b][key] if out[b][key] else None
+                for key in ("slots", "sphere_iterations",
+                            "triangle_iterations", "sphere_ray_steps")
+                if key in out[b]}
+
+    out["ratios"] = ratios("slots", "nested")
+    out["queue_ratios"] = ratios("queue", "slots")
     return out
 
 
@@ -1203,6 +1300,20 @@ class PathTraceKernel:
         if n < 0:
             self.library.check(-n, "occupancy query")
         return n
+
+    def resident_warps(self, scene: Scene, cfg: RenderConfig) -> int:
+        """The warps a grid of resident blocks would hold for a whole-frame
+        launch of the instantiation: as many 16x8 blocks as the card's SMs
+        hold at once (``blocks_per_sm``), no more than the frame's warp
+        tiles need (``queue_tiles``); the ``"queue"`` schedule's warps of
+        ``warp_schedule_counts``."""
+        per_block = BLOCK_X * BLOCK_Y // WARP
+        sms = torch.cuda.get_device_properties(
+            scene.device).multi_processor_count
+        tiles = queue_tiles(cfg.width, 0, cfg.height)
+        blocks = min(-(-tiles // per_block),
+                     sms * self.blocks_per_sm(scene, cfg))
+        return blocks * per_block
 
     def launch(
         self,

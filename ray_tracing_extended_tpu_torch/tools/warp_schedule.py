@@ -1,0 +1,70 @@
+"""The exact kernel's warp schedules, counted on the plain version.
+
+``kernels.megakernel.warp_schedule_counts`` over a band of whole warp rows
+and one launch's frames: the loop over samples and bounces, the slot loop
+with one warp a tile, and the slot loop of resident warps that take their
+tiles from a queue. Prints one JSON line: each schedule's slots, live
+lanes a slot and scan steps, and the ratios between them (segment maps
+left out). The queue runs on ``--resident-warps`` warps, or on the card by
+default on the band's share of the warps a resident grid of the
+instantiation holds there (``PathTraceKernel.resident_warps``)::
+
+    python -m ray_tracing_extended_tpu_torch.tools.warp_schedule \\
+        --device cpu --rows 528 544 --frame 1 --frames 4 --resident-warps 55
+    python -m ray_tracing_extended_tpu_torch.tools.warp_schedule \\
+        --scene scenes/chess.json --rows 352 368 --frame 1 --frames 4
+
+The counts are the same on any device; only the plain version's speed is
+not.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+
+
+def main(argv=None) -> int:
+    from ..kernels import megakernel as mk
+    from ..utils.device import resolve_device
+    from .profile_mega import load
+
+    p = argparse.ArgumentParser(prog="warp_schedule",
+                                description=__doc__.split("\n\n")[0])
+    p.add_argument("--scene", default="preset:rtiow")
+    p.add_argument("--rows", type=int, nargs=2, default=(528, 544))
+    p.add_argument("--frame", type=int, default=1)
+    p.add_argument("--frames", type=int, default=4, help="frames a launch (K)")
+    p.add_argument("--resident-warps", type=int, default=None)
+    p.add_argument("--device", default="cuda")
+    args = p.parse_args(argv)
+    try:
+        dev = resolve_device(args.device)
+    except RuntimeError as e:
+        raise SystemExit(str(e)) from None
+    scene, cam, cfg = load(args.scene, dev)
+    rows = tuple(args.rows)
+    warps = args.resident_warps
+    if warps is None:
+        if dev.type != "cuda":
+            raise SystemExit("--resident-warps: no card to read the grid from")
+        warps = mk.band_resident_warps(
+            mk.KERNEL.resident_warps(scene, cfg), cfg, rows)
+    t0 = time.perf_counter()
+    out = mk.warp_schedule_counts(scene, cam, cfg, rows=rows,
+                                  frame=args.frame, n_frames=args.frames,
+                                  resident_warps=warps)
+    for name in mk.SCHEDULES:
+        out[name].pop("segment_map")
+    print(json.dumps(dict(
+        scene=args.scene, width=cfg.width, height=cfg.height, spp=cfg.spp,
+        max_bounce=cfg.max_bounce, rows=list(rows), frame=args.frame,
+        frames=args.frames, seconds=time.perf_counter() - t0, **out)),
+          flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -888,6 +888,93 @@ def test_warp_scan_band_with_lanes_outside_the_image(cuda, adaptive, fast,
     _scan_vs_plain(scene, cam, cfg, tables, rows=rows)
 
 
+def _off_tile_scene(name, cuda):
+    """A scene at 250x134 (no multiple of the 16x2 warp or the 16x8 block:
+    the last column of blocks holds 10 columns, the last row 6 rows), 2
+    spp, 4 bounces: RTIOW and the 14,401-sphere wide scene (kSpheres),
+    Chess (its shipped camera and defocus) and Cornell (kChunks)."""
+    from ray_tracing_extended_tpu_torch.models.wide_scenes import (
+        HALF_PAST_LIMIT,
+        wide_sphere_scene,
+    )
+
+    small = dict(width=250, height=134, spp=2, max_bounce=4)
+    if name == "rtiow":
+        return presets.rtiow_final_scene(device=cuda, **small)
+    if name == "wide":
+        return wide_sphere_scene(presets, HALF_PAST_LIMIT, device=cuda,
+                                 **small)
+    return _triangle_scene(name, device=cuda, **small)
+
+
+OFF_TILE_MODES = [(n, f, t) for n in ("rtiow", "chess", "cornell", "wide")
+                  for f in (False, True) for t in mk.TABLES
+                  if not (n == "wide" and t == "staged")]
+
+
+@pytest.mark.parametrize("name, fast, tables", OFF_TILE_MODES,
+                         ids=[f"{n}-{'fast' if f else 'bm'}-{t}"
+                              for n, f, t in OFF_TILE_MODES])
+def test_exact_kernel_off_the_tile_grid(cuda, name, fast, tables):
+    """render_kernel's kSpheres and kChunks instantiations, both scatters
+    and both routes, on a frame whose edges cut warps and blocks: a
+    frame's image, segment map and histogram equal the plain version's bit
+    for bit (its kernel test forms); three K = 3 folds from a seeded
+    accumulator in a row are equal, histograms too; a band launch with odd
+    row bounds equals those rows of the whole frame's. Launches
+    counted."""
+    scene, cam, cfg = _off_tile_scene(name, cuda)
+    cfg = dataclasses.replace(cfg, fast_scatter=fast)
+    geom = mk.geometry(scene, cfg)
+    assert geom in ("spheres", "chunks")
+    v = mk.variant(geom, fast_scatter=fast, tables=tables)
+    before = mk.KERNEL.variant_launches[v]
+    k_img, _, k_map, k_hist = mk.render_frames_mega(
+        scene, cam, cfg, 5, collect_stats=True, tables=tables)
+    p_img, _, p_map, p_hist = mk.render_frames_plain(
+        scene, cam, cfg, 5, collect_stats=True,
+        intersect_fn=mk.plain_intersector(scene, cam, cfg, direct=True))
+    assert _bits_equal(k_img, p_img)
+    assert torch.equal(k_map, p_map) and torch.equal(k_hist, p_hist)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    acc0 = 2.0 * torch.rand((cfg.height, cfg.width, 3), generator=gen,
+                            device=cuda)
+
+    def fold(rows=None):
+        sl = slice(None) if rows is None else slice(*rows)
+        img, segs, seg_map, hist = mk.render_frames_mega(
+            scene, cam, cfg, 2, 3, accum=acc0[sl].contiguous(),
+            collect_stats=True, rows=rows, tables=tables)
+        return img, int(segs), seg_map, hist
+
+    first = fold()
+    for out in (fold(), fold()):
+        assert _bits_equal(out[0], first[0])
+        assert out[1] == first[1]
+        assert torch.equal(out[2], first[2]) and torch.equal(out[3], first[3])
+    band = fold(rows=(37, 101))
+    assert _bits_equal(band[0], first[0][37:101])
+    assert torch.equal(band[2], first[2][37:101])
+    assert band[1] == int(first[2][37:101].sum())
+    torch.cuda.synchronize()
+    assert mk.KERNEL.variant_launches[v] == before + 5
+
+
+def test_resident_warps_hold_the_cards_blocks(cuda):
+    """The warps a resident grid would hold for a whole-frame launch (the
+    queue schedule's, ``warp_schedule_counts``): the card's SMs times the
+    instantiation's blocks an SM times 4 at 1080p; a frame of fewer tiles
+    than that holds one warp a tile, rounded up to whole blocks."""
+    scene, cam, cfg = presets.rtiow_final_scene(width=1920, height=1080,
+                                                device=cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    per_sm = mk.KERNEL.blocks_per_sm(scene, cfg)
+    assert per_sm >= 1
+    assert mk.KERNEL.resident_warps(scene, cfg) == 4 * sms * per_sm
+    small = dataclasses.replace(cfg, width=250, height=134)
+    assert mk.KERNEL.resident_warps(scene, small) == 4 * -(-16 * 67 // 4)
+
+
 def test_vpu_kernel_matches_plain(cuda):
     """The vpu probe's kernel against its plain version on the card, bit for
     bit, at a reduced step count; one launch counted."""

@@ -13,6 +13,8 @@ those segments on the plain version over the kernel's warps. On the CPU:
     JAX_PLATFORMS=cpu python -m pytest tests/test_torch_schedule.py -q
 """
 
+import collections
+import ctypes
 import pathlib
 import re
 
@@ -162,6 +164,133 @@ def test_cooperative_scan_steps_are_the_lanes_cluster_tests(seed):
                 == coop["sphere_iterations"] - 3 * coop["slots"])
 
 
+def _records_of(lengths):
+    """One record a live slot of each lane: ``lengths`` (T, WARP) the
+    lanes' segments, a lane's k-th record in nested slot k."""
+    per_lane = np.asarray(lengths).reshape(-1)
+    lane = np.repeat(np.arange(per_lane.size), per_lane)
+    slot = np.concatenate([np.arange(n) for n in per_lane])
+    return lane, slot
+
+
+def _brute_force_queue(lengths, n_warps):
+    """The pixel queue slot by slot: each slot, each warp in turn hands its
+    pixel-less lanes the tile's next pixels in lane order (the next tile
+    where it runs out), then its lanes with a pixel trace one segment.
+    -> (warp-slots with a live lane, the last warp's slots, {(tile, lane):
+    (warp, first slot)})."""
+    pixels = [list(np.flatnonzero(row)) for row in lengths]
+    queue = collections.deque(range(len(pixels)))
+    cur = [[] for _ in range(n_warps)]
+    left = np.zeros((n_warps, mk.WARP), np.int64)
+    idle = np.zeros((n_warps, mk.WARP), bool)
+    done = [False] * n_warps
+    taken, warp_slots, slot, last = {}, 0, 0, -1
+    while not all(done):
+        for w in range(n_warps):
+            if done[w]:
+                continue
+            for lane in range(mk.WARP):
+                if left[w, lane] or idle[w, lane]:
+                    continue
+                while not cur[w] and queue:
+                    g = queue.popleft()
+                    cur[w] = [(g, p) for p in pixels[g]]
+                if not cur[w]:
+                    idle[w, lane] = True
+                    continue
+                g, p = cur[w].pop(0)
+                taken[(g, p)] = (w, slot)
+                left[w, lane] = lengths[g][p]
+            if not left[w].any():
+                done[w] = True
+                continue
+            warp_slots += 1
+            last = slot
+            left[w] -= left[w] > 0
+        slot += 1
+    return warp_slots, last, taken
+
+
+QUEUE_CASES = {
+    # three full tiles and a partial one on two warps
+    "mixed": (2, [[3] * 32, [1, 7] * 16, [5, 0] * 16, [2, 9, 0, 4] + [0] * 28]),
+    # tiles with one pixel each (a warp gathers several tiles' pixels)
+    "single": (3, [[0] * k + [k + 1] + [0] * (31 - k) for k in range(9)]),
+    # more warps than tiles: some take nothing
+    "spare": (5, [[4] * 32, [1] * 16 + [6] * 16]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(QUEUE_CASES))
+def test_queue_schedule_equals_a_brute_force_simulation(case):
+    """The queue's list scheduling (``_queue_schedule``, and the slots
+    ``schedule_counts`` counts from it) against a slot-by-slot simulation
+    of the kernel's rule: the same warp and first slot for every pixel,
+    the same warp-slots and the same last slot."""
+    n_warps, lengths = QUEUE_CASES[case]
+    lengths = np.asarray(lengths)
+    warp, first = mk._queue_schedule(lengths, n_warps)
+    warp_slots, last, taken = _brute_force_queue(lengths, n_warps)
+    assert {(g, p): (int(warp[g, p]), int(first[g, p]))
+            for g, p in zip(*np.nonzero(lengths))} == taken
+    assert int((warp >= 0).sum()) == len(taken)
+    lane, slot = _records_of(lengths)
+    out = mk.schedule_counts(lane, slot, np.zeros((lane.size, 1), bool), [1],
+                             0, resident_warps=n_warps)["queue"]
+    assert out["slots"] == warp_slots
+    assert out["makespan"] == last + 1
+    assert out["lanes_per_slot"] == lengths.sum() / warp_slots
+    assert out["ideal_slots"] == lengths.sum() / (mk.WARP * n_warps)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_queue_of_one_warp_a_full_tile_is_the_slot_loop(seed):
+    """Full tiles on as many warps as tiles (the default): each warp takes
+    its own tile at slot 0 and the queue is empty after, so the queue's
+    counts are the slot loop's, key for key."""
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(1, 12, (5, mk.WARP))
+    lane, slot = _records_of(lengths)
+    spheres = rng.random((lane.size, 4)) < 0.3
+    triangles = rng.random((lane.size, 2)) < 0.5
+    out = mk.schedule_counts(lane, slot, spheres, [3, 32, 7, 12], 2,
+                             triangles, [4, 9])
+    queue, slots = out["queue"], out["slots"]
+    assert queue["resident_warps"] == 5
+    for key in ("slots", "sphere_iterations", "triangle_iterations",
+                "visit_lanes", "sphere_ray_steps", "lanes_per_slot"):
+        assert queue[key] == slots[key], key
+    assert np.array_equal(queue["lane_segments"], slots["lane_segments"])
+    assert queue["makespan"] == int(lengths.max())
+
+
+def test_queue_tiles_and_a_bands_share_of_the_warps():
+    """A band's warp tiles are 16x2 pixels, the last row and column of
+    tiles partial; its share of a launch's resident warps is its share of
+    the tiles, at least one warp."""
+    assert mk.queue_tiles(1920, 0, 1080) == 120 * 540
+    assert mk.queue_tiles(250, 0, 134) == 16 * 67
+    assert mk.queue_tiles(250, 37, 101) == 16 * 32
+    cfg = rtt.RenderConfig(width=1920, height=1080)
+    assert mk.band_resident_warps(3696, cfg, (528, 544)) == 55
+    assert mk.band_resident_warps(4, cfg, (0, 2)) == 1
+
+
+def test_the_kernels_c_signature_is_the_bindings():
+    """``rtx_render``'s parameters in the source, one a ctypes argtype of
+    the binding: the outputs, then the stream, last."""
+    src = (pathlib.Path(mk.__file__).resolve().parents[1] / "csrc"
+           / "megakernel.cu").read_text()
+    m = re.search(r"extern \"C\" int rtx_render\((.*?)\) \{", src,
+                  re.DOTALL)
+    params = [p.split()[-1].lstrip("*") for p in m.group(1).split(",")]
+    assert len(params) == len(mk._RENDER_ARGTYPES)
+    assert params[-4:] == ["out", "segs", "hist", "stream"]
+    assert mk._RENDER_ARGTYPES[-4:] == [ctypes.c_void_p] * 4
+    assert params.index("frame0") == mk._RENDER_ARGTYPES.index(ctypes.c_uint)
+
+
 def test_warp_scan_max_is_the_kernels():
     """``WARP_SCAN_MAX`` is the source's kWarpScanMax."""
     src = (pathlib.Path(mk.__file__).resolve().parents[1] / "csrc"
@@ -241,6 +370,31 @@ def test_both_schedules_count_the_plain_frames_segments(name):
         assert out["ratios"]["sphere_iterations"] is None
     else:
         assert "triangle_iterations" not in out["nested"]
+
+
+def test_schedules_of_a_launchs_frames_count_its_segments():
+    """Over a K = 2 launch's frames on RTIOW: each schedule's per-pixel
+    slots are the K-frame fold's segment map, and on few resident warps the
+    queue runs no more warp-slots than the slot loop, with more live lanes
+    a slot."""
+    scene, cam, cfg = presets.rtiow_final_scene(
+        width=64, height=16, spp=2, max_bounce=4, device="cpu")
+    rows = (4, 12)
+    out = mk.warp_schedule_counts(scene, cam, cfg, rows=rows, frame=1,
+                                  n_frames=2, resident_warps=3)
+    gen = torch.Generator().manual_seed(0)
+    acc = torch.rand((8, 64, 3), generator=gen)
+    _, total, seg_map, _ = mk.render_frames_plain(
+        scene, cam, cfg, 1, 2, accum=acc, rows=rows)
+    for schedule in mk.SCHEDULES:
+        assert np.array_equal(out[schedule]["segment_map"], seg_map.numpy())
+    assert out["segments"] == int(total)
+    queue, slots = out["queue"], out["slots"]
+    assert queue["resident_warps"] == 3
+    assert queue["slots"] <= slots["slots"]
+    assert queue["lanes_per_slot"] >= slots["lanes_per_slot"]
+    assert queue["makespan"] >= queue["ideal_slots"]
+    assert out["queue_ratios"]["slots"] == queue["slots"] / slots["slots"]
 
 
 def test_warp_schedule_counts_refuses_what_it_cannot_count():
