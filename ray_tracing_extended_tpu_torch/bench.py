@@ -14,10 +14,11 @@ one synchronisation of a rep.
 
 Reported modes, on one scene and config:
   * adaptive (the headline): ``cfg.adaptive_spp``, the kernel's sample
-    refill (``render_adaptive``): a warp's lanes that finished their 16
-    samples trace extra ones for their own pixel while a warp-mate still
-    traces, so every frame delivers at least 16 spp. 4 frames a rep, 5 reps
-    after a warm-up one; the best with the median beside it.
+    refill (``render_adaptive``): lanes that finished their 16 samples
+    trace extra ones for their own pixel while a lane of their 128 x 128
+    tile still owes samples, so every frame delivers at least 16 spp. 4
+    frames a rep, 5 reps after a warm-up one; the best with the median
+    beside it.
   * parity (``parity_mrays``): exactly spp samples a pixel in the
     reference's draw order, through ``render_frames_and_accumulate``,
     ``PARITY_BATCH`` frames a launch; 3 reps after two warm-ups.

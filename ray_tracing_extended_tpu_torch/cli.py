@@ -262,7 +262,7 @@ def _add_scene_args(sp) -> None:
                     choices=["auto", "bruteforce", "bvh", "mega"])
     sp.add_argument(
         "--adaptive-spp", dest="adaptive_spp", action="store_true",
-        help="sample refill: pixels whose warp-mates are still tracing get "
+        help="sample refill: pixels whose tile-mates still owe samples get "
              "extra samples (>= spp each, per-pixel mean)")
     sp.add_argument(
         "--fast-scatter", dest="fast_scatter", action="store_true",

@@ -53,13 +53,28 @@
 //   kLockstep (render_kernel<kBvh>): such a lane once no lane of its warp
 //   is live: the nested loop's schedule, bit for bit the same images,
 //   faster on the mesh than kExact (see kBvh below).
-//   kRefill (render_adaptive): also a lane whose warp has a lane that
-//   still owes samples (one __any_sync); its extra samples continue the
-//   last frame, whose mean divides by what it completed. At most quota *
-//   (max_bounce + 1) slots; a sample in flight at the bound is dropped.
-//   The TPU kernel votes over a TS x TS tile; here the group is the warp
-//   (16 x 2 pixels of the 16 x 8 block), the unit whose lanes idle while
-//   warp-mates finish long paths.
+//   kRefill (render_adaptive): also a lane of whose TS x TS tile a lane
+//   still owes samples, the TPU kernel's vote over its tile
+//   (megakernel.py:1813-1839; TS is kernels/megakernel.py
+//   refill_tile_size's, 128, or 64 for a scene of its winner fetch). The
+//   extra samples continue the last frame, whose mean divides by what it
+//   completed. At most quota * (max_bounce + 1) slots; a sample in flight
+//   at the bound is dropped. A 128 x 128 tile is 128 blocks, and a frame's
+//   blocks are never all resident at once, so no launch can take that vote
+//   slot by slot. It needs none: a lane that owes samples re-seeds the
+//   moment its path ends, so until its quota is done it runs as under
+//   kExact, live every slot, and it is done after exactly its exact-spp
+//   segment count E; its tile's vote is true at slot s iff s < T, the
+//   tile's largest E. So refill is two launches of render_adaptive. Phase
+//   1 runs the kExact loop without the last frame's fold, keeps each lane
+//   (its RNG state and the last frame's light in a scratch row, E in the
+//   segment map, the running average of the earlier frames in an image)
+//   and takes T, one atomicMax a warp. Phase 2 resumes each lane at its
+//   slot E: a lane live every slot until it idles has its slot in its
+//   segment count, so a dead lane re-seeds while that count is below T.
+//   Then the fold. That is the slot machine over the tiles bit for bit
+//   (kernels/megakernel.py _refill_two_phase). Phase 2's lanes resume at
+//   different slots, and a warp runs until its last lane's path ends.
 // Lanes outside the image stay in the loop with nothing owed: a full-mask
 // vote needs all 32, and the loop's exit is decided by a vote, so it is
 // warp-uniform.
@@ -102,10 +117,10 @@
 //   every lane of the warp, before the slot loop's `if (live)`: a lane
 //   that is not live casts false in every vote and holds a sphere for the
 //   others. A visit of at least kWarpScanMax lanes runs the per-lane loop
-//   instead (see its note). The triangle instantiations keep that
-//   per-lane loop over a flat cluster list (closest_hit): each lane
-//   branches on its own gate, so a warp pays for the union of its live
-//   lanes' clusters. Only real spheres have a slot; the square root only
+//   instead (see its note). The triangle instantiations keep a per-lane
+//   loop over a flat cluster list (closest_hit): each lane branches on its
+//   own gate, so a warp pays for the union of its live lanes' clusters.
+//   Only real spheres have a slot; the square root only
 //   where disc >= 0. (Skipping it also where b > 0, whose root -b -
 //   sqrt(disc) is negative whatever the square root, gave the same images
 //   and cost 1.5-3% of a RTIOW 1080p frame on an NVIDIA H100 80GB HBM3 at
@@ -124,7 +139,17 @@
 //   level, the TPU kernel's super-cluster: one box over each run, behind
 //   the same test, and a run that fails it is skipped whole (Chess, 440
 //   chunks in 14 runs, 1280x720, 3 spp, 15 bounces: 5.1 ms a frame with
-//   it, 7.7 without, on an NVIDIA H100 80GB HBM3 at 700 W).
+//   it, 7.7 without, on an NVIDIA H100 80GB HBM3 at 700 W). The TPU kernel
+//   votes a triangle sub-cluster in or out for its tile and tests it
+//   across the tile's rays (megakernel.py:1333-1365); the chunk
+//   instantiations do so on a warp, as the sphere ones do with clusters
+//   (closest_triangle_warp, scan_chunk_warp): a chunk's gate is a ballot
+//   of the live lanes', lane j holds triangles first + j, first + j + 32,
+//   ... (a chunk holds up to 48, more where the split stops at its depth),
+//   a ray a step by shuffles; a visit of many lanes for its size keeps the
+//   per-lane loop (kChunkScanMax). A lane-by-lane loop cost a warp the
+//   chunk's every triangle whether one lane or 32 entered it, each lane
+//   reading each 48-byte row on its own.
 // In both tests an axis whose t0 or t1 is NaN (a zero direction component,
 // the origin on that face's plane) never rejects, the reference's rule: no
 // primitive a scan without boxes would hit is skipped for it. A sphere
@@ -143,14 +168,15 @@
 // warp-wide broadcasts; the culls above, whose two levels and visit order
 // keep the box tests a segment near the gated spheres' count rather than
 // the cluster count (and the rows read with them); in the sphere
-// instantiations the warp-cooperative cluster scan, whose steps follow
-// the lanes that entered a cluster rather than the cluster's size; the
-// slot loop, in which a lane whose path ended starts its next sample at
-// once instead of idling behind a warp-mate's long path (kExact; with
-// refill it also traces extra samples once its own are done). The order
-// is the camera's, as the TPU kernel's: a bounce ray starts elsewhere. No
-// path is handed to another lane or warp: a warp's live lanes stay its
-// own, and only their rays are lent to the cluster scan's steps.
+// instantiations the warp-cooperative cluster scan, in the chunk ones the
+// chunk scan, whose steps follow the lanes that entered a cluster or chunk
+// rather than its size; the slot loop, in which a lane whose path ended
+// starts its next sample at once instead of idling behind a warp-mate's
+// long path (kExact; with refill it also traces extra samples once its own
+// are done). The order is the camera's, as the TPU kernel's: a bounce ray
+// starts elsewhere. No path is handed to another lane or warp: a warp's
+// live lanes stay its own, and only their rays are lent to the cooperative
+// scans' steps.
 // How pixels reach threads: as the TPU grid's tiles did, one 16x8 block per
 // 128 pixels and one pixel a thread for the launch, in every kernel. A
 // pixel queue was measured against it (tools/scan_ab.py, 10 pairs, on an
@@ -165,9 +191,8 @@
 // clusters and chunks, and a slot costs what its live lanes' scans cost
 // together, so the lanes that idle at the end of a tile were the cheaper
 // waste. Whole tiles a warp (its lanes start the next tile together) were
-// within 2% on RTIOW and 3-5% slower on Chess. The refill kernels'
-// group is the warp that votes on extra samples, and the BVH kernels start
-// a warp's samples together on purpose (kLockstep, below).
+// within 2% on RTIOW and 3-5% slower on Chess. The BVH kernels start a
+// warp's samples together on purpose (kLockstep, below).
 //
 // kBvh, for big meshes (mesh_scene's 70,016 triangles in one chunk, which
 // the chunk scan would test in full every segment). It replaces the TPU
@@ -181,7 +206,7 @@
 // slab rejects, as jnp.minimum / maximum propagate NaN) and push the
 // survivors, the far one first; at a leaf test its triangles in order with
 // a strict <; at most 4 x nodes pops. The triangle test is
-// closest_triangle's direct form. As in closest_hit_bvh the traversal
+// chunk_triangle_hit's direct form. As in closest_hit_bvh the traversal
 // starts from t = inf and its winner replaces the sphere scan's only if
 // strictly nearer, so the kernel and its plain version (accel/bvh.py
 // _traverse, which makes the same steps) test the same triangles in the
@@ -231,9 +256,9 @@
 // segment map and the accumulator it reads hold the band's rows. The
 // multi-GPU split (parallel/sharding.py) launches one band a device and
 // stitches the bands into the whole-frame launch's image bit for bit.
-// With refill a band starts and ends on a block row (y0, and y1 unless it
-// is height, multiples of kBlockY), so its warps are the whole frame's
-// warps and vote alike.
+// With refill a band starts and ends on a row of refill tiles (y0, and y1
+// unless it is height, multiples of the tile's side), so it holds whole
+// tiles, the whole frame's, and their last finishes are the same.
 //
 // C interface, loaded with ctypes (kernels/megakernel.py):
 //   rtx_render(geometry, ...) launches on the given stream and returns
@@ -477,6 +502,9 @@ struct Triangles {
   const float4* __restrict__ nodes;  // kNodeRow4 float4s a row
   const int4* __restrict__ leaves;  // kLeafWidth indices a leaf
   int n_nodes;  // the BVH's nodes
+  // kChunks: whether a chunk visit can go across the warp (a chunk holds
+  // enough triangles for one lane; see kChunkScanMax)
+  int warp_scan;
 };
 
 // One axis of a slab test. An axis whose t0 or t1 is NaN (a zero direction
@@ -507,12 +535,115 @@ __device__ __forceinline__ bool box_gate(float4 lo, float4 hi, Vec3 o,
   return t_far >= 0.0f && t_near <= fminf(t_far, best_t);
 }
 
-// Closest triangle of the chunks that pass the gate, in index order; a
-// strictly nearer hit wins, so the lower index wins a tie and a triangle
-// never takes a tie from a sphere (tested before). With a second level, a
-// run of chunks is entered only if the box over it passes the same gate.
-// Moller-Trumbore in the direct form: a hit iff det >= 1e-6 and t, u, v,
-// w >= 0.
+// The backface-culled Moller-Trumbore test of the triangle whose row is
+// r0, r1, r2 against the ray (o, d), in the direct form: a hit iff det >=
+// 1e-6 and t, u, v, w >= 0, at t = t_det / det. The chunk scans' one
+// test, per lane and across the warp.
+//   r0 = a.x a.y a.z ab.x   r1 = ab.y ab.z ac.x ac.y   r2 = ac.z n.x n.y n.z
+__device__ __forceinline__ bool chunk_triangle_hit(float4 r0, float4 r1,
+                                                   float4 r2, Vec3 o, Vec3 d,
+                                                   float& t) {
+  const Vec3 ao = {o.x - r0.x, o.y - r0.y, o.z - r0.z};
+  const Vec3 dao = cross(ao, d);
+  const float det = -(d.x * r2.y + d.y * r2.z + d.z * r2.w);
+  const float t_det = ao.x * r2.y + ao.y * r2.z + ao.z * r2.w;
+  const float u_det = r1.z * dao.x + r1.w * dao.y + r2.x * dao.z;
+  const float v_det = -(r0.w * dao.x + r1.x * dao.y + r1.y * dao.z);
+  const float w_det = det - u_det - v_det;
+  if (det >= kDetEps && t_det >= 0.0f && u_det >= 0.0f && v_det >= 0.0f &&
+      w_det >= 0.0f) {
+    t = t_det / det;
+    return true;
+  }
+  return false;
+}
+
+// A chunk visit of at least this many lanes a full run of 32 triangles
+// runs the per-lane loop (each lane of the ballot tests the chunk's
+// triangles in index order), a smaller one the warp-cooperative scan (a
+// ray a step, a triangle a lane): a visit of k lanes to a chunk of n
+// triangles goes across the warp iff k * 32 * ceil(n / 32) < kChunkScanMax
+// * n, so a chunk that fills a part of its runs of 32 needs fewer lanes
+// (see scan_chunk_warp). Mirrored by kernels/megakernel.py
+// CHUNK_SCAN_MAX; chosen on the card (PERF.md).
+constexpr int kChunkScanMax = 12;
+
+// One chunk, triangles [first, first + count), for the rays of the lanes
+// set in `m`, the ballot of its gate; every lane of the warp calls it. The
+// per-lane loop for a visit of many lanes (kChunkScanMax). Else, for each
+// run of 32 of the chunk's triangles, lane j holds triangle first + base +
+// j (three 16-byte rows, read once a run; lanes past the chunk's end hold
+// none), then, a ray a step, the owner lane's ray and best t come by
+// shuffle, every lane runs chunk_triangle_hit on its triangle, and a lane
+// proposes a hit strictly nearer than the ray's best; the owner takes the
+// candidates' lexicographic minimum of (t, triangle index) (t >= 0, so its
+// bits order as the floats do once -0 reads as +0; the lower lane is the
+// lower index) and adopts it if strictly nearer than its best. The per-lane
+// loop tests in index order and keeps the first of equal nearest hits, so
+// the ray's best after the chunk is the same, and a sphere keeps a tie.
+template <Tables kTab>
+__device__ __forceinline__ void scan_chunk_warp(Triangles<kTab> tri,
+                                                unsigned m, int first,
+                                                int count, Vec3 o, Vec3 d,
+                                                float& best_t, int& best_tri) {
+  const int lane = (threadIdx.y * kBlockX + threadIdx.x) & (kWarp - 1);
+  const int runs = (count + kWarp - 1) / kWarp;
+  if (__popc(m) * kWarp * runs >= kChunkScanMax * count) {
+    if ((m >> lane) & 1u) {
+      for (int i = first; i < first + count; ++i) {
+        float t;
+        if (chunk_triangle_hit(__ldg(tri.rows + kTri4 * i),
+                               __ldg(tri.rows + kTri4 * i + 1),
+                               __ldg(tri.rows + kTri4 * i + 2), o, d, t) &&
+            t < best_t) {
+          best_t = t;
+          best_tri = i;
+        }
+      }
+    }
+    return;
+  }
+  for (int base = first; base < first + count; base += kWarp) {
+    const int i = base + lane;
+    const bool holds = i < first + count;
+    const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    const float4 r0 = holds ? __ldg(tri.rows + kTri4 * i) : zero;
+    const float4 r1 = holds ? __ldg(tri.rows + kTri4 * i + 1) : zero;
+    const float4 r2 = holds ? __ldg(tri.rows + kTri4 * i + 2) : zero;
+    unsigned rays = m;
+    do {
+      const int r = __ffs(rays) - 1;
+      rays &= rays - 1u;
+      const Vec3 ro = {__shfl_sync(kFullMask, o.x, r),
+                       __shfl_sync(kFullMask, o.y, r),
+                       __shfl_sync(kFullMask, o.z, r)};
+      const Vec3 rd = {__shfl_sync(kFullMask, d.x, r),
+                       __shfl_sync(kFullMask, d.y, r),
+                       __shfl_sync(kFullMask, d.z, r)};
+      const float r_best = __shfl_sync(kFullMask, best_t, r);
+      float t = 0.0f;
+      const bool candidate =
+          holds && chunk_triangle_hit(r0, r1, r2, ro, rd, t) && t < r_best;
+      const unsigned hits = __ballot_sync(kFullMask, candidate);
+      if (hits == 0u) continue;
+      const unsigned key =
+          candidate ? __float_as_uint(t) & 0x7fffffffu : 0xffffffffu;
+      const unsigned nearest = __reduce_min_sync(kFullMask, key);
+      const int w = __ffs(__ballot_sync(kFullMask, key == nearest)) - 1;
+      const float t_w = __shfl_sync(kFullMask, t, w);
+      if (lane == r && t_w < best_t) {
+        best_t = t_w;
+        best_tri = base + w;
+      }
+    } while (rays != 0u);
+  }
+}
+
+// Closest triangle of the chunks that pass the gate, in index order, each
+// lane on its own; a strictly nearer hit wins, so the lower index wins a
+// tie and a triangle never takes a tie from a sphere (tested before). With
+// a second level, a run of chunks is entered only if the box over it
+// passes the same gate.
 template <Tables kTab>
 __device__ __forceinline__ void closest_triangle(Triangles<kTab> tri, Vec3 o,
                                                  Vec3 d, Vec3 inv_d,
@@ -537,26 +668,62 @@ __device__ __forceinline__ void closest_triangle(Triangles<kTab> tri, Vec3 o,
       const int first = __float_as_int(lo.w);
       const int end = first + __float_as_int(hi.w);
       for (int i = first; i < end; ++i) {
-        // r0 = a.x a.y a.z ab.x   r1 = ab.y ab.z ac.x ac.y
-        // r2 = ac.z n.x n.y n.z
-        const float4 r0 = __ldg(tri.rows + kTri4 * i);
-        const float4 r1 = __ldg(tri.rows + kTri4 * i + 1);
-        const float4 r2 = __ldg(tri.rows + kTri4 * i + 2);
-        const Vec3 ao = {o.x - r0.x, o.y - r0.y, o.z - r0.z};
-        const Vec3 dao = cross(ao, d);
-        const float det = -(d.x * r2.y + d.y * r2.z + d.z * r2.w);
-        const float t_det = ao.x * r2.y + ao.y * r2.z + ao.z * r2.w;
-        const float u_det = r1.z * dao.x + r1.w * dao.y + r2.x * dao.z;
-        const float v_det = -(r0.w * dao.x + r1.x * dao.y + r1.y * dao.z);
-        const float w_det = det - u_det - v_det;
-        if (det >= kDetEps && t_det >= 0.0f && u_det >= 0.0f &&
-            v_det >= 0.0f && w_det >= 0.0f) {
-          const float t = t_det / det;
-          if (t < best_t) {
-            best_t = t;
-            best_tri = i;
-          }
+        float t;
+        if (chunk_triangle_hit(__ldg(tri.rows + kTri4 * i),
+                               __ldg(tri.rows + kTri4 * i + 1),
+                               __ldg(tri.rows + kTri4 * i + 2), o, d, t) &&
+            t < best_t) {
+          best_t = t;
+          best_tri = i;
         }
+      }
+    }
+  }
+}
+
+// The chunk geometry's closest triangle, run by every lane of the warp
+// (`live` lanes hold a ray; the others cast false in every vote and take
+// part in the shuffles): the chunks in index order, each behind the ballot
+// of its gate, with a second level each run of chunks behind the gate of
+// the box over it (a lane whose run box failed casts false for the run's
+// chunks), scan_chunk_warp for a chunk that any lane entered. A lane's
+// best is updated before the next gate, so each gate sees the best t of
+// the per-lane scan: a lane tests the chunks, and the triangles, that a
+// lane alone would. In a scene none of whose chunks could go across the
+// warp (tri.warp_scan: Cornell's six chunks of two triangles), the votes
+// would only cost: each live lane scans alone (closest_triangle). Cornell
+// 512x512, K = 4, ran 7-15% slower with the votes (tools/scan_ab.py on an
+// NVIDIA H100 80GB HBM3 at 700 W, PERF.md).
+template <Tables kTab>
+__device__ __forceinline__ void closest_triangle_warp(Triangles<kTab> tri,
+                                                      bool live, Vec3 o,
+                                                      Vec3 d, Vec3 inv_d,
+                                                      float& best_t,
+                                                      int& best_tri) {
+  if (!tri.warp_scan) {
+    if (live) closest_triangle(tri, o, d, inv_d, best_t, best_tri);
+    return;
+  }
+  const int n_outer = tri.n_supers > 0 ? tri.n_supers : 1;
+  for (int s = 0; s < n_outer; ++s) {
+    int c = 0, c_end = tri.n_chunks;
+    bool entered = live;
+    if (tri.n_supers > 0) {
+      entered = live && box_gate(table_load<kTab>(tri.supers + 2 * s),
+                                 table_load<kTab>(tri.supers + 2 * s + 1), o,
+                                 inv_d, best_t);
+      if (!__any_sync(kFullMask, entered)) continue;
+      c = tri.super_size * s;
+      c_end = min(c + tri.super_size, tri.n_chunks);
+    }
+    for (; c < c_end; ++c) {
+      const float4 lo = table_load<kTab>(tri.chunks + 2 * c);
+      const float4 hi = table_load<kTab>(tri.chunks + 2 * c + 1);
+      const unsigned m = __ballot_sync(
+          kFullMask, entered && box_gate(lo, hi, o, inv_d, best_t));
+      if (m != 0u) {
+        scan_chunk_warp(tri, m, __float_as_int(lo.w), __float_as_int(hi.w), o,
+                        d, best_t, best_tri);
       }
     }
   }
@@ -583,10 +750,8 @@ __device__ __forceinline__ bool bvh_box(float4 lo, float4 hi, Vec3 o,
 }
 
 // Hit distance of triangle i, +inf on a miss (accel/bvh.py
-// _triangle_t_one): closest_triangle's test. closest_triangle keeps its own
-// copy: calling this helper instead raises render_kernel<kChunks>'s spill
-// stores from 12 to 16 bytes and its spill loads from 20 to 24 (ptxas -v,
-// nvcc 12.9, both scatters); the other instantiations do not move.
+// _triangle_t_one): chunk_triangle_hit's test, in a copy of its own, which
+// keeps the BVH instantiations' code as it was.
 template <Tables kTab>
 __device__ __forceinline__ float triangle_t(Triangles<kTab> tri, int i, Vec3 o,
                                             Vec3 d) {
@@ -895,11 +1060,12 @@ __device__ __forceinline__ void closest_sphere_warp(Spheres<kTab> sph,
 // The closest hit of a ray. kSpheres: closest_sphere_warp, on every lane
 // of the warp. The triangle geometries, on a live lane: the hoisted
 // spheres, then each cluster behind its gate in the rows' (visit) order,
-// one level, each lane on its own; then the triangles. They keep that
-// flat loop: with the second level in them as well (inline, or a
-// __noinline__ helper), Chess, which has no sphere, took 3-6% longer a
-// frame and their ptxas -v moved (PERF.md section 6). best_t starts at
-// +inf, best and best_tri at -1.
+// one level, each lane on its own; then the triangles: kChunks
+// closest_triangle_warp on every lane of the warp, kBvh the traversal on a
+// live lane. The sphere clusters keep that flat loop: with the second
+// level in them as well (inline, or a __noinline__ helper), Chess, which
+// has no sphere, took 3-6% longer a frame and their ptxas -v moved (PERF.md
+// section 6). best_t starts at +inf, best and best_tri at -1.
 template <Geometry kGeom, Tables kTab>
 __device__ __forceinline__ void closest_hit(Spheres<kTab> sph,
                                             Triangles<kTab> tri, bool live,
@@ -908,6 +1074,19 @@ __device__ __forceinline__ void closest_hit(Spheres<kTab> sph,
                                             int& best_tri) {
   if constexpr (kGeom == kSpheres) {
     closest_sphere_warp(sph, live, o, d, inv_d, best_t, best);
+  } else if constexpr (kGeom == kChunks) {
+    if (live) {
+      test_spheres(sph, 0, sph.n_hoist, o, d, best_t, best);
+      for (int k = 0; k < sph.n_clusters; ++k) {
+        const float4 lo = sph.cluster(2 * k);
+        const float4 hi = sph.cluster(2 * k + 1);
+        if (!box_gate(lo, hi, o, inv_d, best_t)) continue;
+        const int first = __float_as_int(lo.w);
+        test_spheres(sph, first, first + __float_as_int(hi.w), o, d, best_t,
+                     best);
+      }
+    }
+    closest_triangle_warp(tri, live, o, d, inv_d, best_t, best_tri);
   } else {
     test_spheres(sph, 0, sph.n_hoist, o, d, best_t, best);
     for (int k = 0; k < sph.n_clusters; ++k) {
@@ -917,9 +1096,6 @@ __device__ __forceinline__ void closest_hit(Spheres<kTab> sph,
       const int first = __float_as_int(lo.w);
       test_spheres(sph, first, first + __float_as_int(hi.w), o, d, best_t,
                    best);
-    }
-    if constexpr (kGeom == kChunks) {
-      closest_triangle(tri, o, d, inv_d, best_t, best_tri);
     }
     if constexpr (kGeom == kBvh) {
       // closest_hit_bvh's merge: strictly nearer, so a sphere keeps a tie
@@ -1090,7 +1266,7 @@ __device__ __forceinline__ bool shade_segment(
 }
 
 // One segment of a path (ops/trace.py trace_segment) on a live lane, for
-// the triangle geometries: its closest hit, then the rest. (The sphere
+// the BVH geometry: its closest hit, then the rest. (The sphere and chunk
 // instantiations call the two halves apart, the hit on every lane.) With
 // the hit's locals declared here, inside the slot loop's `if (live)`, their
 // SASS is the one before the sphere scan went across the warp; declared
@@ -1155,6 +1331,15 @@ struct Args {
   float* __restrict__ out;
   int* __restrict__ segs;
   int* __restrict__ hist;
+  // refill (render_adaptive) in two launches: its phase, 1 or 2; a pixel's
+  // RNG state and last frame's banked light between them; the largest
+  // segment count of each tile_size x tile_size tile of the band, tiles
+  // row-major from row y0 (see render_slots)
+  int refill_phase;
+  float4* __restrict__ scratch;
+  int* __restrict__ tile_max;
+  int tile_size;
+  int chunk_warp_scan;  // Triangles::warp_scan
 };
 
 // Dynamic shared memory, in bytes. kStaged: the float4 tables first (super
@@ -1202,7 +1387,7 @@ __device__ __forceinline__ Staged<kTab> stage_scene(float4* smem4,
             s_hist,
             {a.tri_rows, a.tri_normals, a.tri_mat, a.chunks, a.n_chunks,
              a.supers, a.n_supers, a.super_size, a.bvh_nodes, a.bvh_leaves,
-             a.n_nodes}};
+             a.n_nodes, a.chunk_warp_scan}};
   }
   float4* supers = smem4;
   float4* chunks = supers + 2 * a.n_supers;
@@ -1231,7 +1416,8 @@ __device__ __forceinline__ Staged<kTab> stage_scene(float4* smem4,
            a.n_sph_supers},
           s_hist,
           {a.tri_rows, a.tri_normals, a.tri_mat, chunks, a.n_chunks, supers,
-           a.n_supers, a.super_size, a.bvh_nodes, a.bvh_leaves, a.n_nodes}};
+           a.n_supers, a.super_size, a.bvh_nodes, a.bvh_leaves, a.n_nodes,
+           a.chunk_warp_scan}};
 }
 
 // The pixel's point on the focus plane: position + rotation @ (lx, ly,
@@ -1288,9 +1474,15 @@ __device__ __forceinline__ Vec3 div(Vec3 v, float n) {
 // Which dead lanes a slot loop re-seeds (see the header): kExact, a lane
 // that owes samples itself; kLockstep, such a lane once no lane of its warp
 // is live, so a warp's lanes start their samples together (the nested
-// loop's schedule); kRefill, also a lane whose warp has one that owes
-// samples.
+// loop's schedule); kRefill, also a lane whose slot is before its tile's
+// last finish.
 enum Schedule : int { kExact = 0, kLockstep = 1, kRefill = 2 };
+
+// The refill tile of the band's column x and row yb (row 0 the band's
+// first): tiles of ts x ts pixels, row-major.
+__device__ __forceinline__ int refill_tile(int x, int yb, int width, int ts) {
+  return (yb / ts) * ((width + ts - 1) / ts) + x / ts;
+}
 
 // The slot loop of both kernels: each slot, the dead lanes the schedule
 // re-seeds start their next camera sample, and every live lane traces one
@@ -1354,14 +1546,32 @@ __device__ __forceinline__ void render_slots(float4* smem4, const Args& a) {
   Vec3 total = {0.0f, 0.0f, 0.0f};
   bool live = false;
   int ns = 0, fk = 0, bounce = 0, segs = 0;
+  // kRefill: the slot before which a dead lane starts extra samples, its
+  // tile's last finish in phase 2 (0 in phase 1)
+  [[maybe_unused]] int extra_until = 0;
+  if constexpr (kSched == kRefill) {
+    if (a.refill_phase == 2 && in_image) {
+      // the lane as phase 1 left it: its quota done, idle since
+      const int at = pix - a.y0 * width;
+      const float4 kept = a.scratch[at];
+      total = {kept.x, kept.y, kept.z};
+      state = __float_as_uint(kept.w);
+      segs = a.segs[at];
+      ns = quota;
+      fk = n_frames - 1;
+      extra_until = a.tile_max[refill_tile(x, y - a.y0, width, a.tile_size)];
+    }
+  }
   for (int slot = 0; slot < n_slots; ++slot) {
     // the votes: every lane of the warp casts each, every slot (none may
     // sit behind a short-circuit)
     const bool undone = in_image && ns < quota;
     bool need;
     if constexpr (kSched == kRefill) {
-      const bool group_undone = __any_sync(kFullMask, undone);
-      need = in_image && !live && group_undone;
+      // a lane's own slot is its segment count (see the header): a sample
+      // still in flight at the bound is dropped
+      if (segs >= n_slots) live = false;
+      need = !live && (undone || segs < extra_until);
     } else if constexpr (kSched == kLockstep) {
       const bool warp_live = __any_sync(kFullMask, live);
       need = undone && !warp_live;
@@ -1390,9 +1600,9 @@ __device__ __forceinline__ void render_slots(float4* smem4, const Args& a) {
     }
     float best_t = __int_as_float(0x7f800000);
     int best = -1, best_tri = -1;
-    if constexpr (kGeom == kSpheres) {
-      // the sphere scan's votes and shuffles take every lane of the warp,
-      // so the closest hit comes before `if (live)`
+    if constexpr (kGeom != kBvh) {
+      // the sphere and chunk scans' votes and shuffles take every lane of
+      // the warp, so the closest hit comes before `if (live)`
       segment_hit<kGeom, kProbe>(sc.sph, sc.tri, live, o, d, best_t, best,
                                  best_tri);
     }
@@ -1400,7 +1610,7 @@ __device__ __forceinline__ void render_slots(float4* smem4, const Args& a) {
       ++segs;
       if (s_hist != nullptr) atomicAdd(&s_hist[bounce], 1);
       bool goes_on;
-      if constexpr (kGeom == kSpheres) {
+      if constexpr (kGeom != kBvh) {
         goes_on = shade_segment<kGeom, kScatter, kProbe, kTab>(
             sc.p, sc.sph, sc.tri, a.mats, bounce == 0, state, o, d, colour,
             incoming, best_t, best, best_tri);
@@ -1420,6 +1630,33 @@ __device__ __forceinline__ void render_slots(float4* smem4, const Args& a) {
     }
   }
 
+  if constexpr (kSched == kRefill) {
+    if (a.refill_phase == 1) {
+      // keep the lane for phase 2, the running average of the frames
+      // before the last in `out` (with an accumulator); and its tile's
+      // largest segment count, one atomicMax a warp (a warp's 16 x 2
+      // pixels lie in one tile: its side is a multiple of 16, and a band
+      // starts on a tile row; lane 0 is in the image if any lane is)
+      const int warp_max = __reduce_max_sync(kFullMask, segs);
+      if (in_image) {
+        const int at = pix - a.y0 * width;
+        a.scratch[at] =
+            make_float4(total.x, total.y, total.z, __uint_as_float(state));
+        a.segs[at] = segs;
+        if (with_accum) {
+          a.out[3 * at] = acc.x;
+          a.out[3 * at + 1] = acc.y;
+          a.out[3 * at + 2] = acc.z;
+        }
+        if (((threadIdx.y * kBlockX + threadIdx.x) & (kWarp - 1)) == 0) {
+          atomicMax(&a.tile_max[refill_tile(x, y - a.y0, width, a.tile_size)],
+                    warp_max);
+        }
+      }
+      flush_hist(sc.s_hist, a.hist, max_bounce);
+      return;
+    }
+  }
   if (in_image) {
     // the last frame's mean over the samples it completed (spp with exact
     // spp, at least spp with kRefill)
@@ -1435,19 +1672,22 @@ __device__ __forceinline__ void render_slots(float4* smem4, const Args& a) {
   flush_hist(sc.s_hist, a.hist, max_bounce);
 }
 
-// Both kernels' launch bounds: 128 threads a block, and for kBvh 8 blocks
-// an SM (at most 64 registers a thread); a minimum of 0, none given, for
-// the others, which ptxas then compiles as before (a minimum of 1 moves
-// their registers and spills). The kSpheres ones with a minimum of 7 (72
-// registers, no spill where ptxas otherwise takes 64 and stores 16-20
+// Both kernels' launch bounds: 128 threads a block, and for kChunks and
+// kBvh 8 blocks an SM (at most 64 registers a thread); a minimum of 0, none
+// given, for kSpheres, which ptxas then compiles as before (a minimum of 1
+// moves their registers and spills). The kSpheres ones with a minimum of 7
+// (72 registers, no spill where ptxas otherwise takes 64 and stores 16-20
 // bytes of spills) were as fast on RTIOW exact, 2-4% slower with fast
-// scatter and 2% slower past the shared-memory limit (PERF.md).
+// scatter and 2% slower past the shared-memory limit (PERF.md). The
+// kChunks ones without it took 72 registers once their chunk scan went
+// across the warp, and Cornell 512x512 ran 5-10% slower than with it
+// (tools/scan_ab.py on an NVIDIA H100 80GB HBM3 at 700 W, PERF.md).
 //
 // Exactly spp samples a pixel; kBvh starts a warp's samples together (see
 // the header).
 template <Geometry kGeom, Scatter kScatter, Probe kProbe = kNone,
           Tables kTab = kStaged>
-__global__ void __launch_bounds__(kBlockX * kBlockY, kGeom == kBvh ? 8 : 0)
+__global__ void __launch_bounds__(kBlockX * kBlockY, kGeom == kSpheres ? 0 : 8)
 render_kernel(const Args a) {
   extern __shared__ float4 smem4[];
   constexpr Schedule kSched = kGeom == kBvh ? kLockstep : kExact;
@@ -1457,7 +1697,7 @@ render_kernel(const Args a) {
 // The adaptive sample refill (cfg.adaptive_spp).
 template <Geometry kGeom, Scatter kScatter, Probe kProbe = kNone,
           Tables kTab = kStaged>
-__global__ void __launch_bounds__(kBlockX * kBlockY, kGeom == kBvh ? 8 : 0)
+__global__ void __launch_bounds__(kBlockX * kBlockY, kGeom == kSpheres ? 0 : 8)
 render_adaptive(const Args a) {
   extern __shared__ float4 smem4[];
   render_slots<kRefill, kGeom, kScatter, kProbe, kTab>(smem4, a);
@@ -1583,10 +1823,16 @@ extern "C" int rtx_occupancy(int geometry, int tables, int adaptive,
 // may be null. `adaptive` picks render_adaptive over render_kernel,
 // `fast_scatter` the kFastScatter sampler. Rows y0 .. y1 - 1 of the
 // width x height frame are rendered (0 <= y0 < y1 <= height; for refill
-// on block rows, see above): out, segs and accum_in hold those y1 - y0
+// on tile rows, see above): out, segs and accum_in hold those y1 - y0
 // rows, and each pixel's seed and camera ray are the whole frame's.
-// Returns cudaGetLastError() after the launch, cudaErrorInvalidValue
-// without one for rows outside those rules.
+// Refill takes two launches (see kRefill): refill_phase 1, then 2, with
+// the same scratch (16 bytes a pixel of the band), tile_max (an int a
+// tile_size x tile_size tile of the band, zeroed before phase 1), segs
+// and hist; phase 1's out (the running average before the last frame,
+// written only with accum_in) is phase 2's accum_in. Exact spp passes 0
+// and nulls there. Returns cudaGetLastError() after the launch,
+// cudaErrorInvalidValue without one for rows or refill arguments outside
+// those rules.
 //
 // The probe library's entry is rtx_render_probe(probe, geometry, ...): the
 // same arguments after a Probe value (kDupIntersect or kDupFetch), with
@@ -1606,14 +1852,23 @@ extern "C" int rtx_render(
     int n_nodes, const void* mats, const void* params, int width, int height,
     int y0, int y1, int spp, int max_bounce, unsigned int frame0, int n_frames,
     const void* accum_in, int clamp_accum, int adaptive, int fast_scatter,
-    void* out, void* segs, void* hist, void* stream) {
+    int refill_phase, void* scratch, void* tile_max, int tile_size,
+    int chunk_warp_scan, void* out, void* segs, void* hist, void* stream) {
 #ifndef RTX_PROBES
   const int probe = kNone;
 #endif
-  const bool off_block_row =
-      y0 % kBlockY != 0 || (y1 != height && y1 % kBlockY != 0);
-  if (y0 < 0 || y0 >= y1 || y1 > height || (adaptive && off_block_row)) {
+  if (y0 < 0 || y0 >= y1 || y1 > height) {
     return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (adaptive) {
+    // whole tiles, each holding whole warps; both phases' buffers
+    const bool tiles_ok = tile_size > 0 && tile_size % kBlockX == 0 &&
+                          y0 % tile_size == 0 &&
+                          (y1 == height || y1 % tile_size == 0);
+    if (!tiles_ok || (refill_phase != 1 && refill_phase != 2) ||
+        scratch == nullptr || tile_max == nullptr) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool by_chunks = geometry == kChunks;
@@ -1652,7 +1907,12 @@ extern "C" int rtx_render(
       clamp_accum,
       static_cast<float*>(out),
       static_cast<int*>(segs),
-      static_cast<int*>(hist)};
+      static_cast<int*>(hist),
+      refill_phase,
+      static_cast<float4*>(scratch),
+      static_cast<int*>(tile_max),
+      tile_size,
+      by_chunks ? chunk_warp_scan : 0};
   const Kernel kernel =
       kernel_for(geometry, probe, tables, adaptive != 0, fast_scatter != 0);
   if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);

@@ -15,8 +15,10 @@ paths have all ended): ``render_kernel`` traces exactly ``spp`` samples a
 pixel, bit for bit a loop over samples and bounces
 (``warp_schedule_counts`` counts what the two schedules cost a warp),
 ``render_adaptive`` runs the adaptive sample refill
-(``cfg.adaptive_spp``), in which a warp's lanes that have met their quota
-trace extra samples while any lane of the warp is still short of it. Each
+(``cfg.adaptive_spp``), in which lanes that have met their quota trace
+extra samples while any lane of their tile, the TPU kernel's
+(``refill_tile_size``), is still short of it: two launches, the exact slot
+loop, then each lane's extra samples up to its tile's last finish. Each
 of those twelve has two routes for the scene's tables
 (``TABLES``): ``"staged"``, copied into each block's shared memory, and
 ``"global"``, read in place from global memory, for a scene whose tables
@@ -44,8 +46,8 @@ of ``parallel/sharding.py`` launches one band a device).
 
 Refill makes the image depend on how pixels are grouped: the plain
 version takes the grouping as a (G, P) array of pixel indices, -1 for
-padding. ``warp_groups`` is the kernel's (a warp of its 16x8 block, 16x2
-pixels); ``tile_groups`` the TPU kernel's TS x TS tiles.
+padding, by default the TS x TS tiles of both kernels (``tile_groups``);
+``warp_groups`` are the kernel's warps (16x2 pixels of its 16x8 block).
 
 The kernel is compiled with ``nvcc`` from the package's own source at
 first use, into ``build/`` beside this package, and loaded with ctypes
@@ -87,7 +89,7 @@ from ..ops.intersect import (
 from ..ops.trace import dup_intersect, trace, trace_segment
 from ..utils.config import RenderConfig
 from .build import NVCC_FLAGS, BuildInfo, CudaLibrary
-from .pack import SUB, pack_spheres
+from .pack import CLUSTER, SUB, pack_spheres
 
 # Dynamic shared memory one block may use on Hopper (227 KB): a scene whose
 # staged tables need more takes the global route (``table_route``).
@@ -117,10 +119,24 @@ SUPER_CHUNKS = 32
 # loop (a sphere a step); chosen on the card (the source says why).
 WARP_SCAN_MAX = 12
 
+# The source's kChunkScanMax: in the kChunks instantiations a visit of k
+# live lanes to a chunk of n triangles runs the warp-cooperative scan (a ray
+# a step, one triangle a lane, ceil(n / 32) runs) iff k * 32 * ceil(n / 32)
+# < CHUNK_SCAN_MAX * n, else the per-lane loop; chosen on the card.
+CHUNK_SCAN_MAX = 12
+
 # The sphere scan's second level: one box over each run of this many sphere
 # clusters in table (Morton) order (the TPU's SUPER, pack.py:44), built
 # where a scene has more than one run (``sphere_tables``).
 SUPER_CLUSTERS = 32
+
+# Adaptive refill's pixel group, the TPU kernel's tile (``refill_tile_size``):
+# REFILL_TILE pixels a side, REFILL_TILE_WINNER where the JAX package's
+# tables hold more than ONEHOT_MAX_SLOTS slots (its ``pack.py:50``: past it
+# ``pack_scene`` picks the winner fetch, and ``tile_size`` the smaller tile).
+REFILL_TILE = 128
+REFILL_TILE_WINNER = 64
+ONEHOT_MAX_SLOTS = 8192
 
 # How the kernel finds a scene's triangles, in the order of the source's
 # Geometry values (kSpheres, kChunks, kBvh).
@@ -195,6 +211,67 @@ def geometry(scene: Scene, cfg: RenderConfig) -> str:
     if scene.has_tri_bvh and cfg.intersector != "bruteforce":
         return "bvh"
     return "chunks" if scene.has_triangles else "spheres"
+
+
+def tpu_table_slots(scene: Scene) -> int:
+    """The slots of the JAX package's ``pack_scene`` tables for ``scene``
+    (its ``n_slots``, ``kernels/pack.py:343-491``): the real spheres less
+    the hoisted ones in blocks of ``CLUSTER``, one more block for the
+    hoisted (the JAX package drops the hoist where the rest would fill
+    more than one super-cluster, ``:354-358``; the port keeps it, so only
+    the count follows that rule here), then, where the scene has a real
+    triangle (a nonzero geometric normal), its real triangles in blocks of
+    ``CLUSTER``. Counted on the host once a scene."""
+    cache = _scene_cache(scene)
+    if "tpu_slots" not in cache:
+        def blocks(n):
+            return _round_up(n, CLUSTER)
+
+        part = _sphere_part(scene)
+        n_sph, n_hoist = part["spheres"].shape[0], part["n_hoist"]  # real
+        if (n_hoist and (blocks(n_sph - n_hoist) + CLUSTER) // SUB
+                > SUPER_CLUSTERS):
+            n_hoist = 0
+        s_pad = (blocks(n_sph - n_hoist) + (CLUSTER if n_hoist else 0)
+                 if n_sph else CLUSTER)
+        n = scene.triangles.n.cpu().numpy()
+        n_tri = int(((n * n).sum(axis=1) > 0).sum())
+        cache["tpu_slots"] = s_pad + blocks(n_tri) if n_tri else s_pad
+    return cache["tpu_slots"]
+
+
+def refill_tile_size(scene: Scene, cfg: RenderConfig) -> int:
+    """The side of the TPU kernel's refill tile for ``scene`` under ``cfg``
+    (the JAX package's ``tile_size(pack_scene(scene), adaptive=True)``,
+    ``kernels/megakernel.py:167-209``, less its ``RTX_MEGA_TS``, which the
+    port does not read): ``cfg.mega_tile_size`` where it is set; else 64
+    where the JAX package's tables would pass ``ONEHOT_MAX_SLOTS``
+    (``tpu_table_slots``: its winner fetch), else 128. Adaptive refill
+    groups pixels by these tiles (``tile_groups``), on the card and in the
+    plain version. A side's square is a multiple of 128, so the side is a
+    multiple of 16: a warp's 16x2 pixels lie in one tile."""
+    ts = cfg.mega_tile_size
+    if ts is not None:
+        if ts <= 0 or (ts * ts) % 128:
+            raise ValueError(
+                "mega_tile_size must be a positive tile size with TS*TS a "
+                f"multiple of 128 (e.g. 32/64/96/128), got {ts}")
+        return ts
+    return (REFILL_TILE if tpu_table_slots(scene) <= ONEHOT_MAX_SLOTS
+            else REFILL_TILE_WINNER)
+
+
+def launches_per_call(cfg: RenderConfig) -> int:
+    """Kernel launches a call of ``render_frames_mega`` on the card makes
+    (``PathTraceKernel.launch``): refill's two phases, or one."""
+    return 2 if cfg.adaptive_spp else 1
+
+
+def refill_band_rows(cfg: RenderConfig) -> int:
+    """What the height of a band of a refill launch is a multiple of, for
+    any scene (``parallel/sharding.py``): ``cfg.mega_tile_size`` where it
+    is set, else ``REFILL_TILE``, a multiple of both default tile sides."""
+    return cfg.mega_tile_size or REFILL_TILE
 
 
 def plain_through_sphere_bvh(scene: Scene, cfg: RenderConfig) -> bool:
@@ -662,6 +739,7 @@ def render_frames_plain(
     groups: np.ndarray | None = None,
     intersect_fn=None,
     probe: str | None = None,
+    phase_one: dict | None = None,
 ):
     """The plain PyTorch version of the kernel, on the scene's device.
 
@@ -677,10 +755,15 @@ def render_frames_plain(
     ``plain_block_size`` pixels, so where many triangles cut it, the
     padding and the total can be smaller than the XLA path's.
 
-    With ``cfg.adaptive_spp`` it runs the refill slot machine
-    (``_render_adaptive``) over ``groups``, a (G, P) array of pixel
-    indices with -1 for padding, by default the kernel's ``warp_groups``;
-    its totals count real pixels only.
+    With ``cfg.adaptive_spp`` it runs the refill over ``groups``, a (G, P)
+    array of pixel indices with -1 for padding, by default the TPU
+    kernel's tiles, as the kernel groups them (``tile_groups`` of
+    ``refill_tile_size``), in the kernel's two phases
+    (``_refill_two_phase``, the TPU kernel's slot machine bit for bit); its
+    totals count real pixels only. ``phase_one``, a dict, gains the first
+    phase's ``segs`` ((y1 - y0, W) int32: each pixel's segments when its
+    quota was done) and ``tile_max`` ((G,) int32: each group's largest, in
+    the order of ``groups``' rows within the band).
 
     ``rows=(y0, y1)`` renders only rows ``y0 .. y1 - 1`` of the full frame,
     with the same pixels and random streams; ``accum``, the image and the
@@ -706,10 +789,11 @@ def render_frames_plain(
         raise ValueError(f"rows {rows} outside 0..{cfg.height}")
     if cfg.adaptive_spp:
         if groups is None:
-            groups = warp_groups(cfg.width, cfg.height)
+            groups = tile_groups(cfg.width, cfg.height,
+                                 refill_tile_size(scene, cfg))
         return _render_adaptive(scene, camera, cfg, frame0, n_frames, accum,
                                 collect_stats, y0, y1, groups, intersect_fn,
-                                dup_fetch)
+                                dup_fetch, phase_one)
     total = 0
     segs_map = 0
     hist = 0
@@ -726,11 +810,11 @@ def render_frames_plain(
 
 
 def warp_groups(width: int, height: int) -> np.ndarray:
-    """The kernel's refill groups: (G, 32) pixel indices, one row per warp
-    of its 16x8 block (16 columns by 2 rows, row-major), -1 where the warp
-    reaches past the image. Groups are ordered by pixel row pair, then by
-    column, so a band of rows starting and ending on even rows is a run of
-    whole groups."""
+    """The kernel's warps: (G, 32) pixel indices, one row per warp of its
+    16x8 block (16 columns by 2 rows, row-major), -1 where the warp
+    reaches past the image (``warp_schedule_counts``' tiles). Groups are
+    ordered by pixel row pair, then by column, so a band of rows starting
+    and ending on even rows is a run of whole groups."""
     gw, gh = BLOCK_X, WARP // BLOCK_X
     ys = np.arange(_round_up(height, gh)).reshape(-1, gh)  # (Ry, 2)
     xs = np.arange(_round_up(width, gw)).reshape(-1, gw)  # (Rx, 16)
@@ -759,9 +843,10 @@ def band_resident_warps(launch_warps: int, cfg: RenderConfig,
 
 
 def tile_groups(width: int, height: int, ts: int) -> np.ndarray:
-    """The TPU kernel's refill groups: (G, ts * ts) pixel indices, one row
-    per ts x ts tile (tiles row-major, pixels row-major inside a tile), -1
-    where a tile reaches past the image. (The TPU kernel re-renders a
+    """The refill groups of the TPU kernel and of this one: (G, ts * ts)
+    pixel indices, one row per ts x ts tile (tiles row-major, pixels
+    row-major inside a tile: the kernel's tile index), -1 where a tile
+    reaches past the image. (The TPU kernel re-renders a
     border pixel there; that duplicate's stream is its original's, so it
     never changes a tile's vote.)"""
     ys = np.arange(_round_up(height, ts)).reshape(-1, ts)
@@ -795,15 +880,29 @@ def _slot_iterations(key, packed, sizes, base) -> tuple[int, int]:
     return int(starts.size), int(iterations)
 
 
-def _cluster_visits(key, spheres, sizes,
-                    warp_scan_max) -> tuple[np.ndarray, int]:
+def chunk_scan_across_warp(sizes) -> bool:
+    """Whether a scene whose chunks hold ``sizes`` triangles has a chunk
+    that a visit of one lane takes across the warp (``CHUNK_SCAN_MAX``'s
+    rule: 32 x runs < CHUNK_SCAN_MAX x size). Where none has, the kChunks
+    kernels' lanes scan the chunks each on its own, without the votes (the
+    source's ``Triangles::warp_scan``): Cornell, six chunks of two."""
+    sizes = np.asarray(sizes, np.int64)
+    return bool((WARP * -(-sizes // WARP) < CHUNK_SCAN_MAX * sizes).any())
+
+
+def _cluster_visits(key, members, sizes, scan_max,
+                    by_runs: bool = False) -> tuple[np.ndarray, int]:
     """Records grouped into slots by ``key`` (R,) -> ``(visit_lanes,
-    ray_steps)``: a (slot, cluster) pair is a visit when ``spheres`` (R, K)
-    bool has a record of the slot that tested the cluster; its k lanes are
-    those records. ``visit_lanes`` (WARP,) int64 counts the visits of k =
-    1 .. WARP lanes; ``ray_steps`` is what the kSpheres cluster loop runs
-    for them: k ray steps a visit of fewer than ``warp_scan_max`` lanes,
-    the cluster's ``sizes`` sphere steps one of more."""
+    ray_steps)``: a (slot, cluster) pair is a visit when ``members`` (R, K)
+    bool has a record of the slot that tested the cluster (or chunk); its k
+    lanes are those records. ``visit_lanes`` (WARP,) int64 counts the
+    visits of k = 1 .. WARP lanes; ``ray_steps`` is what the cooperative
+    scan runs for them: k ray steps a run of WARP of the cluster's
+    ``sizes`` members a cooperative visit, the size in per-lane steps
+    another. A visit is cooperative where k < ``scan_max`` (the kSpheres
+    cluster loop, ``WARP_SCAN_MAX``) or, ``by_runs``, where k * WARP *
+    runs < ``scan_max`` * size (the kChunks chunk loop,
+    ``CHUNK_SCAN_MAX``)."""
     hist = np.zeros(WARP, np.int64)
     if not (sizes.size and key.size):
         return hist, 0
@@ -811,11 +910,14 @@ def _cluster_visits(key, spheres, sizes,
     k = key[order]
     starts = np.flatnonzero(np.r_[True, k[1:] != k[:-1]])
     # a slot holds at most one record a lane: at most WARP lanes a visit
-    lanes = np.add.reduceat(spheres[order].view(np.uint8), starts, axis=0,
+    lanes = np.add.reduceat(members[order].view(np.uint8), starts, axis=0,
                             dtype=np.int64)
     hist += np.bincount(lanes[lanes > 0], minlength=WARP + 1)[1:]
-    steps = np.where(lanes >= warp_scan_max, sizes[None, :], lanes)
-    return hist, int(steps.sum())
+    runs = -(-sizes[None, :] // WARP)
+    coop = (lanes * WARP * runs < scan_max * sizes[None, :] if by_runs
+            else lanes < scan_max)
+    steps = np.where(coop, lanes * runs, sizes[None, :])
+    return hist, int(steps[lanes > 0].sum())
 
 
 def _queue_schedule(lengths: np.ndarray,
@@ -864,7 +966,8 @@ def _queue_schedule(lengths: np.ndarray,
 def schedule_counts(lane, nested_slot, spheres, sphere_sizes, n_hoist,
                     triangles=None, triangle_sizes=None,
                     warp_scan_max: int = WARP_SCAN_MAX,
-                    resident_warps: int | None = None) -> dict:
+                    resident_warps: int | None = None,
+                    chunk_scan_max: int = CHUNK_SCAN_MAX) -> dict:
     """How the exact kernel's warps spend their slots under three
     schedules, from the segments its lanes trace: one record a segment,
     each lane's records in the order it traces them. ``lane`` (R,) is the
@@ -900,7 +1003,12 @@ def schedule_counts(lane, nested_slot, spheres, sphere_sizes, n_hoist,
     ``warp_scan_max`` lanes, the cluster's size at or above; the hoisted
     spheres are ``n_hoist`` steps a slot in either scan, as in
     ``sphere_iterations``), against ``cluster_sphere_steps``, the per-lane
-    cluster loop's (``sphere_iterations`` less the hoisted). Beside them
+    cluster loop's (``sphere_iterations`` less the hoisted). With
+    triangles, the kChunks kernels' cooperative chunk scan the same way:
+    ``chunk_visit_lanes``, and ``triangle_ray_steps`` (k ray steps a run of
+    32 triangles a visit under ``chunk_scan_max``'s rule, the chunk's size
+    at or above it) against ``chunk_triangle_steps``, the per-lane loop's
+    (a visit's chunk size each: ``triangle_iterations``). Beside them
     ``segments`` and the lanes' own tests summed (``lane_sphere_tests``,
     ``lane_triangle_tests``)."""
     lane = np.asarray(lane, np.int64)
@@ -956,6 +1064,11 @@ def schedule_counts(lane, nested_slot, spheres, sphere_sizes, n_hoist,
         hist, res["sphere_ray_steps"] = _cluster_visits(
             key, spheres, sphere_sizes, warp_scan_max)
         res["visit_lanes"] = hist.tolist()
+        if triangles is not None:
+            hist, res["triangle_ray_steps"] = _cluster_visits(
+                key, triangles, triangle_sizes, chunk_scan_max, by_runs=True)
+            res["chunk_visit_lanes"] = hist.tolist()
+            res["chunk_triangle_steps"] = res["triangle_iterations"]
         res["cluster_sphere_steps"] = (res["sphere_iterations"]
                                        - res["slots"] * n_hoist)
         res["lanes_per_slot"] = n / max(res["slots"], 1)
@@ -1033,7 +1146,8 @@ def warp_schedule_counts(scene: Scene, camera: Camera, cfg: RenderConfig,
     def ratios(a, b):
         return {key: out[a][key] / out[b][key] if out[b][key] else None
                 for key in ("slots", "sphere_iterations",
-                            "triangle_iterations", "sphere_ray_steps")
+                            "triangle_iterations", "sphere_ray_steps",
+                            "triangle_ray_steps")
                 if key in out[b]}
 
     out["ratios"] = ratios("slots", "nested")
@@ -1057,7 +1171,8 @@ def _band_groups(groups: np.ndarray, width: int, y0: int, y1: int):
 
 
 def _render_adaptive(scene, camera, cfg, frame0, n_frames, accum,
-                     collect_stats, y0, y1, groups, intersect_fn, dup_fetch):
+                     collect_stats, y0, y1, groups, intersect_fn, dup_fetch,
+                     phase_one=None, two_phase=True):
     """Adaptive sample refill, the TPU kernel's slot loop
     (``megakernel.py:1802-2134``) vectorised over lanes, one lane a pixel.
 
@@ -1070,21 +1185,31 @@ def _render_adaptive(scene, camera, cfg, frame0, n_frames, accum,
     frame, whose mean divides by the samples it completed. The slot bound
     is ``quota * (max_bounce + 1)``; a sample still in flight at the bound
     is dropped. Segments and the histogram count every traced segment.
-    Blocks of whole groups keep memory bounded."""
+
+    By default in the kernel's two phases (``_refill_two_phase``); with
+    ``two_phase=False`` as the slot machine itself over blocks of whole
+    groups (``_adaptive_block``), the reference a CPU test holds the two
+    phases to, bit for bit."""
     dev = scene.device
     w = cfg.width
     band = _band_groups(groups, w, y0, y1)
     n_band = (y1 - y0) * w
-    img = torch.zeros((n_band, 3), dtype=torch.float32, device=dev)
-    seg_map = torch.zeros(n_band, dtype=torch.int32, device=dev)
     hist = torch.zeros(cfg.max_bounce + 1, dtype=torch.int32, device=dev)
     acc = None if accum is None else accum.reshape(n_band, 3)
-    per_block = max(1, plain_block_size(cfg, scene, band.size) // band.shape[1])
-    for g0 in range(0, band.shape[0], per_block):
-        pix = torch.from_numpy(band[g0:g0 + per_block]).to(dev)
-        _adaptive_block(scene, camera, cfg, int(frame0), n_frames, pix,
-                        y0 * w, acc, img, seg_map, hist, intersect_fn,
-                        dup_fetch)
+    if two_phase:
+        img, seg_map = _refill_two_phase(
+            scene, camera, cfg, int(frame0), n_frames, band, y0, y1, acc,
+            hist, intersect_fn, dup_fetch, phase_one)
+    else:
+        img = torch.zeros((n_band, 3), dtype=torch.float32, device=dev)
+        seg_map = torch.zeros(n_band, dtype=torch.int32, device=dev)
+        block = plain_block_size(cfg, scene, band.size)
+        per_block = max(1, block // band.shape[1])
+        for g0 in range(0, band.shape[0], per_block):
+            pix = torch.from_numpy(band[g0:g0 + per_block]).to(dev)
+            _adaptive_block(scene, camera, cfg, int(frame0), n_frames, pix,
+                            y0 * w, acc, img, seg_map, hist, intersect_fn,
+                            dup_fetch, block)
     return (
         img.reshape(y1 - y0, w, 3),
         seg_map.sum(dtype=torch.int64),
@@ -1093,112 +1218,198 @@ def _render_adaptive(scene, camera, cfg, frame0, n_frames, accum,
     )
 
 
+def _lane_state(n: int, dev, acc) -> dict:
+    """The refill slot loop's per-lane state for ``n`` lanes: the RNG
+    ``state``, the last frame's banked light ``total``, the running
+    average ``acc`` (None without an accumulator), samples completed
+    ``ns``, frame ``fk``, segments traced ``segs``, and the sample in
+    flight: ``o``, ``d``, ``colour``, ``incoming``, bounce ``bc``,
+    ``live``."""
+    def f3():
+        return torch.zeros((n, 3), dtype=torch.float32, device=dev)
+
+    def i64():
+        return torch.zeros(n, dtype=torch.int64, device=dev)
+
+    return dict(state=i64(), total=f3(), acc=acc, ns=i64(), fk=i64(),
+                segs=i64(), o=f3(), d=f3(), colour=f3(), incoming=f3(),
+                bc=i64(), live=torch.zeros(n, dtype=torch.bool, device=dev))
+
+
+def _slot(scene, camera, cfg, frame0, n_frames, pix, fp, need, s, hist,
+          intersect_fn, dup_fetch, block) -> None:
+    """One slot of the refill slot loop over lanes ``pix`` (focus points
+    ``fp``), their state ``s`` (``_lane_state``) written in place: the
+    lanes ``need`` start their next camera sample (a lane whose frame is
+    done folds it into ``acc`` and moves to the next; a frame's first
+    sample is seeded ``pix + frame * 719393``), then every live lane traces
+    one segment, counted in ``segs`` and ``hist``, at most ``block`` lanes
+    a call of the closest hit (``plain_block_size``: its temporaries stay
+    bounded however many lanes the loop holds; a lane's segment does not
+    depend on the lanes traced beside it)."""
+    spp, mb = cfg.spp, cfg.max_bounce
+    ni = need.nonzero().squeeze(1)
+    if ni.numel():
+        ns_i, fk_i = s["ns"][ni], s["fk"][ni]
+        if n_frames > 1:
+            # a lane whose frame is done folds it and moves on
+            fdone = (ns_i - fk_i * spp >= spp) & (fk_i < n_frames - 1)
+            fi = ni[fdone]
+            for k in s["fk"][fi].unique().tolist():
+                fik = fi[s["fk"][fi] == k]
+                s["acc"][fik] = accumulate(
+                    s["acc"][fik], vm.div(s["total"][fik], float(spp)),
+                    (frame0 + k) & 0xFFFFFFFF, clamp=cfg.clamp_accumulate)
+            s["total"][fi] = 0.0
+            s["fk"][fi] += 1
+            fk_i = s["fk"][ni]
+        fresh = ns_i - fk_i * spp == 0
+        st = torch.where(fresh, rng_ops.seed(pix[ni], frame0 + fk_i),
+                         s["state"][ni])
+        st, s["o"][ni], s["d"][ni] = generate_rays(st, camera, fp[ni],
+                                                   cfg.width)
+        s["state"][ni] = st
+        s["colour"][ni] = 1.0
+        s["bc"][ni] = 0
+        s["live"][ni] = True
+
+    live = s["live"].nonzero().squeeze(1)
+    s["segs"][live] += 1
+    hist += torch.bincount(s["bc"][live], minlength=mb + 1).to(torch.int32)
+    for c0 in range(0, live.numel(), block):
+        pi = live[c0:c0 + block]
+        bc_i = s["bc"][pi]
+        st, o_i, d_i, inc_i, col_i, cont = trace_segment(
+            s["state"][pi], s["o"][pi], s["d"][pi], s["incoming"][pi],
+            s["colour"][pi], torch.ones_like(bc_i, dtype=torch.bool), bc_i,
+            scene, intersect_fn=intersect_fn, fast_scatter=cfg.fast_scatter,
+            dup_fetch=dup_fetch,
+        )
+        cont = cont & (bc_i < mb)
+        died = ~cont
+        s["state"][pi], s["o"][pi], s["d"][pi] = st, o_i, d_i
+        s["colour"][pi] = col_i
+        s["total"][pi[died]] += inc_i[died]
+        s["ns"][pi[died]] += 1
+        s["incoming"][pi] = torch.where(died[:, None], 0.0, inc_i)
+        s["live"][pi] = cont
+        s["bc"][pi] += 1
+
+
+def _last_fold(cfg, frame0, n_frames, s) -> torch.Tensor:
+    """The last frame's mean over the samples it completed (>= spp),
+    folded into ``acc`` where there is one."""
+    last = torch.clamp(s["ns"] - (n_frames - 1) * cfg.spp, min=1).to(
+        torch.float32)
+    mean = s["total"] / last[:, None]
+    if s["acc"] is not None:
+        mean = accumulate(s["acc"], mean, (frame0 + n_frames - 1) & 0xFFFFFFFF,
+                          clamp=cfg.clamp_accumulate)
+    return mean
+
+
 def _adaptive_block(scene, camera, cfg, frame0, n_frames, groups, offset,
-                    acc_in, img, seg_map, hist, intersect_fn, dup_fetch):
+                    acc_in, img, seg_map, hist, intersect_fn, dup_fetch,
+                    block):
     """The slot machine over one block of groups ((Gb, P) pixel indices);
     writes its pixels of ``img``, ``seg_map`` and ``hist`` (band-local
-    pixel index = global index - ``offset``)."""
-    dev = scene.device
-    spp, mb = cfg.spp, cfg.max_bounce
-    quota = n_frames * spp
+    pixel index = global index - ``offset``); ``block`` as ``_slot``
+    takes it."""
+    quota = n_frames * cfg.spp
     n_groups, per_group = groups.shape
     pix = groups.reshape(-1)
     valid = pix >= 0
     pix = torch.where(valid, pix, offset)  # padding lanes never trace
     local = pix - offset
-    n = pix.shape[0]
     fp = focus_points(camera, pix % cfg.width, pix // cfg.width, cfg.width,
                       cfg.height)
-
-    def zeros3():
-        return torch.zeros((n, 3), dtype=torch.float32, device=dev)
-
-    def zeros_i():
-        return torch.zeros(n, dtype=torch.int64, device=dev)
-
-    state = rng_ops.seed(pix, frame0)
-    o, d, colour, incoming, total = zeros3(), zeros3(), zeros3(), zeros3(), zeros3()
-    acc = None if acc_in is None else acc_in[local]
-    live = torch.zeros(n, dtype=torch.bool, device=dev)
-    ns, fk, bc, segs = zeros_i(), zeros_i(), zeros_i(), zeros_i()
-    for _ in range(quota * (mb + 1)):
-        undone = valid & (ns < quota)
+    s = _lane_state(pix.shape[0], scene.device,
+                    None if acc_in is None else acc_in[local])
+    for _ in range(quota * (cfg.max_bounce + 1)):
+        undone = valid & (s["ns"] < quota)
         group_undone = undone.reshape(n_groups, per_group).any(dim=1)
-        need = valid & ~live & group_undone.repeat_interleave(per_group)
-        if not bool((live | need).any()):
+        need = valid & ~s["live"] & group_undone.repeat_interleave(per_group)
+        if not bool((s["live"] | need).any()):
             break
-        ni = need.nonzero().squeeze(1)
-        if ni.numel():
-            ns_i, fk_i = ns[ni], fk[ni]
-            if n_frames > 1:
-                # a lane whose frame is done folds it and moves on
-                fdone = (ns_i - fk_i * spp >= spp) & (fk_i < n_frames - 1)
-                fi = ni[fdone]
-                for k in fk[fi].unique().tolist():
-                    fik = fi[fk[fi] == k]
-                    acc[fik] = accumulate(
-                        acc[fik], vm.div(total[fik], float(spp)),
-                        (frame0 + k) & 0xFFFFFFFF, clamp=cfg.clamp_accumulate)
-                total[fi] = 0.0
-                fk[fi] += 1
-                fk_i = fk[ni]
-            fresh = ns_i - fk_i * spp == 0
-            st = torch.where(fresh, rng_ops.seed(pix[ni], frame0 + fk_i),
-                             state[ni])
-            st, o[ni], d[ni] = generate_rays(st, camera, fp[ni], cfg.width)
-            state[ni] = st
-            colour[ni] = 1.0
-            bc[ni] = 0
-            live[ni] = True
-
-        pi = live.nonzero().squeeze(1)
-        bc_i = bc[pi]
-        segs[pi] += 1
-        hist += torch.bincount(bc_i, minlength=mb + 1).to(torch.int32)
-        st, o_i, d_i, inc_i, col_i, cont = trace_segment(
-            state[pi], o[pi], d[pi], incoming[pi], colour[pi],
-            torch.ones_like(bc_i, dtype=torch.bool), bc_i, scene,
-            intersect_fn=intersect_fn, fast_scatter=cfg.fast_scatter,
-            dup_fetch=dup_fetch,
-        )
-        cont = cont & (bc_i < mb)
-        died = ~cont
-        state[pi], o[pi], d[pi], colour[pi] = st, o_i, d_i, col_i
-        total[pi[died]] += inc_i[died]
-        ns[pi[died]] += 1
-        incoming[pi] = torch.where(died[:, None], 0.0, inc_i)
-        live[pi] = cont
-        bc[pi] += 1
-
-    # the last frame's mean over the samples it completed (>= spp)
-    last = torch.clamp(ns - (n_frames - 1) * spp, min=1).to(torch.float32)
-    mean = total / last[:, None]
-    if acc is not None:
-        mean = accumulate(acc, mean, (frame0 + n_frames - 1) & 0xFFFFFFFF,
-                          clamp=cfg.clamp_accumulate)
-    img[local[valid]] = mean[valid]
-    seg_map[local[valid]] = segs[valid].to(torch.int32)
+        _slot(scene, camera, cfg, frame0, n_frames, pix, fp, need, s, hist,
+              intersect_fn, dup_fetch, block)
+    img[local[valid]] = _last_fold(cfg, frame0, n_frames, s)[valid]
+    seg_map[local[valid]] = s["segs"][valid].to(torch.int32)
 
 
-def band_rows(cfg: RenderConfig,
+def _refill_two_phase(scene, camera, cfg, frame0, n_frames, band, y0, y1,
+                      acc_in, hist, intersect_fn, dup_fetch, phase_one):
+    """Adaptive refill as the kernel runs it, in two passes over the pixels
+    of rows ``y0 .. y1 - 1``, grouped by ``band`` (``_band_groups``' (G, P)
+    pixel indices) -> ``(image (n, 3), segments (n,) int32)`` of the band's
+    n pixels; adds to ``hist``.
+
+    Under the slot machine a lane that owes samples re-seeds the moment its
+    path ends, so until its quota is done it runs as the exact kernel does,
+    live every slot, and it is done after exactly its exact-spp segment
+    count E_i. Its group's vote is true at slot s iff s < T_g, the largest
+    E_i of the group, so afterwards a dead lane starts an extra sample iff
+    s < T_g, whatever else its neighbours do. Phase 1 runs each pixel's
+    exact slot loop without the last frame's fold and takes T_g per group;
+    phase 2 runs each pixel from slot E_i on, a dead lane re-seeding while
+    its slot is below T_g, a sample still in flight at the slot bound
+    dropped; then the last fold. A lane is live every slot until it idles
+    and stays idle after, so its slot is its segment count: neither phase
+    keeps a slot counter. Each phase's loop holds every pixel of the band,
+    and its live lanes trace in calls of ``plain_block_size`` (``_slot``),
+    so a phase runs as many slots as its slowest lane needs, once.
+    ``phase_one`` as ``render_frames_plain`` takes it."""
+    dev = scene.device
+    w = cfg.width
+    quota = n_frames * cfg.spp
+    n_slots = quota * (cfg.max_bounce + 1)
+    off, n = y0 * w, (y1 - y0) * w
+    pix = torch.arange(off, off + n, device=dev)
+    fp = focus_points(camera, pix % w, pix // w, w, cfg.height)
+    s = _lane_state(n, dev, None if acc_in is None else acc_in.clone())
+    limit = torch.zeros(n, dtype=torch.int64, device=dev)
+    block = plain_block_size(cfg, scene, n)
+    for phase in (1, 2):
+        if phase == 2:
+            g = torch.from_numpy(band).to(dev)
+            valid = g >= 0
+            local = torch.where(valid, g - off, 0)
+            tile_max = torch.where(valid, s["segs"][local], 0).amax(dim=1)
+            limit[local[valid]] = tile_max[:, None].expand(g.shape)[valid]
+            if phase_one is not None:
+                phase_one["segs"] = s["segs"].to(torch.int32).reshape(
+                    y1 - y0, w)
+                phase_one["tile_max"] = tile_max.to(torch.int32)
+        while True:
+            s["live"] &= s["segs"] < n_slots
+            need = ~s["live"] & ((s["ns"] < quota) | (s["segs"] < limit))
+            if not bool((s["live"] | need).any()):
+                break
+            _slot(scene, camera, cfg, frame0, n_frames, pix, fp, need, s,
+                  hist, intersect_fn, dup_fetch, block)
+    return _last_fold(cfg, frame0, n_frames, s), s["segs"].to(torch.int32)
+
+
+def band_rows(scene: Scene, cfg: RenderConfig,
               rows: tuple[int, int] | None) -> tuple[int, int]:
     """The rows ``(y0, y1)`` of a launch over ``rows`` (the whole frame for
     None); raises unless ``0 <= y0 < y1 <= height`` and, with refill, the
-    band starts and ends on a row of the kernel's blocks (``y0``, and ``y1``
-    unless it is the frame's height, multiples of ``BLOCK_Y``): then its
-    warps are the whole-frame launch's and the band's image is that
-    launch's rows bit for bit. Exact spp takes any band."""
+    band holds whole refill tiles (``y0``, and ``y1`` unless it is the
+    frame's height, multiples of ``refill_tile_size``): then its tiles are
+    the whole-frame launch's and the band's image is that launch's rows
+    bit for bit. Exact spp takes any band."""
     y0, y1 = (0, cfg.height) if rows is None else (int(rows[0]), int(rows[1]))
     if not 0 <= y0 < y1 <= cfg.height:
         raise ValueError(f"rows {rows} outside 0..{cfg.height}")
-    if cfg.adaptive_spp and (
-            y0 % BLOCK_Y or (y1 != cfg.height and y1 % BLOCK_Y)):
-        raise ValueError(
-            f"rows {rows}: with adaptive_spp a band starts and ends on a "
-            f"row of the kernel's {BLOCK_X}x{BLOCK_Y} blocks (multiples of "
-            f"{BLOCK_Y}, or the frame's height), so that its refill warps "
-            "are the whole frame's"
-        )
+    if cfg.adaptive_spp:
+        ts = refill_tile_size(scene, cfg)
+        if y0 % ts or (y1 != cfg.height and y1 % ts):
+            raise ValueError(
+                f"rows {rows}: with adaptive_spp a band starts and ends on "
+                f"a row of the refill tiles ({ts}x{ts}: multiples of {ts}, "
+                "or the frame's height), so that it holds whole tiles, "
+                "which are the whole frame's"
+            )
     return y0, y1
 
 
@@ -1223,7 +1434,7 @@ _RENDER_ARGTYPES = [
     _CI, _CI, _VP, _VP, _VP, _CI, _VP, _CI, _CI, _VP, _CI, _VP, _VP, _VP, _VP,
     _CI, _VP, _CI,
     _CI, _VP, _VP, _CI, _VP, _VP, _CI, _CI, _CI, _CI, _CI, _CI, ctypes.c_uint,
-    _CI, _VP, _CI, _CI, _CI, _VP, _VP, _VP, _VP,
+    _CI, _VP, _CI, _CI, _CI, _CI, _VP, _VP, _CI, _CI, _VP, _VP, _VP, _VP,
 ]
 
 
@@ -1327,8 +1538,9 @@ class PathTraceKernel:
         rows: tuple[int, int] | None = None,
         probe: str | None = None,
         tables: str | None = None,
+        phase_one: dict | None = None,
     ):
-        """One launch over the rows ``rows=(y0, y1)`` of the frame (the
+        """One call over the rows ``rows=(y0, y1)`` of the frame (the
         whole frame by default; ``band_rows`` says which bands a launch
         takes), of the instantiation that ``geometry(scene, cfg)``,
         ``cfg.adaptive_spp`` / ``cfg.fast_scatter`` and the route pick: by
@@ -1336,9 +1548,15 @@ class PathTraceKernel:
         block's shared memory and the global ones where they do not;
         ``tables`` (one of ``TABLES``) forces one, which the tests and
         ``chip_smoke.py`` do on scenes that fit. Returns the same
-        tuple as ``render_frames_plain`` with its default warp grouping
-        (the total and the histogram count real pixels only): ``accum``,
-        the image and the per-pixel map hold ``y1 - y0`` rows. Reads
+        tuple as ``render_frames_plain`` with its default grouping (the
+        total and the histogram count real pixels only): ``accum``, the
+        image and the per-pixel map hold ``y1 - y0`` rows. Exact spp is one
+        launch; refill two of ``render_adaptive`` (the source's
+        ``render_slots``): phase 1 into a scratch row a pixel and an int a
+        refill tile, phase 2 from them. ``phase_one``, a dict, gains what
+        ``render_frames_plain`` gives it (copies of phase 1's segment map and
+        tile maxima) and ``events``, four CUDA events: before and after
+        each launch (refill only). Reads
         nothing back from the device and does not synchronise, except at a
         scene's first launch, which reads its sphere arrays back to cluster
         them (``geometry_tables``); the camera's visit order is made on the
@@ -1358,7 +1576,7 @@ class PathTraceKernel:
                 "the probe library compiles the profiling instantiations "
                 "with the Box-Muller sampler only: fast_scatter=False"
             )
-        y0, y1 = band_rows(cfg, rows)
+        y0, y1 = band_rows(scene, cfg, rows)
         dev = scene.device
         if dev.type != "cuda":
             raise ValueError(f"the CUDA kernel needs a CUDA scene, got {dev}")
@@ -1406,7 +1624,7 @@ class PathTraceKernel:
             # an empty tensor's pointer is null: the kernel reads no row of it
             return None if t is None or t.numel() == 0 else t.data_ptr()
 
-        with torch.cuda.device(dev):
+        def run(accum_in, image, phase=0, scratch=None, tile_max=None, ts=0):
             rc = render(
                 code, TABLES.index(route), ptr(tab.spheres),
                 ptr(tab.sphere_orig), ptr(tab.sphere_mat), n_sph,
@@ -1417,15 +1635,44 @@ class PathTraceKernel:
                 SUPER_CHUNKS, ptr(tab.bvh_nodes),
                 ptr(tab.bvh_leaves), tab.bvh_node_count, ptr(tab.materials),
                 ptr(tab.params), w, cfg.height, y0, y1, cfg.spp, cfg.max_bounce,
-                int(frame0) & 0xFFFFFFFF, n_frames, ptr(accum),
+                int(frame0) & 0xFFFFFFFF, n_frames, ptr(accum_in),
                 int(cfg.clamp_accumulate), int(cfg.adaptive_spp),
-                int(cfg.fast_scatter), ptr(out), ptr(segs), ptr(hist),
+                int(cfg.fast_scatter), phase, ptr(scratch), ptr(tile_max), ts,
+                int(tab.chunk_warp_scan), ptr(image), ptr(segs), ptr(hist),
                 torch.cuda.current_stream(dev).cuda_stream,
             )
-        library.check(rc, "megakernel")
-        self.variant_launches[variant(
-            geom, cfg.adaptive_spp, cfg.fast_scatter, probe, route
-        )] += 1
+            library.check(rc, "megakernel")
+            self.variant_launches[variant(
+                geom, cfg.adaptive_spp, cfg.fast_scatter, probe, route
+            )] += 1
+
+        with torch.cuda.device(dev):
+            if not cfg.adaptive_spp:
+                run(accum, out)
+                return out, segs.sum(dtype=torch.int64), segs, hist
+            # refill: phase 1 leaves each pixel's RNG state and last frame's
+            # light in `scratch`, its segments in `segs`, the running average
+            # of the frames before the last in `mid`, and each tile's largest
+            # segment count in `tile_max`; phase 2 takes them from there
+            ts = refill_tile_size(scene, cfg)
+            scratch = torch.empty((h, w, 4), dtype=torch.float32, device=dev)
+            tile_max = torch.zeros(-(-h // ts) * -(-w // ts),
+                                   dtype=torch.int32, device=dev)
+            mid = None if accum is None else torch.empty_like(out)
+            events = None
+            if phase_one is not None:
+                events = [torch.cuda.Event(enable_timing=True)
+                          for _ in range(4)]
+                events[0].record()
+            run(accum, mid, 1, scratch, tile_max, ts)
+            if phase_one is not None:
+                events[1].record()
+                phase_one.update(segs=segs.clone(), tile_max=tile_max.clone(),
+                                 events=events)
+                events[2].record()
+            run(mid, out, 2, scratch, tile_max, ts)
+            if phase_one is not None:
+                events[3].record()
         return out, segs.sum(dtype=torch.int64), segs, hist
 
 
@@ -1483,6 +1730,9 @@ class KernelTables:
     bvh_leaves: torch.Tensor | None = None  # (L, 4) int32
     bvh_node_count: int = 0  # the BVH's nodes: the traversal's pop cap
     bvh_sentinel: int | None = None  # the leaves' padding index
+    # the chunk geometry: whether a chunk visit can go across the warp
+    # (``chunk_scan_across_warp``), else each lane scans alone
+    chunk_warp_scan: bool = False
     # host seconds the sphere clustering took when these were built
     cluster_seconds: float = 0.0
 
@@ -1630,6 +1880,26 @@ def bvh_node_table(bvh: BVH, sentinel: int) -> np.ndarray:
     return table
 
 
+def _scene_cache(scene: Scene) -> dict:
+    """What is kept on ``scene`` for the kernel (its tables, the sphere
+    clustering, counts): emptied when one of its tensors was replaced or
+    written to in place."""
+    key = tuple((id(t), t._version) for t in _tensor_leaves(scene))
+    cache = scene.__dict__.setdefault("_kernel_tables", {})
+    if cache.get("key") != key:
+        cache.clear()
+        cache["key"] = key
+    return cache
+
+
+def _sphere_part(scene: Scene) -> dict:
+    """``sphere_tables(scene)``, made once a scene."""
+    cache = _scene_cache(scene)
+    if "sphere_tables" not in cache:
+        cache["sphere_tables"] = sphere_tables(scene)
+    return cache["sphere_tables"]
+
+
 def geometry_tables(scene: Scene, geom: str) -> KernelTables:
     """The scene's part of the kernel's tables for geometry ``geom``, built
     once a scene: kept on the scene object and found again as long as none
@@ -1639,19 +1909,13 @@ def geometry_tables(scene: Scene, geom: str) -> KernelTables:
     The chunk table holds each chunk's first triangle and triangle count as
     int32 bits in its f32 columns 3 and 7; the BVH's node table is
     ``bvh_node_table``'s."""
-    key = tuple((id(t), t._version) for t in _tensor_leaves(scene))
-    cache = scene.__dict__.setdefault("_kernel_tables", {})
-    if cache.get("key") != key:
-        cache.clear()
-        cache["key"] = key
+    cache = _scene_cache(scene)
     if geom in cache:
         return cache[geom]
 
     t0 = time.perf_counter()
     dev = scene.device
     mat = scene.materials
-    if "sphere_tables" not in cache:
-        cache["sphere_tables"] = sphere_tables(scene)
     tab = KernelTables(
         geometry=geom,
         materials=torch.cat(
@@ -1664,7 +1928,7 @@ def geometry_tables(scene: Scene, geom: str) -> KernelTables:
             ],
             dim=1,
         ).contiguous(),
-        **cache["sphere_tables"],
+        **_sphere_part(scene),
     )
     if geom != "spheres":
         # the triangle instantiations scan the sphere clusters in one level
@@ -1706,6 +1970,7 @@ def geometry_tables(scene: Scene, geom: str) -> KernelTables:
                  hi.reshape(n_runs, SUPER_CHUNKS, 3).amax(dim=1), zero],
                 dim=1,
             ).contiguous()
+        tab.chunk_warp_scan = chunk_scan_across_warp(ends - first)
         chunk_of = np.searchsorted(ends, np.arange(tri.count), side="right")
         tab.chunk_of = torch.from_numpy(chunk_of).to(dev)
         tab.chunk_members = torch.from_numpy(
@@ -1829,6 +2094,7 @@ def render_frames_mega(
     rows: tuple[int, int] | None = None,
     probe: str | None = None,
     tables: str | None = None,
+    phase_one: dict | None = None,
 ):
     """Render ``n_frames`` frames from ``frame0`` (folded into ``accum``
     when given) -> ``(image, total segments, per-pixel segments, bounce
@@ -1852,20 +2118,22 @@ def render_frames_mega(
     ``probe``, one of ``PROBES``, sets that profiling knob: on the card the
     probe library's instantiation (``PathTraceKernel.launch``), on the CPU
     the plain version's (``render_frames_plain``); the outputs are those
-    without it."""
+    without it. ``phase_one``, a dict, gains refill's first phase
+    (``render_frames_plain``; on the card also the launches' events,
+    ``PathTraceKernel.launch``)."""
     dev = scene.device
     if dev.type == "cpu":
-        band_rows(cfg, rows)  # the kernel's rule (launch checks it there)
+        band_rows(scene, cfg, rows)  # the kernel's rule, checked there too
         if tables is not None and tables not in TABLES:
             raise ValueError(f"tables must be one of {TABLES}, got {tables!r}")
         return render_frames_plain(
             scene, camera, cfg, frame0, n_frames, accum, collect_stats,
-            rows=rows, probe=probe,
+            rows=rows, probe=probe, phase_one=phase_one,
         )
     if dev.type == "cuda":
         return KERNEL.launch(
             scene, camera, cfg, frame0, n_frames, accum, collect_stats,
-            rows=rows, probe=probe, tables=tables,
+            rows=rows, probe=probe, tables=tables, phase_one=phase_one,
         )
     raise ValueError(f"no render path for device {dev}")
 

@@ -8,8 +8,8 @@ public names. A mesh is a ``(spp, tiles)`` grid of devices:
     of the mesh, each rendered by the kernel's band launch
     (``kernels/megakernel.render_frames_mega(rows=...)``). A pixel's seed
     and camera ray are the whole frame's, so the bands stitch into the
-    single-device image bit for bit, with adaptive refill too: every band
-    starts on a row of the kernel's blocks, so its refill warps are the
+    single-device image bit for bit, with adaptive refill too: there every
+    band starts on a row of refill tiles, so it holds whole tiles, the
     whole frame's. No data moves between devices while they render.
   * ``spp``: each row of the mesh renders the same band with the frame
     seed ``frame + row``; their mean (summed in row order, divided once)
@@ -30,10 +30,11 @@ The band layout, which is also the port's block layout: a list of
 bh, H)`` of the frame on ``mesh.devices[0, t]``, ``bh`` being
 ``mega_band_height``. It has no padding rows: a band past the frame's last
 row holds none and launches nothing. The band height depends on the
-frame's height and the mesh only. (The JAX module's depends on the TPU
-kernel's tile size too, which differs between batched and single-frame
-launches, so a 1-frame tail chunk of a batched render recomputes it and
-raises.)
+frame's height, the mesh and, with refill, the config's tile size only,
+not on the scene or the batch. (The JAX module's depends on the TPU
+kernel's tile size for the launch, which differs between batched and
+single-frame launches, so a 1-frame tail chunk of a batched render
+recomputes it and raises.)
 """
 
 from __future__ import annotations
@@ -44,7 +45,12 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from ..kernels.megakernel import BLOCK_Y, _tensor_leaves, render_frames_mega
+from ..kernels.megakernel import (
+    BLOCK_Y,
+    _tensor_leaves,
+    refill_band_rows,
+    render_frames_mega,
+)
 from ..models.geometry import Scene
 from ..ops import vecmath as vm
 from ..ops.accumulate import accumulate
@@ -114,13 +120,15 @@ def mega_band_height(
     batched: bool = False, paired: bool = False,
 ) -> int:
     """Rows a band: ``ceil(H / tiles)`` rounded up to whole rows of the
-    kernel's blocks (``BLOCK_Y``), so that every band starts on one.
-    ``scene``, ``batched`` and ``paired`` are taken for the JAX module's
-    signature and not read: the height depends on the frame and the mesh
-    only."""
+    kernel's blocks (``BLOCK_Y``), or with refill of its refill tiles
+    (``refill_band_rows``, a multiple of every scene's tile side, as the
+    JAX module makes its bands TS-aligned), so that every band starts on
+    one. ``scene``, ``batched`` and ``paired`` are taken for the JAX
+    module's signature and not read."""
     del scene, batched, paired
     per_band = -(-cfg.height // mesh.shape["tiles"])
-    return -(-per_band // BLOCK_Y) * BLOCK_Y
+    align = refill_band_rows(cfg) if cfg.adaptive_spp else BLOCK_Y
+    return -(-per_band // align) * align
 
 
 def _bands(cfg: RenderConfig, mesh: Mesh) -> list[tuple[int, int]]:

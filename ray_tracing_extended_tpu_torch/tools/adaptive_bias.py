@@ -10,10 +10,13 @@ sampling when its group is done is expected to favour short paths a
 little. Reports mean(d_f) with its t-statistic over F frames, and the
 relative bias mean(d) / mean(exact) with its 95% CI.
 
-The port's refill group is the kernel's warp (16x2 pixels), not the TPU
-kernel's tile, so the TPU's figure does not carry over: this is the card's
-own number for ``render_adaptive``. Runs on the card by default; on the
-CPU (the plain slot machine over the same warp groups) at small sizes::
+The port's refill groups pixels by the TPU kernel's tiles
+(``kernels/megakernel.refill_tile_size``: 128 x 128 on both scenes), as
+the JAX package does; ``against_reference`` sets a scene's line beside
+the reference's interval, measured by the JAX tool on a TPU v5e
+(``ray_tracing_extended_tpu/utils/config.py:50-53``). Runs on the card by
+default; on the CPU (the plain version's two phases over the same tiles)
+at small sizes::
 
     python -m ray_tracing_extended_tpu_torch.tools.adaptive_bias
     python -m ray_tracing_extended_tpu_torch.tools.adaptive_bias \\
@@ -21,7 +24,8 @@ CPU (the plain slot machine over the same warp groups) at small sizes::
 
 Prints one JSON line a step: ``init`` (the device), one a scene (RTIOW
 480x270, 4 bounces, 16 spp; Cornell 256x256, 8 bounces, 16 spp, unless
-``--width``/``--height``/``--spp`` say otherwise), ``done``.
+``--width``/``--height``/``--spp`` say otherwise; refill on the tiles of
+``--tile-size`` where given), ``done``.
 """
 
 from __future__ import annotations
@@ -34,6 +38,12 @@ import time
 
 import numpy as np
 import torch
+
+
+# The reference's relative bias and 95% half-width, its tools/adaptive_bias.py
+# on a TPU v5e (its utils/config.py:50-53), over the same 32 frames of the
+# same scenes and sizes.
+REFERENCE = {"rtiow": (0.00198, 0.00013), "cornell": (-0.00048, 0.00084)}
 
 
 def emit(**kw) -> None:
@@ -71,6 +81,18 @@ def run_scene(name, scene, cam, cfg, frames=32) -> dict:
     return line
 
 
+def against_reference(line: dict) -> dict:
+    """A scene's line (``run_scene``) beside the reference's interval
+    (``REFERENCE``): both, whether the two 95% intervals overlap, and
+    whether this one holds 0."""
+    ref, half = REFERENCE[line["step"]]
+    return dict(rel_bias=line["rel_bias"], rel_ci95=line["rel_ci95"],
+                reference_rel_bias=ref, reference_rel_ci95=half,
+                overlaps_reference=abs(line["rel_bias"] - ref)
+                <= line["rel_ci95"] + half,
+                contains_zero=abs(line["rel_bias"]) <= line["rel_ci95"])
+
+
 def main(argv=None) -> int:
     from ..models.presets import cornell_box_scene, rtiow_final_scene
     from ..utils.device import resolve_device
@@ -81,6 +103,9 @@ def main(argv=None) -> int:
     p.add_argument("--width", type=int, help="both scenes' width")
     p.add_argument("--height", type=int, help="both scenes' height")
     p.add_argument("--spp", type=int, default=16)
+    p.add_argument("--tile-size", type=int,
+                   help="the refill tile's side (mega_tile_size), for how "
+                   "the bias follows the group")
     args = p.parse_args(argv)
     if args.frames < 2:
         raise SystemExit("--frames must be at least 2 (a standard error)")
@@ -92,12 +117,12 @@ def main(argv=None) -> int:
     t0 = time.time()
     emit(step="init", device=torch.cuda.get_device_name(dev)
          if dev.type == "cuda" else str(dev))
-    scene, cam, cfg = rtiow_final_scene(
-        **size(480, 270), max_bounce=4, spp=args.spp, device=dev)
-    run_scene("rtiow", scene, cam, cfg, args.frames)
-    scene, cam, cfg = cornell_box_scene(
-        **size(256, 256), max_bounce=8, spp=args.spp, device=dev)
-    run_scene("cornell", scene, cam, cfg, args.frames)
+    for name, make, w, h, mb in (("rtiow", rtiow_final_scene, 480, 270, 4),
+                                 ("cornell", cornell_box_scene, 256, 256, 8)):
+        scene, cam, cfg = make(**size(w, h), max_bounce=mb, spp=args.spp,
+                               device=dev)
+        cfg = dataclasses.replace(cfg, mega_tile_size=args.tile_size)
+        run_scene(name, scene, cam, cfg, args.frames)
     emit(step="done", total_wall_s=round(time.time() - t0, 1))
     return 0
 

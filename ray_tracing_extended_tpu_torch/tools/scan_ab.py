@@ -28,6 +28,12 @@ exact and refill with the Box-Muller scatter. ``--super-chunks N`` sets
 the chunk scan's run length (a value above the chunk count switches its
 second level off) on a tree that has one.
 
+A refill line also holds the samples a pixel started in a stats frame
+(``started_samples_per_pixel``: its bounce histogram's first bin over the
+pixels; spp/s is that over a frame's seconds) and, on a tree whose
+``render_frames_mega`` takes ``phase_one``, each of the call's two launches'
+CUDA-event ms a frame (``refill_phase_frame_ms``).
+
 Each line also holds the host gap of a one-frame call
 (``host_gap_ms_median``): a lone call's wall time to
 ``torch.cuda.synchronize()`` (``one_frame_wall_ms``) less the CUDA-event
@@ -48,6 +54,7 @@ import argparse
 import dataclasses
 import hashlib
 import importlib.util
+import inspect
 import json
 import re
 import shutil
@@ -237,6 +244,23 @@ def main(argv=None) -> int:
             gap = [w - d for w, d in zip(one_wall, one_device)]
             if not torch.equal(acc, again):
                 raise RuntimeError(f"{name}: two identical calls differ")
+            launches = dict(mk.KERNEL.variant_launches)
+            refill = {}
+            if adaptive:
+                _, _, hist = rtt.render_frame_with_stats(
+                    scene, cam, vcfg, 1, bounce_stats=True)
+                refill["started_samples_per_pixel"] = (
+                    int(hist[0]) / (cfg.width * cfg.height))
+                if "phase_one" in inspect.signature(
+                        mk.render_frames_mega).parameters:
+                    one = {}
+                    mk.render_frames_mega(scene, cam, vcfg, 1, K_FRAMES,
+                                          accum=acc0.clone(), phase_one=one)
+                    torch.cuda.synchronize()
+                    e = one["events"]
+                    refill["refill_phase_frame_ms"] = [
+                        e[0].elapsed_time(e[1]) / K_FRAMES,
+                        e[2].elapsed_time(e[3]) / K_FRAMES]
             moved = {}
             config = (f"{name}_{'refill' if adaptive else 'exact'}"
                       f"{'_fast' if fast else ''}")
@@ -259,7 +283,7 @@ def main(argv=None) -> int:
                  host_gap_ms_median=statistics.median(gap), segments=int(segs),
                  image_mean=float(acc.mean()),
                  image_mean_f64=float(acc.double().mean()),
-                 launches=dict(mk.KERNEL.variant_launches), **moved)
+                 launches=launches, **refill, **moved)
     if args.out:
         with open(args.out, "a") as f:
             f.write("\n".join(lines) + "\n")

@@ -6,7 +6,8 @@ serialized settings at RayTracingManager.cs:12-17 plus framework knobs
 (block size, accumulation clamp mode). Frozen and hashable, like the JAX
 package's, so a config compares equal across the two packages field by
 field. The ``mega_*`` fields are scheduler knobs of the TPU kernel; the
-port accepts and ignores them.
+port reads ``mega_tile_size`` (the adaptive refill's tile, see
+``adaptive_spp``) and accepts and ignores the others.
 
 ``validate()`` applies the reference's OnValidate clamps
 (RayTracingManager.cs:196-203).
@@ -37,25 +38,28 @@ class RenderConfig:
     # ``spp`` samples keep tracing EXTRA samples (continuing their pixel's
     # RNG stream) while any lane in their tile is still below target; each
     # pixel's output is the mean of its actually-completed samples
-    # (>= spp). Raises live-lane occupancy from ~58% to ~95% on the RTIOW
-    # headline - strictly more samples per frame for the same wall time.
-    # Off by default: every pixel then gets EXACTLY spp samples (reference
-    # parity, RayTracing.shader:374), and output is independent of tile
-    # layout / device count; with refill the extra-sample count depends on
-    # tile companions, so images are deterministic only for a fixed
-    # layout. Consistent, MC-level agreement with the exact-spp mean:
-    # the refill WINDOW is set by the tile's slowest lanes (not by a
-    # lane's own sample values), but the number of refill samples a lane
-    # completes inside that window does correlate with its own path
-    # lengths, and refills still in flight when the static slot bound is
-    # exhausted are dropped - a stopping-time effect bounded by ~one
-    # partial sample over >= spp completed ones (slight preference for
-    # short-path radiance). MEASURED on v5e (tools/adaptive_bias.py,
-    # paired 32-frame image means, shared RNG streams, 2026-08-18):
-    # RTIOW 480x270 spp16 rel bias +0.198% +- 0.013% (95% CI, t=28.8);
-    # Cornell 256x256 depth-8 -0.048% +- 0.084% (consistent with 0).
-    # i.e. well under 1% of image mean everywhere measured. Use the
-    # default exact-spp mode where strict estimator neutrality matters.
+    # (>= spp). The tile is the TPU kernel's: 128 x 128 pixels, 64 x 64 for
+    # a scene past the JAX package's one-hot fetch limit, or
+    # ``mega_tile_size`` (kernels/megakernel.py refill_tile_size), on the
+    # card and in the plain version alike. Off by default: every pixel then
+    # gets EXACTLY spp samples (reference parity, RayTracing.shader:374),
+    # and output is independent of tile layout / device count; with refill
+    # the extra-sample count depends on tile companions, so images are
+    # deterministic only for a fixed layout. Consistent, MC-level agreement
+    # with the exact-spp mean: the refill WINDOW is set by the tile's
+    # slowest lanes (not by a lane's own sample values), but the number of
+    # refill samples a lane completes inside that window does correlate
+    # with its own path lengths, and refills still in flight when the
+    # static slot bound is exhausted are dropped - a stopping-time effect
+    # bounded by ~one partial sample over >= spp completed ones.
+    # MEASURED on the card (tools/adaptive_bias.py, paired 32-frame image
+    # means, shared RNG streams; NVIDIA H100 80GB HBM3, 700.00 W): RTIOW
+    # 480x270 spp16 rel bias +0.446% +- 0.010% (95% CI, t=84.3); Cornell
+    # 256x256 depth-8 +0.074% +- 0.083% (consistent with 0). Grouped by
+    # warps (32 pixels) before, the card measured +0.710% +- 0.006% and
+    # +0.142% +- 0.056%. The JAX package measured on a TPU v5e +0.198% +-
+    # 0.013% and -0.048% +- 0.084% (its utils/config.py). Use the default
+    # exact-spp mode where strict estimator neutrality matters.
     adaptive_spp: bool = False
     # Fast scatter sampler (megakernel only): Marsaglia-style uniform unit
     # vector (2 PCG draws, sqrt+sin+cos) instead of the reference's three

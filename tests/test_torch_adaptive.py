@@ -2,20 +2,25 @@
 version on the CPU against the TPU kernel they come from, run in interpret
 mode as the JAX package's own tests run it, and the refill's invariants.
 
-Refill makes the image depend on how pixels are grouped, so the plain
-version takes the grouping: the JAX kernel's TS x TS tiles
-(``tile_groups``, TS=32 as ``tests/conftest.py`` pins it) against the JAX
-kernel, the CUDA kernel's warps (``warp_groups``) everywhere else. Rule
-for the comparisons with JAX: ``tests/test_megakernel.py``'s whole-frame
-rule (over 99.5% of pixels within 1e-3, mean abs difference under 1e-3)
-holds for refill too, and the segment totals are held within 1%. The rule
-could fail where one path flipped by the JAX kernel's 1-ulp u32 -> f32
-conversion changes the slowest lane of a tile, and with it every pixel's
-extra samples there; at these sizes it does not.
+Refill makes the image depend on how pixels are grouped. Both kernels
+group by the TPU kernel's TS x TS tiles (``tile_groups`` of
+``refill_tile_size``, the port's copy of the JAX package's tile-size
+rule), and the plain version runs the CUDA kernel's two phases
+(``_refill_two_phase``), held here bit for bit to the slot machine over
+the same groups. Against the JAX kernel TS is 32, as
+``tests/conftest.py`` pins it there, through ``mega_tile_size`` on the
+port's side. Rule for the comparisons with JAX:
+``tests/test_megakernel.py``'s whole-frame rule (over 99.5% of pixels
+within 1e-3, mean abs difference under 1e-3) holds for refill too, and the
+segment totals are held within 1%. The rule could fail where one path
+flipped by the JAX kernel's 1-ulp u32 -> f32 conversion changes the
+slowest lane of a tile, and with it every pixel's extra samples there; at
+these sizes it does not.
 """
 
 import dataclasses
 import os
+import pathlib
 
 import numpy as np
 import jax.numpy as jnp
@@ -25,9 +30,14 @@ import torch
 from ray_tracing_extended_tpu.kernels.megakernel import (
     render_frame_mega,
     render_frames_mega,
+    tile_size,
 )
+from ray_tracing_extended_tpu.kernels.pack import pack_scene
 from ray_tracing_extended_tpu.models import presets as jpresets
 from ray_tracing_extended_tpu.ops import rng as jrng
+from ray_tracing_extended_tpu.scene.json_scene import (
+    load_json_scene as j_load_json_scene,
+)
 import ray_tracing_extended_tpu_torch as rtt
 from ray_tracing_extended_tpu_torch.interop import (
     camera_from_arrays,
@@ -35,9 +45,11 @@ from ray_tracing_extended_tpu_torch.interop import (
 )
 from ray_tracing_extended_tpu_torch.kernels import megakernel as tmk
 from ray_tracing_extended_tpu_torch.models import presets as tpresets
+from ray_tracing_extended_tpu_torch.models.wide_scenes import wide_sphere_scene
 from ray_tracing_extended_tpu_torch.ops import rng as trng
 
 TS = int(os.environ.get("RTX_MEGA_TS", "32"))
+SCENES = pathlib.Path(__file__).resolve().parent.parent / "scenes"
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -123,8 +135,132 @@ def test_refill_k_frames_matches_tpu_kernel_interpret():
     assert abs(int(b_segs) - int(a_segs)) <= 0.01 * int(a_segs)
 
 
+@pytest.mark.parametrize("preset", ["three_sphere_scene", "cornell_box_scene"])
+def test_refill_default_grouping_matches_tpu_kernel_interpret(preset):
+    """The port's refill with its own grouping, no ``groups`` given,
+    against the JAX kernel, both at TS = 32 (the config's tile size on
+    the port's side): one frame, and two frames folded into a seeded
+    accumulator, the whole-frame rule and segment totals within 1%. (While
+    the port grouped refill by warps it failed here.)"""
+    js, jc, cfg = getattr(jpresets, preset)(width=64, height=32, spp=4,
+                                            max_bounce=4)
+    cfg = dataclasses.replace(cfg, adaptive_spp=True)
+    tcfg = dataclasses.replace(cfg, mega_tile_size=TS)
+    scene, cam = _port(js, jc)
+    assert tmk.refill_tile_size(scene, tcfg) == TS
+    a, a_segs = render_frame_mega(js, jc, cfg, jnp.uint32(0), interpret=True)
+    b, b_segs = rtt.render_frame_with_stats(scene, cam, tcfg, 0)
+    _tight(np.asarray(a), b.numpy())
+    assert abs(int(b_segs) - int(a_segs)) <= 0.01 * int(a_segs)
+    acc0 = np.random.RandomState(3).uniform(0, 1.5, (32, 64, 3)).astype(
+        np.float32)
+    a, a_segs = render_frames_mega(js, jc, cfg, jnp.uint32(2),
+                                   jnp.asarray(acc0), 2, interpret=True)[:2]
+    b, b_segs = rtt.render_frames_and_accumulate(
+        scene, cam, tcfg, torch.from_numpy(acc0), 2, 2)
+    _tight(np.asarray(a), b.numpy())
+    assert abs(int(b_segs) - int(a_segs)) <= 0.01 * int(a_segs)
+
+
+def _j_scene(name):
+    """A JAX-package scene by name: a shipped mirror, a preset, or RTIOW's
+    rule over a wider grid."""
+    if name.endswith(".json"):
+        return j_load_json_scene(SCENES / name)[0]
+    if name.startswith("wide"):
+        return wide_sphere_scene(jpresets, int(name[4:]), width=8,
+                                 height=8)[0]
+    return getattr(jpresets, name)()[0]
+
+
+# every shipped scene, RTIOW and the 70k-triangle mesh; RTIOW's rule over
+# 90 x 90 cells (8,103 spheres: the JAX package drops the hoist, 8,192
+# slots, just within the one-hot limit) and 120 x 120 (past it)
+TILE_SCENES = sorted(p.name for p in SCENES.glob("*.json")) + [
+    "rtiow_final_scene", "mesh_scene", "wide45", "wide60"]
+
+
+@pytest.mark.parametrize("name", TILE_SCENES)
+def test_refill_tile_size_matches_jax(name, monkeypatch):
+    """The port's refill tile side against the JAX package's
+    ``tile_size(pack_scene(scene), adaptive=True)`` on the same arrays,
+    with ``RTX_MEGA_TS`` (which the port does not read) unset; the config's
+    ``mega_tile_size`` wins on both sides."""
+    monkeypatch.delenv("RTX_MEGA_TS", raising=False)
+    js = _j_scene(name)
+    packed = pack_scene(js)
+    scene = scene_from_arrays(js, device="cpu")
+    cfg = tpresets.RenderConfig()
+    want = tile_size(packed, adaptive=True)
+    assert tmk.refill_tile_size(scene, cfg) == want
+    assert want == (64 if packed.fetch_mode == "winner" else 128)
+    assert (tmk.tpu_table_slots(scene) > tmk.ONEHOT_MAX_SLOTS) == (
+        packed.fetch_mode == "winner")
+    cfg48 = dataclasses.replace(cfg, mega_tile_size=48)
+    assert tmk.refill_tile_size(scene, cfg48) == 48 == tile_size(
+        packed, adaptive=True, override=48)
+    with pytest.raises(ValueError, match="mega_tile_size"):
+        tmk.refill_tile_size(scene,
+                             dataclasses.replace(cfg, mega_tile_size=40))
+
+
 def _three_sphere(**kw):
     return tpresets.three_sphere_scene(device="cpu", **kw)
+
+
+def _two_phase_case(preset, width, height, spp, max_bounce):
+    """A refill case on pixel blocks of 256 (``block_size``): both forms
+    then trace their live lanes in several calls a slot."""
+    scene, cam, cfg = getattr(tpresets, preset)(
+        width=width, height=height, spp=spp, max_bounce=max_bounce,
+        device="cpu")
+    return scene, cam, dataclasses.replace(cfg, adaptive_spp=True,
+                                           block_size=256)
+
+
+@pytest.mark.parametrize("preset, n_frames, clamp, rows, ts", [
+    ("three_sphere_scene", 1, True, None, 16),
+    ("three_sphere_scene", 4, False, None, 16),
+    ("three_sphere_scene", 4, True, (16, 24), 16),
+    ("cornell_box_scene", 1, False, (0, 16), 16),
+    ("cornell_box_scene", 4, True, None, 32),
+], ids=["k1", "k4-hdr", "k4-band", "cornell-k1-band", "cornell-k4"])
+def test_two_phase_refill_equals_slot_machine(preset, n_frames, clamp, rows,
+                                              ts):
+    """The kernel's two phases (the exact loop, each tile's last finish,
+    then each lane's extra samples from its own slot) against the TPU
+    kernel's slot machine over the same tiles, bit for bit: image, segment
+    map, total and bounce histogram. A 40 x 24 frame, whose right and top
+    edges cut tiles; K = 1 and K = 4 from a seeded accumulator; both clamp
+    modes; a band of whole tiles; live lanes traced 256 a call."""
+    scene, cam, cfg = _two_phase_case(preset, 40, 24, 2, 3)
+    cfg = dataclasses.replace(cfg, clamp_accumulate=clamp)
+    y0, y1 = rows or (0, 24)
+    acc = None
+    if n_frames > 1:
+        acc = torch.from_numpy(np.random.RandomState(4).uniform(
+            0, 2, (y1 - y0, 40, 3)).astype(np.float32))
+    groups = tmk.tile_groups(40, 24, ts)
+    fn = tmk.plain_intersector(scene, cam, cfg)
+    slot = tmk._render_adaptive(scene, cam, cfg, 5, n_frames, acc, True, y0,
+                                y1, groups, fn, False, two_phase=False)
+    phase_one = {}
+    two = tmk._render_adaptive(scene, cam, cfg, 5, n_frames, acc, True, y0,
+                               y1, groups, fn, False, phase_one=phase_one)
+    assert torch.equal(two[0], slot[0]) and torch.equal(two[2], slot[2])
+    assert int(two[1]) == int(slot[1]) and torch.equal(two[3], slot[3])
+    # phase 1 is the exact render's segment map; each tile's last finish
+    # is its largest entry, and no pixel traced fewer segments than it
+    exact = tmk.render_frames_plain(
+        scene, cam, dataclasses.replace(cfg, adaptive_spp=False), 5,
+        n_frames, accum=acc, rows=rows)
+    assert torch.equal(phase_one["segs"], exact[2])
+    band = tmk._band_groups(groups, 40, y0, y1)
+    seg = phase_one["segs"].reshape(-1)
+    for g, t in zip(band, phase_one["tile_max"].tolist()):
+        assert t == int(seg[g[g >= 0] - y0 * 40].max())
+    assert bool((two[2] >= phase_one["segs"]).all())
+    assert int(two[1]) > int(exact[2].sum())
 
 
 def test_refill_with_one_pixel_groups_is_exact_spp():
@@ -146,10 +282,10 @@ def test_refill_with_one_pixel_groups_is_exact_spp():
 
 
 def test_refill_traces_extra_samples():
-    """With warps as groups: strictly more segments than exact spp, every
-    pixel at least its own, the histogram counting every traced segment
-    and every path alive at bounce 0, and the JAX package's own refill
-    rule against the exact-spp image."""
+    """With the default tiles as groups: strictly more segments than exact
+    spp, every pixel at least its own, the histogram counting every traced
+    segment and every path alive at bounce 0, and the JAX package's own
+    refill rule against the exact-spp image."""
     scene, cam, cfg = _three_sphere(width=64, height=32, spp=4)
     exact, e_segs, e_map, _ = tmk.render_frames_plain(scene, cam, cfg, 0)
     ad = dataclasses.replace(cfg, adaptive_spp=True)
@@ -168,17 +304,52 @@ def test_refill_traces_extra_samples():
 
 
 def test_refill_band_of_whole_groups_equals_full_frame_rows():
-    scene, cam, cfg = _three_sphere(width=40, height=24, spp=2, max_bounce=3)
-    cfg = dataclasses.replace(cfg, adaptive_spp=True)
+    """A band of whole refill tiles (16 rows a tile here) is those rows of
+    the whole frame bit for bit; a band that cuts a tile is refused, by
+    the plain version and by the entry point's band rule alike."""
+    scene, cam, cfg = _three_sphere(width=40, height=40, spp=2, max_bounce=3)
+    cfg = dataclasses.replace(cfg, adaptive_spp=True, mega_tile_size=16)
     acc0 = torch.from_numpy(
-        np.random.RandomState(2).uniform(0, 2, (24, 40, 3)).astype(np.float32))
+        np.random.RandomState(2).uniform(0, 2, (40, 40, 3)).astype(np.float32))
     full, _, full_map, _ = tmk.render_frames_plain(scene, cam, cfg, 1, 2,
                                                    accum=acc0)
-    band, _, band_map, _ = tmk.render_frames_plain(
-        scene, cam, cfg, 1, 2, accum=acc0[8:14].contiguous(), rows=(8, 14))
-    assert torch.equal(band, full[8:14]) and torch.equal(band_map, full_map[8:14])
+    for y0, y1 in ((16, 32), (32, 40)):
+        band, _, band_map, _ = tmk.render_frames_plain(
+            scene, cam, cfg, 1, 2, accum=acc0[y0:y1].contiguous(),
+            rows=(y0, y1))
+        assert torch.equal(band, full[y0:y1])
+        assert torch.equal(band_map, full_map[y0:y1])
     with pytest.raises(ValueError, match="whole groups"):
-        tmk.render_frames_plain(scene, cam, cfg, 1, rows=(9, 14))
+        tmk.render_frames_plain(scene, cam, cfg, 1, rows=(8, 24))
+    with pytest.raises(ValueError, match="whole tiles"):
+        tmk.render_frames_mega(scene, cam, cfg, 1, rows=(8, 24))
+
+
+def test_refill_bands_hold_whole_tiles():
+    """The band split's refill bands are multiples of the refill tile's
+    side (``refill_band_rows``: 128, a multiple of both default sides, or
+    the config's), as the JAX module's are TS-aligned; exact spp keeps
+    bands of the kernel's block rows. ``band_rows`` takes a refill band on
+    the scene's own tile rows only."""
+    from ray_tracing_extended_tpu_torch.parallel import sharding as sh
+
+    scene, cam, cfg = _three_sphere(width=8, height=1080)
+    mesh = sh.make_mesh(["cpu"] * 4)
+    ad = dataclasses.replace(cfg, adaptive_spp=True)
+    assert sh.mega_band_height(None, cfg, mesh) == 272
+    assert sh.mega_band_height(None, ad, mesh) == 384
+    ad32 = dataclasses.replace(ad, mega_tile_size=32)
+    assert sh.mega_band_height(None, ad32, mesh) == 288
+    bands = sh.init_accum_mega_bands(None, ad, mesh)
+    assert [b.shape[0] for b in bands] == [384, 384, 312, 0]
+    assert tmk.refill_tile_size(scene, ad) == 128
+    assert tmk.band_rows(scene, ad, (384, 768)) == (384, 768)
+    assert tmk.band_rows(scene, ad, (768, 1080)) == (768, 1080)
+    assert tmk.band_rows(scene, cfg, (3, 17)) == (3, 17)
+    for rows in ((272, 544), (384, 600), (64, 128)):
+        with pytest.raises(ValueError, match="whole tiles"):
+            tmk.band_rows(scene, ad, rows)
+    assert tmk.band_rows(scene, ad32, (64, 128)) == (64, 128)
 
 
 def test_group_layouts():

@@ -291,7 +291,8 @@ def test_refill_and_fast_scatter_match_plain_gates(cuda, name, adaptive, fast):
         k_hist = k_hist.cpu()
         assert int(k_hist.sum()) == int(k_segs) == int(k_map.sum())
         assert int(k_hist[0]) >= 96 * 54 * cfg.spp
-    assert mk.KERNEL.variant_launches[name_k] == before + 3
+    assert mk.KERNEL.variant_launches[name_k] == (
+        before + 3 * mk.launches_per_call(cfg))
 
 
 def _exact_case(name, cuda):
@@ -401,17 +402,20 @@ def test_refill_at_depth_zero_equals_exact_kernel(cuda, name, fast):
 @pytest.mark.parametrize("clamp", [False, True])
 def test_refill_fold_matches_plain(cuda, clamp):
     """The refill kernel's K-frame fold from a seeded accumulator, spheres
-    and triangles, on a band of whole warp rows of the plain version."""
+    and triangles, on a band of whole refill tiles (16 rows, the config's)
+    of the plain version."""
     for make in (presets.rtiow_final_scene, presets.cornell_box_scene):
         scene, cam, cfg = make(width=96, height=54, max_bounce=1, spp=4)
         cam = cam.replace(defocus_strength=0.0)
-        cfg = dataclasses.replace(cfg, adaptive_spp=True, clamp_accumulate=clamp)
+        cfg = dataclasses.replace(cfg, adaptive_spp=True,
+                                  clamp_accumulate=clamp, mega_tile_size=16)
         gen = torch.Generator(device=cuda).manual_seed(2)
         acc0 = 2.0 * torch.rand((54, 96, 3), generator=gen, device=cuda)
         k, _, k_map, _ = mk.render_frames_mega(scene, cam, cfg, 2, 3, accum=acc0)
         p, _, p_map, _ = mk.render_frames_plain(
-            scene, cam, cfg, 2, 3, accum=acc0[20:36].contiguous(), rows=(20, 36))
-        _, median, channel = _gates(k[20:36], p)
+            scene, cam, cfg, 2, 3, accum=acc0[16:32].contiguous(),
+            rows=(16, 32))
+        _, median, channel = _gates(k[16:32], p)
         assert median < 2e-3 and channel < 5e-3, (median, channel)
         assert int(k_map.min()) >= 3 * cfg.spp
         if clamp:
@@ -433,7 +437,7 @@ def test_render_command_on_the_card(cuda, tmp_path):
     after = mk.KERNEL.variant_launches
     grew = {k: after[k] - before.get(k, 0) for k in after
             if after[k] != before.get(k, 0)}
-    assert grew == {mk.variant("spheres", adaptive=True): 3}
+    assert grew == {mk.variant("spheres", adaptive=True): 3 * 2}
     img = np.load(out)
     assert img.shape == (108, 192, 3) and np.isfinite(img).all()
     with np.load(ck) as z:
@@ -461,7 +465,7 @@ def test_mesh_command_on_the_card(cuda, tmp_path):
     after = mk.KERNEL.variant_launches
     grew = {k: after[k] - before.get(k, 0) for k in after
             if after[k] != before.get(k, 0)}
-    assert grew == {mk.variant("bvh", adaptive=True): 4}
+    assert grew == {mk.variant("bvh", adaptive=True): 4 * 2}
 
 
 def _band_scene(name, cuda, **small):
@@ -474,21 +478,24 @@ def _band_scene(name, cuda, **small):
 @pytest.mark.parametrize("name", ["rtiow", "cornell", "mesh"])
 def test_band_launches_equal_whole_frame_launch(cuda, name, adaptive):
     """Band launches (a 1x4 mesh listing the card four times: bands of 16,
-    16, 16 and 6 rows) of each geometry, stitched, against the whole-frame
-    launch bit for bit: a frame with its total, and a 2-frame fold from a
-    seeded accumulator with its per-pixel map and total; each band against
+    16, 16 and 6 rows; refill on tiles of 16, the config's) of each
+    geometry, stitched, against the whole-frame launch bit for bit: a frame
+    with its total, and a 2-frame fold from a seeded accumulator with its
+    per-pixel map and total; each band against
     render_frames_plain(rows=...) under bench.py's mb1 gate."""
     from ray_tracing_extended_tpu_torch.parallel import sharding as sh
 
     scene, cam, cfg = _band_scene(name, cuda, width=96, height=54, spp=2,
                                   max_bounce=1)
-    cfg = dataclasses.replace(cfg, adaptive_spp=adaptive)
+    cfg = dataclasses.replace(cfg, adaptive_spp=adaptive,
+                              mega_tile_size=16 if adaptive else None)
     variant = mk.variant(mk.geometry(scene, cfg), adaptive)
     mesh = sh.make_mesh([cuda] * 4)
     img, segs, _, _ = mk.render_frames_mega(scene, cam, cfg, 3)
     before = mk.KERNEL.variant_launches[variant]
     s_img, s_segs = sh.render_frame_mega_sharded(scene, cam, cfg, 3, mesh)
-    assert mk.KERNEL.variant_launches[variant] == before + 4
+    assert mk.KERNEL.variant_launches[variant] == (
+        before + 4 * mk.launches_per_call(cfg))
     assert torch.equal(s_img, img) and int(s_segs) == int(segs)
 
     gen = torch.Generator(device=cuda).manual_seed(0)
@@ -510,7 +517,7 @@ def test_band_launches_equal_whole_frame_launch(cuda, name, adaptive):
 
 
 def test_band_launch_rules_on_the_card(cuda, tmp_path):
-    """A refill band off the kernel's block rows raises; a 2x2 mesh's frame
+    """A refill band off the refill tiles' rows raises; a 2x2 mesh's frame
     is the mean of two launches bit for bit; ``make_mesh()`` takes every
     visible card; ``render --mesh`` needs as many cards as the mesh names
     and exits naming how many are visible, and ``--mesh 1x1`` is the render
@@ -521,13 +528,13 @@ def test_band_launch_rules_on_the_card(cuda, tmp_path):
 
     scene, cam, cfg = _on(cuda, *presets.three_sphere_scene(
         width=40, height=24, spp=2))
-    acfg = dataclasses.replace(cfg, adaptive_spp=True)
-    for rows in ((4, 24), (8, 20)):
-        with pytest.raises(ValueError, match="blocks"):
+    acfg = dataclasses.replace(cfg, adaptive_spp=True, mega_tile_size=16)
+    for rows in ((4, 24), (8, 24), (0, 8)):
+        with pytest.raises(ValueError, match="whole tiles"):
             mk.render_frames_mega(scene, cam, acfg, 0, rows=rows)
     whole = mk.render_frames_mega(scene, cam, acfg, 0)[0]
     assert torch.equal(mk.render_frames_mega(scene, cam, acfg, 0,
-                                             rows=(8, 24))[0], whole[8:])
+                                             rows=(16, 24))[0], whole[16:])
     img, segs = sh.render_frame_mega_sharded(
         scene, cam, cfg, 6, sh.make_mesh([cuda] * 4, spp_parallel=2))
     a0, s0, _, _ = mk.render_frames_mega(scene, cam, cfg, 6)
@@ -569,7 +576,7 @@ def test_bvh_kernel_equals_plain_bit_for_bit(cuda, adaptive, fast):
     BVH instantiation: the kernel's traversal and the plain one visit the
     same nodes and triangles in the same order, so the image, the
     per-pixel segment map and the histogram are the plain version's bit for
-    bit; one launch of the instantiation counted."""
+    bit; the instantiation's launches counted (two with refill)."""
     scene, cam, cfg = presets.mesh_scene(width=192, height=108, spp=4,
                                          max_bounce=0)
     cfg = dataclasses.replace(cfg, adaptive_spp=adaptive, fast_scatter=fast)
@@ -581,7 +588,8 @@ def test_bvh_kernel_equals_plain_bit_for_bit(cuda, adaptive, fast):
     p, p_segs, p_map, p_hist = mk.render_frames_plain(scene, cam, cfg, 5,
                                                       collect_stats=True)
     torch.cuda.synchronize()
-    assert mk.KERNEL.variant_launches[name] == before + 1
+    assert mk.KERNEL.variant_launches[name] == (
+        before + mk.launches_per_call(cfg))
     assert torch.equal(k.view(torch.int32), p.view(torch.int32))
     assert torch.equal(k_map, p_map) and torch.equal(k_hist, p_hist)
     assert int(k_segs) == int(p_segs) == 192 * 108 * 4
@@ -775,7 +783,8 @@ def _scan_vs_plain(scene, cam, cfg, tables, rows=None):
             scene, cam, ccfg, 2, 3, accum=acc0, rows=rows, intersect_fn=fn)
         assert _bits_equal(k, p) and torch.equal(k_map, p_map)
     torch.cuda.synchronize()
-    assert mk.KERNEL.variant_launches[v] == before + 3
+    assert mk.KERNEL.variant_launches[v] == (
+        before + 3 * mk.launches_per_call(cfg))
     return k_map
 
 
@@ -877,14 +886,16 @@ def test_warp_scan_with_the_camera_in_a_sphere(cuda, inside, adaptive, fast,
 def test_warp_scan_band_with_lanes_outside_the_image(cuda, adaptive, fast,
                                                      tables):
     """RTIOW 96x54 on a band launch whose last warps reach past the band
-    (exact: rows 10-26, a warp with one row in and one out; refill: rows 8
-    to the end, whose last block rows lie past the frame): their lanes
-    cast every vote of the scan and hold spheres in it. Both kernels, both
-    scatters, both table routes, bit for bit the plain version's band."""
+    (exact: rows 10-26, a warp with one row in and one out; refill, on
+    tiles of 16: rows 16 to the end, whose last block rows lie past the
+    frame): their lanes cast every vote of the scan and hold spheres in
+    it. Both kernels, both scatters, both table routes, bit for bit the
+    plain version's band."""
     scene, cam, cfg = presets.rtiow_final_scene(width=96, height=54, spp=2,
                                                 max_bounce=4, device=cuda)
-    cfg = dataclasses.replace(cfg, adaptive_spp=adaptive, fast_scatter=fast)
-    rows = (8, 54) if adaptive else (10, 27)
+    cfg = dataclasses.replace(cfg, adaptive_spp=adaptive, fast_scatter=fast,
+                              mega_tile_size=16 if adaptive else None)
+    rows = (16, 54) if adaptive else (10, 27)
     _scan_vs_plain(scene, cam, cfg, tables, rows=rows)
 
 
@@ -958,6 +969,90 @@ def test_exact_kernel_off_the_tile_grid(cuda, name, fast, tables):
     assert band[1] == int(first[2][37:101].sum())
     torch.cuda.synchronize()
     assert mk.KERNEL.variant_launches[v] == before + 5
+
+
+REFILL_PHASE_MODES = [(n, f, ts) for n in ("rtiow", "cornell", "chess")
+                      for f in (False, True) for ts in (None, 32)]
+
+
+@pytest.mark.parametrize("name, fast, ts", REFILL_PHASE_MODES,
+                         ids=[f"{n}-{'fast' if f else 'bm'}-{ts or 'auto'}"
+                              for n, f, ts in REFILL_PHASE_MODES])
+def test_refill_phases_equal_plain_bit_for_bit(cuda, name, fast, ts):
+    """render_adaptive's two launches against the plain version's two
+    phases (its kernel test forms, so both trace the same paths) on a
+    250x134 frame, whose edges cut warps, blocks and tiles (the scene's
+    tiles of 128, or the config's 32): phase 1's segment map and each
+    tile's last finish equal as integers, and the image, segment map and
+    histogram bit for bit; a frame, and a K = 3 fold from a seeded
+    accumulator, the latter on a band of whole tiles with tiles of 32.
+    Both launches counted, and timed by their events."""
+    scene, cam, cfg = _off_tile_scene(name, cuda)
+    cfg = dataclasses.replace(cfg, adaptive_spp=True, fast_scatter=fast,
+                              mega_tile_size=ts)
+    fn = mk.plain_intersector(scene, cam, cfg, direct=True)
+    v = mk.variant(mk.geometry(scene, cfg), True, fast)
+    rows = (32, 96) if ts else None
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    acc0 = 2.0 * torch.rand((64 if ts else 134, 250, 3), generator=gen,
+                            device=cuda)
+    before = mk.KERNEL.variant_launches[v]
+    for frame0, n, acc, band in ((5, 1, None, None), (2, 3, acc0, rows)):
+        k_one, p_one = {}, {}
+        k = mk.render_frames_mega(scene, cam, cfg, frame0, n, accum=acc,
+                                  collect_stats=True, rows=band,
+                                  phase_one=k_one)
+        p = mk.render_frames_plain(scene, cam, cfg, frame0, n, accum=acc,
+                                   collect_stats=True, rows=band,
+                                   intersect_fn=fn, phase_one=p_one)
+        assert torch.equal(k_one["segs"], p_one["segs"].to(cuda))
+        assert torch.equal(k_one["tile_max"], p_one["tile_max"].to(cuda))
+        assert _bits_equal(k[0], p[0])
+        assert torch.equal(k[2], p[2]) and torch.equal(k[3], p[3])
+        assert int(k[1]) == int(k[2].sum()) > int(k_one["segs"].sum())
+        e = k_one["events"]
+        torch.cuda.synchronize()
+        assert e[0].elapsed_time(e[1]) > 0 and e[2].elapsed_time(e[3]) > 0
+    assert mk.KERNEL.variant_launches[v] == before + 4
+
+
+CHUNK_BAND_MODES = [(n, a, f, t) for n in ("chess", "cornell")
+                    for a in (False, True) for f in (False, True)
+                    for t in mk.TABLES]
+
+
+@pytest.mark.parametrize("name, adaptive, fast, tables", CHUNK_BAND_MODES,
+                         ids=[f"{n}-{'refill' if a else 'exact'}-"
+                              f"{'fast' if f else 'bm'}-{t}"
+                              for n, a, f, t in CHUNK_BAND_MODES])
+def test_chunk_scan_bands_equal_plain_bit_for_bit(cuda, name, adaptive, fast,
+                                                  tables):
+    """The warp-cooperative chunk scan computes the per-lane scan's
+    function, which the plain version computes (its kernel test forms): on
+    a band of a 250x134 frame whose edges cut warps (exact: rows 37-100;
+    refill on tiles of 32: rows 32-95), Chess (its shipped camera, 440
+    chunks in runs of 32) and Cornell (six chunks of two triangles), each
+    kChunks instantiation's frame, segment map and histogram, and a K = 3
+    fold from a seeded accumulator, bit for bit the plain version's."""
+    scene, cam, cfg = _off_tile_scene(name, cuda)
+    cfg = dataclasses.replace(cfg, adaptive_spp=adaptive, fast_scatter=fast,
+                              mega_tile_size=32 if adaptive else None)
+    assert mk.geometry(scene, cfg) == "chunks"
+    rows = (32, 96) if adaptive else (37, 101)
+    fn = mk.plain_intersector(scene, cam, cfg, direct=True)
+    k = mk.render_frames_mega(scene, cam, cfg, 5, collect_stats=True,
+                              rows=rows, tables=tables)
+    p = mk.render_frames_plain(scene, cam, cfg, 5, collect_stats=True,
+                               rows=rows, intersect_fn=fn)
+    assert _bits_equal(k[0], p[0])
+    assert torch.equal(k[2], p[2]) and torch.equal(k[3], p[3])
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    acc0 = 2.0 * torch.rand((64, 250, 3), generator=gen, device=cuda)
+    k = mk.render_frames_mega(scene, cam, cfg, 2, 3, accum=acc0, rows=rows,
+                              tables=tables)
+    p = mk.render_frames_plain(scene, cam, cfg, 2, 3, accum=acc0, rows=rows,
+                               intersect_fn=fn)
+    assert _bits_equal(k[0], p[0]) and torch.equal(k[2], p[2])
 
 
 def test_resident_warps_hold_the_cards_blocks(cuda):
@@ -1063,7 +1158,7 @@ def test_fbx_mesh_scene_on_the_card(cuda, tmp_path):
         mk.KERNEL.reset_counts()
         img = rtt.render_frame(scene, cam, c, 3)
         assert dict(mk.KERNEL.variant_launches) == {
-            mk.variant("bvh", adaptive): 1}
+            mk.variant("bvh", adaptive): mk.launches_per_call(c)}
         assert torch.isfinite(img).all() and float(img.mean()) > 0.01
         assert torch.equal(img, rtt.render_frame(ref, cam, c, 3))
 
@@ -1152,7 +1247,8 @@ def test_dup_instantiations_equal_their_twins(cuda, name, adaptive):
             assert int(total) == int(r_total), probe
     geom = mk.geometry(scene, cfg)
     assert dict(mk.KERNEL.variant_launches) == {
-        mk.variant(geom, adaptive, probe=p): 2 for p in mk.PROBES}
+        mk.variant(geom, adaptive, probe=p): 2 * mk.launches_per_call(cfg)
+        for p in mk.PROBES}
 
 
 @pytest.mark.parametrize("probe", ["dup_intersect", "dup_fetch"])

@@ -256,7 +256,7 @@ def test_forced_global_route_equals_staged(cuda, name, adaptive):
     after = mk.KERNEL.variant_launches
     for tables in mk.TABLES:
         v = mk.variant(geom, adaptive, tables=tables)
-        assert after[v] == before.get(v, 0) + 2
+        assert after[v] == before.get(v, 0) + 2 * mk.launches_per_call(cfg)
 
 
 @pytest.mark.cuda

@@ -102,10 +102,13 @@ def test_make_mesh_and_band_layout():
 def test_band_split_equals_single_device(geometry, adaptive):
     """A 1x4 split of a 36-row frame (bands of 16, 16, 4 and no row): one
     frame, and a 2-frame fold from a seeded accumulator, stitched, equal
-    the single-device render bit for bit, per-pixel segments too."""
+    the single-device render bit for bit, per-pixel segments too. Refill
+    on tiles of 16 (the config's), so that its bands, of whole tiles, are
+    the exact split's."""
     scene, cam, cfg = _scene(geometry, width=16, height=36, spp=1,
                              max_bounce=3)
-    cfg = dataclasses.replace(cfg, adaptive_spp=adaptive)
+    cfg = dataclasses.replace(cfg, adaptive_spp=adaptive,
+                              mega_tile_size=16 if adaptive else None)
     assert tmk.geometry(scene, cfg) == geometry
     mesh = _cpu_mesh(1, 4)
     img, segs = sh.render_frame_mega_sharded(scene, cam, cfg, 3, mesh)
@@ -129,12 +132,14 @@ def test_band_split_equals_single_device(geometry, adaptive):
 
 def test_odd_height_split_into_eight_bands():
     """tests/test_mega_sharded.py's odd height: 100 rows in 8 bands of 16,
-    the seventh cut to 4 rows and the last past the frame (no launch)."""
+    the seventh cut to 4 rows and the last past the frame (no launch);
+    refill on tiles of 16."""
     scene, cam, cfg = tpresets.three_sphere_scene(width=16, height=100, spp=1,
                                                   device="cpu")
     mesh = _cpu_mesh(1, 8)
     for adaptive in (False, True):
-        vcfg = dataclasses.replace(cfg, adaptive_spp=adaptive)
+        vcfg = dataclasses.replace(cfg, adaptive_spp=adaptive,
+                                   mega_tile_size=16 if adaptive else None)
         img, segs = sh.render_frame_mega_sharded(scene, cam, vcfg, 0, mesh)
         ref, ref_segs, _, _ = tmk.render_frames_mega(scene, cam, vcfg, 0)
         assert img.shape == (100, 16, 3) and torch.equal(img, ref)
@@ -144,21 +149,25 @@ def test_odd_height_split_into_eight_bands():
 
 def test_refill_band_rule():
     """render_frames_mega(rows=...) takes any band with exact spp; with
-    refill only one on rows of the kernel's 16x8 blocks (or ending at the
-    frame's edge), on the CPU as on the card."""
+    refill only one on rows of the refill tiles (16 here, or ending at the
+    frame's edge), on the CPU as on the card; with the default tiles of 128
+    a 28-row frame is one tile, so only the whole frame."""
     scene, cam, cfg = tpresets.three_sphere_scene(width=16, height=28, spp=1,
                                                   device="cpu")
     whole = tmk.render_frames_mega(scene, cam, cfg, 1)[0]
     band = tmk.render_frames_mega(scene, cam, cfg, 1, rows=(3, 17))[0]
     assert torch.equal(band, whole[3:17])
-    acfg = dataclasses.replace(cfg, adaptive_spp=True)
+    acfg = dataclasses.replace(cfg, adaptive_spp=True, mega_tile_size=16)
     whole = tmk.render_frames_mega(scene, cam, acfg, 1)[0]
-    for rows in ((8, 16), (16, 28)):
+    for rows in ((0, 16), (16, 28)):
         band = tmk.render_frames_mega(scene, cam, acfg, 1, rows=rows)[0]
         assert torch.equal(band, whole[slice(*rows)])
-    for rows in ((4, 16), (2, 10), (8, 20)):
-        with pytest.raises(ValueError, match="blocks"):
+    for rows in ((8, 16), (2, 10), (8, 20), (16, 24)):
+        with pytest.raises(ValueError, match="whole tiles"):
             tmk.render_frames_mega(scene, cam, acfg, 1, rows=rows)
+    dcfg = dataclasses.replace(cfg, adaptive_spp=True)
+    with pytest.raises(ValueError, match="whole tiles"):
+        tmk.render_frames_mega(scene, cam, dcfg, 1, rows=(16, 28))
     for rows in ((5, 5), (0, 29), (-8, 8)):
         with pytest.raises(ValueError, match="outside"):
             tmk.render_frames_mega(scene, cam, cfg, 1, rows=rows)

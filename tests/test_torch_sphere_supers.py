@@ -347,7 +347,8 @@ def _kernel_vs_plain(scene, cam, cfg, tables=None):
 def test_wide_kernel_equals_plain_bit_for_bit(cuda, half, adaptive):
     """Both wide scenes (global route, supers) through ``render_kernel`` and
     ``render_adaptive``, 96x54, 2 spp, 4 bounces: bit for bit the plain
-    version in the kernel's forms; one launch counted."""
+    version in the kernel's forms; the call's launches counted (refill's
+    two)."""
     scene, cam, cfg = wide_sphere_scene(tpresets, half, width=96, height=54,
                                         max_bounce=4, spp=2, device=cuda)
     cfg = dataclasses.replace(cfg, adaptive_spp=adaptive)
@@ -356,7 +357,8 @@ def test_wide_kernel_equals_plain_bit_for_bit(cuda, half, adaptive):
     assert mk.geometry_tables(scene, "spheres").sph_supers is not None
     before = mk.KERNEL.variant_launches[v]
     _kernel_vs_plain(scene, cam, cfg)
-    assert mk.KERNEL.variant_launches[v] == before + 1
+    assert mk.KERNEL.variant_launches[v] == (
+        before + mk.launches_per_call(cfg))
 
 
 @pytest.mark.cuda
