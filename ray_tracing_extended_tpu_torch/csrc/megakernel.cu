@@ -75,6 +75,19 @@
 //   Then the fold. That is the slot machine over the tiles bit for bit
 //   (kernels/megakernel.py _refill_two_phase). Phase 2's lanes resume at
 //   different slots, and a warp runs until its last lane's path ends.
+//   The TPU kernel's two lane knobs (Args.refill_ppl, refill_phases;
+//   megakernel.py:473-482, :1808-1843): with ppl pixels a lane, a TPU lane
+//   traces ppl pixels of its tile in turn and only the last takes extra
+//   samples; with two phases a lane starts a sample on even slots only and
+//   traces a bounce on odd ones, and the bound grows by both factors.
+//   render_adaptive<..., kKnobs> runs them (kKnobRefill). A thread still
+//   traces one pixel. Its slot is then no segment count: it keeps one
+//   (lane_slot), and a lane that would wait for its phase's slot takes it
+//   at once, which changes nothing else. Phase 1 writes each
+//   pixel's E to a slot map; with one pixel a lane it also takes T, with
+//   more the lane pass (refill_lanes, a third launch between the two) sums
+//   each TPU lane's pixels and takes T, and phase 2 resumes a lane's last
+//   pixel at that sum, its other pixels not at all.
 // Lanes outside the image stay in the loop with nothing owed: a full-mask
 // vote needs all 32, and the loop's exit is decided by a vote, so it is
 // warp-uniform.
@@ -330,6 +343,8 @@ constexpr float kTwoPiFast = static_cast<float>(2.0 * 3.14159265);
 
 constexpr unsigned kFullMask = 0xffffffffu;
 constexpr int kWarp = 32;
+// The TPU kernel's lanes: its tile is rows of 128 pixels, a lane a column.
+constexpr int kLanes = 128;
 
 // The scatter's unit-vector sampler.
 enum Scatter : bool { kBoxMuller = false, kFastScatter = true };
@@ -1332,13 +1347,18 @@ struct Args {
   int* __restrict__ segs;
   int* __restrict__ hist;
   // refill (render_adaptive) in two launches: its phase, 1 or 2; a pixel's
-  // RNG state and last frame's banked light between them; the largest
-  // segment count of each tile_size x tile_size tile of the band, tiles
-  // row-major from row y0 (see render_slots)
+  // RNG state and last frame's banked light between them; the last finish
+  // of each tile_size x tile_size tile of the band, tiles row-major from
+  // row y0 (see render_slots); a lane's pixels and phases (the TPU kernel's
+  // ppl and phases), and with either above 1 a pixel's slot: phase 1 writes
+  // it at its quota's end, phase 2 resumes from it (the lane pass's, with
+  // more than one pixel a lane; -1 for no extra samples)
   int refill_phase;
   float4* __restrict__ scratch;
   int* __restrict__ tile_max;
   int tile_size;
+  int* __restrict__ slot_map;
+  int refill_ppl, refill_phases;
   int chunk_warp_scan;  // Triangles::warp_scan
 };
 
@@ -1475,8 +1495,17 @@ __device__ __forceinline__ Vec3 div(Vec3 v, float n) {
 // that owes samples itself; kLockstep, such a lane once no lane of its warp
 // is live, so a warp's lanes start their samples together (the nested
 // loop's schedule); kRefill, also a lane whose slot is before its tile's
-// last finish.
-enum Schedule : int { kExact = 0, kLockstep = 1, kRefill = 2 };
+// last finish; kKnobRefill, kRefill under the TPU kernel's lane knobs, a
+// lane's pixels and phases (Args.refill_ppl, refill_phases), whose slot is
+// then no segment count (a template value of its own: read at run time
+// under kRefill they cost render_adaptive<kSpheres> 8 bytes of spill
+// stores and 20 of loads, ptxas -v of nvcc 12.9).
+enum Schedule : int {
+  kExact = 0,
+  kLockstep = 1,
+  kRefill = 2,
+  kKnobRefill = 3
+};
 
 // The refill tile of the band's column x and row yb (row 0 the band's
 // first): tiles of ts x ts pixels, row-major.
@@ -1539,7 +1568,11 @@ __device__ __forceinline__ void render_slots(float4* smem4, const Args& a) {
   }
 
   const int quota = n_frames * spp;
-  const int n_slots = quota * (max_bounce + 1);
+  // with refill a lane may trace ppl pixels, and with two phases it waits for
+  // its phase's slots (the TPU kernel's bound, megakernel.py:2119-2121)
+  const int n_slots =
+      quota * (max_bounce + 1) *
+      (kSched == kKnobRefill ? a.refill_ppl * a.refill_phases : 1);
   uint32_t state = 0;
   Vec3 o = {0.0f, 0.0f, 0.0f}, d = {0.0f, 0.0f, 0.0f};
   Vec3 colour = {0.0f, 0.0f, 0.0f}, incoming = {0.0f, 0.0f, 0.0f};
@@ -1547,9 +1580,11 @@ __device__ __forceinline__ void render_slots(float4* smem4, const Args& a) {
   bool live = false;
   int ns = 0, fk = 0, bounce = 0, segs = 0;
   // kRefill: the slot before which a dead lane starts extra samples, its
-  // tile's last finish in phase 2 (0 in phase 1)
+  // tile's last finish in phase 2 (0 in phase 1); kKnobRefill also the
+  // lane's own slot (under kRefill its segment count)
   [[maybe_unused]] int extra_until = 0;
-  if constexpr (kSched == kRefill) {
+  [[maybe_unused]] int lane_slot = 0;
+  if constexpr (kSched == kRefill || kSched == kKnobRefill) {
     if (a.refill_phase == 2 && in_image) {
       // the lane as phase 1 left it: its quota done, idle since
       const int at = pix - a.y0 * width;
@@ -1560,6 +1595,12 @@ __device__ __forceinline__ void render_slots(float4* smem4, const Args& a) {
       ns = quota;
       fk = n_frames - 1;
       extra_until = a.tile_max[refill_tile(x, y - a.y0, width, a.tile_size)];
+      if constexpr (kSched == kKnobRefill) {
+        // the slot its lane is done at; -1, a pixel before its lane's
+        // last: no extra samples
+        const int resume = a.slot_map[at];
+        lane_slot = resume < 0 ? n_slots : resume;
+      }
     }
   }
   for (int slot = 0; slot < n_slots; ++slot) {
@@ -1572,6 +1613,20 @@ __device__ __forceinline__ void render_slots(float4* smem4, const Args& a) {
       // still in flight at the bound is dropped
       if (segs >= n_slots) live = false;
       need = !live && (undone || segs < extra_until);
+    } else if constexpr (kSched == kKnobRefill) {
+      if (a.refill_phases == 2) {
+        // a live lane traces on odd slots, a dead one starts a sample on
+        // even ones: a lane that would wait for its slot takes it now (the
+        // wait changes nothing but its slot)
+        const bool odd = (lane_slot & 1) != 0;
+        if (live ? !odd : odd && (undone || lane_slot + 1 < extra_until)) {
+          ++lane_slot;
+        }
+      }
+      // a sample still in flight at the bound is dropped
+      if (lane_slot >= n_slots) live = false;
+      need = !live && (undone || lane_slot < extra_until) &&
+             (a.refill_phases == 1 || (lane_slot & 1) == 0);
     } else if constexpr (kSched == kLockstep) {
       const bool warp_live = __any_sync(kFullMask, live);
       need = undone && !warp_live;
@@ -1608,6 +1663,7 @@ __device__ __forceinline__ void render_slots(float4* smem4, const Args& a) {
     }
     if (live) {
       ++segs;
+      if constexpr (kSched == kKnobRefill) ++lane_slot;
       if (s_hist != nullptr) atomicAdd(&s_hist[bounce], 1);
       bool goes_on;
       if constexpr (kGeom != kBvh) {
@@ -1630,25 +1686,30 @@ __device__ __forceinline__ void render_slots(float4* smem4, const Args& a) {
     }
   }
 
-  if constexpr (kSched == kRefill) {
+  if constexpr (kSched == kRefill || kSched == kKnobRefill) {
     if (a.refill_phase == 1) {
       // keep the lane for phase 2, the running average of the frames
-      // before the last in `out` (with an accumulator); and its tile's
-      // largest segment count, one atomicMax a warp (a warp's 16 x 2
-      // pixels lie in one tile: its side is a multiple of 16, and a band
-      // starts on a tile row; lane 0 is in the image if any lane is)
-      const int warp_max = __reduce_max_sync(kFullMask, segs);
+      // before the last in `out` (with an accumulator), its slot in the
+      // slot map where there is one; and with one pixel a lane its tile's
+      // last finish, one atomicMax a warp (a warp's 16 x 2 pixels lie in
+      // one tile: its side is a multiple of 16, and a band starts on a tile
+      // row; lane 0 is in the image if any lane is). With more, the lane
+      // pass (refill_lanes) takes it from the slot map.
+      const int warp_max =
+          __reduce_max_sync(kFullMask, kSched == kRefill ? segs : lane_slot);
       if (in_image) {
         const int at = pix - a.y0 * width;
         a.scratch[at] =
             make_float4(total.x, total.y, total.z, __uint_as_float(state));
         a.segs[at] = segs;
+        if constexpr (kSched == kKnobRefill) a.slot_map[at] = lane_slot;
         if (with_accum) {
           a.out[3 * at] = acc.x;
           a.out[3 * at + 1] = acc.y;
           a.out[3 * at + 2] = acc.z;
         }
-        if (((threadIdx.y * kBlockX + threadIdx.x) & (kWarp - 1)) == 0) {
+        if ((kSched == kRefill || a.refill_ppl == 1) &&
+            ((threadIdx.y * kBlockX + threadIdx.x) & (kWarp - 1)) == 0) {
           atomicMax(&a.tile_max[refill_tile(x, y - a.y0, width, a.tile_size)],
                     warp_max);
         }
@@ -1694,25 +1755,77 @@ render_kernel(const Args a) {
   render_slots<kSched, kGeom, kScatter, kProbe, kTab>(smem4, a);
 }
 
-// The adaptive sample refill (cfg.adaptive_spp).
+// The adaptive sample refill (cfg.adaptive_spp); kKnobs, under the TPU
+// kernel's lane knobs (kKnobRefill).
 template <Geometry kGeom, Scatter kScatter, Probe kProbe = kNone,
-          Tables kTab = kStaged>
+          Tables kTab = kStaged, bool kKnobs = false>
 __global__ void __launch_bounds__(kBlockX * kBlockY, kGeom == kSpheres ? 0 : 8)
 render_adaptive(const Args a) {
   extern __shared__ float4 smem4[];
-  render_slots<kRefill, kGeom, kScatter, kProbe, kTab>(smem4, a);
+  render_slots<kKnobs ? kKnobRefill : kRefill, kGeom, kScatter, kProbe, kTab>(
+      smem4, a);
+}
+
+// Refill's lane pass, between render_adaptive's two launches where a lane
+// traces more than one pixel (Args.refill_ppl > 1). Replaces the part of the
+// TPU kernel's tile vote that its lanes' pixel switch adds
+// (megakernel.py:1818-1836, :1857-1885): a lane traces its ppl pixels of the
+// tile in turn, each after the last's quota, so it is done at the sum of its
+// pixels' slots from phase 1, each but the last taken up to its next start
+// (with two phases the next even slot); the tile votes for extra samples
+// until its largest sum. One thread a lane of the band's tiles: lane j's
+// phase-p pixel is tile position p * ts * ts / ppl + j, or perm's entry there
+// (the launcher's cost pairing, megakernel.py:2596-2632), the clamped border
+// pixel for a position past the frame. It writes each pixel's resume slot,
+// its lane's sum where it is the lane's last pixel and lies in the band,
+// else -1, and its tile's largest sum, one atomicMax a warp (a tile's lanes
+// are a multiple of 128, so a warp lies in one tile). The plain version is
+// kernels/megakernel.py refill_lane_pass_plain. What bounds it: bytes, the
+// slot map read once a position and written once; it reads each position's
+// slot where the lane needs it, without staging.
+__global__ void __launch_bounds__(kLanes)
+    refill_lanes(const int* __restrict__ slots, const int* __restrict__ perm,
+                 int* __restrict__ resume, int* __restrict__ tile_max,
+                 int width, int height, int y0, int y1, int ts, int ppl,
+                 int phases, int n_lanes) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int per_tile = ts * ts / ppl;
+  int sum = 0;
+  if (i < n_lanes) {
+    const int t = i / per_tile, j = i % per_tile;
+    const int n_tx = (width + ts - 1) / ts;
+    const int x0 = (t % n_tx) * ts, top = y0 + (t / n_tx) * ts;
+    for (int p = 0; p < ppl; ++p) {
+      const int k = p * per_tile + j;
+      const int local =
+          perm != nullptr ? perm[static_cast<size_t>(t) * ts * ts + k] : k;
+      const int ux = x0 + local % ts, uy = top + local / ts;
+      const int e =
+          slots[(min(uy, height - 1) - y0) * width + min(ux, width - 1)];
+      sum += p < ppl - 1 && phases == 2 ? e + (e & 1) : e;
+      if (ux < width && uy < y1) {
+        resume[(uy - y0) * width + ux] = p < ppl - 1 ? -1 : sum;
+      }
+    }
+  }
+  const int warp_max = __reduce_max_sync(kFullMask, sum);
+  if (i < n_lanes && (threadIdx.x & (kWarp - 1)) == 0) {
+    atomicMax(&tile_max[i / per_tile], warp_max);
+  }
 }
 
 using Kernel = void (*)(const Args);
 
 // The instantiation for a Probe and a Tables value, or null. The production
-// library compiles the twenty-four of kNone, twelve a route; the probe
+// library compiles the twenty-four of kNone, twelve a route, and the twelve
+// render_adaptive ones under the lane knobs (`knobs`), six a route; the probe
 // library (-DRTX_PROBES) the twelve of kDupIntersect and kDupFetch instead,
-// with the Box-Muller sampler and staged tables only.
+// with the Box-Muller sampler and staged tables only, without the knobs.
 template <Geometry kGeom>
-Kernel kernel_of(int probe, int tables, bool adaptive, bool fast_scatter) {
+Kernel kernel_of(int probe, int tables, bool adaptive, bool fast_scatter,
+                 bool knobs) {
 #ifdef RTX_PROBES
-  if (fast_scatter || tables != kStaged) return nullptr;
+  if (fast_scatter || tables != kStaged || knobs) return nullptr;
   if (probe == kDupIntersect) {
     return adaptive ? render_adaptive<kGeom, kBoxMuller, kDupIntersect>
                     : render_kernel<kGeom, kBoxMuller, kDupIntersect>;
@@ -1724,6 +1837,18 @@ Kernel kernel_of(int probe, int tables, bool adaptive, bool fast_scatter) {
   return nullptr;
 #else
   if (probe != kNone) return nullptr;
+  if (knobs) {
+    if (!adaptive) return nullptr;
+    if (tables == kGlobal) {
+      return fast_scatter
+                 ? render_adaptive<kGeom, kFastScatter, kNone, kGlobal, true>
+                 : render_adaptive<kGeom, kBoxMuller, kNone, kGlobal, true>;
+    }
+    if (tables != kStaged) return nullptr;
+    return fast_scatter
+               ? render_adaptive<kGeom, kFastScatter, kNone, kStaged, true>
+               : render_adaptive<kGeom, kBoxMuller, kNone, kStaged, true>;
+  }
   if (tables == kGlobal) {
     if (fast_scatter) {
       return adaptive ? render_adaptive<kGeom, kFastScatter, kNone, kGlobal>
@@ -1744,14 +1869,14 @@ Kernel kernel_of(int probe, int tables, bool adaptive, bool fast_scatter) {
 
 // The instantiation for a Geometry, a Probe and a Tables value, or null.
 Kernel kernel_for(int geometry, int probe, int tables, bool adaptive,
-                  bool fast_scatter) {
+                  bool fast_scatter, bool knobs) {
   switch (geometry) {
     case kSpheres:
-      return kernel_of<kSpheres>(probe, tables, adaptive, fast_scatter);
+      return kernel_of<kSpheres>(probe, tables, adaptive, fast_scatter, knobs);
     case kChunks:
-      return kernel_of<kChunks>(probe, tables, adaptive, fast_scatter);
+      return kernel_of<kChunks>(probe, tables, adaptive, fast_scatter, knobs);
     case kBvh:
-      return kernel_of<kBvh>(probe, tables, adaptive, fast_scatter);
+      return kernel_of<kBvh>(probe, tables, adaptive, fast_scatter, knobs);
     default:
       return nullptr;
   }
@@ -1795,11 +1920,11 @@ extern "C" size_t rtx_shared_bytes(int geometry, int tables, int n_sph,
 // How many blocks of an instantiation one SM holds at once with `smem`
 // bytes of dynamic shared memory
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or minus a CUDA error
-// code.
+// code; `knobs` picks a render_adaptive instantiation under the lane knobs.
 extern "C" int rtx_occupancy(int geometry, int tables, int adaptive,
-                             int fast_scatter, size_t smem) {
-  const Kernel kernel =
-      kernel_for(geometry, kNone, tables, adaptive != 0, fast_scatter != 0);
+                             int fast_scatter, int knobs, size_t smem) {
+  const Kernel kernel = kernel_for(geometry, kNone, tables, adaptive != 0,
+                                   fast_scatter != 0, knobs != 0);
   if (kernel == nullptr) return -static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = allow_shared(kernel, smem);
   int blocks = 0;
@@ -1853,6 +1978,7 @@ extern "C" int rtx_render(
     int y0, int y1, int spp, int max_bounce, unsigned int frame0, int n_frames,
     const void* accum_in, int clamp_accum, int adaptive, int fast_scatter,
     int refill_phase, void* scratch, void* tile_max, int tile_size,
+    void* slot_map, int refill_ppl, int refill_phases,
     int chunk_warp_scan, void* out, void* segs, void* hist, void* stream) {
 #ifndef RTX_PROBES
   const int probe = kNone;
@@ -1861,11 +1987,19 @@ extern "C" int rtx_render(
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (adaptive) {
-    // whole tiles, each holding whole warps; both phases' buffers
+    // whole tiles, each holding whole warps; both phases' buffers; lanes
+    // that divide the tile's rows of 128, and a slot map where a lane has
+    // more than one pixel or two phases
     const bool tiles_ok = tile_size > 0 && tile_size % kBlockX == 0 &&
                           y0 % tile_size == 0 &&
                           (y1 == height || y1 % tile_size == 0);
-    if (!tiles_ok || (refill_phase != 1 && refill_phase != 2) ||
+    const bool lanes_ok =
+        (refill_ppl == 1 || refill_ppl == 2 || refill_ppl == 4 ||
+         refill_ppl == 8) &&
+        (tile_size * tile_size / kLanes) % refill_ppl == 0 &&
+        (refill_phases == 1 || refill_phases == 2) &&
+        (slot_map != nullptr || (refill_ppl == 1 && refill_phases == 1));
+    if (!tiles_ok || !lanes_ok || (refill_phase != 1 && refill_phase != 2) ||
         scratch == nullptr || tile_max == nullptr) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
@@ -1912,12 +2046,51 @@ extern "C" int rtx_render(
       static_cast<float4*>(scratch),
       static_cast<int*>(tile_max),
       tile_size,
+      static_cast<int*>(slot_map),
+      adaptive ? refill_ppl : 1,
+      adaptive ? refill_phases : 1,
       by_chunks ? chunk_warp_scan : 0};
-  const Kernel kernel =
-      kernel_for(geometry, probe, tables, adaptive != 0, fast_scatter != 0);
+  // a lane of more than one pixel, or two phases, takes the knobs'
+  // instantiation (kKnobRefill)
+  const bool knobs = adaptive && (a.refill_ppl != 1 || a.refill_phases != 1);
+  const Kernel kernel = kernel_for(geometry, probe, tables, adaptive != 0,
+                                   fast_scatter != 0, knobs);
   if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(
       launch(kernel, tables == kGlobal ? kGlobal : kStaged, a, s));
+}
+
+// Refill's lane pass (refill_lanes) over the band y0 .. y1 - 1 of a width x
+// height frame, after render_adaptive's phase 1 with refill_ppl = ppl > 1:
+// slots (phase 1's slot map, an int a pixel of the band) -> resume (the
+// same shape, phase 2's slot map) and tile_max (an int a tile_size x
+// tile_size tile of the band, zeroed before). perm is null, or an int a
+// position of each tile (kernels/megakernel.py pair_perm). The tiles' rule
+// is rtx_render's for refill; ppl 1, 2, 4 or 8 dividing the tile's rows of
+// 128, phases 1 or 2. Returns cudaGetLastError() after the launch, or
+// cudaErrorInvalidValue without one.
+extern "C" int rtx_refill_lanes(const void* slots, const void* perm,
+                                void* resume, void* tile_max, int width,
+                                int height, int y0, int y1, int tile_size,
+                                int ppl, int phases, void* stream) {
+  const bool ok =
+      0 <= y0 && y0 < y1 && y1 <= height && width > 0 && tile_size > 0 &&
+      (tile_size * tile_size) % kLanes == 0 && y0 % tile_size == 0 &&
+      (y1 == height || y1 % tile_size == 0) &&
+      (ppl == 1 || ppl == 2 || ppl == 4 || ppl == 8) &&
+      (tile_size * tile_size / kLanes) % ppl == 0 &&
+      (phases == 1 || phases == 2) && slots != nullptr &&
+      resume != nullptr && tile_max != nullptr;
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  const int n_tiles = ((width + tile_size - 1) / tile_size) *
+                      ((y1 - y0 + tile_size - 1) / tile_size);
+  const int n_lanes = n_tiles * (tile_size * tile_size / ppl);
+  refill_lanes<<<(n_lanes + kLanes - 1) / kLanes, kLanes, 0,
+                 static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(slots), static_cast<const int*>(perm),
+      static_cast<int*>(resume), static_cast<int*>(tile_max), width, height,
+      y0, y1, tile_size, ppl, phases, n_lanes);
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" const char* rtx_error_string(int code) {

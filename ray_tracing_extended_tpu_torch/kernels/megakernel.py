@@ -91,6 +91,9 @@ from ..utils.config import RenderConfig
 from .build import NVCC_FLAGS, BuildInfo, CudaLibrary
 from .pack import CLUSTER, SUB, pack_spheres
 
+# The ``variant_launches`` key of refill's lane pass (``refill_lanes``).
+LANE_PASS = "refill_lanes"
+
 # Dynamic shared memory one block may use on Hopper (227 KB): a scene whose
 # staged tables need more takes the global route (``table_route``).
 MAX_SHARED_BYTES = 232448
@@ -159,26 +162,34 @@ TABLES = ("staged", "global")
 
 def variant(geometry: str, adaptive: bool = False,
             fast_scatter: bool = False, probe: str | None = None,
-            tables: str = "staged") -> str:
+            tables: str = "staged", knobs: bool = False) -> str:
     """The name of one instantiation of the source's kernels; with
     ``probe`` (one of ``PROBES``) a profiling one, its sampler named, as
     ``render_kernel<kSpheres, kBoxMuller, kDupIntersect>``; with
     ``tables="global"`` one of the global route, its sampler named, as
-    ``render_kernel<kSpheres, kBoxMuller, kGlobal>``."""
+    ``render_kernel<kSpheres, kBoxMuller, kGlobal>``; with ``knobs`` a
+    refill one under the lane knobs (``refill_knobs`` other than (1, 1)),
+    its sampler named, as ``render_adaptive<kSpheres, kBoxMuller,
+    kKnobs>``."""
     if tables not in TABLES:
         raise ValueError(f"tables must be one of {TABLES}, got {tables!r}")
     if probe is not None and tables != "staged":
         raise ValueError("the profiling instantiations stage their tables")
+    if knobs and (probe is not None or not adaptive):
+        raise ValueError("the lane knobs' instantiations are refill's, "
+                         "without a profiling knob")
     name = "render_adaptive" if adaptive else "render_kernel"
     args = f"k{geometry.capitalize()}"
     if fast_scatter:
         args += ", kFastScatter"
-    elif probe is not None or tables != "staged":
+    elif probe is not None or tables != "staged" or knobs:
         args += ", kBoxMuller"
     if probe is not None:
         args += ", k" + "".join(w.capitalize() for w in probe.split("_"))
     if tables != "staged":
         args += ", k" + tables.capitalize()
+    if knobs:
+        args += ", kKnobs"
     return f"{name}<{args}>"
 
 
@@ -191,6 +202,10 @@ VARIANTS = tuple(
 )
 GLOBAL_VARIANTS = tuple(
     variant(g, a, f, tables="global") for a in (False, True)
+    for f in (False, True) for g in GEOMETRIES
+)
+KNOB_VARIANTS = tuple(
+    variant(g, True, f, tables=t, knobs=True) for t in TABLES
     for f in (False, True) for g in GEOMETRIES
 )
 PROBE_VARIANTS = tuple(
@@ -261,10 +276,65 @@ def refill_tile_size(scene: Scene, cfg: RenderConfig) -> int:
             else REFILL_TILE_WINNER)
 
 
+def pixels_per_lane(adaptive: bool = False, batched: bool = False,
+                    paired: bool = False, override: int | None = None) -> int:
+    """The TPU kernel's pixels a lane (the JAX package's
+    ``pixels_per_lane``, ``kernels/megakernel.py:211-244``, less its
+    ``RTX_MEGA_PPL``, which the port does not read): a lane traces that
+    many pixels of its tile one after another. ``override`` is
+    ``cfg.mega_pixels_per_lane``. Only refill's image depends on it
+    (``refill_knobs``); an exact-spp pixel's samples are the same whatever
+    lane traces them."""
+    if override is not None:
+        if override not in (1, 2, 4, 8):
+            raise ValueError(
+                f"mega_pixels_per_lane must be 1, 2, 4 or 8, got {override}")
+        return override
+    if paired and batched and not adaptive:
+        return 4
+    return 2 if (batched and not adaptive) else 1
+
+
+def n_phases(override: int | None = None) -> int:
+    """The TPU kernel's slot phases (the JAX package's ``n_phases``,
+    ``kernels/megakernel.py:138-164``, less its ``RTX_MEGA_PHASES``): 1, or
+    2, where a lane starts a camera sample on even slots only and traces a
+    bounce on odd ones. ``override`` is ``cfg.mega_phases``."""
+    if override is not None:
+        if override not in (1, 2):
+            raise ValueError(f"mega_phases must be 1 or 2, got {override}")
+        return override
+    return 1
+
+
+def refill_knobs(scene: Scene, cfg: RenderConfig) -> tuple[int, int]:
+    """``(pixels a lane, phases)`` of a refill launch of ``scene`` under
+    ``cfg``: 1 and 1 unless the config says otherwise, as the JAX
+    package resolves them under ``adaptive_spp``. Raises where the pixels a
+    lane do not divide the refill tile's rows of 128 lanes, as it does."""
+    ppl = pixels_per_lane(adaptive=True, override=cfg.mega_pixels_per_lane)
+    rows = refill_tile_size(scene, cfg) ** 2 // 128
+    if rows % ppl:
+        raise ValueError(
+            f"pixels-per-lane {ppl} must divide the tile's {rows} rows")
+    return ppl, n_phases(cfg.mega_phases)
+
+
+def knobbed(scene: Scene, cfg: RenderConfig) -> bool:
+    """Whether a launch of ``scene`` under ``cfg`` takes the refill
+    instantiations under the lane knobs (``variant(..., knobs=True)``):
+    refill with more than one pixel a lane or two phases."""
+    return cfg.adaptive_spp and refill_knobs(scene, cfg) != (1, 1)
+
+
 def launches_per_call(cfg: RenderConfig) -> int:
     """Kernel launches a call of ``render_frames_mega`` on the card makes
-    (``PathTraceKernel.launch``): refill's two phases, or one."""
-    return 2 if cfg.adaptive_spp else 1
+    (``PathTraceKernel.launch``): refill's two phases, with more than one
+    pixel a lane the lane pass between them (``refill_lanes``), or one."""
+    if not cfg.adaptive_spp:
+        return 1
+    ppl = pixels_per_lane(adaptive=True, override=cfg.mega_pixels_per_lane)
+    return 3 if ppl > 1 else 2
 
 
 def refill_band_rows(cfg: RenderConfig) -> int:
@@ -341,7 +411,8 @@ def path_name(scene: Scene, cfg: RenderConfig) -> str:
     if scene.device.type == "cuda":
         geom = geometry(scene, cfg)
         return variant(geom, cfg.adaptive_spp, cfg.fast_scatter,
-                       tables=table_route(geometry_tables(scene, geom), cfg))
+                       tables=table_route(geometry_tables(scene, geom), cfg),
+                       knobs=knobbed(scene, cfg))
     if plain_through_sphere_bvh(scene, cfg):
         return "plain closest_hit_bvh"
     return f"plain closest_hit_clustered<{geometry(scene, cfg)}>"
@@ -740,6 +811,7 @@ def render_frames_plain(
     intersect_fn=None,
     probe: str | None = None,
     phase_one: dict | None = None,
+    pair_costs: torch.Tensor | None = None,
 ):
     """The plain PyTorch version of the kernel, on the scene's device.
 
@@ -755,15 +827,21 @@ def render_frames_plain(
     ``plain_block_size`` pixels, so where many triangles cut it, the
     padding and the total can be smaller than the XLA path's.
 
-    With ``cfg.adaptive_spp`` it runs the refill over ``groups``, a (G, P)
-    array of pixel indices with -1 for padding, by default the TPU
-    kernel's tiles, as the kernel groups them (``tile_groups`` of
-    ``refill_tile_size``), in the kernel's two phases
-    (``_refill_two_phase``, the TPU kernel's slot machine bit for bit); its
+    With ``cfg.adaptive_spp`` it runs the refill over the TPU kernel's
+    lanes, as the kernel groups them: ``refill_knobs``' pixels a lane and
+    phases over the tiles of ``refill_tile_size`` (``tile_lanes``), a
+    lane's pixels in ``pair_perm``'s order of ``pair_costs`` ((y1 - y0, W),
+    the band's rows; read with more than one pixel a lane only, as the JAX
+    package reads it), or, with one pixel a lane, over ``groups``, a (G, P)
+    array of pixel indices with -1 for padding; in the kernel's two phases
+    (``_refill_two_phase``, the TPU kernel's slot machine bit for bit). Its
     totals count real pixels only. ``phase_one``, a dict, gains the first
-    phase's ``segs`` ((y1 - y0, W) int32: each pixel's segments when its
-    quota was done) and ``tile_max`` ((G,) int32: each group's largest, in
-    the order of ``groups``' rows within the band).
+    phase's ``segs`` and ``slots`` ((y1 - y0, W) int32: each pixel's
+    segments, and its slot, when its quota was done) and ``tile_max`` ((G,)
+    int32: each group's vote, the largest of its lanes' slots at their
+    quotas' end, in tile order, or the order of ``groups``' rows, within
+    the band). With exact spp ``pair_costs`` is not read: it moves no
+    sample of an exact-spp image.
 
     ``rows=(y0, y1)`` renders only rows ``y0 .. y1 - 1`` of the full frame,
     with the same pixels and random streams; ``accum``, the image and the
@@ -788,12 +866,9 @@ def render_frames_plain(
     if not 0 <= y0 < y1 <= cfg.height:
         raise ValueError(f"rows {rows} outside 0..{cfg.height}")
     if cfg.adaptive_spp:
-        if groups is None:
-            groups = tile_groups(cfg.width, cfg.height,
-                                 refill_tile_size(scene, cfg))
         return _render_adaptive(scene, camera, cfg, frame0, n_frames, accum,
                                 collect_stats, y0, y1, groups, intersect_fn,
-                                dup_fetch, phase_one)
+                                dup_fetch, phase_one, pair_costs=pair_costs)
     total = 0
     segs_map = 0
     hist = 0
@@ -855,6 +930,109 @@ def tile_groups(width: int, height: int, ts: int) -> np.ndarray:
     x = xs[None, :, None, :]
     pix = np.where((y < height) & (x < width), y * width + x, -1)
     return pix.reshape(-1, ts * ts)
+
+
+def pair_perm(costs: torch.Tensor, width: int, height: int, ts: int,
+              ppl: int, y0: int, y1: int) -> torch.Tensor:
+    """The TPU launcher's cost pairing (``kernels/megakernel.py:2596-2632``)
+    for the tiles of rows ``y0 .. y1 - 1``: ``costs`` ((y1 - y0, width),
+    e.g. a launch's per-pixel segment map) -> (G, ts * ts) int32 tile-local
+    pixel indices, lane j's phase-p pixel at ``p * ts * ts // ppl + j``.
+    Each tile's pixels sorted by falling cost (ties in tile order, the
+    stable sort of ``jnp.argsort``), each odd phase's block reversed, so a
+    lane's pixels pair heavy with light. A position past the frame takes its
+    clamped pixel's cost, as the TPU kernel re-renders that pixel there."""
+    if tuple(costs.shape) != (y1 - y0, width):
+        raise ValueError(
+            f"pair_costs must be ({y1 - y0}, {width}), the band's rows, got "
+            f"{tuple(costs.shape)}")
+    n_tx, n_ty = -(-width // ts), -(-(y1 - y0) // ts)
+    dev = costs.device
+    ys = torch.clamp(y0 + torch.arange(n_ty * ts, device=dev),
+                     max=height - 1) - y0
+    xs = torch.clamp(torch.arange(n_tx * ts, device=dev), max=width - 1)
+    cost = (costs[ys][:, xs].reshape(n_ty, ts, n_tx, ts).permute(0, 2, 1, 3)
+            .reshape(n_tx * n_ty, ts * ts).to(torch.float32))
+    order = torch.argsort(-cost, dim=1, stable=True)
+    npl = ts * ts // ppl
+    blocks = [order[:, p * npl:(p + 1) * npl] for p in range(ppl)]
+    return torch.cat([b if p % 2 == 0 else b.flip(1)
+                      for p, b in enumerate(blocks)], dim=1).to(torch.int32)
+
+
+def tile_lanes(width: int, height: int, ts: int, ppl: int, y0: int, y1: int,
+               perm: torch.Tensor | None = None, device="cpu"):
+    """The TPU kernel's lanes over the ts x ts tiles of rows ``y0 .. y1 - 1``
+    (tiles row-major from ``y0``) -> ``(pix, inside)``, each (G, ts * ts //
+    ppl, ppl): lane j's phase-p pixel, the frame's index ``y * width + x``,
+    and whether that tile position lies in the band. Lane j's phase-p
+    position is tile-local index ``p * ts * ts // ppl + j``
+    (``megakernel.py:545-552``), or ``perm``'s entry there (``pair_perm``);
+    a position past the frame's right or bottom edge traces the clamped
+    border pixel (``inside`` False), whose output the launcher drops, but
+    whose slots still count in its lane."""
+    n_tx, n_ty = -(-width // ts), -(-(y1 - y0) // ts)
+    g = n_tx * n_ty
+    npl = ts * ts // ppl
+    if perm is None:
+        local = torch.arange(ts * ts, device=device).expand(g, -1)
+    else:
+        local = perm.to(device=device, dtype=torch.int64)
+    local = local.reshape(g, ppl, npl).transpose(1, 2)
+    t = torch.arange(g, device=device)[:, None, None]
+    ux = (t % n_tx) * ts + local % ts
+    uy = y0 + (t // n_tx) * ts + local // ts
+    inside = (ux < width) & (uy < y1)
+    pix = (torch.clamp(uy, max=height - 1) * width
+           + torch.clamp(ux, max=width - 1))
+    return pix, inside
+
+
+def refill_lane_pass_plain(slots: torch.Tensor, pix: torch.Tensor,
+                           inside: torch.Tensor, phases: int, offset: int):
+    """The plain version of ``refill_lanes``: ``slots`` (n,), each pixel's
+    slot after its exact-spp samples (phase 1: E), lanes ``pix`` / ``inside``
+    ((G, L, ppl), ``tile_lanes``; -1 a padding lane) -> ``(resume (n,),
+    tile_max (G,))``, both int32. A lane traces its pixels in turn and
+    starts the next on the first slot its phase allows (with two phases
+    the first even one), so its quota is done at its lanes' sum; its tile
+    votes for extra samples until its largest lane's. ``resume`` is a
+    lane's slot at that sum for its last pixel, where that pixel is in the
+    band, and -1 for every other pixel: no extra samples. Frame index ``i``
+    is ``slots[i - offset]``."""
+    e = torch.where(pix >= 0, slots[torch.clamp(pix - offset, min=0)], 0).to(
+        torch.int64)
+    start = e + (e & 1) if phases == 2 else e
+    lane = start[..., :-1].sum(-1) + e[..., -1]
+    resume = torch.full_like(slots, -1, dtype=torch.int32)
+    last = inside[..., -1]
+    resume[pix[..., -1][last] - offset] = lane[last].to(torch.int32)
+    return resume, lane.amax(dim=1).to(torch.int32)
+
+
+def refill_lanes(slots: torch.Tensor, width: int, height: int, ts: int,
+                 ppl: int, phases: int, rows: tuple[int, int],
+                 perm: torch.Tensor | None = None):
+    """Each refill lane's slots and its tile's vote from phase 1's slot map
+    ``slots`` ((y1 - y0, width) int32 of the band ``rows``) -> ``(resume
+    (y1 - y0, width), tile_max (G,))``, both int32 (see
+    ``refill_lane_pass_plain``); the lanes of ``tile_lanes(width, height,
+    ts, ppl, *rows, perm)``. On a CUDA tensor the ``refill_lanes`` kernel
+    (``PathTraceKernel.lane_pass``), on the CPU its plain version."""
+    y0, y1 = rows
+    if slots.device.type == "cuda":
+        resume = torch.empty_like(slots)
+        tile_max = torch.zeros(-(-(y1 - y0) // ts) * -(-width // ts),
+                               dtype=torch.int32, device=slots.device)
+        KERNEL.lane_pass(slots, resume, tile_max, width, height, ts, ppl,
+                         phases, rows, perm)
+        return resume, tile_max
+    if slots.device.type != "cpu":
+        raise ValueError(f"no lane pass for device {slots.device}")
+    pix, inside = tile_lanes(width, height, ts, ppl, y0, y1, perm)
+    resume, tile_max = refill_lane_pass_plain(slots.reshape(-1), pix, inside,
+                                              phases, y0 * width)
+    return resume.reshape(slots.shape), tile_max
 
 
 # Warp schedules of the exact kernel's work (``schedule_counts``): a loop
@@ -1172,19 +1350,29 @@ def _band_groups(groups: np.ndarray, width: int, y0: int, y1: int):
 
 def _render_adaptive(scene, camera, cfg, frame0, n_frames, accum,
                      collect_stats, y0, y1, groups, intersect_fn, dup_fetch,
-                     phase_one=None, two_phase=True):
+                     phase_one=None, two_phase=True, pair_costs=None):
     """Adaptive sample refill, the TPU kernel's slot loop
-    (``megakernel.py:1802-2134``) vectorised over lanes, one lane a pixel.
+    (``megakernel.py:1802-2150``) vectorised over lanes.
 
-    Each slot, a dead lane that still owes samples, or whose group has a
-    lane that does, starts its next camera sample (a lane's first sample
-    of a frame from the seed ``pix + frame * 719393``), then every live
-    lane traces one segment. A lane's quota is ``n_frames * spp``: it
-    folds a frame's mean into ``accum`` and moves to the next frame after
-    ``spp`` completed samples, so all extra samples continue its last
-    frame, whose mean divides by the samples it completed. The slot bound
-    is ``quota * (max_bounce + 1)``; a sample still in flight at the bound
-    is dropped. Segments and the histogram count every traced segment.
+    A lane traces its pixels one after another, ``ppl`` of them
+    (``refill_knobs``; one by default). Each slot, a dead lane that still
+    owes samples, or whose group has a lane that does, starts its next
+    camera sample (a pixel's first sample of a frame from the seed ``pix +
+    frame * 719393``), then every live lane traces one segment; with two
+    phases a lane starts a sample on even slots only and traces a bounce on
+    odd ones, and waits between. A lane's quota is ``n_frames * spp`` a
+    pixel: it folds a frame's mean into ``accum`` and moves to the next
+    frame after ``spp`` completed samples, and to its next pixel after the
+    last frame's, so all extra samples continue the last frame of its last
+    pixel, whose mean divides by the samples it completed. The slot bound
+    is ``ppl * quota * (max_bounce + 1) * phases``; a sample still in
+    flight at the bound is dropped. Segments and the histogram count every
+    segment traced for a pixel of the band.
+
+    The lanes are the TPU kernel's over its tiles (``tile_lanes``; with
+    ``pair_costs``, a (y1 - y0, W) map, and more than one pixel a lane in
+    ``pair_perm``'s order), or, with ``groups`` ((G, P) pixel indices, -1
+    for padding), one lane a pixel of each group (one pixel a lane only).
 
     By default in the kernel's two phases (``_refill_two_phase``); with
     ``two_phase=False`` as the slot machine itself over blocks of whole
@@ -1192,24 +1380,42 @@ def _render_adaptive(scene, camera, cfg, frame0, n_frames, accum,
     phases to, bit for bit."""
     dev = scene.device
     w = cfg.width
-    band = _band_groups(groups, w, y0, y1)
+    ppl, phases = refill_knobs(scene, cfg)
+    if groups is not None:
+        if ppl > 1:
+            raise ValueError(
+                f"groups take one pixel a lane; mega_pixels_per_lane is {ppl}")
+        band = torch.from_numpy(_band_groups(groups, w, y0, y1)).to(dev)
+        lanes, inside = band[:, :, None], band[:, :, None] >= 0
+    else:
+        ts = refill_tile_size(scene, cfg)
+        if y0 % ts or (y1 != cfg.height and y1 % ts):
+            raise ValueError(
+                f"rows ({y0}, {y1}) cut through a refill group: a band must "
+                f"hold whole groups (tiles of {ts})")
+        perm = None
+        if pair_costs is not None and ppl > 1:
+            perm = pair_perm(pair_costs.to(dev), w, cfg.height, ts, ppl, y0,
+                             y1)
+        lanes, inside = tile_lanes(w, cfg.height, ts, ppl, y0, y1, perm, dev)
     n_band = (y1 - y0) * w
     hist = torch.zeros(cfg.max_bounce + 1, dtype=torch.int32, device=dev)
     acc = None if accum is None else accum.reshape(n_band, 3)
     if two_phase:
         img, seg_map = _refill_two_phase(
-            scene, camera, cfg, int(frame0), n_frames, band, y0, y1, acc,
-            hist, intersect_fn, dup_fetch, phase_one)
+            scene, camera, cfg, int(frame0), n_frames, lanes, inside, phases,
+            y0, y1, acc, hist, intersect_fn, dup_fetch, phase_one)
     else:
         img = torch.zeros((n_band, 3), dtype=torch.float32, device=dev)
         seg_map = torch.zeros(n_band, dtype=torch.int32, device=dev)
-        block = plain_block_size(cfg, scene, band.size)
-        per_block = max(1, block // band.shape[1])
-        for g0 in range(0, band.shape[0], per_block):
-            pix = torch.from_numpy(band[g0:g0 + per_block]).to(dev)
-            _adaptive_block(scene, camera, cfg, int(frame0), n_frames, pix,
-                            y0 * w, acc, img, seg_map, hist, intersect_fn,
-                            dup_fetch, block)
+        block = plain_block_size(cfg, scene, lanes.numel())
+        per_block = max(1, block // lanes.shape[1])
+        for g0 in range(0, lanes.shape[0], per_block):
+            _adaptive_block(scene, camera, cfg, int(frame0), n_frames,
+                            lanes[g0:g0 + per_block],
+                            inside[g0:g0 + per_block], phases, y0 * w, acc,
+                            img, seg_map, hist, intersect_fn, dup_fetch,
+                            block)
     return (
         img.reshape(y1 - y0, w, 3),
         seg_map.sum(dtype=torch.int64),
@@ -1237,16 +1443,17 @@ def _lane_state(n: int, dev, acc) -> dict:
 
 
 def _slot(scene, camera, cfg, frame0, n_frames, pix, fp, need, s, hist,
-          intersect_fn, dup_fetch, block) -> None:
+          intersect_fn, dup_fetch, block, trace=None, counted=None) -> None:
     """One slot of the refill slot loop over lanes ``pix`` (focus points
     ``fp``), their state ``s`` (``_lane_state``) written in place: the
     lanes ``need`` start their next camera sample (a lane whose frame is
     done folds it into ``acc`` and moves to the next; a frame's first
-    sample is seeded ``pix + frame * 719393``), then every live lane traces
-    one segment, counted in ``segs`` and ``hist``, at most ``block`` lanes
-    a call of the closest hit (``plain_block_size``: its temporaries stay
-    bounded however many lanes the loop holds; a lane's segment does not
-    depend on the lanes traced beside it)."""
+    sample is seeded ``pix + frame * 719393``), then the lanes ``trace``
+    (every live lane by default) trace one segment, counted in ``segs`` and,
+    where ``counted`` (every lane by default), in ``hist``, at most
+    ``block`` lanes a call of the closest hit (``plain_block_size``: its
+    temporaries stay bounded however many lanes the loop holds; a lane's
+    segment does not depend on the lanes traced beside it)."""
     spp, mb = cfg.spp, cfg.max_bounce
     ni = need.nonzero().squeeze(1)
     if ni.numel():
@@ -1273,9 +1480,11 @@ def _slot(scene, camera, cfg, frame0, n_frames, pix, fp, need, s, hist,
         s["bc"][ni] = 0
         s["live"][ni] = True
 
-    live = s["live"].nonzero().squeeze(1)
+    live = (s["live"] if trace is None else trace).nonzero().squeeze(1)
     s["segs"][live] += 1
-    hist += torch.bincount(s["bc"][live], minlength=mb + 1).to(torch.int32)
+    hist_lanes = live if counted is None else live[counted[live]]
+    hist += torch.bincount(s["bc"][hist_lanes], minlength=mb + 1).to(
+        torch.int32)
     for c0 in range(0, live.numel(), block):
         pi = live[c0:c0 + block]
         bc_i = s["bc"][pi]
@@ -1296,98 +1505,151 @@ def _slot(scene, camera, cfg, frame0, n_frames, pix, fp, need, s, hist,
         s["bc"][pi] += 1
 
 
-def _last_fold(cfg, frame0, n_frames, s) -> torch.Tensor:
-    """The last frame's mean over the samples it completed (>= spp),
-    folded into ``acc`` where there is one."""
-    last = torch.clamp(s["ns"] - (n_frames - 1) * cfg.spp, min=1).to(
-        torch.float32)
-    mean = s["total"] / last[:, None]
-    if s["acc"] is not None:
-        mean = accumulate(s["acc"], mean, (frame0 + n_frames - 1) & 0xFFFFFFFF,
+def _last_fold(cfg, frame0, n_frames, total, ns, acc) -> torch.Tensor:
+    """The last frame's mean (light ``total`` over the samples it
+    completed, >= spp, of ``ns`` in all), folded into ``acc`` where there
+    is one."""
+    last = torch.clamp(ns - (n_frames - 1) * cfg.spp, min=1).to(torch.float32)
+    mean = total / last[:, None]
+    if acc is not None:
+        mean = accumulate(acc, mean, (frame0 + n_frames - 1) & 0xFFFFFFFF,
                           clamp=cfg.clamp_accumulate)
     return mean
 
 
-def _adaptive_block(scene, camera, cfg, frame0, n_frames, groups, offset,
-                    acc_in, img, seg_map, hist, intersect_fn, dup_fetch,
-                    block):
-    """The slot machine over one block of groups ((Gb, P) pixel indices);
-    writes its pixels of ``img``, ``seg_map`` and ``hist`` (band-local
-    pixel index = global index - ``offset``); ``block`` as ``_slot``
-    takes it."""
-    quota = n_frames * cfg.spp
-    n_groups, per_group = groups.shape
-    pix = groups.reshape(-1)
-    valid = pix >= 0
-    pix = torch.where(valid, pix, offset)  # padding lanes never trace
+def _adaptive_block(scene, camera, cfg, frame0, n_frames, lanes, inside,
+                    phases, offset, acc_in, img, seg_map, hist, intersect_fn,
+                    dup_fetch, block):
+    """The slot machine over one block of groups (``lanes`` / ``inside``,
+    (Gb, L, ppl) as ``tile_lanes`` gives them; -1 a padding lane), slot by
+    slot as the TPU kernel runs it: a group's vote, a lane's pixel switch
+    (``megakernel.py:1857-1885``), with two phases the even and odd slots.
+    Writes its pixels of ``img``, ``seg_map`` and ``hist`` (band-local
+    pixel index = global index - ``offset``); ``block`` as ``_slot`` takes
+    it."""
+    spp, mb, w = cfg.spp, cfg.max_bounce, cfg.width
+    quota = n_frames * spp
+    n_groups, per_group, ppl = lanes.shape
+    n = n_groups * per_group
+    dev = lanes.device
+    valid = lanes[:, :, 0].reshape(n) >= 0
+    pix = torch.where(lanes >= 0, lanes, offset).reshape(n, ppl)
+    keep = inside.reshape(n, ppl)
     local = pix - offset
-    fp = focus_points(camera, pix % cfg.width, pix // cfg.width, cfg.width,
-                      cfg.height)
-    s = _lane_state(pix.shape[0], scene.device,
-                    None if acc_in is None else acc_in[local])
-    for _ in range(quota * (cfg.max_bounce + 1)):
-        undone = valid & (s["ns"] < quota)
-        group_undone = undone.reshape(n_groups, per_group).any(dim=1)
-        need = valid & ~s["live"] & group_undone.repeat_interleave(per_group)
-        if not bool((s["live"] | need).any()):
+    fps = focus_points(camera, pix % w, pix // w, w, cfg.height)
+    lane = torch.arange(n, device=dev)
+    ph = torch.zeros(n, dtype=torch.int64, device=dev)
+    s = _lane_state(n, dev, None if acc_in is None else acc_in[local[:, 0]])
+
+    def bank(lanes_of):
+        """The lanes' current pixels, done: their images and segments."""
+        i = lanes_of.nonzero().squeeze(1)
+        at, k = local[i, ph[i]], keep[i, ph[i]]
+        mean = _last_fold(cfg, frame0, n_frames, s["total"][i], s["ns"][i],
+                          None if s["acc"] is None else s["acc"][i])
+        img[at[k]] = mean[k]
+        seg_map[at[k]] = s["segs"][i][k].to(torch.int32)
+        return i
+
+    for slot in range(ppl * quota * (mb + 1) * phases):
+        live0 = s["live"].clone()
+        undone = valid & ((s["ns"] < quota) | (ph < ppl - 1))
+        if not bool((live0 | undone).any()):
             break
-        _slot(scene, camera, cfg, frame0, n_frames, pix, fp, need, s, hist,
-              intersect_fn, dup_fetch, block)
-    img[local[valid]] = _last_fold(cfg, frame0, n_frames, s)[valid]
-    seg_map[local[valid]] = s["segs"][valid].to(torch.int32)
+        group = undone.reshape(n_groups, per_group).any(dim=1)
+        primary = phases == 1 or slot % 2 == 0
+        need = (valid & ~live0 & group.repeat_interleave(per_group)
+                & primary)
+        switch = need & (s["ns"] >= quota) & (ph < ppl - 1)
+        if bool(switch.any()):
+            i = bank(switch)
+            for key in ("total", "ns", "fk", "segs"):
+                s[key][i] = 0
+            ph[i] += 1
+            if s["acc"] is not None:
+                s["acc"][i] = acc_in[local[i, ph[i]]]
+        trace = need | (live0 if phases == 1 or not primary else False)
+        _slot(scene, camera, cfg, frame0, n_frames, pix[lane, ph],
+              fps[lane, ph], need, s, hist, intersect_fn, dup_fetch, block,
+              trace=trace, counted=keep[lane, ph])
+    bank(valid)
 
 
-def _refill_two_phase(scene, camera, cfg, frame0, n_frames, band, y0, y1,
-                      acc_in, hist, intersect_fn, dup_fetch, phase_one):
+def _refill_two_phase(scene, camera, cfg, frame0, n_frames, lanes, inside,
+                      phases, y0, y1, acc_in, hist, intersect_fn, dup_fetch,
+                      phase_one):
     """Adaptive refill as the kernel runs it, in two passes over the pixels
-    of rows ``y0 .. y1 - 1``, grouped by ``band`` (``_band_groups``' (G, P)
-    pixel indices) -> ``(image (n, 3), segments (n,) int32)`` of the band's
-    n pixels; adds to ``hist``.
+    of rows ``y0 .. y1 - 1`` and the lane pass between them, for the lanes
+    ``lanes`` / ``inside`` (``_render_adaptive``) -> ``(image (n, 3),
+    segments (n,) int32)`` of the band's n pixels; adds to ``hist``.
 
-    Under the slot machine a lane that owes samples re-seeds the moment its
-    path ends, so until its quota is done it runs as the exact kernel does,
-    live every slot, and it is done after exactly its exact-spp segment
-    count E_i. Its group's vote is true at slot s iff s < T_g, the largest
-    E_i of the group, so afterwards a dead lane starts an extra sample iff
-    s < T_g, whatever else its neighbours do. Phase 1 runs each pixel's
-    exact slot loop without the last frame's fold and takes T_g per group;
-    phase 2 runs each pixel from slot E_i on, a dead lane re-seeding while
-    its slot is below T_g, a sample still in flight at the slot bound
-    dropped; then the last fold. A lane is live every slot until it idles
-    and stays idle after, so its slot is its segment count: neither phase
-    keeps a slot counter. Each phase's loop holds every pixel of the band,
-    and its live lanes trace in calls of ``plain_block_size`` (``_slot``),
-    so a phase runs as many slots as its slowest lane needs, once.
-    ``phase_one`` as ``render_frames_plain`` takes it."""
+    Under the slot machine a lane that owes samples starts one at the first
+    slot its phase allows after its path ends, so until its quota is done
+    its pixels run as under exact spp, whatever its group does: a pixel's
+    quota is done at its slot E, its segment count with one phase (a lane
+    is live every slot), with two the sum of each path's slots from an even
+    slot to its last segment's odd one. A lane starts its next pixel at
+    the first slot its phase allows after E, so it is done at the sum over
+    its pixels, and its group's vote is true at slot s iff s < T_g, the
+    group's largest such sum (``refill_lane_pass_plain``). So afterwards a
+    dead lane starts an extra sample iff its slot is below T_g (and even,
+    with two phases), whatever else its neighbours do. Phase 1 runs each
+    pixel's exact slot loop without the last frame's fold, each pixel's
+    slot kept; the lane pass takes each lane's sum and T_g; phase 2 runs
+    each lane's last pixel from the lane's sum on, a dead lane re-seeding
+    while its slot is below T_g, a sample still in flight at the slot bound
+    dropped; then the last fold. Each pixel keeps a slot counter, which a
+    lane waiting for its phase's slot moves on without a trace. Each phase's
+    loop holds every pixel of the band, and its live lanes trace in calls
+    of ``plain_block_size`` (``_slot``), so a phase runs as many
+    iterations as its slowest lane traces segments, once. ``phase_one`` as
+    ``render_frames_plain`` takes it."""
     dev = scene.device
     w = cfg.width
     quota = n_frames * cfg.spp
-    n_slots = quota * (cfg.max_bounce + 1)
+    n_slots = lanes.shape[-1] * quota * (cfg.max_bounce + 1) * phases
     off, n = y0 * w, (y1 - y0) * w
     pix = torch.arange(off, off + n, device=dev)
     fp = focus_points(camera, pix % w, pix // w, w, cfg.height)
     s = _lane_state(n, dev, None if acc_in is None else acc_in.clone())
+    slot = torch.zeros(n, dtype=torch.int64, device=dev)
     limit = torch.zeros(n, dtype=torch.int64, device=dev)
     block = plain_block_size(cfg, scene, n)
     for phase in (1, 2):
         if phase == 2:
-            g = torch.from_numpy(band).to(dev)
-            valid = g >= 0
-            local = torch.where(valid, g - off, 0)
-            tile_max = torch.where(valid, s["segs"][local], 0).amax(dim=1)
-            limit[local[valid]] = tile_max[:, None].expand(g.shape)[valid]
+            resume, tile_max = refill_lane_pass_plain(slot, lanes, inside,
+                                                      phases, off)
             if phase_one is not None:
                 phase_one["segs"] = s["segs"].to(torch.int32).reshape(
                     y1 - y0, w)
-                phase_one["tile_max"] = tile_max.to(torch.int32)
+                phase_one["slots"] = slot.to(torch.int32).reshape(y1 - y0, w)
+                phase_one["tile_max"] = tile_max
+            group = torch.zeros(n, dtype=torch.int64, device=dev)
+            group[lanes[inside] - off] = torch.arange(
+                lanes.shape[0], device=dev)[:, None, None].expand(
+                    lanes.shape)[inside]
+            go = resume >= 0
+            slot = torch.where(go, resume.to(torch.int64), slot)
+            limit = torch.where(go, tile_max.to(torch.int64)[group], 0)
         while True:
-            s["live"] &= s["segs"] < n_slots
-            need = ~s["live"] & ((s["ns"] < quota) | (s["segs"] < limit))
-            if not bool((s["live"] | need).any()):
+            if phases == 2:
+                # a live lane traces on odd slots, a dead one that owes or
+                # may refill starts on even ones: it waits a slot for it
+                owes = (s["ns"] < quota) | (slot + 1 < limit)
+                slot += torch.where(s["live"], slot % 2 == 0,
+                                    (slot % 2 == 1) & owes).long()
+            s["live"] &= slot < n_slots
+            need = ~s["live"] & ((s["ns"] < quota) | (slot < limit))
+            if phases == 2:
+                need &= slot % 2 == 0
+            traced = s["live"] | need
+            if not bool(traced.any()):
                 break
             _slot(scene, camera, cfg, frame0, n_frames, pix, fp, need, s,
                   hist, intersect_fn, dup_fetch, block)
-    return _last_fold(cfg, frame0, n_frames, s), s["segs"].to(torch.int32)
+            slot += traced.long()
+    return (_last_fold(cfg, frame0, n_frames, s["total"], s["ns"], s["acc"]),
+            s["segs"].to(torch.int32))
 
 
 def band_rows(scene: Scene, cfg: RenderConfig,
@@ -1434,7 +1696,8 @@ _RENDER_ARGTYPES = [
     _CI, _CI, _VP, _VP, _VP, _CI, _VP, _CI, _CI, _VP, _CI, _VP, _VP, _VP, _VP,
     _CI, _VP, _CI,
     _CI, _VP, _VP, _CI, _VP, _VP, _CI, _CI, _CI, _CI, _CI, _CI, ctypes.c_uint,
-    _CI, _VP, _CI, _CI, _CI, _CI, _VP, _VP, _CI, _CI, _VP, _VP, _VP, _VP,
+    _CI, _VP, _CI, _CI, _CI, _CI, _VP, _VP, _CI, _VP, _CI, _CI, _CI, _VP, _VP,
+    _VP, _VP,
 ]
 
 
@@ -1443,8 +1706,10 @@ def _bind(lib) -> None:
     lib.rtx_render.restype = _CI
     lib.rtx_shared_bytes.argtypes = [_CI] * 7
     lib.rtx_shared_bytes.restype = ctypes.c_size_t
-    lib.rtx_occupancy.argtypes = [_CI, _CI, _CI, _CI, ctypes.c_size_t]
+    lib.rtx_occupancy.argtypes = [_CI, _CI, _CI, _CI, _CI, ctypes.c_size_t]
     lib.rtx_occupancy.restype = _CI
+    lib.rtx_refill_lanes.argtypes = [_VP, _VP, _VP, _VP] + [_CI] * 7 + [_VP]
+    lib.rtx_refill_lanes.restype = _CI
 
 
 def _bind_probes(lib) -> None:
@@ -1458,8 +1723,9 @@ class PathTraceKernel:
     the probe library (the same source with ``-DRTX_PROBES``).
 
     ``variant_launches`` counts the kernel launches this object made, by
-    instantiation (``variant``, which names the route); only ``launch``
-    adds to it."""
+    instantiation (``variant``, which names the route), and refill's lane
+    passes under ``LANE_PASS``; only ``launch`` and ``lane_pass`` add to
+    it."""
 
     def __init__(self):
         self.variant_launches: collections.Counter = collections.Counter()
@@ -1485,6 +1751,35 @@ class PathTraceKernel:
         it. Raises if nvcc is missing or fails."""
         return self.library.build()
 
+    def lane_pass(self, slots, resume, tile_max, width, height, ts, ppl,
+                  phases, rows, perm=None) -> None:
+        """One launch of the ``refill_lanes`` kernel (``refill_lanes``):
+        ``slots`` -> ``resume`` and ``tile_max``, int32 CUDA tensors of the
+        band ``rows`` (``tile_max`` zeroed), ``perm`` None or
+        ``pair_perm``'s."""
+        dev = slots.device
+        n_tiles = -(-(rows[1] - rows[0]) // ts) * -(-width // ts)
+        want = [(slots, (rows[1] - rows[0], width)), (resume, slots.shape),
+                (tile_max, (n_tiles,))]
+        if perm is not None:
+            want.append((perm, (n_tiles, ts * ts)))
+        for t, shape in want:
+            if (t.device != dev or t.dtype != torch.int32
+                    or tuple(t.shape) != tuple(shape)
+                    or not t.is_contiguous()):
+                raise ValueError(
+                    f"the lane pass takes contiguous int32 tensors of shape "
+                    f"{tuple(shape)} on {dev}, got {tuple(t.shape)} "
+                    f"{t.dtype} on {t.device}")
+        with torch.cuda.device(dev):
+            rc = self.library.lib.rtx_refill_lanes(
+                slots.data_ptr(), None if perm is None else perm.data_ptr(),
+                resume.data_ptr(), tile_max.data_ptr(), width, height,
+                rows[0], rows[1], ts, ppl, phases,
+                torch.cuda.current_stream(dev).cuda_stream)
+        self.library.check(rc, "refill_lanes")
+        self.variant_launches[LANE_PASS] += 1
+
     def shared_bytes(self, tab: KernelTables, cfg: RenderConfig,
                      tables: str = "staged") -> int:
         """A launch's dynamic shared memory for tables ``tab`` on the route
@@ -1507,7 +1802,7 @@ class PathTraceKernel:
         n = self.library.lib.rtx_occupancy(
             GEOMETRIES.index(tab.geometry), TABLES.index(tables),
             int(cfg.adaptive_spp), int(cfg.fast_scatter),
-            self.shared_bytes(tab, cfg, tables))
+            int(knobbed(scene, cfg)), self.shared_bytes(tab, cfg, tables))
         if n < 0:
             self.library.check(-n, "occupancy query")
         return n
@@ -1539,6 +1834,7 @@ class PathTraceKernel:
         probe: str | None = None,
         tables: str | None = None,
         phase_one: dict | None = None,
+        pair_costs: torch.Tensor | None = None,
     ):
         """One call over the rows ``rows=(y0, y1)`` of the frame (the
         whole frame by default; ``band_rows`` says which bands a launch
@@ -1553,10 +1849,15 @@ class PathTraceKernel:
         image and the per-pixel map hold ``y1 - y0`` rows. Exact spp is one
         launch; refill two of ``render_adaptive`` (the source's
         ``render_slots``): phase 1 into a scratch row a pixel and an int a
-        refill tile, phase 2 from them. ``phase_one``, a dict, gains what
-        ``render_frames_plain`` gives it (copies of phase 1's segment map and
-        tile maxima) and ``events``, four CUDA events: before and after
-        each launch (refill only). Reads
+        refill tile, phase 2 from them, under ``refill_knobs``' pixels a
+        lane and phases, with more than one pixel a lane the lane pass
+        between them (``refill_lanes``, its lanes in ``pair_perm``'s order
+        of ``pair_costs``, the band's (y1 - y0, W) map, where given; with
+        exact spp ``pair_costs`` is not read). ``phase_one``, a dict, gains
+        what ``render_frames_plain`` gives it (copies of phase 1's segment
+        and slot maps and tile maxima) and ``events``, four CUDA events:
+        before and after phase 1, and before and after phase 2 (refill
+        only). Reads
         nothing back from the device and does not synchronise, except at a
         scene's first launch, which reads its sphere arrays back to cluster
         them (``geometry_tables``); the camera's visit order is made on the
@@ -1575,6 +1876,12 @@ class PathTraceKernel:
             raise NotImplementedError(
                 "the probe library compiles the profiling instantiations "
                 "with the Box-Muller sampler only: fast_scatter=False"
+            )
+        knobs = knobbed(scene, cfg)
+        if probe is not None and knobs:
+            raise NotImplementedError(
+                "the probe library compiles refill's profiling "
+                "instantiations with one pixel a lane and one phase"
             )
         y0, y1 = band_rows(scene, cfg, rows)
         dev = scene.device
@@ -1624,7 +1931,8 @@ class PathTraceKernel:
             # an empty tensor's pointer is null: the kernel reads no row of it
             return None if t is None or t.numel() == 0 else t.data_ptr()
 
-        def run(accum_in, image, phase=0, scratch=None, tile_max=None, ts=0):
+        def run(accum_in, image, phase=0, scratch=None, tile_max=None, ts=0,
+                slot_map=None, ppl=1, phases=1):
             rc = render(
                 code, TABLES.index(route), ptr(tab.spheres),
                 ptr(tab.sphere_orig), ptr(tab.sphere_mat), n_sph,
@@ -1638,12 +1946,13 @@ class PathTraceKernel:
                 int(frame0) & 0xFFFFFFFF, n_frames, ptr(accum_in),
                 int(cfg.clamp_accumulate), int(cfg.adaptive_spp),
                 int(cfg.fast_scatter), phase, ptr(scratch), ptr(tile_max), ts,
+                ptr(slot_map), ppl, phases,
                 int(tab.chunk_warp_scan), ptr(image), ptr(segs), ptr(hist),
                 torch.cuda.current_stream(dev).cuda_stream,
             )
             library.check(rc, "megakernel")
             self.variant_launches[variant(
-                geom, cfg.adaptive_spp, cfg.fast_scatter, probe, route
+                geom, cfg.adaptive_spp, cfg.fast_scatter, probe, route, knobs
             )] += 1
 
         with torch.cuda.device(dev):
@@ -1652,25 +1961,43 @@ class PathTraceKernel:
                 return out, segs.sum(dtype=torch.int64), segs, hist
             # refill: phase 1 leaves each pixel's RNG state and last frame's
             # light in `scratch`, its segments in `segs`, the running average
-            # of the frames before the last in `mid`, and each tile's largest
-            # segment count in `tile_max`; phase 2 takes them from there
+            # of the frames before the last in `mid`, its slot in `slots`
+            # (its segments with one pixel a lane and one phase), and with
+            # one pixel a lane each tile's last finish in `tile_max`; with
+            # more the lane pass takes that, and each lane's slot; phase 2
+            # takes them from there
             ts = refill_tile_size(scene, cfg)
+            ppl, phases = refill_knobs(scene, cfg)
             scratch = torch.empty((h, w, 4), dtype=torch.float32, device=dev)
             tile_max = torch.zeros(-(-h // ts) * -(-w // ts),
                                    dtype=torch.int32, device=dev)
             mid = None if accum is None else torch.empty_like(out)
+            slots = None
+            if ppl > 1 or phases > 1:
+                slots = torch.empty((h, w), dtype=torch.int32, device=dev)
+            perm = None
+            if pair_costs is not None and ppl > 1:
+                perm = pair_perm(pair_costs.to(dev), w, cfg.height, ts, ppl,
+                                 y0, y1).contiguous()
             events = None
             if phase_one is not None:
                 events = [torch.cuda.Event(enable_timing=True)
                           for _ in range(4)]
                 events[0].record()
-            run(accum, mid, 1, scratch, tile_max, ts)
+            run(accum, mid, 1, scratch, tile_max, ts, slots, ppl, phases)
             if phase_one is not None:
                 events[1].record()
+            resume = slots
+            if ppl > 1:
+                resume = torch.empty_like(slots)
+                self.lane_pass(slots, resume, tile_max, w, cfg.height, ts,
+                               ppl, phases, (y0, y1), perm)
+            if phase_one is not None:
                 phase_one.update(segs=segs.clone(), tile_max=tile_max.clone(),
-                                 events=events)
+                                 slots=segs.clone() if slots is None
+                                 else slots.clone(), events=events)
                 events[2].record()
-            run(mid, out, 2, scratch, tile_max, ts)
+            run(mid, out, 2, scratch, tile_max, ts, resume, ppl, phases)
             if phase_one is not None:
                 events[3].record()
         return out, segs.sum(dtype=torch.int64), segs, hist
@@ -2095,6 +2422,7 @@ def render_frames_mega(
     probe: str | None = None,
     tables: str | None = None,
     phase_one: dict | None = None,
+    pair_costs: torch.Tensor | None = None,
 ):
     """Render ``n_frames`` frames from ``frame0`` (folded into ``accum``
     when given) -> ``(image, total segments, per-pixel segments, bounce
@@ -2120,7 +2448,10 @@ def render_frames_mega(
     the plain version's (``render_frames_plain``); the outputs are those
     without it. ``phase_one``, a dict, gains refill's first phase
     (``render_frames_plain``; on the card also the launches' events,
-    ``PathTraceKernel.launch``)."""
+    ``PathTraceKernel.launch``). ``pair_costs``, a (y1 - y0, W) cost map
+    (a launch's per-pixel segments), pairs a refill lane's pixels by cost
+    where a lane has more than one (``pair_perm``), as the JAX package's
+    ``render_frames_mega`` does; exact spp does not read it."""
     dev = scene.device
     if dev.type == "cpu":
         band_rows(scene, cfg, rows)  # the kernel's rule, checked there too
@@ -2129,11 +2460,13 @@ def render_frames_mega(
         return render_frames_plain(
             scene, camera, cfg, frame0, n_frames, accum, collect_stats,
             rows=rows, probe=probe, phase_one=phase_one,
+            pair_costs=pair_costs,
         )
     if dev.type == "cuda":
         return KERNEL.launch(
             scene, camera, cfg, frame0, n_frames, accum, collect_stats,
             rows=rows, probe=probe, tables=tables, phase_one=phase_one,
+            pair_costs=pair_costs,
         )
     raise ValueError(f"no render path for device {dev}")
 

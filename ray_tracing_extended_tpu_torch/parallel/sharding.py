@@ -156,10 +156,11 @@ def _placed(obj, dev: torch.device):
     return cache[dev]
 
 
-def _render_band(scene, camera, cfg, frame0, n_frames, accum, rows, dev):
+def _render_band(scene, camera, cfg, frame0, n_frames, accum, rows, dev,
+                 pair_costs=None):
     """``render_frames_mega`` over the band ``rows`` on ``dev`` -> ``(image
     or accum', total segments, per-pixel segments)``; a band with no row
-    launches nothing."""
+    launches nothing. ``pair_costs``: the band's rows of a cost map."""
     y0, y1 = rows
     if y0 == y1:
         img = (torch.zeros((0, cfg.width, 3), dtype=torch.float32, device=dev)
@@ -169,6 +170,7 @@ def _render_band(scene, camera, cfg, frame0, n_frames, accum, rows, dev):
     img, segs, seg_map, _ = render_frames_mega(
         _placed(scene, dev), _placed(camera, dev), cfg, frame0, n_frames,
         accum=accum, rows=rows,
+        pair_costs=None if pair_costs is None else pair_costs.to(dev),
     )
     return img, segs, seg_map
 
@@ -280,11 +282,12 @@ def render_frames_mega_sharded(
     """``n_frames`` frames from ``frame0`` folded into ``accum_bands`` (band
     layout), one launch a band -> ``(accum_bands', total segments on
     mesh.devices[0, 0], per-pixel segment counts in band layout)``. Each
-    band equals those rows of the single-device K-frame launch bit for bit.
-    ``pair_costs`` is taken and not used (on the TPU it only reorders
-    lanes). A ``tiles``-only mesh: the in-kernel K-frame fold is
-    sequential and cannot merge across ``spp`` rows."""
-    del pair_costs
+    band equals those rows of the single-device K-frame launch bit for bit,
+    with ``pair_costs`` too: None, or a cost map in band layout (a previous
+    call's per-pixel counts), which pairs a refill lane's pixels by cost
+    where a lane has more than one (``render_frames_mega``; a refill band
+    holds whole tiles). A ``tiles``-only mesh: the in-kernel K-frame fold
+    is sequential and cannot merge across ``spp`` rows."""
     if mesh.shape["spp"] != 1:
         raise ValueError(
             "render_frames_mega_sharded composes the K-frame batch with the "
@@ -292,10 +295,12 @@ def render_frames_mega_sharded(
             "sequential fold of K frames cannot merge across 'spp' rows)"
         )
     _check_layout(accum_bands, cfg, mesh, "accum_bands")
+    costs = [None] * len(accum_bands) if pair_costs is None else pair_costs
     outs = [
         _render_band(scene, camera, cfg, frame0, n_frames, acc, rows,
-                     mesh.devices[0, t])
-        for t, (rows, acc) in enumerate(zip(_bands(cfg, mesh), accum_bands))
+                     mesh.devices[0, t], c)
+        for t, (rows, acc, c) in enumerate(zip(_bands(cfg, mesh),
+                                               accum_bands, costs))
     ]
     return ([o[0] for o in outs], _total([o[1] for o in outs],
                                           mesh.devices[0, 0]),

@@ -164,12 +164,16 @@ def render_progressive(
         ckpt.save(checkpoint_path, accum, frame, fingerprint)
 
     if batch > 1:
+        # each chunk's per-pixel counts pair the next one's refill lanes by
+        # cost, as the JAX package chains them
+        cmap = None
         f = start_frame
         while f < end:
             k = min(batch, end - f)
             t0 = time.perf_counter()
-            accum, segs, _ = render_frames_and_accumulate(
-                scene, camera, cfg, accum, f, k, segs_map=True
+            accum, segs, cmap = render_frames_and_accumulate(
+                scene, camera, cfg, accum, f, k, pair_costs=cmap,
+                segs_map=True
             )
             segs = int(segs)  # one host sync per chunk
             wall = time.perf_counter() - t0
@@ -312,12 +316,16 @@ def _render_progressive_sharded(
                   step, fingerprint)
 
     if batch > 1:
+        # chained cost maps as on one device, from a zeros map, as the JAX
+        # package's sharded render_progressive starts them
+        cmap = [torch.zeros(b.shape[:2], dtype=torch.int32, device=b.device)
+                for b in bands]
         s = start
         while s < end:
             k = min(batch, end - s)
             t0 = time.perf_counter()
-            bands, segs, _ = sharding.render_frames_mega_sharded(
-                scene, camera, cfg, s, bands, k, mesh
+            bands, segs, cmap = sharding.render_frames_mega_sharded(
+                scene, camera, cfg, s, bands, k, mesh, pair_costs=cmap
             )
             for band, (y0, _) in zip(bands, rows):
                 check_launch(s, k, {"accumulator": band}, row0=y0)

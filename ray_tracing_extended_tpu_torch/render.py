@@ -95,13 +95,15 @@ def render_frames_and_accumulate(
 
     Frame ``frame0 + k`` folds into the running average with weight
     ``1 / (frame0 + k + 1)``, clamped per ``cfg.clamp_accumulate``. On CUDA
-    all frames are one kernel launch. ``pair_costs`` is accepted and not
-    used: on the TPU it only reorders lanes, and the image is identical for
-    any cost map."""
-    del pair_costs
+    all frames are one kernel launch. ``pair_costs``, an (H, W) cost map (a
+    previous call's ``segs_map``), pairs a refill lane's pixels by cost
+    where a lane has more than one (``cfg.mega_pixels_per_lane``), as on
+    the TPU; under exact spp it only reorders lanes there, and the image is
+    the same for any cost map, so it is not read."""
     _check_supported(cfg)
     img, segs, seg_map, _ = render_frames_mega(
-        scene, camera, cfg, frame0, n_frames, accum=accum
+        scene, camera, cfg, frame0, n_frames, accum=accum,
+        pair_costs=pair_costs,
     )
     check_launch(frame0, n_frames, {"accumulator": img})
     if segs_map:

@@ -11,21 +11,26 @@ little. Reports mean(d_f) with its t-statistic over F frames, and the
 relative bias mean(d) / mean(exact) with its 95% CI.
 
 The port's refill groups pixels by the TPU kernel's tiles
-(``kernels/megakernel.refill_tile_size``: 128 x 128 on both scenes), as
-the JAX package does; ``against_reference`` sets a scene's line beside
-the reference's interval, measured by the JAX tool on a TPU v5e
+(``kernels/megakernel.refill_tile_size``: 128 x 128 on both scenes) and
+lanes (``--pixels-per-lane``, ``--phases``: the config's
+``mega_pixels_per_lane`` and ``mega_phases``, 1 by default), as the JAX
+package does; ``against_reference`` sets a scene's line beside the
+reference's interval, measured by the JAX tool on a TPU v5e
 (``ray_tracing_extended_tpu/utils/config.py:50-53``). Runs on the card by
 default; on the CPU (the plain version's two phases over the same tiles)
 at small sizes::
 
     python -m ray_tracing_extended_tpu_torch.tools.adaptive_bias
     python -m ray_tracing_extended_tpu_torch.tools.adaptive_bias \\
-        --device cpu --width 32 --height 24 --frames 4
+        --pixels-per-lane 2
+    python -m ray_tracing_extended_tpu_torch.tools.adaptive_bias \\
+        --device cpu --width 32 --height 24 --frames 4 --phases 2
 
 Prints one JSON line a step: ``init`` (the device), one a scene (RTIOW
 480x270, 4 bounces, 16 spp; Cornell 256x256, 8 bounces, 16 spp, unless
 ``--width``/``--height``/``--spp`` say otherwise; refill on the tiles of
-``--tile-size`` where given), ``done``.
+``--tile-size`` and under ``--pixels-per-lane`` and ``--phases`` where
+given; the lines' keys are the JAX tool's), ``done``.
 """
 
 from __future__ import annotations
@@ -106,6 +111,10 @@ def main(argv=None) -> int:
     p.add_argument("--tile-size", type=int,
                    help="the refill tile's side (mega_tile_size), for how "
                    "the bias follows the group")
+    p.add_argument("--pixels-per-lane", type=int, choices=(1, 2, 4, 8),
+                   help="a refill lane's pixels (mega_pixels_per_lane)")
+    p.add_argument("--phases", type=int, choices=(1, 2),
+                   help="refill's slot phases (mega_phases)")
     args = p.parse_args(argv)
     if args.frames < 2:
         raise SystemExit("--frames must be at least 2 (a standard error)")
@@ -121,7 +130,9 @@ def main(argv=None) -> int:
                                  ("cornell", cornell_box_scene, 256, 256, 8)):
         scene, cam, cfg = make(**size(w, h), max_bounce=mb, spp=args.spp,
                                device=dev)
-        cfg = dataclasses.replace(cfg, mega_tile_size=args.tile_size)
+        cfg = dataclasses.replace(cfg, mega_tile_size=args.tile_size,
+                                  mega_pixels_per_lane=args.pixels_per_lane,
+                                  mega_phases=args.phases)
         run_scene(name, scene, cam, cfg, args.frames)
     emit(step="done", total_wall_s=round(time.time() - t0, 1))
     return 0

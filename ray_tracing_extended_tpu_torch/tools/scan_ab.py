@@ -73,12 +73,14 @@ K_FRAMES = 4
 def _entry(ln: str):
     """The kernel entry a line names, ``render_kernel<geometry,scatter>``
     (``render_kernel<geometry,scatter,global>`` on the global table route
-    of a tree that has one), or None."""
+    of a tree that has one, ``...,knobs>`` for refill under the lane knobs),
+    or None."""
     m = re.search(r"(render_kernel|render_adaptive)IL\w*?E(\d)EL\w*?E(\d)E", ln)
     if not m:
         return None
     route = ",global" if re.search(r"TablesE1E", ln) else ""
-    return f"{m.group(1)}<{m.group(2)},{m.group(3)}{route}>"
+    knobs = ",knobs" if re.search(r"TablesE[01]ELb1E", ln) else ""
+    return f"{m.group(1)}<{m.group(2)},{m.group(3)}{route}{knobs}>"
 
 
 def _ptxas(log: str) -> dict:

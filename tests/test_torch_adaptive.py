@@ -218,49 +218,89 @@ def _two_phase_case(preset, width, height, spp, max_bounce):
                                            block_size=256)
 
 
-@pytest.mark.parametrize("preset, n_frames, clamp, rows, ts", [
-    ("three_sphere_scene", 1, True, None, 16),
-    ("three_sphere_scene", 4, False, None, 16),
-    ("three_sphere_scene", 4, True, (16, 24), 16),
-    ("cornell_box_scene", 1, False, (0, 16), 16),
-    ("cornell_box_scene", 4, True, None, 32),
-], ids=["k1", "k4-hdr", "k4-band", "cornell-k1-band", "cornell-k4"])
+@pytest.mark.parametrize("preset, n_frames, clamp, rows, ts, ppl, phases, paired", [
+    ("three_sphere_scene", 1, True, None, 16, 1, 1, False),
+    ("three_sphere_scene", 4, False, None, 16, 1, 1, False),
+    ("three_sphere_scene", 4, True, (16, 24), 16, 1, 1, False),
+    ("cornell_box_scene", 1, False, (0, 16), 16, 1, 1, False),
+    ("cornell_box_scene", 4, True, None, 32, 1, 1, False),
+    ("three_sphere_scene", 1, True, None, 16, 2, 1, False),
+    ("three_sphere_scene", 4, False, (16, 24), 16, 2, 2, True),
+    ("three_sphere_scene", 1, True, None, 32, 4, 1, False),
+    ("cornell_box_scene", 4, True, None, 16, 1, 2, False),
+    ("cornell_box_scene", 1, False, (0, 16), 16, 2, 2, False),
+    ("cornell_box_scene", 4, True, None, 32, 2, 1, True),
+], ids=["k1", "k4-hdr", "k4-band", "cornell-k1-band", "cornell-k4",
+        "ppl2-k1", "ppl2-ph2-paired-k4-band", "ppl4-k1", "cornell-ph2-k4",
+        "cornell-ppl2-ph2-k1-band", "cornell-ppl2-paired-k4"])
 def test_two_phase_refill_equals_slot_machine(preset, n_frames, clamp, rows,
-                                              ts):
+                                              ts, ppl, phases, paired):
     """The kernel's two phases (the exact loop, each tile's last finish,
     then each lane's extra samples from its own slot) against the TPU
     kernel's slot machine over the same tiles, bit for bit: image, segment
     map, total and bounce histogram. A 40 x 24 frame, whose right and top
     edges cut tiles; K = 1 and K = 4 from a seeded accumulator; both clamp
-    modes; a band of whole tiles; live lanes traced 256 a call."""
+    modes; a band of whole tiles; live lanes traced 256 a call. Under the
+    lane knobs (pixels a lane ``ppl``, ``phases``, lanes ``paired`` by a
+    seeded cost map) the lanes are the TPU kernel's over the config's
+    tiles, a lane's border positions past the frame tracing their clamped
+    pixels; the slot machine switches a lane's pixel and waits for its
+    phase's slots as the TPU kernel does, slot by slot."""
     scene, cam, cfg = _two_phase_case(preset, 40, 24, 2, 3)
     cfg = dataclasses.replace(cfg, clamp_accumulate=clamp)
     y0, y1 = rows or (0, 24)
-    acc = None
+    acc = costs = None
     if n_frames > 1:
         acc = torch.from_numpy(np.random.RandomState(4).uniform(
             0, 2, (y1 - y0, 40, 3)).astype(np.float32))
-    groups = tmk.tile_groups(40, 24, ts)
+    knobs = (ppl, phases) != (1, 1)
+    groups = None if knobs else tmk.tile_groups(40, 24, ts)
+    if knobs:
+        cfg = dataclasses.replace(cfg, mega_tile_size=ts,
+                                  mega_pixels_per_lane=ppl, mega_phases=phases)
+    if paired:
+        costs = torch.from_numpy(
+            np.random.RandomState(9).randint(0, 30, (y1 - y0, 40)))
     fn = tmk.plain_intersector(scene, cam, cfg)
     slot = tmk._render_adaptive(scene, cam, cfg, 5, n_frames, acc, True, y0,
-                                y1, groups, fn, False, two_phase=False)
+                                y1, groups, fn, False, two_phase=False,
+                                pair_costs=costs)
     phase_one = {}
     two = tmk._render_adaptive(scene, cam, cfg, 5, n_frames, acc, True, y0,
-                               y1, groups, fn, False, phase_one=phase_one)
+                               y1, groups, fn, False, phase_one=phase_one,
+                               pair_costs=costs)
     assert torch.equal(two[0], slot[0]) and torch.equal(two[2], slot[2])
     assert int(two[1]) == int(slot[1]) and torch.equal(two[3], slot[3])
     # phase 1 is the exact render's segment map; each tile's last finish
-    # is its largest entry, and no pixel traced fewer segments than it
+    # is its largest lane's sum of its pixels' slots (with one pixel a lane
+    # and one phase, its largest entry), and no pixel traced fewer segments
+    # than it
     exact = tmk.render_frames_plain(
         scene, cam, dataclasses.replace(cfg, adaptive_spp=False), 5,
         n_frames, accum=acc, rows=rows)
     assert torch.equal(phase_one["segs"], exact[2])
-    band = tmk._band_groups(groups, 40, y0, y1)
-    seg = phase_one["segs"].reshape(-1)
-    for g, t in zip(band, phase_one["tile_max"].tolist()):
-        assert t == int(seg[g[g >= 0] - y0 * 40].max())
+    if knobs:
+        perm = None if costs is None else tmk.pair_perm(costs, 40, 24, ts,
+                                                        ppl, y0, y1)
+        pix, inside = tmk.tile_lanes(40, 24, ts, ppl, y0, y1, perm)
+        e = phase_one["slots"].reshape(-1)[pix - y0 * 40].long()
+        start = e + (e & 1) if phases == 2 else e
+        lanes = start[..., :-1].sum(-1) + e[..., -1]
+        assert phase_one["tile_max"].tolist() == lanes.amax(1).tolist()
+    else:
+        assert torch.equal(phase_one["slots"], phase_one["segs"])
+        band = tmk._band_groups(groups, 40, y0, y1)
+        seg = phase_one["segs"].reshape(-1)
+        for g, t in zip(band, phase_one["tile_max"].tolist()):
+            assert t == int(seg[g[g >= 0] - y0 * 40].max())
     assert bool((two[2] >= phase_one["segs"]).all())
-    assert int(two[1]) > int(exact[2].sum())
+    if knobs and not bool(inside[..., -1].any()):
+        # every lane's last position lies past the frame (four pixels a
+        # lane over tiles of 32 rows on a frame of 24): no pixel takes an
+        # extra sample
+        assert int(two[1]) == int(exact[2].sum())
+    else:
+        assert int(two[1]) > int(exact[2].sum())
 
 
 def test_refill_with_one_pixel_groups_is_exact_spp():

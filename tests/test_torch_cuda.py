@@ -1016,6 +1016,150 @@ def test_refill_phases_equal_plain_bit_for_bit(cuda, name, fast, ts):
     assert mk.KERNEL.variant_launches[v] == before + 4
 
 
+# (scene, pixels a lane, phases, cost map, fast scatter, route, tile side)
+KNOB_MODES = [
+    ("rtiow", 2, 1, False, False, "staged", None),
+    ("rtiow", 4, 1, False, False, "staged", None),
+    ("rtiow", 1, 2, False, False, "staged", None),
+    ("rtiow", 2, 2, False, False, "staged", 32),
+    ("rtiow", 2, 1, True, False, "staged", 32),
+    ("rtiow", 2, 2, True, True, "global", None),
+    ("rtiow", 2, 1, False, True, "staged", None),
+    ("rtiow", 1, 2, False, False, "global", 32),
+    ("cornell", 2, 1, False, False, "staged", None),
+    ("cornell", 4, 1, True, False, "staged", 32),
+    ("cornell", 1, 2, False, False, "staged", 32),
+    ("cornell", 2, 2, True, True, "global", None),
+    ("cornell", 2, 1, False, True, "staged", 32),
+    ("chess", 2, 2, True, False, "staged", None),
+    ("chess", 1, 2, False, True, "global", 32),
+]
+
+
+@pytest.mark.parametrize(
+    "name, ppl, phases, costs, fast, tables, ts", KNOB_MODES,
+    ids=[f"{n}-ppl{p}-ph{h}{'-paired' if c else ''}-{'fast' if f else 'bm'}"
+         f"-{t}-{ts or 'auto'}" for n, p, h, c, f, t, ts in KNOB_MODES])
+def test_refill_knobs_equal_plain_bit_for_bit(cuda, name, ppl, phases, costs,
+                                              fast, tables, ts):
+    """render_adaptive under the lane knobs (its kKnobs instantiation; with
+    more than one pixel a lane the lane pass between its launches) against
+    the plain version's two phases (its kernel test forms) on a 250x134
+    frame, whose edges cut warps, blocks and tiles: phase 1's segment and
+    slot maps and each tile's last finish equal as integers, and the image,
+    segment map and histogram bit for bit; a frame, and a K = 3 fold from a
+    seeded accumulator, the latter on a band of whole tiles with tiles of
+    32; with a seeded cost map pairing a lane's pixels. Every launch
+    counted."""
+    scene, cam, cfg = _off_tile_scene(name, cuda)
+    cfg = dataclasses.replace(cfg, adaptive_spp=True, fast_scatter=fast,
+                              mega_tile_size=ts, mega_pixels_per_lane=ppl,
+                              mega_phases=phases)
+    fn = mk.plain_intersector(scene, cam, cfg, direct=True)
+    v = mk.variant(mk.geometry(scene, cfg), True, fast, tables=tables,
+                   knobs=True)
+    assert mk.knobbed(scene, cfg)
+    rows = (32, 96) if ts else None
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    acc0 = 2.0 * torch.rand((64 if ts else 134, 250, 3), generator=gen,
+                            device=cuda)
+    cmap = torch.randint(0, 40, (134, 250), generator=gen, device=cuda,
+                         dtype=torch.int32)
+    before = (mk.KERNEL.variant_launches[v],
+              mk.KERNEL.variant_launches[mk.LANE_PASS])
+    for frame0, n, acc, band in ((5, 1, None, None), (2, 3, acc0, rows)):
+        c = None
+        if costs:
+            c = cmap if band is None else cmap[slice(*band)].contiguous()
+        k_one, p_one = {}, {}
+        k = mk.render_frames_mega(scene, cam, cfg, frame0, n, accum=acc,
+                                  collect_stats=True, rows=band,
+                                  phase_one=k_one, tables=tables,
+                                  pair_costs=c)
+        p = mk.render_frames_plain(scene, cam, cfg, frame0, n, accum=acc,
+                                   collect_stats=True, rows=band,
+                                   intersect_fn=fn, phase_one=p_one,
+                                   pair_costs=c)
+        for key in ("segs", "slots", "tile_max"):
+            assert torch.equal(k_one[key], p_one[key].to(cuda)), key
+        assert _bits_equal(k[0], p[0])
+        assert torch.equal(k[2], p[2]) and torch.equal(k[3], p[3])
+        assert int(k[1]) == int(k[2].sum())
+    torch.cuda.synchronize()
+    assert mk.KERNEL.variant_launches[v] == before[0] + 4
+    assert mk.KERNEL.variant_launches[mk.LANE_PASS] == before[1] + (
+        2 if ppl > 1 else 0)
+
+
+@pytest.mark.parametrize("ppl, phases, fast, tables", [
+    (2, 2, False, "staged"), (4, 1, True, "staged"), (2, 1, False, "global"),
+    (1, 2, True, "global")])
+def test_bvh_refill_knobs_equal_plain_bit_for_bit(cuda, ppl, phases, fast,
+                                                  tables):
+    """The BVH's kKnobs instantiations, on both table routes, as
+    test_bvh_kernel_equals_plain_bit_for_bit holds their twins: mesh_scene
+    at 192x108, 4 spp, depth 0; each launch counted."""
+    scene, cam, cfg = presets.mesh_scene(width=192, height=108, spp=4,
+                                         max_bounce=0)
+    cfg = dataclasses.replace(cfg, adaptive_spp=True, fast_scatter=fast,
+                              mega_pixels_per_lane=ppl, mega_phases=phases)
+    v = mk.variant("bvh", True, fast, tables=tables, knobs=True)
+    before = mk.KERNEL.variant_launches[v]
+    k_one, p_one = {}, {}
+    k = mk.render_frames_mega(scene, cam, cfg, 5, collect_stats=True,
+                              phase_one=k_one, tables=tables)
+    p = mk.render_frames_plain(scene, cam, cfg, 5, collect_stats=True,
+                               phase_one=p_one)
+    for key in ("segs", "slots", "tile_max"):
+        assert torch.equal(k_one[key], p_one[key].to(cuda)), key
+    assert _bits_equal(k[0], p[0])
+    assert torch.equal(k[2], p[2]) and torch.equal(k[3], p[3])
+    torch.cuda.synchronize()
+    assert mk.KERNEL.variant_launches[v] == before + 2
+
+
+def test_lane_pass_kernel_equals_plain(cuda):
+    """The refill_lanes kernel against its plain version on the CPU: a
+    seeded slot map of a 250x134 frame, two and four pixels a lane, one
+    and two phases, with and without a cost pairing, the whole frame and a
+    band of whole tiles, as integers."""
+    gen = torch.Generator().manual_seed(3)
+    slots = torch.randint(1, 200, (134, 250), generator=gen,
+                          dtype=torch.int32)
+    costs = torch.randint(0, 50, (134, 250), generator=gen, dtype=torch.int32)
+    before = mk.KERNEL.variant_launches[mk.LANE_PASS]
+    calls = 0
+    for ts, ppl, phases, paired in ((128, 2, 1, False), (128, 4, 2, True),
+                                    (32, 2, 2, True), (32, 8, 1, False)):
+        for rows in [(0, 134)] + ([(32, 96)] if ts == 32 else []):
+            band = slice(*rows)
+            perm = (mk.pair_perm(costs[band], 250, 134, ts, ppl, *rows)
+                    if paired else None)
+            want = mk.refill_lanes(slots[band].contiguous(), 250, 134, ts,
+                                   ppl, phases, rows, perm)
+            got = mk.refill_lanes(
+                slots[band].contiguous().to(cuda), 250, 134, ts, ppl, phases,
+                rows, None if perm is None else perm.to(cuda).contiguous())
+            assert torch.equal(got[0].cpu(), want[0])
+            assert torch.equal(got[1].cpu(), want[1])
+            calls += 1
+    torch.cuda.synchronize()
+    assert mk.KERNEL.variant_launches[mk.LANE_PASS] == before + calls
+
+
+def test_refill_knobs_refusals(cuda):
+    """The profiling instantiations take no lane knob, and the kernel's
+    rule refuses a pixel count a lane that does not divide its tile's rows
+    of 128 (tiles of 16: two rows)."""
+    scene, cam, cfg = presets.three_sphere_scene(width=64, height=32, spp=1)
+    cfg = dataclasses.replace(cfg, adaptive_spp=True, mega_pixels_per_lane=2)
+    with pytest.raises(NotImplementedError, match="one pixel a lane"):
+        mk.render_frames_mega(scene, cam, cfg, 1, probe="dup_intersect")
+    with pytest.raises(ValueError, match="must divide the tile's 2 rows"):
+        mk.render_frames_mega(scene, cam, dataclasses.replace(
+            cfg, mega_tile_size=16, mega_pixels_per_lane=4), 1)
+
+
 CHUNK_BAND_MODES = [(n, a, f, t) for n in ("chess", "cornell")
                     for a in (False, True) for f in (False, True)
                     for t in mk.TABLES]
