@@ -206,6 +206,26 @@
 // waste. Whole tiles a warp (its lanes start the next tile together) were
 // within 2% on RTIOW and 3-5% slower on Chess. The BVH kernels start a
 // warp's samples together on purpose (kLockstep, below).
+// How a sphere cluster's rays reach lanes: the warp's own, as above. The
+// TPU kernel's tile vote with the entering rays packed
+// (megakernel.py:838-863, on a block's four warps) was measured against
+// it (tools/scan_ab.py, 10 pairs, on an NVIDIA H100 80GB HBM3 at 700 W;
+// PERF.md): the block's rays in a table in shared memory (8.7 KB a block),
+// each live lane's gate in the rows' order, a ballot a warp and the warps'
+// counts placing the entering rays in a list, the list tested 32 rays a
+// warp step, each warp a quarter of the cluster's spheres and the owner
+// taking the parts' lexicographic minimum of (t, scene index), the slot
+// loop's exit block-uniform. Bit for bit the same images, and counted on
+// RTIOW's band 0.72x the per-lane loop's sphere steps and 0.94-0.98x this
+// scan's (kernels/megakernel.py schedule_counts, "block"); on the card
+// 1.23x this kernel's frame on RTIOW 1080p exact (8.334 against 6.783 ms),
+// 1.31x with refill, 1.39-1.54x on the wide sphere scenes, no pair of 10
+// won; its closest hit took 6.80 ms a frame where this one takes 4.88. A
+// visit costs three barriers and a cluster no lane entered one, some
+// twenty a slot; at each the block's warps wait for the slowest, and the
+// seven blocks an SM holds leave too few warps to hide the pair tests'
+// latency: the list's batches dealt round-robin to the warps were 8.54 ms,
+// and with five blocks an SM and no spills 9.83.
 //
 // kBvh, for big meshes (mesh_scene's 70,016 triangles in one chunk, which
 // the chunk scan would test in full every segment). It replaces the TPU

@@ -1041,6 +1041,15 @@ def refill_lanes(slots: torch.Tensor, width: int, height: int, ts: int,
 # queue (measured on the card as a kernel and not kept: PERF.md).
 SCHEDULES = ("nested", "slots", "queue")
 
+# The slot loop of the kernel's 16x8 blocks, BLOCK_WARPS warps each, whose
+# slot ends when the block's last live lane has traced its segment and whose
+# sphere cluster visits test the block's rays that entered a cluster, WARP a
+# warp step, the batches dealt round-robin to its warps (``schedule_counts``;
+# measured on the card as the kSpheres kernels' cluster scan and not kept:
+# PERF.md).
+BLOCK_SCHEDULE = "block"
+BLOCK_WARPS = BLOCK_X * BLOCK_Y // WARP
+
 
 def _slot_iterations(key, packed, sizes, base) -> tuple[int, int]:
     """Records grouped into slots by ``key`` (R,) -> ``(slots, iterations)``:
@@ -1098,6 +1107,35 @@ def _cluster_visits(key, members, sizes, scan_max,
     return hist, int(steps[lanes > 0].sum())
 
 
+def _block_visits(key, spheres, sizes, n_hoist) -> dict:
+    """Records grouped into block slots by ``key`` (R,) -> the ``"block"``
+    schedule's cluster visits: a (slot, cluster) pair whose slot has n
+    records that tested the cluster (``spheres`` (R, K) bool, of ``sizes``
+    (K,) spheres) runs ceil(n / WARP) batches of the cluster's size in
+    per-lane sphere steps, batch b on warp b mod BLOCK_WARPS. A slot's
+    busiest warp runs the hoisted spheres and, each visit, the most batches
+    of a warp: the block waits for it at the visit's end."""
+    hist = np.zeros(BLOCK_WARPS * WARP, np.int64)
+    out = dict(block_visit_lanes=hist, block_sphere_steps=0,
+               busiest_warp_steps=0)
+    if not key.size:
+        return out
+    order = np.argsort(key, kind="stable")
+    k = key[order]
+    starts = np.flatnonzero(np.r_[True, k[1:] != k[:-1]])
+    out["busiest_warp_steps"] = starts.size * n_hoist
+    if not sizes.size:
+        return out
+    lanes = np.add.reduceat(spheres[order].view(np.uint8), starts, axis=0,
+                            dtype=np.int64)
+    hist += np.bincount(lanes[lanes > 0], minlength=hist.size + 1)[1:]
+    batches = -(-lanes // WARP)
+    out["block_sphere_steps"] = int((batches @ sizes).sum())
+    out["busiest_warp_steps"] += int(
+        (-(-batches // BLOCK_WARPS) @ sizes).sum())
+    return out
+
+
 def _queue_schedule(lengths: np.ndarray,
                     resident_warps: int) -> tuple[np.ndarray, np.ndarray]:
     """List scheduling of warp tiles onto resident warps, the pixel queue
@@ -1145,10 +1183,11 @@ def schedule_counts(lane, nested_slot, spheres, sphere_sizes, n_hoist,
                     triangles=None, triangle_sizes=None,
                     warp_scan_max: int = WARP_SCAN_MAX,
                     resident_warps: int | None = None,
-                    chunk_scan_max: int = CHUNK_SCAN_MAX) -> dict:
-    """How the exact kernel's warps spend their slots under three
-    schedules, from the segments its lanes trace: one record a segment,
-    each lane's records in the order it traces them. ``lane`` (R,) is the
+                    chunk_scan_max: int = CHUNK_SCAN_MAX,
+                    warp_blocks=None) -> dict:
+    """How the exact kernel's warps spend their slots under three warp
+    schedules and a block schedule, from the segments its lanes trace: one
+    record a segment, each lane's records in the order it traces them. ``lane`` (R,) is the
     record's lane (its warp is ``lane // WARP``), ``nested_slot`` (R,) its
     slot in a loop over samples and bounces (``sample * (max_bounce + 1) +
     bounce``); ``spheres`` (R, K) bool the sphere clusters the segment
@@ -1188,7 +1227,22 @@ def schedule_counts(lane, nested_slot, spheres, sphere_sizes, n_hoist,
     at or above it) against ``chunk_triangle_steps``, the per-lane loop's
     (a visit's chunk size each: ``triangle_iterations``). Beside them
     ``segments`` and the lanes' own tests summed (``lane_sphere_tests``,
-    ``lane_triangle_tests``)."""
+    ``lane_triangle_tests``).
+
+    ``"block"`` (``BLOCK_SCHEDULE``), the slot loop of blocks of
+    ``BLOCK_WARPS`` warps (``warp_blocks`` (W,), each warp's block; None:
+    ``BLOCK_WARPS`` consecutive warps a block): a lane traces its k-th
+    segment in its block's slot k, and a (block, k) slot runs until the
+    block's last live lane has traced. Its sphere clusters are tested on
+    the block's rays that entered them (``_block_visits``): ``slots``,
+    ``lanes_per_slot``, ``lane_segments``, ``block_visit_lanes``
+    (BLOCK_WARPS * WARP,) the visits of n = 1 .. 128 lanes,
+    ``block_sphere_steps`` their batches' per-lane sphere steps summed over
+    the warps (``cluster_sphere_steps`` too), ``busiest_warp_steps`` the
+    slots' busiest warps' steps, the hoisted spheres included, and
+    ``busiest_warp_steps_per_slot``; ``hoisted_sphere_steps``, the hoisted
+    spheres on each warp with a live lane a slot, and beside them
+    ``sphere_iterations``. Spheres only: the chunk scan is the warps'."""
     lane = np.asarray(lane, np.int64)
     nested_slot = np.asarray(nested_slot, np.int64)
     sphere_sizes = np.asarray(sphere_sizes, np.int64)
@@ -1253,6 +1307,25 @@ def schedule_counts(lane, nested_slot, spheres, sphere_sizes, n_hoist,
         out[name] = res
     out["queue"].update(resident_warps=warps, makespan=makespan,
                         ideal_slots=n / (WARP * warps))
+    if warp_blocks is None:
+        warp_blocks = np.arange(n_tiles) // BLOCK_WARPS
+    warp_blocks = np.asarray(warp_blocks, np.int64)
+    if warp_blocks.ndim != 1 or warp_blocks.size < n_tiles:
+        raise ValueError(f"warp_blocks must hold a block for each of the "
+                         f"{n_tiles} warps, got shape {warp_blocks.shape}")
+    key = warp_blocks[warp] * (int(k.max(initial=0)) + 1) + k
+    block = _block_visits(key, spheres, sphere_sizes, n_hoist)
+    hoisted = out["slots"]["slots"] * n_hoist
+    block.update(
+        slots=int(np.unique(key).size), lane_segments=per_lane,
+        cluster_sphere_steps=block["block_sphere_steps"],
+        hoisted_sphere_steps=hoisted,
+        sphere_iterations=hoisted + block["block_sphere_steps"],
+        block_visit_lanes=block["block_visit_lanes"].tolist())
+    block["lanes_per_slot"] = n / max(block["slots"], 1)
+    block["busiest_warp_steps_per_slot"] = (
+        block["busiest_warp_steps"] / max(block["slots"], 1))
+    out[BLOCK_SCHEDULE] = block
     return out
 
 
@@ -1270,9 +1343,14 @@ def warp_schedule_counts(scene: Scene, camera: Camera, cfg: RenderConfig,
     dict with each schedule's ``lane_segments`` as a ``segment_map`` ((y1 -
     y0, W) int32, the live slots of each pixel over the frames), ``warps``
     (the tiles), and ``ratios``: the slot loop's slots and iterations over
-    the nested loop's, and ``queue_ratios``: the queue's over the slot
-    loop's (None where the divisor is 0). The sphere geometry and the chunk
-    scan only: a BVH lane's walk is its own."""
+    the nested loop's, ``queue_ratios``: the queue's over the slot loop's,
+    and ``block_ratios``: the block schedule's sphere steps over the slot
+    loop's cluster scan steps (``sphere_ray_steps``) and per-lane loop
+    steps (``cluster_sphere_steps``), its busiest warps' steps over the slot
+    loop's ``sphere_iterations`` (None where the divisor is 0). The block
+    schedule runs on the launch's 16x8 blocks from the band's first row.
+    The sphere geometry and the chunk scan only: a BVH lane's walk is its
+    own."""
     y0, y1 = (0, cfg.height) if rows is None else rows
     if not 0 <= y0 < y1 <= cfg.height:
         raise ValueError(f"rows {rows} outside 0..{cfg.height}")
@@ -1312,10 +1390,15 @@ def warp_schedule_counts(scene: Scene, camera: Camera, cfg: RenderConfig,
     tri_sizes = None
     if geom == "chunks":
         tri_sizes = _int_column(tables.chunks, 7).cpu().numpy()
+    # a band's groups by row pair, then column: the launch's blocks start on
+    # the band's first row, BLOCK_WARPS row pairs a block row
+    row_pair, column = np.divmod(np.arange(groups.shape[0]), -(-w // BLOCK_X))
+    warp_blocks = row_pair // BLOCK_WARPS * -(-w // BLOCK_X) + column
     out = schedule_counts(cat["lane"], cat["slot"], cat["spheres"], sizes,
                           tables.n_hoist, cat.get("triangles"), tri_sizes,
-                          resident_warps=resident_warps)
-    for name in SCHEDULES:
+                          resident_warps=resident_warps,
+                          warp_blocks=warp_blocks)
+    for name in (*SCHEDULES, BLOCK_SCHEDULE):
         seg_map = np.zeros((y1 - y0) * w, np.int32)
         seg_map[lanes[real] - y0 * w] = out[name].pop("lane_segments")[real]
         out[name]["segment_map"] = seg_map.reshape(y1 - y0, w)
@@ -1330,6 +1413,18 @@ def warp_schedule_counts(scene: Scene, camera: Camera, cfg: RenderConfig,
 
     out["ratios"] = ratios("slots", "nested")
     out["queue_ratios"] = ratios("queue", "slots")
+    blk, slots = out[BLOCK_SCHEDULE], out["slots"]
+
+    def over(a, b):
+        return a / b if b else None
+
+    out["block_ratios"] = dict(
+        sphere_steps_over_ray_steps=over(blk["block_sphere_steps"],
+                                         slots["sphere_ray_steps"]),
+        sphere_steps_over_cluster_sphere_steps=over(
+            blk["block_sphere_steps"], slots["cluster_sphere_steps"]),
+        busiest_warp_steps_over_sphere_iterations=over(
+            blk["busiest_warp_steps"], slots["sphere_iterations"]))
     return out
 
 

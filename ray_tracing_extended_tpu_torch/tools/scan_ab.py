@@ -24,9 +24,11 @@ with adaptive refill, each of those with the Box-Muller and the fast
 scatter; and the RTIOW rule over wider grids (``models/wide_scenes.py`` of
 this file's tree, built through the measured tree's presets: ``wide14k``,
 14,401 spheres, and ``wide100k``, 99,857; RTIOW's camera and config),
-exact and refill with the Box-Muller scatter. ``--super-chunks N`` sets
-the chunk scan's run length (a value above the chunk count switches its
-second level off) on a tree that has one.
+exact and refill with the Box-Muller scatter; and ``rtiow_global``, RTIOW
+as above with its tables forced onto the global route
+(``render_frames_mega(..., tables="global")``), in the four modes.
+``--super-chunks N`` sets the chunk scan's run length (a value above the
+chunk count switches its second level off) on a tree that has one.
 
 A refill line also holds the samples a pixel started in a stats frame
 (``started_samples_per_pixel``: its bounce histogram's first bin over the
@@ -149,8 +151,8 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--super-chunks", type=int, default=None)
     ap.add_argument("--only", default=None,
-                    help="comma-separated scene names (rtiow, chess, cornell, "
-                    "mesh, wide14k, wide100k)")
+                    help="comma-separated scene names (rtiow, rtiow_global, "
+                    "chess, cornell, mesh, wide14k, wide100k)")
     ap.add_argument("--out", default=None, help="append the lines to this file")
     ap.add_argument("--images", default=None,
                     help="keep each configuration's image in this directory")
@@ -201,6 +203,7 @@ def main(argv=None) -> int:
         "wide100k": lambda: wide.wide_sphere_scene(
             presets, wide.HALF_100K, spp=16),
     }
+    scenes["rtiow_global"] = scenes["rtiow"]
     images = Path(args.images) if args.images else None
     if images:
         images.mkdir(parents=True, exist_ok=True)
@@ -218,6 +221,10 @@ def main(argv=None) -> int:
                                        fast_scatter=fast)
 
             def call(n_frames=K_FRAMES):
+                if name.endswith("_global"):
+                    return mk.render_frames_mega(
+                        scene, cam, vcfg, 1, n_frames, accum=acc0,
+                        tables="global")[:2]
                 return rtt.render_frames_and_accumulate(
                     scene, cam, vcfg, acc0, 1, n_frames)
 

@@ -2,12 +2,14 @@
 
 ``kernels.megakernel.warp_schedule_counts`` over a band of whole warp rows
 and one launch's frames: the loop over samples and bounces, the slot loop
-with one warp a tile, and the slot loop of resident warps that take their
-tiles from a queue. Prints one JSON line: each schedule's slots, live
-lanes a slot and scan steps, and the ratios between them (segment maps
-left out). The queue runs on ``--resident-warps`` warps, or on the card by
-default on the band's share of the warps a resident grid of the
-instantiation holds there (``PathTraceKernel.resident_warps``)::
+with one warp a tile, the slot loop of resident warps that take their
+tiles from a queue, and the slot loop of the kernel's blocks, whose warps
+test a sphere cluster on the block's rays that entered it. Prints one JSON
+line: each schedule's slots, live lanes a slot and scan steps, and the
+ratios between them (segment maps left out). The queue runs on
+``--resident-warps`` warps, or on the card by default on the band's share
+of the warps a resident grid of the instantiation holds there
+(``PathTraceKernel.resident_warps``)::
 
     python -m ray_tracing_extended_tpu_torch.tools.warp_schedule \\
         --device cpu --rows 528 544 --frame 1 --frames 4 --resident-warps 55
@@ -56,7 +58,7 @@ def main(argv=None) -> int:
     out = mk.warp_schedule_counts(scene, cam, cfg, rows=rows,
                                   frame=args.frame, n_frames=args.frames,
                                   resident_warps=warps)
-    for name in mk.SCHEDULES:
+    for name in (*mk.SCHEDULES, mk.BLOCK_SCHEDULE):
         out[name].pop("segment_map")
     print(json.dumps(dict(
         scene=args.scene, width=cfg.width, height=cfg.height, spp=cfg.spp,

@@ -899,6 +899,115 @@ def test_warp_scan_band_with_lanes_outside_the_image(cuda, adaptive, fast,
     _scan_vs_plain(scene, cam, cfg, tables, rows=rows)
 
 
+def _sphere_scan_case(name, cuda, adaptive, fast):
+    """A sphere scene for the kSpheres cluster scan -> ``(scene, camera,
+    config, rows)``, 2 spp, 4 bounces: RTIOW 96x54; the RTIOW rule over an
+    80 x 80 grid (``supers``: 6,401 spheres, staged, a super box over each
+    run of 32 clusters); RTIOW at 250x134 (``edges``: the last column of
+    blocks holds 10 columns, the last row 6 rows); RTIOW 192x108 on a band
+    (``band``: rows 37-100 exact, 32-95 with refill on tiles of 32)."""
+    from ray_tracing_extended_tpu_torch.models.wide_scenes import (
+        wide_sphere_scene,
+    )
+
+    small = dict(spp=2, max_bounce=4, device=cuda)
+    rows, ts = None, None
+    if name == "supers":
+        scene, cam, cfg = wide_sphere_scene(presets, 40, width=96, height=54,
+                                            **small)
+    elif name == "edges":
+        scene, cam, cfg = presets.rtiow_final_scene(width=250, height=134,
+                                                    **small)
+    elif name == "band":
+        scene, cam, cfg = presets.rtiow_final_scene(width=192, height=108,
+                                                    **small)
+        rows, ts = ((32, 96), 32) if adaptive else ((37, 101), None)
+    else:
+        scene, cam, cfg = presets.rtiow_final_scene(width=96, height=54,
+                                                    **small)
+    cfg = dataclasses.replace(cfg, adaptive_spp=adaptive, fast_scatter=fast,
+                              mega_tile_size=ts)
+    return scene, cam, cfg, rows
+
+
+SPHERE_SCAN_MODES = (
+    [("rtiow", a, f, t) for a, f, t in SCAN_MODES]
+    + [(n, a, f, t) for n in ("supers", "edges", "band")
+       for a in (False, True) for f in (False, True) for t in mk.TABLES
+       if not (n == "supers" and (f or t == "global"))])
+
+
+@pytest.mark.parametrize(
+    "name, adaptive, fast, tables", SPHERE_SCAN_MODES,
+    ids=[f"{n}-{'refill' if a else 'exact'}-{'fast' if f else 'bm'}-{t}"
+         for n, a, f, t in SPHERE_SCAN_MODES])
+def test_sphere_scan_cases_equal_plain_bit_for_bit(cuda, name, adaptive,
+                                                   fast, tables):
+    """The kSpheres instantiations' cluster scan (across the warp, the
+    per-lane loop for a visit of many lanes) on the cases a scan that
+    shares a cluster's rays across a block's warps has to hold: RTIOW in
+    both kernels, both scatters, both table routes; a staged scene with
+    supers; a frame whose edges cut blocks; a band launch from a row past
+    0. A frame's image, segment map and histogram and a K = 3 fold in both
+    clamp modes, bit for bit the plain version in the kernel's test forms;
+    the route the test asks for is the launch's."""
+    scene, cam, cfg, rows = _sphere_scan_case(name, cuda, adaptive, fast)
+    if name == "supers":
+        tab = mk.geometry_tables(scene, "spheres")
+        assert tab.sph_supers.shape[0] > 1
+        assert mk.table_route(tab, cfg) == "staged"
+    k_map = _scan_vs_plain(scene, cam, cfg, tables, rows=rows)
+    assert int(k_map.sum()) > 0
+
+
+# refill's lane-knob settings (pixels a lane, phases, a cost pairing), as
+# chip_smoke.py's KNOB_SETTINGS
+SPHERE_KNOB_SETTINGS = ((2, 1, False), (4, 1, False), (1, 2, False),
+                        (2, 2, False), (2, 1, True))
+
+
+@pytest.mark.parametrize("ppl, phases, paired", SPHERE_KNOB_SETTINGS,
+                         ids=[f"ppl{p}-ph{h}{'-paired' if c else ''}"
+                              for p, h, c in SPHERE_KNOB_SETTINGS])
+def test_sphere_scan_refill_knobs_equal_plain_bit_for_bit(cuda, ppl, phases,
+                                                          paired):
+    """render_adaptive<kSpheres, kBoxMuller, kKnobs>'s cluster scan under
+    each lane-knob setting, on the staged scene with supers at
+    250x134 (edges that cut blocks and tiles of 32): phase 1's segment and
+    slot maps and each tile's last finish equal as integers, and the image,
+    segment map and histogram bit for bit the plain version's two phases;
+    the launches counted."""
+    from ray_tracing_extended_tpu_torch.models.wide_scenes import (
+        wide_sphere_scene,
+    )
+
+    scene, cam, cfg = wide_sphere_scene(
+        presets, 40, width=250, height=134, spp=2, max_bounce=4, device=cuda)
+    cfg = dataclasses.replace(cfg, adaptive_spp=True, mega_tile_size=32,
+                              mega_pixels_per_lane=ppl, mega_phases=phases)
+    v = mk.variant("spheres", True, knobs=True)
+    assert mk.path_name(scene, cfg) == v
+    costs = None
+    if paired:
+        gen = torch.Generator(device=cuda).manual_seed(8)
+        costs = torch.randint(0, 40, (134, 250), generator=gen, device=cuda,
+                              dtype=torch.int32)
+    before = mk.KERNEL.variant_launches[v]
+    k_one, p_one = {}, {}
+    k = mk.render_frames_mega(scene, cam, cfg, 3, collect_stats=True,
+                              phase_one=k_one, pair_costs=costs)
+    p = mk.render_frames_plain(
+        scene, cam, cfg, 3, collect_stats=True, phase_one=p_one,
+        pair_costs=costs,
+        intersect_fn=mk.plain_intersector(scene, cam, cfg, direct=True))
+    for key in ("segs", "slots", "tile_max"):
+        assert torch.equal(k_one[key], p_one[key].to(cuda)), key
+    assert _bits_equal(k[0], p[0])
+    assert torch.equal(k[2], p[2]) and torch.equal(k[3], p[3])
+    torch.cuda.synchronize()
+    assert mk.KERNEL.variant_launches[v] == before + 2
+
+
 def _off_tile_scene(name, cuda):
     """A scene at 250x134 (no multiple of the 16x2 warp or the 16x8 block:
     the last column of blocks holds 10 columns, the last row 6 rows), 2

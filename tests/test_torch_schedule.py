@@ -407,3 +407,137 @@ def test_warp_schedule_counts_refuses_what_it_cannot_count():
                                          target_tris=500, device="cpu")
     with pytest.raises(ValueError, match="clustered scans"):
         mk.warp_schedule_counts(scene, cam, cfg)
+
+
+# Two blocks (warps 0-3 and 4-7), max_bounce 2, the clusters of 5 and 7
+# spheres and the hoisted sphere of HAND_LANES: lanes 0, 33 and 70 in three
+# warps of block 0, lane 130 in block 1.
+BLOCK_LANES = {
+    0: [[{0}, {1}]],
+    33: [[{0, 1}], [{1}]],
+    70: [[set(), {0}]],
+    130: [[{1}]],
+}
+
+
+@pytest.mark.parametrize("order", ["by_lane", "by_slot"])
+def test_block_schedule_of_two_blocks_by_hand(order):
+    """Block 0's slot 0 visits cluster 0 with lanes 0 and 33 and cluster 1
+    with lane 33, its slot 1 cluster 0 with lane 70 and cluster 1 with
+    lanes 0 and 33; block 1's slot 0 cluster 1 with lane 130: three slots,
+    three visits of one lane and two of two, each one batch of the
+    cluster's size (5 + 7, 5 + 7, 7 sphere steps), the busiest warp also
+    the hoisted sphere a slot. The warps' slot loop runs 7 warp-slots of
+    the hoisted sphere and 43 per-lane cluster steps. Every lane of a block
+    is a lane of 100 records on cluster 0 in a third block: four batches,
+    one a warp."""
+    lane, slot, spheres = _hand_records(order, BLOCK_LANES)
+    out = mk.schedule_counts(lane, slot, spheres, [5, 7], 1)
+    block, slots = out[mk.BLOCK_SCHEDULE], out["slots"]
+    assert block["slots"] == 3 and block["lanes_per_slot"] == 7 / 3
+    assert block["block_visit_lanes"] == [3, 2] + [0] * 126
+    assert block["block_sphere_steps"] == block["cluster_sphere_steps"] == 31
+    assert block["busiest_warp_steps"] == 13 + 13 + 8
+    assert block["busiest_warp_steps_per_slot"] == 34 / 3
+    assert block["hoisted_sphere_steps"] == slots["slots"] == 7
+    assert block["sphere_iterations"] == 7 + 31
+    assert slots["cluster_sphere_steps"] == 43
+    assert [block["lane_segments"][i] for i in (0, 33, 70, 130)] == [2, 2, 2, 1]
+    # lane 70's warp in block 1: that block has two slots, and its slot 0
+    # visits cluster 1 with lane 130 alone, its slot 1 cluster 0 with lane 70
+    out = mk.schedule_counts(lane, slot, spheres, [5, 7], 1,
+                             warp_blocks=[0, 0, 1, 1, 1])
+    block = out[mk.BLOCK_SCHEDULE]
+    assert block["slots"] == 4
+    assert block["block_visit_lanes"] == [3, 2] + [0] * 126
+    assert block["busiest_warp_steps"] == 13 + 8 + 8 + 6
+    with pytest.raises(ValueError, match="warp_blocks"):
+        mk.schedule_counts(lane, slot, spheres, [5, 7], 1, warp_blocks=[0, 0])
+    many = np.arange(256, 356)  # lanes 0-99 of block 2
+    out = mk.schedule_counts(many, np.zeros(100, np.int64),
+                             np.ones((100, 1), bool), [5], 1)
+    block = out[mk.BLOCK_SCHEDULE]
+    assert block["slots"] == 1 and block["block_visit_lanes"][99] == 1
+    assert (block["block_sphere_steps"], block["busiest_warp_steps"]) == (20, 6)
+    assert out["slots"]["cluster_sphere_steps"] == 20
+
+
+def _random_records(rng, n_lanes, n=700, slots=10):
+    """Random records on ``n_lanes`` lanes, at most one a lane a nested
+    slot, each testing any of five clusters."""
+    lane = rng.integers(0, n_lanes, n)
+    slot = rng.integers(0, slots, n)
+    _, keep = np.unique(np.stack([lane, slot]), axis=1, return_index=True)
+    lane, slot = lane[keep], slot[keep]
+    return lane, slot, rng.random((lane.size, 5)) < 0.4
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_block_schedule_of_one_warp_a_block_is_the_slot_loop(seed):
+    """Records on one warp of each block (warps 0, 4, 8): a block's slot is
+    its warp's, a visit one batch of the warp's lanes, so the block
+    schedule's counts are the warps' slot loop's with the per-lane cluster
+    loop."""
+    rng = np.random.default_rng(seed)
+    lane, slot, spheres = _random_records(rng, 3 * mk.WARP)
+    lane = lane + lane // mk.WARP * (mk.BLOCK_WARPS - 1) * mk.WARP
+    sizes = rng.integers(1, 33, 5)
+    out = mk.schedule_counts(lane, slot, spheres, sizes, 2)
+    block, slots = out[mk.BLOCK_SCHEDULE], out["slots"]
+    for key in ("slots", "lanes_per_slot", "cluster_sphere_steps",
+                "sphere_iterations"):
+        assert block[key] == slots[key], key
+    assert block["busiest_warp_steps"] == slots["sphere_iterations"]
+    assert block["block_visit_lanes"][:mk.WARP] == slots["visit_lanes"]
+    assert not any(block["block_visit_lanes"][mk.WARP:])
+    assert np.array_equal(block["lane_segments"], slots["lane_segments"])
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_block_schedule_never_runs_more_than_its_warps(seed):
+    """Random records over three blocks: the block schedule has no more
+    slots than its warps' slot loop, its batches no more sphere steps than
+    the warps' per-lane cluster loop, and its slots' busiest warps no more
+    than the four warps' slot loop steps (the hoisted spheres with them);
+    its visits hold the lanes' cluster tests."""
+    rng = np.random.default_rng(seed)
+    lane, slot, spheres = _random_records(rng, 3 * mk.BLOCK_WARPS * mk.WARP)
+    sizes = rng.integers(1, 33, 5)
+    out = mk.schedule_counts(lane, slot, spheres, sizes, 3)
+    block, slots = out[mk.BLOCK_SCHEDULE], out["slots"]
+    assert block["slots"] <= slots["slots"]
+    assert block["block_sphere_steps"] <= slots["cluster_sphere_steps"]
+    assert block["busiest_warp_steps"] <= slots["sphere_iterations"]
+    hist = np.array(block["block_visit_lanes"])
+    assert int(hist @ np.arange(1, hist.size + 1)) == int(spheres.sum())
+
+
+@pytest.mark.parametrize("name", ["rtiow", "three_sphere"])
+def test_block_schedule_counts_the_plain_frames_segments(name):
+    """On a band of whole block rows, the plain version's frame: the block
+    schedule's per-pixel live slots are the frame's segment map, its
+    visits hold the lanes that the warps' visits hold, and on these
+    scenes its busiest warps run no more than the four warps'
+    slot loop and its batches no more than their per-lane cluster loop."""
+    make = (presets.rtiow_final_scene if name == "rtiow"
+            else presets.three_sphere_scene)
+    scene, cam, cfg = make(width=64, height=16, spp=2, max_bounce=4,
+                           device="cpu")
+    rows = (8, 16)
+    out = mk.warp_schedule_counts(scene, cam, cfg, rows=rows, frame=2)
+    _, total, seg_map, _ = mk.render_frames_plain(scene, cam, cfg, 2,
+                                                  rows=rows)
+    block, slots = out[mk.BLOCK_SCHEDULE], out["slots"]
+    assert np.array_equal(block["segment_map"], seg_map.numpy())
+    assert np.array_equal(block["segment_map"], slots["segment_map"])
+    hist = np.array(block["block_visit_lanes"])
+    warp_hist = np.array(slots["visit_lanes"])
+    assert int(hist @ np.arange(1, hist.size + 1)) == int(
+        warp_hist @ np.arange(1, mk.WARP + 1))
+    assert block["slots"] <= slots["slots"]
+    assert block["busiest_warp_steps"] <= slots["sphere_iterations"]
+    assert block["block_sphere_steps"] <= slots["cluster_sphere_steps"]
+    ratios = out["block_ratios"]
+    assert ratios["busiest_warp_steps_over_sphere_iterations"] == (
+        block["busiest_warp_steps"] / slots["sphere_iterations"])
+    assert int(total) == out["segments"]
