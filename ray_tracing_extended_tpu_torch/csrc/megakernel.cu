@@ -86,8 +86,16 @@
 //   at once, which changes nothing else. Phase 1 writes each
 //   pixel's E to a slot map; with one pixel a lane it also takes T, with
 //   more the lane pass (refill_lanes, a third launch between the two) sums
-//   each TPU lane's pixels and takes T, and phase 2 resumes a lane's last
-//   pixel at that sum, its other pixels not at all.
+//   each TPU lane's pixels, takes T and lists each lane's last pixel, and
+//   phase 2 resumes a lane's last pixel at that sum, its other pixels not
+//   at all. Then phase 1 writes every pixel's image without extra samples,
+//   and phase 2 runs over the list, one thread a listed pixel: a launch
+//   over the band would leave each 16 x 2 warp about 1 / ppl owed lanes.
+//   That launch is render_listed<...> (kKnobList), an instantiation of its
+//   own: a listed pixel is a loaded value live through the slot loop, where
+//   a pixel of the grid is recomputed from the thread's index, and read at
+//   run time in render_adaptive<..., kKnobs> it raised the spills of all
+//   twelve and slowed phase 1 (PERF.md).
 // Lanes outside the image stay in the loop with nothing owed: a full-mask
 // vote needs all 32, and the loop's exit is decided by a vote, so it is
 // warp-uniform.
@@ -1380,6 +1388,13 @@ struct Args {
   int* __restrict__ slot_map;
   int refill_ppl, refill_phases;
   int chunk_warp_scan;  // Triangles::warp_scan
+  // with more than one pixel a lane (kKnobRefill): phase 1 also writes each
+  // pixel's image as it is without extra samples (`image`), and phase 2
+  // (kKnobList) runs one thread a lane's last pixel, the lane pass's list
+  // (`lane_list`: frame indices, -1 past a tile's last), overwriting those
+  // pixels' images
+  float* __restrict__ image;
+  const int* __restrict__ lane_list;
 };
 
 // Dynamic shared memory, in bytes. kStaged: the float4 tables first (super
@@ -1519,13 +1534,20 @@ __device__ __forceinline__ Vec3 div(Vec3 v, float n) {
 // lane's pixels and phases (Args.refill_ppl, refill_phases), whose slot is
 // then no segment count (a template value of its own: read at run time
 // under kRefill they cost render_adaptive<kSpheres> 8 bytes of spill
-// stores and 20 of loads, ptxas -v of nvcc 12.9).
+// stores and 20 of loads, ptxas -v of nvcc 12.9); kKnobList, kKnobRefill's
+// phase 2 over the lane pass's list (Args.lane_list), a 1-D grid.
 enum Schedule : int {
   kExact = 0,
   kLockstep = 1,
   kRefill = 2,
-  kKnobRefill = 3
+  kKnobRefill = 3,
+  kKnobList = 4
 };
+
+// Whether a schedule is refill under the lane knobs.
+__host__ __device__ constexpr bool under_knobs(Schedule s) {
+  return s == kKnobRefill || s == kKnobList;
+}
 
 // The refill tile of the band's column x and row yb (row 0 the band's
 // first): tiles of ts x ts pixels, row-major.
@@ -1571,9 +1593,18 @@ __device__ __forceinline__ void render_slots(float4* smem4, const Args& a) {
   // a variable of its own, it cost render_adaptive<kChunks> 8 registers,
   // ptxas -v of nvcc 12.9). Lanes outside the image (or the band) stay in
   // the loop, owing nothing.
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = a.y0 + static_cast<int>(blockIdx.y * blockDim.y + threadIdx.y);
-  const bool in_image = x < width && y < a.y1;
+  int x = blockIdx.x * blockDim.x + threadIdx.x;
+  int y = a.y0 + static_cast<int>(blockIdx.y * blockDim.y + threadIdx.y);
+  bool in_image = x < width && y < a.y1;
+  if constexpr (kSched == kKnobList) {
+    // phase 2 over the lane pass's list, a 1-D grid: the thread's entry,
+    // -1 a lane outside the image
+    const int at = a.lane_list[blockIdx.x * (kBlockX * kBlockY) +
+                               threadIdx.y * kBlockX + threadIdx.x];
+    in_image = at >= 0;
+    x = in_image ? at % width : 0;
+    y = in_image ? at / width : a.y0;
+  }
   const int pix = in_image ? y * width + x : 0;
   const Vec3 pos = {sc.p[0], sc.p[1], sc.p[2]};
   const Vec3 right = {sc.p[3], sc.p[6], sc.p[9]};
@@ -1592,7 +1623,7 @@ __device__ __forceinline__ void render_slots(float4* smem4, const Args& a) {
   // its phase's slots (the TPU kernel's bound, megakernel.py:2119-2121)
   const int n_slots =
       quota * (max_bounce + 1) *
-      (kSched == kKnobRefill ? a.refill_ppl * a.refill_phases : 1);
+      (under_knobs(kSched) ? a.refill_ppl * a.refill_phases : 1);
   uint32_t state = 0;
   Vec3 o = {0.0f, 0.0f, 0.0f}, d = {0.0f, 0.0f, 0.0f};
   Vec3 colour = {0.0f, 0.0f, 0.0f}, incoming = {0.0f, 0.0f, 0.0f};
@@ -1600,12 +1631,12 @@ __device__ __forceinline__ void render_slots(float4* smem4, const Args& a) {
   bool live = false;
   int ns = 0, fk = 0, bounce = 0, segs = 0;
   // kRefill: the slot before which a dead lane starts extra samples, its
-  // tile's last finish in phase 2 (0 in phase 1); kKnobRefill also the
+  // tile's last finish in phase 2 (0 in phase 1); under the knobs also the
   // lane's own slot (under kRefill its segment count)
   [[maybe_unused]] int extra_until = 0;
   [[maybe_unused]] int lane_slot = 0;
-  if constexpr (kSched == kRefill || kSched == kKnobRefill) {
-    if (a.refill_phase == 2 && in_image) {
+  if constexpr (kSched == kRefill || under_knobs(kSched)) {
+    if ((kSched == kKnobList || a.refill_phase == 2) && in_image) {
       // the lane as phase 1 left it: its quota done, idle since
       const int at = pix - a.y0 * width;
       const float4 kept = a.scratch[at];
@@ -1615,7 +1646,7 @@ __device__ __forceinline__ void render_slots(float4* smem4, const Args& a) {
       ns = quota;
       fk = n_frames - 1;
       extra_until = a.tile_max[refill_tile(x, y - a.y0, width, a.tile_size)];
-      if constexpr (kSched == kKnobRefill) {
+      if constexpr (under_knobs(kSched)) {
         // the slot its lane is done at; -1, a pixel before its lane's
         // last: no extra samples
         const int resume = a.slot_map[at];
@@ -1633,7 +1664,7 @@ __device__ __forceinline__ void render_slots(float4* smem4, const Args& a) {
       // still in flight at the bound is dropped
       if (segs >= n_slots) live = false;
       need = !live && (undone || segs < extra_until);
-    } else if constexpr (kSched == kKnobRefill) {
+    } else if constexpr (under_knobs(kSched)) {
       if (a.refill_phases == 2) {
         // a live lane traces on odd slots, a dead one starts a sample on
         // even ones: a lane that would wait for its slot takes it now (the
@@ -1683,7 +1714,7 @@ __device__ __forceinline__ void render_slots(float4* smem4, const Args& a) {
     }
     if (live) {
       ++segs;
-      if constexpr (kSched == kKnobRefill) ++lane_slot;
+      if constexpr (under_knobs(kSched)) ++lane_slot;
       if (s_hist != nullptr) atomicAdd(&s_hist[bounce], 1);
       bool goes_on;
       if constexpr (kGeom != kBvh) {
@@ -1722,7 +1753,22 @@ __device__ __forceinline__ void render_slots(float4* smem4, const Args& a) {
         a.scratch[at] =
             make_float4(total.x, total.y, total.z, __uint_as_float(state));
         a.segs[at] = segs;
-        if constexpr (kSched == kKnobRefill) a.slot_map[at] = lane_slot;
+        if constexpr (kSched == kKnobRefill) {
+          a.slot_map[at] = lane_slot;
+          if (a.image != nullptr) {
+            // each pixel's image without extra samples, the last fold
+            // below of its spp samples: phase 2 visits only a lane's last
+            // pixel, whose image it overwrites
+            const Vec3 done =
+                fold(acc, div(total, static_cast<float>(
+                                         max(ns - (n_frames - 1) * spp, 1))),
+                     frame0 + static_cast<uint32_t>(n_frames - 1), with_accum,
+                     clamp_accum);
+            a.image[3 * at] = done.x;
+            a.image[3 * at + 1] = done.y;
+            a.image[3 * at + 2] = done.z;
+          }
+        }
         if (with_accum) {
           a.out[3 * at] = acc.x;
           a.out[3 * at + 1] = acc.y;
@@ -1786,6 +1832,36 @@ render_adaptive(const Args a) {
       smem4, a);
 }
 
+// Phase 2 of render_adaptive<..., kKnobs> with more than one pixel a lane:
+// one thread a lane's last pixel, over the lane pass's list (kKnobList).
+template <Geometry kGeom, Scatter kScatter, Probe kProbe = kNone,
+          Tables kTab = kStaged>
+__global__ void __launch_bounds__(kBlockX * kBlockY, kGeom == kSpheres ? 0 : 8)
+render_listed(const Args a) {
+  extern __shared__ float4 smem4[];
+  render_slots<kKnobList, kGeom, kScatter, kProbe, kTab>(smem4, a);
+}
+
+// The lane pass's block: one a tile, a warp's worth of warps (its list's
+// scan adds the warps' counts across one warp).
+constexpr int kLanePassThreads = 1024;
+constexpr int kLanePassWarps = kLanePassThreads / kWarp;
+static_assert(kLanePassWarps == kWarp, "the list's scan takes a warp a warp");
+// The tile positions a lane-pass thread loads at once: a lane's pixels
+// (1, 2, 4 or 8), for as many of its lanes as fit.
+constexpr int kLanePassBatch = 16;
+
+// A tile position's place in a launch over the band (16 x 8 blocks in grid
+// order, 16 x 2 warps, x fastest), counted within its tile of side ts, a
+// multiple of 16: its block row, block column, then row and column in the
+// block. So a block's row of 16 threads is a run of 16 places.
+__device__ __forceinline__ int thread_order(int local, int ts) {
+  const int lx = local % ts, ly = local / ts;
+  return ((ly / kBlockY) * (ts / kBlockX) + lx / kBlockX) *
+             (kBlockX * kBlockY) +
+         (ly % kBlockY) * kBlockX + lx % kBlockX;
+}
+
 // Refill's lane pass, between render_adaptive's two launches where a lane
 // traces more than one pixel (Args.refill_ppl > 1). Replaces the part of the
 // TPU kernel's tile vote that its lanes' pixel switch adds
@@ -1793,59 +1869,151 @@ render_adaptive(const Args a) {
 // tile in turn, each after the last's quota, so it is done at the sum of its
 // pixels' slots from phase 1, each but the last taken up to its next start
 // (with two phases the next even slot); the tile votes for extra samples
-// until its largest sum. One thread a lane of the band's tiles: lane j's
-// phase-p pixel is tile position p * ts * ts / ppl + j, or perm's entry there
-// (the launcher's cost pairing, megakernel.py:2596-2632), the clamped border
-// pixel for a position past the frame. It writes each pixel's resume slot,
-// its lane's sum where it is the lane's last pixel and lies in the band,
-// else -1, and its tile's largest sum, one atomicMax a warp (a tile's lanes
-// are a multiple of 128, so a warp lies in one tile). The plain version is
+// until its largest sum. One block a tile of the band, its threads taking
+// the tile's ts * ts / ppl lanes in turn, kLanePassBatch / ppl lanes at a
+// time (kPpl = ppl), their positions and slots loaded together before any
+// is used, so a thread waits for two reads in a row (perm's, then the
+// slot's), not two a lane: lane j's phase-p pixel is tile
+// position p * ts * ts / ppl + j, or perm's entry there (the launcher's cost
+// pairing, megakernel.py:2596-2632), the clamped border pixel for a position
+// past the frame. It writes each pixel's resume slot, its lane's sum where
+// it is the lane's last pixel and lies in the band, else -1; its tile's
+// largest sum, a reduction over the block; and the tile's segment of the
+// lane list (ts * ts / ppl entries from tile t * ts * ts / ppl): the frame
+// indices of its lanes' last pixels in the band, in the order a launch over
+// the band would give their threads (thread_order), then -1. The order is a
+// block-wide scan of a byte a tile position, in shared memory by that
+// order: each thread counts its run of 16-byte rows (a block's row of 16
+// threads each), the counts are added across the block (a warp's by
+// shuffles, then the warps' across one warp), and each thread writes its
+// rows' listed pixels from its offset. No atomics. The plain version is
 // kernels/megakernel.py refill_lane_pass_plain. What bounds it: bytes, the
-// slot map read once a position and written once; it reads each position's
-// slot where the lane needs it, without staging.
-__global__ void __launch_bounds__(kLanes)
+// slot map and perm read once, the resume map and the list written once;
+// but a tile (16,384 pixels at ts 128) is the work of one SM, and a frame of
+// a few tiles leaves the card's other SMs idle (PERF.md).
+template <int kPpl>
+__global__ void __launch_bounds__(kLanePassThreads)
     refill_lanes(const int* __restrict__ slots, const int* __restrict__ perm,
                  int* __restrict__ resume, int* __restrict__ tile_max,
-                 int width, int height, int y0, int y1, int ts, int ppl,
-                 int phases, int n_lanes) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const int per_tile = ts * ts / ppl;
-  int sum = 0;
-  if (i < n_lanes) {
-    const int t = i / per_tile, j = i % per_tile;
-    const int n_tx = (width + ts - 1) / ts;
-    const int x0 = (t % n_tx) * ts, top = y0 + (t / n_tx) * ts;
-    for (int p = 0; p < ppl; ++p) {
-      const int k = p * per_tile + j;
-      const int local =
-          perm != nullptr ? perm[static_cast<size_t>(t) * ts * ts + k] : k;
-      const int ux = x0 + local % ts, uy = top + local / ts;
-      const int e =
-          slots[(min(uy, height - 1) - y0) * width + min(ux, width - 1)];
-      sum += p < ppl - 1 && phases == 2 ? e + (e & 1) : e;
-      if (ux < width && uy < y1) {
-        resume[(uy - y0) * width + ux] = p < ppl - 1 ? -1 : sum;
+                 int* __restrict__ lane_list, int width, int height, int y0,
+                 int y1, int ts, int phases) {
+  constexpr int kGroup = kLanePassBatch / kPpl;  // lanes a thread takes at once
+  extern __shared__ uint4 listed[];  // a byte a tile position, by its place
+  __shared__ int warp_max[kLanePassWarps];
+  __shared__ int warp_sum[kLanePassWarps];
+  unsigned char* flag = reinterpret_cast<unsigned char*>(listed);
+  const int t = blockIdx.x, tid = threadIdx.x;
+  const int warp = tid / kWarp, lane = tid % kWarp;
+  const int area = ts * ts, per_tile = area / kPpl, rows = area / kBlockX;
+  const int n_tx = (width + ts - 1) / ts;
+  const int x0 = (t % n_tx) * ts, top = y0 + (t / n_tx) * ts;
+  const int* tile_perm =
+      perm != nullptr ? perm + static_cast<size_t>(t) * area : nullptr;
+  for (int r = tid; r < rows; r += kLanePassThreads) {
+    listed[r] = make_uint4(0, 0, 0, 0);
+  }
+  __syncthreads();
+  int best = 0;
+  for (int j0 = tid; j0 < per_tile; j0 += kGroup * kLanePassThreads) {
+    // entry q: lane j0 + (q % kGroup) * kLanePassThreads, its pixel q / kGroup
+    int local[kLanePassBatch], e[kLanePassBatch];
+#pragma unroll
+    for (int q = 0; q < kLanePassBatch; ++q) {
+      const int j = j0 + (q % kGroup) * kLanePassThreads;
+      const int k = (q / kGroup) * per_tile + j;
+      local[q] = j >= per_tile ? 0 : tile_perm != nullptr ? tile_perm[k] : k;
+    }
+#pragma unroll
+    for (int q = 0; q < kLanePassBatch; ++q) {
+      const int ux = x0 + local[q] % ts, uy = top + local[q] / ts;
+      e[q] = j0 + (q % kGroup) * kLanePassThreads >= per_tile
+                 ? 0
+                 : slots[(min(uy, height - 1) - y0) * width +
+                         min(ux, width - 1)];
+    }
+#pragma unroll
+    for (int g = 0; g < kGroup; ++g) {
+      if (j0 + g * kLanePassThreads < per_tile) {
+        int sum = 0;
+#pragma unroll
+        for (int p = 0; p < kPpl; ++p) {
+          const int q = p * kGroup + g;
+          const int ux = x0 + local[q] % ts, uy = top + local[q] / ts;
+          const bool last = p == kPpl - 1;
+          sum += !last && phases == 2 ? e[q] + (e[q] & 1) : e[q];
+          if (ux < width && uy < y1) {
+            resume[(uy - y0) * width + ux] = last ? sum : -1;
+            if (last) flag[thread_order(local[q], ts)] = 1;
+          }
+        }
+        best = max(best, sum);
       }
     }
   }
-  const int warp_max = __reduce_max_sync(kFullMask, sum);
-  if (i < n_lanes && (threadIdx.x & (kWarp - 1)) == 0) {
-    atomicMax(&tile_max[i / per_tile], warp_max);
+  best = __reduce_max_sync(kFullMask, best);
+  if (lane == 0) warp_max[warp] = best;
+  __syncthreads();
+  if (warp == 0) {
+    const int m = __reduce_max_sync(kFullMask, warp_max[lane]);
+    if (lane == 0) tile_max[t] = m;
+  }
+  // the thread's run of rows, and how many of their places are listed
+  const int per_thread = (rows + kLanePassThreads - 1) / kLanePassThreads;
+  const int r0 = min(tid * per_thread, rows);
+  const int r1 = min(r0 + per_thread, rows);
+  int count = 0;
+  for (int r = r0; r < r1; ++r) {
+    const uint4 f = listed[r];  // bytes of 0 or 1
+    count += __popc(f.x) + __popc(f.y) + __popc(f.z) + __popc(f.w);
+  }
+  int upto = count;
+  for (int d = 1; d < kWarp; d <<= 1) {
+    const int n = __shfl_up_sync(kFullMask, upto, d);
+    if (lane >= d) upto += n;
+  }
+  if (lane == kWarp - 1) warp_sum[warp] = upto;
+  __syncthreads();
+  const int c = warp_sum[lane];
+  int warps_upto = c;
+  for (int d = 1; d < kWarp; d <<= 1) {
+    const int n = __shfl_up_sync(kFullMask, warps_upto, d);
+    if (lane >= d) warps_upto += n;
+  }
+  const int listed_n = __shfl_sync(kFullMask, warps_upto, kWarp - 1);
+  int* list = lane_list + static_cast<size_t>(t) * per_tile;
+  int at = __shfl_sync(kFullMask, warps_upto - c, warp) + upto - count;
+  for (int r = r0; r < r1; ++r) {
+    // row r: row r % 8 of the tile's block r / 8, 16 places from its left
+    const int blk = r / kBlockY;
+    const int lx = (blk % (ts / kBlockX)) * kBlockX;
+    const int ly = (blk / (ts / kBlockX)) * kBlockY + r % kBlockY;
+    const int first = (top + ly) * width + x0 + lx;
+    const uint4 f = listed[r];
+#pragma unroll
+    for (int i = 0; i < kBlockX; ++i) {
+      const unsigned word = i < 4 ? f.x : i < 8 ? f.y : i < 12 ? f.z : f.w;
+      if ((word >> (8 * (i % 4))) & 1u) list[at++] = first + i;
+    }
+  }
+  for (int i = listed_n + tid; i < per_tile; i += kLanePassThreads) {
+    list[i] = -1;
   }
 }
 
 using Kernel = void (*)(const Args);
 
 // The instantiation for a Probe and a Tables value, or null. The production
-// library compiles the twenty-four of kNone, twelve a route, and the twelve
-// render_adaptive ones under the lane knobs (`knobs`), six a route; the probe
-// library (-DRTX_PROBES) the twelve of kDupIntersect and kDupFetch instead,
-// with the Box-Muller sampler and staged tables only, without the knobs.
+// library compiles the twenty-four of kNone, twelve a route, and under the
+// lane knobs (`knobs`) twelve render_adaptive ones and their twelve
+// render_listed ones (`listed`: phase 2 over the lane list), six a route
+// each; the probe library (-DRTX_PROBES) the twelve of kDupIntersect and
+// kDupFetch instead, with the Box-Muller sampler and staged tables only,
+// without the knobs.
 template <Geometry kGeom>
 Kernel kernel_of(int probe, int tables, bool adaptive, bool fast_scatter,
-                 bool knobs) {
+                 bool knobs, bool listed) {
 #ifdef RTX_PROBES
-  if (fast_scatter || tables != kStaged || knobs) return nullptr;
+  if (fast_scatter || tables != kStaged || knobs || listed) return nullptr;
   if (probe == kDupIntersect) {
     return adaptive ? render_adaptive<kGeom, kBoxMuller, kDupIntersect>
                     : render_kernel<kGeom, kBoxMuller, kDupIntersect>;
@@ -1857,6 +2025,16 @@ Kernel kernel_of(int probe, int tables, bool adaptive, bool fast_scatter,
   return nullptr;
 #else
   if (probe != kNone) return nullptr;
+  if (listed) {
+    if (!adaptive || !knobs) return nullptr;
+    if (tables == kGlobal) {
+      return fast_scatter ? render_listed<kGeom, kFastScatter, kNone, kGlobal>
+                          : render_listed<kGeom, kBoxMuller, kNone, kGlobal>;
+    }
+    if (tables != kStaged) return nullptr;
+    return fast_scatter ? render_listed<kGeom, kFastScatter>
+                        : render_listed<kGeom, kBoxMuller>;
+  }
   if (knobs) {
     if (!adaptive) return nullptr;
     if (tables == kGlobal) {
@@ -1889,14 +2067,17 @@ Kernel kernel_of(int probe, int tables, bool adaptive, bool fast_scatter,
 
 // The instantiation for a Geometry, a Probe and a Tables value, or null.
 Kernel kernel_for(int geometry, int probe, int tables, bool adaptive,
-                  bool fast_scatter, bool knobs) {
+                  bool fast_scatter, bool knobs, bool listed = false) {
   switch (geometry) {
     case kSpheres:
-      return kernel_of<kSpheres>(probe, tables, adaptive, fast_scatter, knobs);
+      return kernel_of<kSpheres>(probe, tables, adaptive, fast_scatter, knobs,
+                                 listed);
     case kChunks:
-      return kernel_of<kChunks>(probe, tables, adaptive, fast_scatter, knobs);
+      return kernel_of<kChunks>(probe, tables, adaptive, fast_scatter, knobs,
+                                listed);
     case kBvh:
-      return kernel_of<kBvh>(probe, tables, adaptive, fast_scatter, knobs);
+      return kernel_of<kBvh>(probe, tables, adaptive, fast_scatter, knobs,
+                             listed);
     default:
       return nullptr;
   }
@@ -1917,8 +2098,15 @@ cudaError_t launch(Kernel kernel, Tables tables, const Args& a,
   const cudaError_t err = allow_shared(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 block(kBlockX, kBlockY);
-  const dim3 grid((a.width + kBlockX - 1) / kBlockX,
-                  (a.y1 - a.y0 + kBlockY - 1) / kBlockY);
+  dim3 grid((a.width + kBlockX - 1) / kBlockX,
+            (a.y1 - a.y0 + kBlockY - 1) / kBlockY);
+  if (a.lane_list != nullptr) {
+    // refill's phase 2 over the lane list: a block a run of 128 entries
+    const int n_tiles = ((a.width + a.tile_size - 1) / a.tile_size) *
+                        ((a.y1 - a.y0 + a.tile_size - 1) / a.tile_size);
+    grid = dim3(n_tiles * (a.tile_size * a.tile_size / a.refill_ppl) /
+                (kBlockX * kBlockY));
+  }
   kernel<<<grid, block, smem, stream>>>(a);
   return cudaGetLastError();
 }
@@ -1972,9 +2160,13 @@ extern "C" int rtx_occupancy(int geometry, int tables, int adaptive,
 // rows, and each pixel's seed and camera ray are the whole frame's.
 // Refill takes two launches (see kRefill): refill_phase 1, then 2, with
 // the same scratch (16 bytes a pixel of the band), tile_max (an int a
-// tile_size x tile_size tile of the band, zeroed before phase 1), segs
+// tile_size x tile_size tile of the band, zeroed before phase 1 where
+// refill_ppl is 1, else the lane pass's), segs
 // and hist; phase 1's out (the running average before the last frame,
-// written only with accum_in) is phase 2's accum_in. Exact spp passes 0
+// written only with accum_in) is phase 2's accum_in. With refill_ppl > 1
+// phase 1 also takes `image`, phase 2's out, where it writes each pixel's
+// image without extra samples, and phase 2 takes the lane pass's
+// lane_list and runs over it; both null otherwise. Exact spp passes 0
 // and nulls there. Returns cudaGetLastError() after the launch,
 // cudaErrorInvalidValue without one for rows or refill arguments outside
 // those rules.
@@ -1998,8 +2190,9 @@ extern "C" int rtx_render(
     int y0, int y1, int spp, int max_bounce, unsigned int frame0, int n_frames,
     const void* accum_in, int clamp_accum, int adaptive, int fast_scatter,
     int refill_phase, void* scratch, void* tile_max, int tile_size,
-    void* slot_map, int refill_ppl, int refill_phases,
-    int chunk_warp_scan, void* out, void* segs, void* hist, void* stream) {
+    void* slot_map, int refill_ppl, int refill_phases, void* image,
+    const void* lane_list, int chunk_warp_scan, void* out, void* segs,
+    void* hist, void* stream) {
 #ifndef RTX_PROBES
   const int probe = kNone;
 #endif
@@ -2019,10 +2212,19 @@ extern "C" int rtx_render(
         (tile_size * tile_size / kLanes) % refill_ppl == 0 &&
         (refill_phases == 1 || refill_phases == 2) &&
         (slot_map != nullptr || (refill_ppl == 1 && refill_phases == 1));
-    if (!tiles_ok || !lanes_ok || (refill_phase != 1 && refill_phase != 2) ||
-        scratch == nullptr || tile_max == nullptr) {
+    // with more than one pixel a lane, phase 1's image and phase 2's list
+    const bool listed = refill_ppl > 1;
+    const bool list_ok =
+        refill_phase == 1
+            ? (image != nullptr) == listed && lane_list == nullptr
+            : (lane_list != nullptr) == listed && image == nullptr;
+    if (!tiles_ok || !lanes_ok || !list_ok ||
+        (refill_phase != 1 && refill_phase != 2) || scratch == nullptr ||
+        tile_max == nullptr) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
+  } else if (image != nullptr || lane_list != nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool by_chunks = geometry == kChunks;
@@ -2069,12 +2271,16 @@ extern "C" int rtx_render(
       static_cast<int*>(slot_map),
       adaptive ? refill_ppl : 1,
       adaptive ? refill_phases : 1,
-      by_chunks ? chunk_warp_scan : 0};
+      by_chunks ? chunk_warp_scan : 0,
+      static_cast<float*>(image),
+      static_cast<const int*>(lane_list)};
   // a lane of more than one pixel, or two phases, takes the knobs'
-  // instantiation (kKnobRefill)
+  // instantiation (kKnobRefill), and phase 2 over the lane list its own
+  // (kKnobList)
   const bool knobs = adaptive && (a.refill_ppl != 1 || a.refill_phases != 1);
   const Kernel kernel = kernel_for(geometry, probe, tables, adaptive != 0,
-                                   fast_scatter != 0, knobs);
+                                   fast_scatter != 0, knobs,
+                                   lane_list != nullptr);
   if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(
       launch(kernel, tables == kGlobal ? kGlobal : kStaged, a, s));
@@ -2083,16 +2289,19 @@ extern "C" int rtx_render(
 // Refill's lane pass (refill_lanes) over the band y0 .. y1 - 1 of a width x
 // height frame, after render_adaptive's phase 1 with refill_ppl = ppl > 1:
 // slots (phase 1's slot map, an int a pixel of the band) -> resume (the
-// same shape, phase 2's slot map) and tile_max (an int a tile_size x
-// tile_size tile of the band, zeroed before). perm is null, or an int a
-// position of each tile (kernels/megakernel.py pair_perm). The tiles' rule
-// is rtx_render's for refill; ppl 1, 2, 4 or 8 dividing the tile's rows of
-// 128, phases 1 or 2. Returns cudaGetLastError() after the launch, or
-// cudaErrorInvalidValue without one.
+// same shape, phase 2's slot map), tile_max (an int a tile_size x tile_size
+// tile of the band) and lane_list (tile_size * tile_size / ppl ints a tile:
+// phase 2's threads). perm is null, or an int a position of each tile
+// (kernels/megakernel.py pair_perm). The tiles' rule is rtx_render's for
+// refill; ppl 1, 2, 4 or 8 dividing the tile's rows of 128, phases 1 or 2.
+// A block takes a tile and a byte of shared memory a tile position. Returns
+// cudaGetLastError() after the launch, or cudaErrorInvalidValue without
+// one.
 extern "C" int rtx_refill_lanes(const void* slots, const void* perm,
-                                void* resume, void* tile_max, int width,
-                                int height, int y0, int y1, int tile_size,
-                                int ppl, int phases, void* stream) {
+                                void* resume, void* tile_max, void* lane_list,
+                                int width, int height, int y0, int y1,
+                                int tile_size, int ppl, int phases,
+                                void* stream) {
   const bool ok =
       0 <= y0 && y0 < y1 && y1 <= height && width > 0 && tile_size > 0 &&
       (tile_size * tile_size) % kLanes == 0 && y0 % tile_size == 0 &&
@@ -2100,16 +2309,27 @@ extern "C" int rtx_refill_lanes(const void* slots, const void* perm,
       (ppl == 1 || ppl == 2 || ppl == 4 || ppl == 8) &&
       (tile_size * tile_size / kLanes) % ppl == 0 &&
       (phases == 1 || phases == 2) && slots != nullptr &&
-      resume != nullptr && tile_max != nullptr;
+      resume != nullptr && tile_max != nullptr && lane_list != nullptr;
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  using LanePass = void (*)(const int*, const int*, int*, int*, int*, int,
+                           int, int, int, int, int);
+  const LanePass pass = ppl == 1   ? refill_lanes<1>
+                        : ppl == 2 ? refill_lanes<2>
+                        : ppl == 4 ? refill_lanes<4>
+                                   : refill_lanes<8>;
   const int n_tiles = ((width + tile_size - 1) / tile_size) *
                       ((y1 - y0 + tile_size - 1) / tile_size);
-  const int n_lanes = n_tiles * (tile_size * tile_size / ppl);
-  refill_lanes<<<(n_lanes + kLanes - 1) / kLanes, kLanes, 0,
-                 static_cast<cudaStream_t>(stream)>>>(
+  const size_t smem = static_cast<size_t>(tile_size) * tile_size;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        pass, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  pass<<<n_tiles, kLanePassThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(slots), static_cast<const int*>(perm),
-      static_cast<int*>(resume), static_cast<int*>(tile_max), width, height,
-      y0, y1, tile_size, ppl, phases, n_lanes);
+      static_cast<int*>(resume), static_cast<int*>(tile_max),
+      static_cast<int*>(lane_list), width, height, y0, y1, tile_size, phases);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -60,6 +60,7 @@ import collections
 import ctypes
 import dataclasses
 import functools
+import hashlib
 import heapq
 import time
 
@@ -840,8 +841,10 @@ def render_frames_plain(
     segments, and its slot, when its quota was done) and ``tile_max`` ((G,)
     int32: each group's vote, the largest of its lanes' slots at their
     quotas' end, in tile order, or the order of ``groups``' rows, within
-    the band). With exact spp ``pair_costs`` is not read: it moves no
-    sample of an exact-spp image.
+    the band), and with more than one pixel a lane the lane pass's
+    ``resume`` ((y1 - y0, W) int32, ``refill_lane_pass_plain``) and
+    ``lane_list`` (``refill_lane_list``). With exact spp ``pair_costs`` is
+    not read: it moves no sample of an exact-spp image.
 
     ``rows=(y0, y1)`` renders only rows ``y0 .. y1 - 1`` of the full frame,
     with the same pixels and random streams; ``accum``, the image and the
@@ -1010,6 +1013,38 @@ def refill_lane_pass_plain(slots: torch.Tensor, pix: torch.Tensor,
     return resume, lane.amax(dim=1).to(torch.int32)
 
 
+def refill_lane_list(pix: torch.Tensor, inside: torch.Tensor, width: int,
+                     ts: int, y0: int) -> torch.Tensor:
+    """The plain version of the lane pass's list (the ``refill_lanes``
+    kernel writes it; phase 2 of refill under the lane knobs runs over it)
+    for lanes ``pix`` / ``inside``, ``tile_lanes``' over the tiles of side
+    ``ts`` of a ``width``-wide band from row ``y0``: L = ts * ts // ppl
+    int32 entries a tile, the frame indices of its lanes' last pixels in
+    the band, in the order of their threads in a launch over the band
+    (``lane_list_order``), then -1."""
+    last, at = inside[..., -1], pix[..., -1]
+    key = torch.where(last, lane_list_order(at, width, ts, y0), ts * ts)
+    order = torch.argsort(key, dim=1)
+    return torch.take_along_dim(torch.where(last, at, -1), order,
+                                dim=1).reshape(-1).to(torch.int32)
+
+
+def lane_list_order(pix: torch.Tensor, width: int, ts: int,
+                    y0: int) -> torch.Tensor:
+    """The place of frame pixels ``pix`` ((G, ...), row g in refill tile g
+    of the band from row ``y0``, tiles of side ``ts`` row-major) among
+    their tile's threads in a launch over the band: 16x8 blocks in grid
+    order, 16x2 warps, x fastest (the kernel's ``thread_order``): block
+    row, block column, then row and column in the block."""
+    n_tx = -(-width // ts)
+    g = torch.arange(pix.shape[0], device=pix.device).reshape(
+        (-1,) + (1,) * (pix.dim() - 1))
+    lx = pix % width - (g % n_tx) * ts
+    ly = pix // width - y0 - (g // n_tx) * ts
+    return (((ly // BLOCK_Y) * (ts // BLOCK_X) + lx // BLOCK_X)
+            * (BLOCK_X * BLOCK_Y) + (ly % BLOCK_Y) * BLOCK_X + lx % BLOCK_X)
+
+
 def refill_lanes(slots: torch.Tensor, width: int, height: int, ts: int,
                  ppl: int, phases: int, rows: tuple[int, int],
                  perm: torch.Tensor | None = None):
@@ -1018,14 +1053,18 @@ def refill_lanes(slots: torch.Tensor, width: int, height: int, ts: int,
     (y1 - y0, width), tile_max (G,))``, both int32 (see
     ``refill_lane_pass_plain``); the lanes of ``tile_lanes(width, height,
     ts, ppl, *rows, perm)``. On a CUDA tensor the ``refill_lanes`` kernel
-    (``PathTraceKernel.lane_pass``), on the CPU its plain version."""
+    (``PathTraceKernel.lane_pass``, whose lane list this drops), on the CPU
+    its plain version."""
     y0, y1 = rows
     if slots.device.type == "cuda":
+        n_tiles = -(-(y1 - y0) // ts) * -(-width // ts)
         resume = torch.empty_like(slots)
-        tile_max = torch.zeros(-(-(y1 - y0) // ts) * -(-width // ts),
-                               dtype=torch.int32, device=slots.device)
-        KERNEL.lane_pass(slots, resume, tile_max, width, height, ts, ppl,
-                         phases, rows, perm)
+        tile_max = torch.empty(n_tiles, dtype=torch.int32,
+                               device=slots.device)
+        lane_list = torch.empty(n_tiles * (ts * ts // ppl),
+                                dtype=torch.int32, device=slots.device)
+        KERNEL.lane_pass(slots, resume, tile_max, lane_list, width, height,
+                         ts, ppl, phases, rows, perm)
         return resume, tile_max
     if slots.device.type != "cpu":
         raise ValueError(f"no lane pass for device {slots.device}")
@@ -1033,6 +1072,122 @@ def refill_lanes(slots: torch.Tensor, width: int, height: int, ts: int,
     resume, tile_max = refill_lane_pass_plain(slots.reshape(-1), pix, inside,
                                               phases, y0 * width)
     return resume.reshape(slots.shape), tile_max
+
+
+def refill_warp_counts(phase_one_segs: torch.Tensor, segs: torch.Tensor,
+                       lane_list: torch.Tensor | None = None,
+                       y0: int = 0) -> dict:
+    """How full a refill launch keeps its warps, from its per-pixel segment
+    maps ((y1 - y0, W) of the band from row ``y0``) after phase 1 (each
+    pixel's exact-spp segments E) and after phase 2 (F): a warp of the
+    kernel's 16 x 2 lanes runs phase 1 for as many slots as their largest
+    E, and phase 2, each lane resuming at its own slot, for as many as
+    their largest F - E (``"phase_2"``: a launch over the band); with a
+    lane list (``refill_lanes``), phase 2's warps are its runs of 32
+    entries, -1 an idle lane (``"phase_2_list"``). -> each one's
+    warp-slots and the share of its lane-slots that traced a segment.
+    Segments stand in for slots: under two phases a lane also waits a slot
+    for its phase."""
+    h, w = segs.shape
+    extra = (segs - phase_one_segs).to(torch.int64)
+    out = {}
+    for name, per_lane in (("phase_1", phase_one_segs.to(torch.int64)),
+                           ("phase_2", extra)):
+        x = torch.nn.functional.pad(per_lane, (0, -w % BLOCK_X, 0, -h % 2))
+        x = x.reshape(x.shape[0] // 2, 2, x.shape[1] // BLOCK_X, BLOCK_X)
+        out[name] = x.permute(0, 2, 1, 3).reshape(-1, WARP)
+    if lane_list is not None:
+        at = lane_list.to(device=segs.device, dtype=torch.int64)
+        got = extra.reshape(-1)[torch.clamp(at - y0 * w, min=0)]
+        out["phase_2_list"] = torch.where(at >= 0, got, 0).reshape(-1, WARP)
+    counts = {}
+    for name, lanes in out.items():
+        slots = int(lanes.amax(dim=1).sum())
+        counts[name] = dict(warp_slots=slots, lane_segments=int(lanes.sum()),
+                            live_share=int(lanes.sum()) / max(WARP * slots, 1))
+    return counts
+
+
+def phase_ms(events, n_frames: int) -> list:
+    """A refill call's launches' ms a frame from the five CUDA events that
+    ``phase_one`` gains (``PathTraceKernel.launch``): phase 1, the lane pass
+    (about nothing with one pixel a lane) and phase 2."""
+    e = events
+    return [e[0].elapsed_time(e[1]) / n_frames,
+            e[1].elapsed_time(e[4]) / n_frames,
+            e[2].elapsed_time(e[3]) / n_frames]
+
+
+def lane_pass_ms(scene, cfg, slots: torch.Tensor,
+                 costs: torch.Tensor | None = None, reps: int = 50) -> float:
+    """The ``refill_lanes`` kernel's device ms under ``cfg``'s lane knobs on
+    phase 1's slot map ``slots`` ((H, W) int32 on the card, the whole
+    frame), its lanes paired by ``costs`` where given: ``reps`` launches
+    queued behind a spin of the card (about 25 ms), so that their events
+    hold the card's time and not the host's."""
+    ppl, phases = refill_knobs(scene, cfg)
+    h, w = slots.shape
+    ts = refill_tile_size(scene, cfg)
+    n_tiles = -(-h // ts) * -(-w // ts)
+    perm = (None if costs is None
+            else pair_perm(costs, w, h, ts, ppl, 0, h).contiguous())
+    outs = (torch.empty_like(slots),
+            torch.empty(n_tiles, dtype=torch.int32, device=slots.device),
+            torch.empty(n_tiles * (ts * ts // ppl), dtype=torch.int32,
+                        device=slots.device))
+
+    def call():
+        KERNEL.lane_pass(slots, *outs, w, h, ts, ppl, phases, (0, h), perm)
+
+    call()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(50_000_000)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    for _ in range(reps):
+        call()
+    ev[1].record()
+    torch.cuda.synchronize()
+    return ev[0].elapsed_time(ev[1]) / reps
+
+
+def knob_tag(ppl: int, phases: int, paired: bool) -> str:
+    """A lane-knob setting's name, as ``ppl2_ph1_paired``."""
+    return f"ppl{ppl}_ph{phases}" + ("_paired" if paired else "")
+
+
+def knob_digests(scene, cam, cfg, settings, seed: int = 0) -> dict:
+    """Refill's outputs under each lane-knob setting (pixels a lane, phases,
+    paired) of ``settings``: {``knob_tag``: {"frame3": the first 16 hex
+    digits of the SHA-256 of frame 3's image, segment map and bounce
+    histogram, "k4": of the K = 4 fold of frames 1-4 from an accumulator
+    drawn from ``seed`` (image, segment map)}}, a paired setting's lanes
+    paired by the default refill's frame-3 segment map; on ``scene``'s
+    device."""
+    def digest(*tensors):
+        h = hashlib.sha256()
+        for t in tensors:
+            h.update(t.detach().cpu().contiguous().numpy().tobytes())
+        return h.hexdigest()[:16]
+
+    dev = scene.device
+    ad = dataclasses.replace(cfg, adaptive_spp=True)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    acc0 = 2.0 * torch.rand((cfg.height, cfg.width, 3), generator=gen,
+                            device=dev)
+    costs = render_frames_mega(scene, cam, ad, 3)[2]
+    out = {}
+    for ppl, phases, paired in settings:
+        c = dataclasses.replace(ad, mega_pixels_per_lane=ppl,
+                                mega_phases=phases)
+        pc = costs if paired else None
+        one = render_frames_mega(scene, cam, c, 3, collect_stats=True,
+                                 pair_costs=pc)
+        k4 = render_frames_mega(scene, cam, c, 1, 4, accum=acc0,
+                                pair_costs=pc)
+        out[knob_tag(ppl, phases, paired)] = dict(
+            frame3=digest(one[0], one[2], one[3]), k4=digest(k4[0], k4[2]))
+    return out
 
 
 # Warp schedules of the exact kernel's work (``schedule_counts``): a loop
@@ -1482,6 +1637,7 @@ def _render_adaptive(scene, camera, cfg, frame0, n_frames, accum,
                 f"groups take one pixel a lane; mega_pixels_per_lane is {ppl}")
         band = torch.from_numpy(_band_groups(groups, w, y0, y1)).to(dev)
         lanes, inside = band[:, :, None], band[:, :, None] >= 0
+        ts = None
     else:
         ts = refill_tile_size(scene, cfg)
         if y0 % ts or (y1 != cfg.height and y1 % ts):
@@ -1499,7 +1655,7 @@ def _render_adaptive(scene, camera, cfg, frame0, n_frames, accum,
     if two_phase:
         img, seg_map = _refill_two_phase(
             scene, camera, cfg, int(frame0), n_frames, lanes, inside, phases,
-            y0, y1, acc, hist, intersect_fn, dup_fetch, phase_one)
+            y0, y1, acc, hist, intersect_fn, dup_fetch, phase_one, ts)
     else:
         img = torch.zeros((n_band, 3), dtype=torch.float32, device=dev)
         seg_map = torch.zeros(n_band, dtype=torch.int32, device=dev)
@@ -1672,11 +1828,12 @@ def _adaptive_block(scene, camera, cfg, frame0, n_frames, lanes, inside,
 
 def _refill_two_phase(scene, camera, cfg, frame0, n_frames, lanes, inside,
                       phases, y0, y1, acc_in, hist, intersect_fn, dup_fetch,
-                      phase_one):
+                      phase_one, ts=None):
     """Adaptive refill as the kernel runs it, in two passes over the pixels
     of rows ``y0 .. y1 - 1`` and the lane pass between them, for the lanes
-    ``lanes`` / ``inside`` (``_render_adaptive``) -> ``(image (n, 3),
-    segments (n,) int32)`` of the band's n pixels; adds to ``hist``.
+    ``lanes`` / ``inside`` (``_render_adaptive``; ``tile_lanes``' over tiles
+    of side ``ts``, or None for other groups) -> ``(image (n, 3), segments
+    (n,) int32)`` of the band's n pixels; adds to ``hist``.
 
     Under the slot machine a lane that owes samples starts one at the first
     slot its phase allows after its path ends, so until its quota is done
@@ -1693,7 +1850,10 @@ def _refill_two_phase(scene, camera, cfg, frame0, n_frames, lanes, inside,
     slot kept; the lane pass takes each lane's sum and T_g; phase 2 runs
     each lane's last pixel from the lane's sum on, a dead lane re-seeding
     while its slot is below T_g, a sample still in flight at the slot bound
-    dropped; then the last fold. Each pixel keeps a slot counter, which a
+    dropped; then the last fold (the kernel's phase 2 with more than one
+    pixel a lane runs over the lane pass's list of those last pixels alone,
+    ``refill_lane_list``: the others take no extra sample, and phase 1
+    folds them). Each pixel keeps a slot counter, which a
     lane waiting for its phase's slot moves on without a trace. Each phase's
     loop holds every pixel of the band, and its live lanes trace in calls
     of ``plain_block_size`` (``_slot``), so a phase runs as many
@@ -1719,6 +1879,10 @@ def _refill_two_phase(scene, camera, cfg, frame0, n_frames, lanes, inside,
                     y1 - y0, w)
                 phase_one["slots"] = slot.to(torch.int32).reshape(y1 - y0, w)
                 phase_one["tile_max"] = tile_max
+                if lanes.shape[-1] > 1:
+                    phase_one["resume"] = resume.reshape(y1 - y0, w)
+                    phase_one["lane_list"] = refill_lane_list(
+                        lanes, inside, w, ts, y0)
             group = torch.zeros(n, dtype=torch.int64, device=dev)
             group[lanes[inside] - off] = torch.arange(
                 lanes.shape[0], device=dev)[:, None, None].expand(
@@ -1791,8 +1955,8 @@ _RENDER_ARGTYPES = [
     _CI, _CI, _VP, _VP, _VP, _CI, _VP, _CI, _CI, _VP, _CI, _VP, _VP, _VP, _VP,
     _CI, _VP, _CI,
     _CI, _VP, _VP, _CI, _VP, _VP, _CI, _CI, _CI, _CI, _CI, _CI, ctypes.c_uint,
-    _CI, _VP, _CI, _CI, _CI, _CI, _VP, _VP, _CI, _VP, _CI, _CI, _CI, _VP, _VP,
-    _VP, _VP,
+    _CI, _VP, _CI, _CI, _CI, _CI, _VP, _VP, _CI, _VP, _CI, _CI, _VP, _VP, _CI,
+    _VP, _VP, _VP, _VP,
 ]
 
 
@@ -1803,7 +1967,7 @@ def _bind(lib) -> None:
     lib.rtx_shared_bytes.restype = ctypes.c_size_t
     lib.rtx_occupancy.argtypes = [_CI, _CI, _CI, _CI, _CI, ctypes.c_size_t]
     lib.rtx_occupancy.restype = _CI
-    lib.rtx_refill_lanes.argtypes = [_VP, _VP, _VP, _VP] + [_CI] * 7 + [_VP]
+    lib.rtx_refill_lanes.argtypes = [_VP] * 5 + [_CI] * 7 + [_VP]
     lib.rtx_refill_lanes.restype = _CI
 
 
@@ -1818,9 +1982,10 @@ class PathTraceKernel:
     the probe library (the same source with ``-DRTX_PROBES``).
 
     ``variant_launches`` counts the kernel launches this object made, by
-    instantiation (``variant``, which names the route), and refill's lane
-    passes under ``LANE_PASS``; only ``launch`` and ``lane_pass`` add to
-    it."""
+    instantiation (``variant``, which names the route; a ``kKnobs`` one's
+    phase 2 over the lane list, its ``render_listed`` twin, under its
+    name), and refill's lane passes under ``LANE_PASS``; only ``launch``
+    and ``lane_pass`` add to it."""
 
     def __init__(self):
         self.variant_launches: collections.Counter = collections.Counter()
@@ -1846,16 +2011,17 @@ class PathTraceKernel:
         it. Raises if nvcc is missing or fails."""
         return self.library.build()
 
-    def lane_pass(self, slots, resume, tile_max, width, height, ts, ppl,
-                  phases, rows, perm=None) -> None:
-        """One launch of the ``refill_lanes`` kernel (``refill_lanes``):
-        ``slots`` -> ``resume`` and ``tile_max``, int32 CUDA tensors of the
-        band ``rows`` (``tile_max`` zeroed), ``perm`` None or
-        ``pair_perm``'s."""
+    def lane_pass(self, slots, resume, tile_max, lane_list, width, height,
+                  ts, ppl, phases, rows, perm=None) -> None:
+        """One launch of the ``refill_lanes`` kernel (``refill_lanes``), a
+        block a tile: ``slots`` -> ``resume``, ``tile_max`` and
+        ``lane_list``, int32 CUDA tensors of the band ``rows``, ``perm``
+        None or ``pair_perm``'s."""
         dev = slots.device
         n_tiles = -(-(rows[1] - rows[0]) // ts) * -(-width // ts)
         want = [(slots, (rows[1] - rows[0], width)), (resume, slots.shape),
-                (tile_max, (n_tiles,))]
+                (tile_max, (n_tiles,)),
+                (lane_list, (n_tiles * (ts * ts // ppl),))]
         if perm is not None:
             want.append((perm, (n_tiles, ts * ts)))
         for t, shape in want:
@@ -1869,7 +2035,8 @@ class PathTraceKernel:
         with torch.cuda.device(dev):
             rc = self.library.lib.rtx_refill_lanes(
                 slots.data_ptr(), None if perm is None else perm.data_ptr(),
-                resume.data_ptr(), tile_max.data_ptr(), width, height,
+                resume.data_ptr(), tile_max.data_ptr(), lane_list.data_ptr(),
+                width, height,
                 rows[0], rows[1], ts, ppl, phases,
                 torch.cuda.current_stream(dev).cuda_stream)
         self.library.check(rc, "refill_lanes")
@@ -1948,11 +2115,15 @@ class PathTraceKernel:
         lane and phases, with more than one pixel a lane the lane pass
         between them (``refill_lanes``, its lanes in ``pair_perm``'s order
         of ``pair_costs``, the band's (y1 - y0, W) map, where given; with
-        exact spp ``pair_costs`` is not read). ``phase_one``, a dict, gains
-        what ``render_frames_plain`` gives it (copies of phase 1's segment
-        and slot maps and tile maxima) and ``events``, four CUDA events:
-        before and after phase 1, and before and after phase 2 (refill
-        only). Reads
+        exact spp ``pair_costs`` is not read; with more than one pixel a
+        lane, phase 2 runs over the lane pass's list of each lane's last
+        pixel, one thread an entry). ``phase_one``, a dict, gains what
+        ``render_frames_plain`` gives it (copies of phase 1's segment and
+        slot maps and tile maxima, and the lane pass's resume map and list)
+        and ``events``, five
+        CUDA events: before and after phase 1, before and after phase 2,
+        and after the lane pass (with one pixel a lane, right after phase
+        1), refill only. Reads
         nothing back from the device and does not synchronise, except at a
         scene's first launch, which reads its sphere arrays back to cluster
         them (``geometry_tables``); the camera's visit order is made on the
@@ -2027,7 +2198,8 @@ class PathTraceKernel:
             return None if t is None or t.numel() == 0 else t.data_ptr()
 
         def run(accum_in, image, phase=0, scratch=None, tile_max=None, ts=0,
-                slot_map=None, ppl=1, phases=1):
+                slot_map=None, ppl=1, phases=1, last_image=None,
+                lane_list=None):
             rc = render(
                 code, TABLES.index(route), ptr(tab.spheres),
                 ptr(tab.sphere_orig), ptr(tab.sphere_mat), n_sph,
@@ -2041,7 +2213,7 @@ class PathTraceKernel:
                 int(frame0) & 0xFFFFFFFF, n_frames, ptr(accum_in),
                 int(cfg.clamp_accumulate), int(cfg.adaptive_spp),
                 int(cfg.fast_scatter), phase, ptr(scratch), ptr(tile_max), ts,
-                ptr(slot_map), ppl, phases,
+                ptr(slot_map), ppl, phases, ptr(last_image), ptr(lane_list),
                 int(tab.chunk_warp_scan), ptr(image), ptr(segs), ptr(hist),
                 torch.cuda.current_stream(dev).cuda_stream,
             )
@@ -2059,17 +2231,23 @@ class PathTraceKernel:
             # of the frames before the last in `mid`, its slot in `slots`
             # (its segments with one pixel a lane and one phase), and with
             # one pixel a lane each tile's last finish in `tile_max`; with
-            # more the lane pass takes that, and each lane's slot; phase 2
-            # takes them from there
+            # more each pixel's image without extra samples in `out`, and
+            # the lane pass takes the tiles' last finish, each lane's slot
+            # and the list of each lane's last pixel, over which phase 2
+            # runs; phase 2 takes them from there
             ts = refill_tile_size(scene, cfg)
             ppl, phases = refill_knobs(scene, cfg)
+            n_tiles = -(-h // ts) * -(-w // ts)
             scratch = torch.empty((h, w, 4), dtype=torch.float32, device=dev)
-            tile_max = torch.zeros(-(-h // ts) * -(-w // ts),
-                                   dtype=torch.int32, device=dev)
+            tile_max = (torch.zeros if ppl == 1 else torch.empty)(
+                n_tiles, dtype=torch.int32, device=dev)
             mid = None if accum is None else torch.empty_like(out)
-            slots = None
+            slots = lane_list = None
             if ppl > 1 or phases > 1:
                 slots = torch.empty((h, w), dtype=torch.int32, device=dev)
+            if ppl > 1:
+                lane_list = torch.empty(n_tiles * (ts * ts // ppl),
+                                        dtype=torch.int32, device=dev)
             perm = None
             if pair_costs is not None and ppl > 1:
                 perm = pair_perm(pair_costs.to(dev), w, cfg.height, ts, ppl,
@@ -2077,22 +2255,28 @@ class PathTraceKernel:
             events = None
             if phase_one is not None:
                 events = [torch.cuda.Event(enable_timing=True)
-                          for _ in range(4)]
+                          for _ in range(5)]
                 events[0].record()
-            run(accum, mid, 1, scratch, tile_max, ts, slots, ppl, phases)
+            run(accum, mid, 1, scratch, tile_max, ts, slots, ppl, phases,
+                last_image=out if ppl > 1 else None)
             if phase_one is not None:
                 events[1].record()
             resume = slots
             if ppl > 1:
                 resume = torch.empty_like(slots)
-                self.lane_pass(slots, resume, tile_max, w, cfg.height, ts,
-                               ppl, phases, (y0, y1), perm)
+                self.lane_pass(slots, resume, tile_max, lane_list, w,
+                               cfg.height, ts, ppl, phases, (y0, y1), perm)
             if phase_one is not None:
+                events[4].record()
                 phase_one.update(segs=segs.clone(), tile_max=tile_max.clone(),
                                  slots=segs.clone() if slots is None
                                  else slots.clone(), events=events)
+                if lane_list is not None:
+                    phase_one.update(resume=resume.clone(),
+                                     lane_list=lane_list.clone())
                 events[2].record()
-            run(mid, out, 2, scratch, tile_max, ts, resume, ppl, phases)
+            run(mid, out, 2, scratch, tile_max, ts, resume, ppl, phases,
+                lane_list=lane_list)
             if phase_one is not None:
                 events[3].record()
         return out, segs.sum(dtype=torch.int64), segs, hist

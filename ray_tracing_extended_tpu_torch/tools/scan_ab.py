@@ -44,6 +44,20 @@ time of the same call queued behind the K-frame one
 the events hold its device work only; events around a lone call would
 hold the host's time too, the card idle between them).
 
+``--knobs`` adds, on RTIOW and Cornell, refill under the TPU kernel's lane
+knobs in ``KNOB_TIMINGS``' settings (pixels a lane, phases, paired), Box-
+Muller scatter: a lane's pixels paired by the default refill's K = 4 segment
+map of the same call, as ``render_progressive`` pairs each batch by the
+last; each line with its three launches' ms a frame (phase 1, the lane pass,
+phase 2), the lane pass's device ms alone (``lane_pass_ms``) and, on a tree
+with a lane list, its phase 2 warps (``refill_warp_counts``). ``--knob-digests`` prints instead the digests of
+refill's outputs under ``KNOB_DIGEST_SETTINGS`` on RTIOW 480x270 and Cornell
+256x256 (``knob_digests``), which ``chip_smoke.py`` holds a tree to.
+
+``--summarize FILE`` prints, without a card, the A/B of the lines that runs of
+several trees in turns appended to FILE (``--out``) against ``--base``'s
+(``summarize``): medians, ranges, ratios and pairs won.
+
 ``--images DIR`` keeps each configuration's folded image as
 ``DIR/<label>_<configuration>.npy``; with ``--against LABEL`` each line
 also says how many pixels differ from that label's image of the same
@@ -70,14 +84,87 @@ import torch
 
 SEED = 0
 K_FRAMES = 4
+# refill's lane-knob settings --knobs times: (pixels a lane, phases, paired)
+KNOB_TIMINGS = ((2, 1, True), (4, 1, True), (2, 2, True), (2, 1, False))
+# the settings --knob-digests digests (chip_smoke.py's KNOB_SETTINGS)
+KNOB_DIGEST_SETTINGS = ((2, 1, False), (4, 1, False), (1, 2, False),
+                        (2, 2, False), (2, 1, True))
+
+
+def _digest(*tensors) -> str:
+    """The first 16 hex digits of the SHA-256 of the tensors' bytes."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def knob_tag(ppl: int, phases: int, paired: bool) -> str:
+    return f"ppl{ppl}_ph{phases}" + ("_paired" if paired else "")
+
+
+def knob_scenes(presets, device=None) -> dict:
+    """The scenes whose refill outputs ``--knob-digests`` digests."""
+    kw = {} if device is None else dict(device=device)
+    return {
+        "rtiow": lambda: presets.rtiow_final_scene(
+            width=480, height=270, max_bounce=4, spp=16, **kw),
+        "cornell": lambda: presets.cornell_box_scene(
+            width=256, height=256, max_bounce=8, spp=4, **kw),
+    }
+
+
+def phase_ms(mk, events, n_frames: int) -> list:
+    """A refill call's launches' ms a frame from ``phase_one``'s events:
+    phase 1, what lies between the phases, phase 2 (``mk.phase_ms``). A
+    tree before the lane list records four events, and what lies between
+    its phases holds the copies made for ``phase_one`` too."""
+    if hasattr(mk, "phase_ms"):
+        return mk.phase_ms(events, n_frames)
+    e = events
+    return [e[0].elapsed_time(e[1]) / n_frames,
+            e[1].elapsed_time(e[2]) / n_frames,
+            e[2].elapsed_time(e[3]) / n_frames]
+
+
+def lane_pass_ms(mk, scene, cfg, slots, costs, reps=50) -> float:
+    """The lane pass's device ms (``mk.lane_pass_ms``). A tree before the
+    lane list takes no list, and a zeroed ``tile_max``."""
+    if hasattr(mk, "lane_pass_ms"):
+        return mk.lane_pass_ms(scene, cfg, slots, costs, reps)
+    ppl, phases = mk.refill_knobs(scene, cfg)
+    h, w = slots.shape
+    ts = mk.refill_tile_size(scene, cfg)
+    perm = (None if costs is None
+            else mk.pair_perm(costs, w, h, ts, ppl, 0, h).contiguous())
+    resume = torch.empty_like(slots)
+    tile_max = torch.zeros(-(-h // ts) * -(-w // ts), dtype=torch.int32,
+                           device=slots.device)
+
+    def call():
+        mk.KERNEL.lane_pass(slots, resume, tile_max, w, h, ts, ppl, phases,
+                            (0, h), perm)
+
+    call()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(50_000_000)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    for _ in range(reps):
+        call()
+    ev[1].record()
+    torch.cuda.synchronize()
+    return ev[0].elapsed_time(ev[1]) / reps
 
 
 def _entry(ln: str):
     """The kernel entry a line names, ``render_kernel<geometry,scatter>``
     (``render_kernel<geometry,scatter,global>`` on the global table route
-    of a tree that has one, ``...,knobs>`` for refill under the lane knobs),
+    of a tree that has one, ``...,knobs>`` for refill under the lane knobs,
+    ``render_listed<geometry,scatter>`` for its phase 2 over the lane list),
     or None."""
-    m = re.search(r"(render_kernel|render_adaptive)IL\w*?E(\d)EL\w*?E(\d)E", ln)
+    m = re.search(r"(render_kernel|render_adaptive|render_listed)IL\w*?E(\d)EL"
+                  r"\w*?E(\d)E", ln)
     if not m:
         return None
     route = ",global" if re.search(r"TablesE1E", ln) else ""
@@ -145,6 +232,53 @@ def _wide_scenes():
     return module
 
 
+def summarize(path, base: str) -> list:
+    """The A/B of the lines in ``path`` (``--out`` of runs of several trees in
+    turns): for each configuration and each label but ``base``, the median
+    and range of the runs' median frame ms, the ratio of the medians to
+    ``base``'s, and how many of the pairs (the k-th run of each, in file
+    order) the label won; for the knob lines also the medians of the
+    launches' ms a frame (phase 1, the lane pass, phase 2) and of the lane
+    pass's device ms alone."""
+    runs = {}
+    for line in Path(path).read_text().splitlines():
+        d = json.loads(line)
+        if d.get("phase") == "frames":
+            config = (f"{d['scene']}_{'refill' if d['adaptive_spp'] else 'exact'}"
+                      f"{'_fast' if d['fast_scatter'] else ''}")
+        elif d.get("phase") == "knobs":
+            config = d["config"]
+        else:
+            continue
+        runs.setdefault(config, {}).setdefault(d["label"], []).append(d)
+    out = []
+    for config, by_label in runs.items():
+        ref = [d["frame_ms_median"] for d in by_label.get(base, [])]
+        for label, ds in by_label.items():
+            if label == base or not ref:
+                continue
+            ms = [d["frame_ms_median"] for d in ds]
+            row = dict(config=config, base=base, label=label,
+                       base_med=statistics.median(ref),
+                       base_rng=[min(ref), max(ref)],
+                       label_med=statistics.median(ms),
+                       label_rng=[min(ms), max(ms)],
+                       ratio=statistics.median(ms) / statistics.median(ref),
+                       pairs=min(len(ms), len(ref)),
+                       pairs_won=sum(m < r for m, r in zip(ms, ref)))
+            for who, group in ((base, by_label[base]), (label, ds)):
+                split = [d["refill_launch_frame_ms"] for d in group
+                         if "refill_launch_frame_ms" in d]
+                if split:
+                    row[f"{who}_launch_ms"] = [statistics.median(x)
+                                               for x in zip(*split)]
+                lane = [d["lane_pass_ms"] for d in group if "lane_pass_ms" in d]
+                if lane:
+                    row[f"{who}_lane_pass_ms"] = statistics.median(lane)
+            out.append(row)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--label", default="tree")
@@ -158,7 +292,20 @@ def main(argv=None) -> int:
                     help="keep each configuration's image in this directory")
     ap.add_argument("--against", default=None,
                     help="count the pixels that differ from this label's images")
+    ap.add_argument("--knobs", action="store_true",
+                    help="also refill under the lane knobs (KNOB_TIMINGS)")
+    ap.add_argument("--knob-digests", action="store_true",
+                    help="print the knob outputs' digests and nothing else")
+    ap.add_argument("--summarize", default=None, metavar="FILE",
+                    help="print the A/B of FILE's lines against --base and "
+                    "nothing else (no card needed)")
+    ap.add_argument("--base", default="parent",
+                    help="the label --summarize compares the others with")
     args = ap.parse_args(argv)
+    if args.summarize:
+        for row in summarize(args.summarize, args.base):
+            print(json.dumps(row))
+        return 0
     if not torch.cuda.is_available():
         raise SystemExit("scan_ab needs a CUDA device")
 
@@ -182,6 +329,12 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
+    if args.knob_digests:
+        emit(phase="knob_digests", gpu=smi,
+             package=str(Path(rtt.__file__).parent), digests={
+                 name: mk.knob_digests(*make(), KNOB_DIGEST_SETTINGS, SEED)
+                 for name, make in knob_scenes(presets).items()})
+        return 0
     info = mk.KERNEL.build()
     emit(phase="build", gpu=smi, package=str(Path(rtt.__file__).parent),
          super_chunks=getattr(mk, "SUPER_CHUNKS", None),
@@ -266,10 +419,8 @@ def main(argv=None) -> int:
                     mk.render_frames_mega(scene, cam, vcfg, 1, K_FRAMES,
                                           accum=acc0.clone(), phase_one=one)
                     torch.cuda.synchronize()
-                    e = one["events"]
-                    refill["refill_phase_frame_ms"] = [
-                        e[0].elapsed_time(e[1]) / K_FRAMES,
-                        e[2].elapsed_time(e[3]) / K_FRAMES]
+                    refill["refill_phase_frame_ms"] = phase_ms(
+                        mk, one["events"], K_FRAMES)[::2]
             moved = {}
             config = (f"{name}_{'refill' if adaptive else 'exact'}"
                       f"{'_fast' if fast else ''}")
@@ -293,10 +444,78 @@ def main(argv=None) -> int:
                  image_mean=float(acc.mean()),
                  image_mean_f64=float(acc.double().mean()),
                  launches=launches, **refill, **moved)
+        if args.knobs and name in ("rtiow", "cornell"):
+            knob_lines(mk, name, scene, cam, cfg, acc0, args, images, emit)
     if args.out:
         with open(args.out, "a") as f:
             f.write("\n".join(lines) + "\n")
     return 0
+
+
+def knob_lines(mk, name, scene, cam, cfg, acc0, args, images,
+               emit) -> None:
+    """``--knobs``: a line a setting of ``KNOB_TIMINGS``, the K = 4 fold
+    from ``acc0`` as the other lines time it, paired by the default refill's
+    segment map of the same call; the split of one call into its launches
+    from ``phase_one``'s events."""
+    ad = dataclasses.replace(cfg, adaptive_spp=True)
+    costs = mk.render_frames_mega(scene, cam, ad, 1, K_FRAMES, accum=acc0)[2]
+    for ppl, phases, paired in KNOB_TIMINGS:
+        kcfg = dataclasses.replace(ad, mega_pixels_per_lane=ppl,
+                                   mega_phases=phases)
+        pc = costs if paired else None
+
+        def call():
+            return mk.render_frames_mega(scene, cam, kcfg, 1, K_FRAMES,
+                                         accum=acc0, pair_costs=pc)
+
+        mk.KERNEL.reset_counts()
+        acc, segs = call()[:2]
+        ms = []
+        for _ in range(args.reps):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            again = call()[0]
+            ev[1].record()
+            torch.cuda.synchronize()
+            ms.append(ev[0].elapsed_time(ev[1]) / K_FRAMES)
+        if not torch.equal(acc, again):
+            raise RuntimeError(f"{knob_tag(ppl, phases, paired)}: two "
+                               "identical calls differ")
+        launches = dict(mk.KERNEL.variant_launches)
+        one = {}
+        seg_map = mk.render_frames_mega(scene, cam, kcfg, 1, K_FRAMES,
+                                        accum=acc0.clone(), phase_one=one,
+                                        pair_costs=pc)[2]
+        torch.cuda.synchronize()
+        warps = {}
+        if hasattr(mk, "refill_warp_counts"):
+            warps["refill_warps"] = mk.refill_warp_counts(
+                one["segs"], seg_map, one.get("lane_list"))
+        if ppl > 1:
+            warps["lane_pass_ms"] = lane_pass_ms(mk, scene, kcfg, one["slots"],
+                                                 costs if paired else None)
+        config = f"{name}_refill_{knob_tag(ppl, phases, paired)}"
+        moved = {}
+        if images:
+            img = acc.cpu().numpy()
+            np.save(images / f"{args.label}_{config}.npy", img)
+            ref = images / f"{args.against}_{config}.npy"
+            if args.against and ref.exists():
+                ref = np.load(ref)
+                moved = dict(against=args.against, pixels_moved=int(
+                    (img != ref).any(axis=-1).sum()),
+                    max_abs_moved=float(np.abs(img - ref).max()))
+        emit(phase="knobs", config=config, pixels_per_lane=ppl,
+             phases=phases, paired=paired, width=cfg.width,
+             height=cfg.height, spp=cfg.spp, max_bounce=cfg.max_bounce,
+             frames=K_FRAMES, frame_ms_median=statistics.median(ms),
+             frame_ms_min=min(ms), frame_ms_all=ms,
+             refill_launch_frame_ms=phase_ms(mk, one["events"], K_FRAMES),
+             segments=int(segs), image_mean=float(acc.mean()),
+             image_mean_f64=float(acc.double().mean()),
+             seg_map_digest=_digest(seg_map), launches=launches, **warps,
+             **moved)
 
 
 if __name__ == "__main__":

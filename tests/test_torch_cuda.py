@@ -1158,8 +1158,9 @@ def test_refill_knobs_equal_plain_bit_for_bit(cuda, name, ppl, phases, costs,
     slot maps and each tile's last finish equal as integers, and the image,
     segment map and histogram bit for bit; a frame, and a K = 3 fold from a
     seeded accumulator, the latter on a band of whole tiles with tiles of
-    32; with a seeded cost map pairing a lane's pixels. Every launch
-    counted."""
+    32; with a seeded cost map pairing a lane's pixels. With more than one
+    pixel a lane also the lane pass's resume map and list as integers:
+    phase 2 runs over the list. Every launch counted."""
     scene, cam, cfg = _off_tile_scene(name, cuda)
     cfg = dataclasses.replace(cfg, adaptive_spp=True, fast_scatter=fast,
                               mega_tile_size=ts, mega_pixels_per_lane=ppl,
@@ -1189,7 +1190,10 @@ def test_refill_knobs_equal_plain_bit_for_bit(cuda, name, ppl, phases, costs,
                                    collect_stats=True, rows=band,
                                    intersect_fn=fn, phase_one=p_one,
                                    pair_costs=c)
-        for key in ("segs", "slots", "tile_max"):
+        listed = ("resume", "lane_list") if ppl > 1 else ()
+        assert sorted(k_one) == sorted(("segs", "slots", "tile_max",
+                                        "events") + listed)
+        for key in ("segs", "slots", "tile_max") + listed:
             assert torch.equal(k_one[key], p_one[key].to(cuda)), key
         assert _bits_equal(k[0], p[0])
         assert torch.equal(k[2], p[2]) and torch.equal(k[3], p[3])
@@ -1219,7 +1223,8 @@ def test_bvh_refill_knobs_equal_plain_bit_for_bit(cuda, ppl, phases, fast,
                               phase_one=k_one, tables=tables)
     p = mk.render_frames_plain(scene, cam, cfg, 5, collect_stats=True,
                                phase_one=p_one)
-    for key in ("segs", "slots", "tile_max"):
+    listed = ("resume", "lane_list") if ppl > 1 else ()
+    for key in ("segs", "slots", "tile_max") + listed:
         assert torch.equal(k_one[key], p_one[key].to(cuda)), key
     assert _bits_equal(k[0], p[0])
     assert torch.equal(k[2], p[2]) and torch.equal(k[3], p[3])
@@ -1228,10 +1233,12 @@ def test_bvh_refill_knobs_equal_plain_bit_for_bit(cuda, ppl, phases, fast,
 
 
 def test_lane_pass_kernel_equals_plain(cuda):
-    """The refill_lanes kernel against its plain version on the CPU: a
-    seeded slot map of a 250x134 frame, two and four pixels a lane, one
-    and two phases, with and without a cost pairing, the whole frame and a
-    band of whole tiles, as integers."""
+    """The refill_lanes kernel, a block a tile, against its plain version on
+    the CPU: a seeded slot map of a 250x134 frame, whose right and bottom
+    edges cut tiles, two, four and eight pixels a lane, one and two phases,
+    with and without a cost pairing, the whole frame and a band of whole
+    tiles: the resume map, the tile maxima and the lane list as
+    integers."""
     gen = torch.Generator().manual_seed(3)
     slots = torch.randint(1, 200, (134, 250), generator=gen,
                           dtype=torch.int32)
@@ -1239,21 +1246,54 @@ def test_lane_pass_kernel_equals_plain(cuda):
     before = mk.KERNEL.variant_launches[mk.LANE_PASS]
     calls = 0
     for ts, ppl, phases, paired in ((128, 2, 1, False), (128, 4, 2, True),
-                                    (32, 2, 2, True), (32, 8, 1, False)):
+                                    (128, 8, 2, True), (32, 2, 2, True),
+                                    (32, 8, 1, False), (64, 1, 2, False)):
         for rows in [(0, 134)] + ([(32, 96)] if ts == 32 else []):
             band = slice(*rows)
             perm = (mk.pair_perm(costs[band], 250, 134, ts, ppl, *rows)
                     if paired else None)
             want = mk.refill_lanes(slots[band].contiguous(), 250, 134, ts,
                                    ppl, phases, rows, perm)
-            got = mk.refill_lanes(
-                slots[band].contiguous().to(cuda), 250, 134, ts, ppl, phases,
-                rows, None if perm is None else perm.to(cuda).contiguous())
-            assert torch.equal(got[0].cpu(), want[0])
-            assert torch.equal(got[1].cpu(), want[1])
+            pix, inside = mk.tile_lanes(250, 134, ts, ppl, *rows, perm)
+            want += (mk.refill_lane_list(pix, inside, 250, ts, rows[0]),)
+            n_tiles = -(-(rows[1] - rows[0]) // ts) * -(-250 // ts)
+            got = (torch.empty((rows[1] - rows[0], 250), dtype=torch.int32,
+                               device=cuda),
+                   torch.empty(n_tiles, dtype=torch.int32, device=cuda),
+                   torch.empty(n_tiles * (ts * ts // ppl), dtype=torch.int32,
+                               device=cuda))
+            mk.KERNEL.lane_pass(
+                slots[band].contiguous().to(cuda), *got, 250, 134, ts, ppl,
+                phases, rows,
+                None if perm is None else perm.to(cuda).contiguous())
+            for g, w in zip(got, want):
+                assert torch.equal(g.cpu(), w)
             calls += 1
     torch.cuda.synchronize()
     assert mk.KERNEL.variant_launches[mk.LANE_PASS] == before + calls
+
+
+# ptxas -v of the production instantiations on the staged route (registers,
+# spill store bytes, spill load bytes; chip_smoke.py's PTXAS_WHOLE_FRAME_KERNEL
+# by tools/scan_ab.py's entry names: geometry, scatter)
+PTXAS_PINS = {
+    "render_kernel<0,0>": [72, 0, 0], "render_kernel<1,0>": [64, 36, 48],
+    "render_kernel<2,0>": [64, 4, 4], "render_kernel<0,1>": [64, 20, 28],
+    "render_kernel<1,1>": [64, 36, 48], "render_kernel<2,1>": [64, 16, 20],
+    "render_adaptive<0,0>": [72, 0, 0], "render_adaptive<1,0>": [64, 36, 56],
+    "render_adaptive<2,0>": [64, 4, 8], "render_adaptive<0,1>": [72, 0, 0],
+    "render_adaptive<1,1>": [64, 36, 56], "render_adaptive<2,1>": [64, 4, 8],
+}
+
+
+def test_default_instantiations_keep_their_ptxas_pins(cuda):
+    """The lane list lives in the kKnobs instantiations only: every staged
+    production instantiation, the default refill's among them, keeps its
+    pinned ``ptxas -v``."""
+    from ray_tracing_extended_tpu_torch.tools import scan_ab
+
+    got = scan_ab._ptxas(mk.KERNEL.build().log)
+    assert {k: got[k] for k in PTXAS_PINS} == PTXAS_PINS
 
 
 def test_refill_knobs_refusals(cuda):
