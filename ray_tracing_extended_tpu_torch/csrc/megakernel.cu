@@ -306,9 +306,12 @@
 //   cudaGetLastError(); rtx_shared_bytes(geometry, ...) is a launch's
 //   dynamic shared memory; rtx_occupancy(geometry, ...) the blocks of an
 //   instantiation one SM holds; rtx_error_string(code) names an error.
-//   Built with -DRTX_PROBES, the same source is the probe library: the
+//   Built with -DRTX_PROBES, the same source is a probe library: the
 //   profiling instantiations (Probe, below) behind rtx_render_probe in
-//   place of the production ones behind rtx_render.
+//   place of the production ones behind rtx_render, one library for each
+//   Probe, sampler and route (-DRTX_PROBE, -DRTX_FAST_SCATTER,
+//   -DRTX_TABLES), each with every production kernel under its knob, so a
+//   launch builds only the library it needs (kernels/megakernel.py).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -548,6 +551,9 @@ struct Triangles {
   // kChunks: whether a chunk visit can go across the warp (a chunk holds
   // enough triangles for one lane; see kChunkScanMax)
   int warp_scan;
+#ifdef RTX_PROBES
+  int n_tris;  // the triangle rows, every one that kNoCull tests under kBvh
+#endif
 };
 
 // One axis of a slab test. An axis whose t0 or t1 is NaN (a zero direction
@@ -968,13 +974,40 @@ __device__ __forceinline__ void test_spheres(Spheres<kTab> sph, int first,
   }
 }
 
-// Profiling instantiations (tools/profile_mega.py; the TPU kernel's
-// dup_intersect and dup_fetch knobs, megakernel.py:463-466): each does one
-// part of a segment's work twice and folds the second result so that it
-// cannot change the image, so the frame-time delta against the production
-// instantiation (kNone) is that part's cost. Only the probe library
-// (-DRTX_PROBES) compiles them.
-enum Probe : int { kNone = 0, kDupIntersect = 1, kDupFetch = 2 };
+// Profiling instantiations (tools/profile_mega.py; the TPU kernel's knobs,
+// megakernel.py:461-466). kDupIntersect and kDupFetch (dup_intersect,
+// dup_fetch) do one part of a segment's work twice and fold the second
+// result so that it cannot change the image, so the frame-time delta
+// against the production instantiation (kNone) is that part's cost;
+// kNoCull (use_cull=False) runs the closest hit with every gate open
+// (closest_hit_uncull), the same image, at the cost of a scan without
+// culls. kStubIntersect (stub_intersect) skips the closest hit: every
+// segment hits the JAX tables' slot 0 at t = 2; kStubFetch (stub_fetch)
+// keeps it, and a hit's fields are constants. Both take the winner's
+// fields from a stub row (stub_surface; with stub_fetch's constants both
+// knobs at once) and change the rays' paths, so a frame-time difference
+// against kNone is the part's cost on other paths: report its segments
+// beside it. Only a probe library (-DRTX_PROBES) compiles them.
+enum Probe : int {
+  kNone = 0,
+  kDupIntersect = 1,
+  kDupFetch = 2,
+  kStubIntersect = 3,
+  kStubFetch = 4,
+  kNoCull = 5
+};
+
+// Whether a probe shades from the stub row.
+__host__ __device__ constexpr bool stubbed(Probe p) {
+  return p == kStubIntersect || p == kStubFetch;
+}
+
+// The stub row (kernels/megakernel.py stub_row, STUB_ROW floats): 0-2 a
+// sphere's centre, 3 its r^2; a triangle's a 4-6, b - a 7-9, c - a 10-12,
+// geometric normal 13-15, vertex normals at a, b, c 16-24; 25 the TPU
+// kernel's is_sph field (the sphere's forms above 0.5); 26 whether the
+// scene has vertex normals; a material row (kMat floats) from kStubMat.
+constexpr int kStubMat = 32;
 
 // A cluster visit of at least this many lanes runs the per-lane loop
 // (test_spheres, a sphere a step on the lanes whose gate passed), a
@@ -1151,6 +1184,112 @@ __device__ __forceinline__ void closest_hit(Spheres<kTab> sph,
   }
 }
 
+// kNoCull's closest hit, the TPU kernel's use_cull=False (its hit masks
+// and gates, megakernel.py:845-1205, all open): closest_hit's scans with
+// no box tested, each live lane on its own. The hoisted spheres and every
+// cluster's spheres (its row read for its slots only); then kChunks every
+// chunk's triangles in index order, a strictly nearer one winning, kBvh
+// every triangle row in index order with the traversal's test from +inf,
+// its winner taken if strictly nearer (closest_hit_bvh's merge). Each scan
+// keeps the lexicographic minimum of (t, index) that its culled form
+// keeps, so the image is the culled one's (through the BVH, but for two
+// triangles of one t, which the traversal takes in its own order).
+template <Geometry kGeom, Tables kTab>
+__device__ __forceinline__ void closest_hit_uncull(Spheres<kTab> sph,
+                                                   Triangles<kTab> tri,
+                                                   Vec3 o, Vec3 d,
+                                                   float& best_t, int& best,
+                                                   int& best_tri) {
+  test_spheres(sph, 0, sph.n_hoist, o, d, best_t, best);
+  for (int k = 0; k < sph.n_clusters; ++k) {
+    const int first = __float_as_int(sph.cluster(2 * k).w);
+    test_spheres(sph, first, first + __float_as_int(sph.cluster(2 * k + 1).w),
+                 o, d, best_t, best);
+  }
+  if constexpr (kGeom == kChunks) {
+    for (int c = 0; c < tri.n_chunks; ++c) {
+      const int first = __float_as_int(table_load<kTab>(tri.chunks + 2 * c).w);
+      const int end =
+          first + __float_as_int(table_load<kTab>(tri.chunks + 2 * c + 1).w);
+      for (int i = first; i < end; ++i) {
+        float t;
+        if (chunk_triangle_hit(__ldg(tri.rows + kTri4 * i),
+                               __ldg(tri.rows + kTri4 * i + 1),
+                               __ldg(tri.rows + kTri4 * i + 2), o, d, t) &&
+            t < best_t) {
+          best_t = t;
+          best_tri = i;
+        }
+      }
+    }
+  } else if constexpr (kGeom == kBvh) {
+#ifdef RTX_PROBES
+    float t_best = __int_as_float(0x7f800000);
+    int i_best = 0;
+    for (int i = 0; i < tri.n_tris; ++i) {
+      const float t = triangle_t(tri, i, o, d);
+      if (t < t_best) {
+        t_best = t;
+        i_best = i;
+      }
+    }
+    if (t_best < best_t) {
+      best_t = t_best;
+      best_tri = i_best;
+    }
+#endif
+  }
+}
+
+// The hit point and shading normal of a stubbed segment from the stub row
+// `s` (kernels/megakernel.py stub_surface): what the TPU kernel's segment
+// body derives from a winner's fetched fields (megakernel.py:1487-1530).
+// The distance is recomputed from the fields, a sphere's root in the o - c
+// form (its discriminant clamped at 0) or, where is_sph is at most 0.5, a
+// triangle's dot(o - a, n) * (1 / det); the normal is the sphere's at that
+// point, or the triangle's vertex normals interpolated there (with vertex
+// normals; else the one at a), normalised.
+__device__ __forceinline__ void stub_surface(const float* __restrict__ s,
+                                             Vec3 o, Vec3 d, Vec3& point,
+                                             Vec3& normal) {
+  const Vec3 sc = {__ldg(s + 0), __ldg(s + 1), __ldg(s + 2)};
+  const Vec3 oc = sub(o, sc);
+  const float b = dot(oc, d);
+  const float cc = dot(oc, oc) - __ldg(s + 3);
+  float t = -b - sqrtf(fmaxf(b * b - cc, 0.0f));
+  const bool is_sph = __ldg(s + 25) > 0.5f;
+  Vec3 ao = {0.0f, 0.0f, 0.0f};
+  float inv_det = 0.0f;
+  if (!is_sph) {
+    const Vec3 gn = {__ldg(s + 13), __ldg(s + 14), __ldg(s + 15)};
+    ao = sub(o, Vec3{__ldg(s + 4), __ldg(s + 5), __ldg(s + 6)});
+    const float det = -dot(d, gn);
+    inv_det = 1.0f / (det == 0.0f ? 1.0f : det);
+    t = dot(ao, gn) * inv_det;
+  }
+  point = add(o, scale(d, t));
+  if (is_sph) {
+    normal = normalize(sub(point, sc));
+    return;
+  }
+  const Vec3 na = {__ldg(s + 16), __ldg(s + 17), __ldg(s + 18)};
+  if (__ldg(s + 26) == 0.0f) {
+    normal = normalize(na);
+    return;
+  }
+  const Vec3 dao = cross(ao, d);
+  const float u =
+      dot(Vec3{__ldg(s + 10), __ldg(s + 11), __ldg(s + 12)}, dao) * inv_det;
+  const float v =
+      -dot(Vec3{__ldg(s + 7), __ldg(s + 8), __ldg(s + 9)}, dao) * inv_det;
+  const float w = 1.0f - u - v;
+  normal = normalize(Vec3{
+      na.x * w + __ldg(s + 19) * u + __ldg(s + 22) * v,
+      na.y * w + __ldg(s + 20) * u + __ldg(s + 23) * v,
+      na.z * w + __ldg(s + 21) * u + __ldg(s + 24) * v,
+  });
+}
+
 // `idx` again, as an index the compiler cannot prove equal to it (the TPU
 // kernel's where(code < -1, code + 1, code), megakernel.py:1467). Where the
 // fetch reads it, idx >= 0 is known and the select alone would fold, so
@@ -1203,6 +1342,18 @@ __device__ __forceinline__ void segment_hit(Spheres<kTab> sph,
                                             Triangles<kTab> tri, bool live,
                                             Vec3 o, Vec3 d, float& best_t,
                                             int& best, int& best_tri) {
+  if constexpr (kProbe == kStubIntersect) {
+    // the TPU kernel's stub_intersect (megakernel.py:2030-2031): no closest
+    // hit, every segment hits slot 0 at t = 2 (shade_segment reads its
+    // fields from the stub row)
+    best_t = 2.0f;
+    best = 0;
+    return;
+  }
+  if constexpr (kProbe == kNoCull) {
+    if (live) closest_hit_uncull<kGeom>(sph, tri, o, d, best_t, best, best_tri);
+    return;
+  }
   const Vec3 inv_d = {1.0f / d.x, 1.0f / d.y, 1.0f / d.z};
   closest_hit<kGeom>(sph, tri, live, o, d, inv_d, best_t, best, best_tri);
   if constexpr (kProbe == kDupIntersect) {
@@ -1222,7 +1373,8 @@ __device__ __forceinline__ void segment_hit(Spheres<kTab> sph,
 // trace_segment): the flags, the scatter, emission and roulette; or the
 // environment light on a miss. Updates the ray, throughput and incoming
 // light and returns whether the path goes on. `camera_ray` is bounce
-// index 0.
+// index 0. Under a stub probe `mats` is the stub row, whose surface and
+// material the hit takes (stub_surface).
 template <Geometry kGeom, Scatter kScatter, Probe kProbe, Tables kTab>
 __device__ __forceinline__ bool shade_segment(
     const float* p, Spheres<kTab> sph, Triangles<kTab> tri,
@@ -1234,18 +1386,24 @@ __device__ __forceinline__ bool shade_segment(
     return false;
   }
 
-  const Vec3 point = add(o, scale(d, best_t));
-  Vec3 normal;
-  int mat_idx;
-  if (kGeom != kSpheres && best_tri >= 0) {
-    normal = triangle_normal(tri, best_tri, o, d);
-    mat_idx = __ldg(tri.mat + best_tri);
+  Vec3 point, normal;
+  const float* m;
+  if constexpr (stubbed(kProbe)) {
+    stub_surface(mats, o, d, point, normal);
+    m = mats + kStubMat;
   } else {
-    const float4 s = sph.row(best);
-    normal = normalize(sub(point, Vec3{s.x, s.y, s.z}));
-    mat_idx = sph.mat_of(best);
+    point = add(o, scale(d, best_t));
+    int mat_idx;
+    if (kGeom != kSpheres && best_tri >= 0) {
+      normal = triangle_normal(tri, best_tri, o, d);
+      mat_idx = __ldg(tri.mat + best_tri);
+    } else {
+      const float4 s = sph.row(best);
+      normal = normalize(sub(point, Vec3{s.x, s.y, s.z}));
+      mat_idx = sph.mat_of(best);
+    }
+    m = mats + kMat * mat_idx;
   }
-  const float* m = mats + kMat * mat_idx;
   const int flag = static_cast<int>(__ldg(m + 13));
 
   if (flag == kFlagInvisibleLight && camera_ray) {
@@ -1395,6 +1553,12 @@ struct Args {
   // pixels' images
   float* __restrict__ image;
   const int* __restrict__ lane_list;
+#ifdef RTX_PROBES
+  // the stub row (kStubIntersect, kStubFetch), null for the other probes;
+  // the triangle rows (Triangles::n_tris)
+  const float* __restrict__ stub;
+  int n_tris;
+#endif
 };
 
 // Dynamic shared memory, in bytes. kStaged: the float4 tables first (super
@@ -1442,7 +1606,11 @@ __device__ __forceinline__ Staged<kTab> stage_scene(float4* smem4,
             s_hist,
             {a.tri_rows, a.tri_normals, a.tri_mat, a.chunks, a.n_chunks,
              a.supers, a.n_supers, a.super_size, a.bvh_nodes, a.bvh_leaves,
-             a.n_nodes, a.chunk_warp_scan}};
+             a.n_nodes, a.chunk_warp_scan
+#ifdef RTX_PROBES
+             , a.n_tris
+#endif
+            }};
   }
   float4* supers = smem4;
   float4* chunks = supers + 2 * a.n_supers;
@@ -1472,7 +1640,11 @@ __device__ __forceinline__ Staged<kTab> stage_scene(float4* smem4,
           s_hist,
           {a.tri_rows, a.tri_normals, a.tri_mat, chunks, a.n_chunks, supers,
            a.n_supers, a.super_size, a.bvh_nodes, a.bvh_leaves, a.n_nodes,
-           a.chunk_warp_scan}};
+           a.chunk_warp_scan
+#ifdef RTX_PROBES
+           , a.n_tris
+#endif
+          }};
 }
 
 // The pixel's point on the focus plane: position + rotation @ (lx, ly,
@@ -1554,6 +1726,14 @@ __host__ __device__ constexpr bool under_knobs(Schedule s) {
 __device__ __forceinline__ int refill_tile(int x, int yb, int width, int ts) {
   return (yb / ts) * ((width + ts - 1) / ts) + x / ts;
 }
+
+// The table a segment's shading reads: the materials, or a stub probe's
+// stub row (shade_segment).
+#ifdef RTX_PROBES
+#define RTX_SHADING_TABLE(a) (stubbed(kProbe) ? (a).stub : (a).mats)
+#else
+#define RTX_SHADING_TABLE(a) (a).mats
+#endif
 
 // The slot loop of both kernels: each slot, the dead lanes the schedule
 // re-seeds start their next camera sample, and every live lane traces one
@@ -1719,12 +1899,12 @@ __device__ __forceinline__ void render_slots(float4* smem4, const Args& a) {
       bool goes_on;
       if constexpr (kGeom != kBvh) {
         goes_on = shade_segment<kGeom, kScatter, kProbe, kTab>(
-            sc.p, sc.sph, sc.tri, a.mats, bounce == 0, state, o, d, colour,
-            incoming, best_t, best, best_tri);
+            sc.p, sc.sph, sc.tri, RTX_SHADING_TABLE(a), bounce == 0, state, o,
+            d, colour, incoming, best_t, best, best_tri);
       } else {
         goes_on = trace_segment<kGeom, kScatter, kProbe, kTab>(
-            sc.p, sc.sph, sc.tri, a.mats, bounce == 0, state, o, d, colour,
-            incoming);
+            sc.p, sc.sph, sc.tri, RTX_SHADING_TABLE(a), bounce == 0, state, o,
+            d, colour, incoming);
       }
       if (!goes_on || bounce >= max_bounce) {
         // the sample is complete: bank its light
@@ -2006,23 +2186,30 @@ using Kernel = void (*)(const Args);
 // library compiles the twenty-four of kNone, twelve a route, and under the
 // lane knobs (`knobs`) twelve render_adaptive ones and their twelve
 // render_listed ones (`listed`: phase 2 over the lane list), six a route
-// each; the probe library (-DRTX_PROBES) the twelve of kDupIntersect and
-// kDupFetch instead, with the Box-Muller sampler and staged tables only,
-// without the knobs.
+// each; a probe library (-DRTX_PROBES) the four of each geometry for its
+// Probe (RTX_PROBE), sampler (RTX_FAST_SCATTER) and route (RTX_TABLES)
+// instead: render_kernel, render_adaptive, and under the knobs
+// render_adaptive and render_listed.
+#ifdef RTX_PROBES
+constexpr Probe kLibProbe = static_cast<Probe>(RTX_PROBE);
+constexpr Scatter kLibScatter = RTX_FAST_SCATTER ? kFastScatter : kBoxMuller;
+constexpr Tables kLibTables = RTX_TABLES ? kGlobal : kStaged;
+static_assert(kLibProbe != kNone && kLibProbe <= kNoCull, "RTX_PROBE");
+#endif
 template <Geometry kGeom>
 Kernel kernel_of(int probe, int tables, bool adaptive, bool fast_scatter,
                  bool knobs, bool listed) {
 #ifdef RTX_PROBES
-  if (fast_scatter || tables != kStaged || knobs || listed) return nullptr;
-  if (probe == kDupIntersect) {
-    return adaptive ? render_adaptive<kGeom, kBoxMuller, kDupIntersect>
-                    : render_kernel<kGeom, kBoxMuller, kDupIntersect>;
+  if (probe != kLibProbe || fast_scatter != (kLibScatter == kFastScatter) ||
+      tables != kLibTables || (listed && !knobs) || (knobs && !adaptive)) {
+    return nullptr;
   }
-  if (probe == kDupFetch) {
-    return adaptive ? render_adaptive<kGeom, kBoxMuller, kDupFetch>
-                    : render_kernel<kGeom, kBoxMuller, kDupFetch>;
+  if (listed) return render_listed<kGeom, kLibScatter, kLibProbe, kLibTables>;
+  if (knobs) {
+    return render_adaptive<kGeom, kLibScatter, kLibProbe, kLibTables, true>;
   }
-  return nullptr;
+  return adaptive ? render_adaptive<kGeom, kLibScatter, kLibProbe, kLibTables>
+                  : render_kernel<kGeom, kLibScatter, kLibProbe, kLibTables>;
 #else
   if (probe != kNone) return nullptr;
   if (listed) {
@@ -2171,12 +2358,14 @@ extern "C" int rtx_occupancy(int geometry, int tables, int adaptive,
 // cudaErrorInvalidValue without one for rows or refill arguments outside
 // those rules.
 //
-// The probe library's entry is rtx_render_probe(probe, geometry, ...): the
-// same arguments after a Probe value (kDupIntersect or kDupFetch), with
-// fast_scatter 0 and tables 0; cudaErrorInvalidValue for any other.
+// A probe library's entry is rtx_render_probe(probe, stub, n_tris,
+// geometry, ...): the same arguments after its Probe value, the stub row
+// (STUB_ROW floats, kernels/megakernel.py stub_row; null but for
+// kStubIntersect and kStubFetch) and the count of triangle rows, with its
+// library's fast_scatter and tables; cudaErrorInvalidValue for any other.
 #ifdef RTX_PROBES
 extern "C" int rtx_render_probe(
-    int probe,
+    int probe, const void* stub, int n_tris,
 #else
 extern "C" int rtx_render(
 #endif
@@ -2226,6 +2415,11 @@ extern "C" int rtx_render(
   } else if (image != nullptr || lane_list != nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+#ifdef RTX_PROBES
+  if (stubbed(static_cast<Probe>(probe)) != (stub != nullptr) || n_tris < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+#endif
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool by_chunks = geometry == kChunks;
   const Args a = {
@@ -2273,7 +2467,11 @@ extern "C" int rtx_render(
       adaptive ? refill_phases : 1,
       by_chunks ? chunk_warp_scan : 0,
       static_cast<float*>(image),
-      static_cast<const int*>(lane_list)};
+      static_cast<const int*>(lane_list)
+#ifdef RTX_PROBES
+      , static_cast<const float*>(stub), n_tris
+#endif
+  };
   // a lane of more than one pixel, or two phases, takes the knobs'
   // instantiation (kKnobRefill), and phase 2 over the lane list its own
   // (kKnobList)

@@ -26,12 +26,17 @@ pass ``MAX_SHARED_BYTES`` (about 9,000 spheres). ``table_route`` picks the
 route by size (``launch_shared_bytes``); a test forces one with
 ``tables=``. ``variant`` names the twenty-four instantiations.
 
-The same source built with ``-DRTX_PROBES`` is the probe library: twelve
-profiling instantiations (``PROBE_VARIANTS``), each with one of the TPU
-kernel's profiling knobs ``dup_intersect`` and ``dup_fetch``
-(``megakernel.py:463-466``): a segment's closest hit, or its winner's
-fetch, done twice, the second result folded so that the image cannot
-change. ``render_frame_mega`` takes the knobs as the JAX function does;
+The same source built with ``-DRTX_PROBES`` is a probe library: the
+profiling instantiations (``PROBE_VARIANTS``) of the TPU kernel's knobs
+(``megakernel.py:461-466``, ``PROBES``), every production one under each
+knob, a library for each knob, sampler and route, built at its first
+launch (``probe_library``). ``dup_intersect`` and
+``dup_fetch`` do a segment's closest hit, or its winner's fetch, twice,
+the second result folded so that the image cannot change; ``no_cull``
+runs the scans with every gate open (the same image); ``stub_intersect``
+gives every segment a hit on the JAX tables' slot 0, ``stub_fetch`` the
+winner's fields as constants (``stub_row``), both changing the rays'
+paths. ``render_frame_mega`` takes the knobs as the JAX function does;
 ``tools/profile_mega.py`` times them against the production kernel.
 
 ``render_frames_mega`` is the wrapper the renderer calls. Given a scene on
@@ -75,7 +80,7 @@ from ..accel.bvh import (
     _triangle_t_one,
     closest_hit_bvh,
 )
-from ..models.geometry import BVH, Scene
+from ..models.geometry import BVH, Materials, Scene
 from ..ops import rng as rng_ops
 from ..ops import vecmath as vm
 from ..ops.accumulate import accumulate
@@ -90,7 +95,14 @@ from ..ops.intersect import (
 from ..ops.trace import dup_intersect, trace, trace_segment
 from ..utils.config import RenderConfig
 from .build import NVCC_FLAGS, BuildInfo, CudaLibrary
-from .pack import CLUSTER, SUB, pack_spheres
+from .pack import (
+    CLUSTER,
+    SUB,
+    _cluster_slots,
+    fetch_fields,
+    pack_spheres,
+    scene_features,
+)
 
 # The ``variant_launches`` key of refill's lane pass (``refill_lanes``).
 LANE_PASS = "refill_lanes"
@@ -152,8 +164,26 @@ LEAF_COUNT_BITS = 3
 
 
 # The profiling knobs, in the order of the source's Probe values after
-# kNone (kDupIntersect, kDupFetch).
-PROBES = ("dup_intersect", "dup_fetch")
+# kNone (kDupIntersect, kDupFetch, kStubIntersect, kStubFetch, kNoCull):
+# the TPU kernel's dup_intersect, dup_fetch, stub_intersect, stub_fetch and
+# use_cull=False (megakernel.py:461-466).
+PROBES = ("dup_intersect", "dup_fetch", "stub_intersect", "stub_fetch",
+          "no_cull")
+# The knobs' settings ``render_frames_mega`` takes: one knob, or
+# ``"stubs"``, stub_intersect and stub_fetch together (the instantiation
+# of kStubIntersect with the constants of stub_fetch, ``stub_row``).
+PROBE_SETTINGS = PROBES + ("stubs",)
+STUBS = ("stub_intersect", "stub_fetch", "stubs")
+
+# The stub row, what stub_intersect and stub_fetch give a segment's winner
+# in place of its fetch (the source's kStubRow floats): 0-2 a sphere's
+# centre, 3 its r^2, 4-6 a triangle's a, 7-9 b - a, 10-12 c - a, 13-15 its
+# geometric normal, 16-24 its vertex normals at a, b and c, 25 the JAX
+# field is_sph (1 for a scene without triangles: the sphere's forms), 26
+# whether the scene has vertex normals (the JAX feature "vnormals"); from
+# STUB_MAT a material row in the kernel's layout (``geometry_tables``).
+STUB_ROW = 48
+STUB_MAT = 32
 
 # Where a launch reads the scene's sphere and chunk tables, in the order of
 # the source's Tables values (kStaged, kGlobal): copied into each block's
@@ -171,14 +201,14 @@ def variant(geometry: str, adaptive: bool = False,
     ``render_kernel<kSpheres, kBoxMuller, kGlobal>``; with ``knobs`` a
     refill one under the lane knobs (``refill_knobs`` other than (1, 1)),
     its sampler named, as ``render_adaptive<kSpheres, kBoxMuller,
-    kKnobs>``."""
+    kKnobs>``; the three in that order, as ``render_adaptive<kChunks,
+    kFastScatter, kNoCull, kGlobal, kKnobs>``."""
     if tables not in TABLES:
         raise ValueError(f"tables must be one of {TABLES}, got {tables!r}")
-    if probe is not None and tables != "staged":
-        raise ValueError("the profiling instantiations stage their tables")
-    if knobs and (probe is not None or not adaptive):
-        raise ValueError("the lane knobs' instantiations are refill's, "
-                         "without a profiling knob")
+    if probe is not None and probe not in PROBES:
+        raise ValueError(f"probe must be None or one of {PROBES}, got {probe!r}")
+    if knobs and not adaptive:
+        raise ValueError("the lane knobs' instantiations are refill's")
     name = "render_adaptive" if adaptive else "render_kernel"
     args = f"k{geometry.capitalize()}"
     if fast_scatter:
@@ -195,8 +225,8 @@ def variant(geometry: str, adaptive: bool = False,
 
 
 # Every instantiation the source compiles: the production library's, on
-# the staged route and on the global one, and the probe library's
-# (Box-Muller only, staged).
+# the staged route and on the global one, and the probe libraries' (each
+# production one under each knob).
 VARIANTS = tuple(
     variant(g, a, f) for a in (False, True) for f in (False, True)
     for g in GEOMETRIES
@@ -210,12 +240,80 @@ KNOB_VARIANTS = tuple(
     for f in (False, True) for g in GEOMETRIES
 )
 PROBE_VARIANTS = tuple(
-    variant(g, a, probe=p) for p in PROBES for a in (False, True)
+    variant(g, a, f, p, t, k) for p in PROBES for t in TABLES
+    for f in (False, True) for a, k in ((False, False), (True, False),
+                                        (True, True))
     for g in GEOMETRIES
 )
 VARIANT_SPHERES = variant("spheres")
 VARIANT_TRIANGLES = variant("chunks")
 VARIANT_BVH = variant("bvh")
+
+# ptxas -v of the production library's 48 instantiations (nvcc 12.9,
+# sm_90a): registers, spill store bytes, spill load bytes, by variant name
+# (a kKnobs one's phase 2 over the lane list as its variant with
+# render_listed for render_adaptive). chip_smoke.py's build phase and the
+# CUDA tests fail if one moved. render_kernel's kSpheres and kBvh values
+# since it runs the slot loop (before it, a loop over samples and bounces:
+# spheres (64, 12, 20), BVH (64, 60, 64), both scatters), the kSpheres
+# fast-scatter pair's since their cluster scan runs across the warp (before
+# it (72, 0, 0); a minimum of 7 blocks an SM, which gave 72 registers and
+# no spill, made the frame slower: csrc/megakernel.cu at the launch
+# bounds), the kChunks values since their chunk scan runs across the warp
+# under a minimum of 8 blocks an SM (before it (64, 24, 32)),
+# render_adaptive's since refill runs in two launches (before them kSpheres
+# fast (64, 20, 28), kBvh (64, 4, 4), kBvh fast (64, 16, 24)), the lane
+# knobs' since phase 2 runs over the lane list.
+PTXAS_PRODUCTION = {
+    "render_kernel<kSpheres>": (72, 0, 0),
+    "render_kernel<kChunks>": (64, 36, 48),
+    "render_kernel<kBvh>": (64, 4, 4),
+    "render_kernel<kSpheres, kFastScatter>": (64, 20, 28),
+    "render_kernel<kChunks, kFastScatter>": (64, 36, 48),
+    "render_kernel<kBvh, kFastScatter>": (64, 16, 20),
+    "render_adaptive<kSpheres>": (72, 0, 0),
+    "render_adaptive<kChunks>": (64, 36, 56),
+    "render_adaptive<kBvh>": (64, 4, 8),
+    "render_adaptive<kSpheres, kFastScatter>": (72, 0, 0),
+    "render_adaptive<kChunks, kFastScatter>": (64, 36, 56),
+    "render_adaptive<kBvh, kFastScatter>": (64, 4, 8),
+    "render_kernel<kSpheres, kBoxMuller, kGlobal>": (64, 16, 24),
+    "render_kernel<kChunks, kBoxMuller, kGlobal>": (64, 28, 44),
+    "render_kernel<kBvh, kBoxMuller, kGlobal>": (64, 8, 8),
+    "render_kernel<kSpheres, kFastScatter, kGlobal>": (64, 16, 24),
+    "render_kernel<kChunks, kFastScatter, kGlobal>": (64, 28, 44),
+    "render_kernel<kBvh, kFastScatter, kGlobal>": (64, 16, 24),
+    "render_adaptive<kSpheres, kBoxMuller, kGlobal>": (64, 36, 64),
+    "render_adaptive<kChunks, kBoxMuller, kGlobal>": (64, 36, 56),
+    "render_adaptive<kBvh, kBoxMuller, kGlobal>": (64, 4, 8),
+    "render_adaptive<kSpheres, kFastScatter, kGlobal>": (64, 36, 64),
+    "render_adaptive<kChunks, kFastScatter, kGlobal>": (64, 36, 56),
+    "render_adaptive<kBvh, kFastScatter, kGlobal>": (64, 12, 16),
+    "render_adaptive<kSpheres, kBoxMuller, kKnobs>": (72, 8, 20),
+    "render_adaptive<kChunks, kBoxMuller, kKnobs>": (64, 40, 76),
+    "render_adaptive<kBvh, kBoxMuller, kKnobs>": (64, 4, 8),
+    "render_adaptive<kSpheres, kFastScatter, kKnobs>": (72, 4, 8),
+    "render_adaptive<kChunks, kFastScatter, kKnobs>": (64, 40, 76),
+    "render_adaptive<kBvh, kFastScatter, kKnobs>": (64, 4, 8),
+    "render_adaptive<kSpheres, kBoxMuller, kGlobal, kKnobs>": (64, 36, 88),
+    "render_adaptive<kChunks, kBoxMuller, kGlobal, kKnobs>": (64, 40, 76),
+    "render_adaptive<kBvh, kBoxMuller, kGlobal, kKnobs>": (64, 20, 56),
+    "render_adaptive<kSpheres, kFastScatter, kGlobal, kKnobs>": (64, 36, 88),
+    "render_adaptive<kChunks, kFastScatter, kGlobal, kKnobs>": (64, 40, 76),
+    "render_adaptive<kBvh, kFastScatter, kGlobal, kKnobs>": (64, 20, 56),
+    "render_listed<kSpheres, kBoxMuller, kKnobs>": (72, 0, 0),
+    "render_listed<kChunks, kBoxMuller, kKnobs>": (64, 32, 36),
+    "render_listed<kBvh, kBoxMuller, kKnobs>": (64, 4, 4),
+    "render_listed<kSpheres, kFastScatter, kKnobs>": (72, 4, 4),
+    "render_listed<kChunks, kFastScatter, kKnobs>": (64, 32, 36),
+    "render_listed<kBvh, kFastScatter, kKnobs>": (64, 16, 16),
+    "render_listed<kSpheres, kBoxMuller, kGlobal, kKnobs>": (64, 32, 56),
+    "render_listed<kChunks, kBoxMuller, kGlobal, kKnobs>": (64, 32, 36),
+    "render_listed<kBvh, kBoxMuller, kGlobal, kKnobs>": (64, 16, 16),
+    "render_listed<kSpheres, kFastScatter, kGlobal, kKnobs>": (64, 32, 56),
+    "render_listed<kChunks, kFastScatter, kGlobal, kKnobs>": (64, 32, 36),
+    "render_listed<kBvh, kFastScatter, kGlobal, kKnobs>": (64, 16, 16),
+}
 
 
 def geometry(scene: Scene, cfg: RenderConfig) -> str:
@@ -353,20 +451,22 @@ def plain_through_sphere_bvh(scene: Scene, cfg: RenderConfig) -> bool:
 
 
 def plain_intersector(scene: Scene, camera: Camera, cfg: RenderConfig,
-                      counts=None, direct: bool = False):
+                      counts=None, direct: bool = False, cull: bool = True):
     """The plain path's closest-hit function for ``cfg.intersector``:
     ``closest_hit_clustered`` on the tables of ``geometry(scene, cfg)`` in
     ``camera``'s visit order (``visit_tables``), the function a launch from
     that camera computes for this scene and config; ``closest_hit_bvh``
     where ``plain_through_sphere_bvh``. ``counts``, a dict, gathers the
     tests the clustered scan needs (``closest_hit_clustered``); ``direct``
-    takes the kernel's test forms there (``clustered_winner``)."""
-    if plain_through_sphere_bvh(scene, cfg):
+    takes the kernel's test forms there (``clustered_winner``). Without
+    ``cull`` (the knob ``no_cull``) the clustered scan with every gate
+    open, for every scene."""
+    if cull and plain_through_sphere_bvh(scene, cfg):
         return closest_hit_bvh
     return functools.partial(
         closest_hit_clustered,
         tables=visit_tables(scene, geometry(scene, cfg), camera),
-        counts=counts, direct=direct)
+        counts=counts, direct=direct, cull=cull)
 
 
 def launch_shared_bytes(tab: KernelTables, max_bounce: int,
@@ -531,11 +631,11 @@ def _members(group_of: np.ndarray, n_groups: int, pad: int) -> np.ndarray:
 
 def closest_hit_clustered(o, d, scene: Scene, tables: KernelTables,
                           counts=None, direct: bool = False,
-                          visits=None) -> HitRecord:
+                          visits=None, cull: bool = True) -> HitRecord:
     """The kernel's closest hit in plain PyTorch (``clustered_winner``) as
     a hit record."""
     return hit_record(o, d, scene, *clustered_winner(
-        o, d, scene, tables, counts, direct, visits))
+        o, d, scene, tables, counts, direct, visits, cull))
 
 
 def kernel_sphere_t(o, d, spheres) -> torch.Tensor:
@@ -556,7 +656,7 @@ def kernel_sphere_t(o, d, spheres) -> torch.Tensor:
 
 
 def clustered_winner(o, d, scene: Scene, tables: KernelTables, counts=None,
-                     direct: bool = False, visits=None):
+                     direct: bool = False, visits=None, cull: bool = True):
     """The kernel's closest hit in plain PyTorch -> ``(t (B,), index (B,))``
     as ``hit_record`` takes them: ``closest_hit_bruteforce`` behind the
     kernel's culls, with its pair tests (so a distance is computed by the
@@ -594,7 +694,14 @@ def clustered_winner(o, d, scene: Scene, tables: KernelTables, counts=None,
     ``visits``, a list, if given, gains one entry a call: ``(live (B,)
     bool, the cluster rows each ray tested (B, K) bool, in the rows' order,
     the chunks it tested (B, C) bool or None for the other geometries)``,
-    from which ``warp_schedule_counts`` counts a warp's unions."""
+    from which ``warp_schedule_counts`` counts a warp's unions.
+
+    Without ``cull`` (the profiling knob ``no_cull``, the TPU kernel's
+    ``use_cull=False``) every gate is open: every sphere is tested, every
+    chunk's triangles, and for the BVH geometry every triangle in index
+    order with the traversal's test (a strictly nearer one winning), no box
+    is tested (``counts`` gains no slab). The winner is the lexicographic
+    minimum of (t, index) either way, so the hit is the culled one's."""
     b = o.shape[0]
     dev = o.device
     inv_d = 1.0 / d
@@ -621,7 +728,10 @@ def clustered_winner(o, d, scene: Scene, tables: KernelTables, counts=None,
     tested[:, n_clusters] = True
     cl, su, row_of = tables.clusters, tables.sph_supers, tables.cluster_order
     entered = None
-    if n_clusters:
+    if not cull:
+        tested[:, :n_clusters] = True
+        su = None
+    elif n_clusters:
         t_near, t_far = _slab_interval(o, inv_d, cl[:, 0:3], cl[:, 4:7])
         outer = None
         if su is not None:
@@ -635,9 +745,9 @@ def clustered_winner(o, d, scene: Scene, tables: KernelTables, counts=None,
     t_sph = torch.where(tested[:, tables.cluster_of], t_sph, INF)
     best_t, best = torch.min(t_sph, dim=1)
     if counts is not None:
-        if entered is None:
+        if cull and entered is None:
             add("cluster_slabs", torch.full((b,), n_clusters, device=dev))
-        else:
+        elif cull:
             add("cluster_slabs",
                 su.shape[0] + weighted(entered, _int_column(su, 7)))
             add("super_slabs", torch.full((b,), su.shape[0], device=dev))
@@ -657,22 +767,25 @@ def clustered_winner(o, d, scene: Scene, tables: KernelTables, counts=None,
         nearest = _group_min(t_tri, tables.chunk_members)
         t_near, t_far = _slab_interval(o, inv_d, ch[:, 0:3], ch[:, 4:7])
         outer = None
-        if tables.supers is not None:
+        if tables.supers is not None and cull:
             su = tables.supers
             outer = (*_slab_interval(o, inv_d, su[:, 0:3], su[:, 4:7]),
                      torch.arange(0, n_chunks, SUPER_CHUNKS, device=dev))
         visit = torch.zeros((b, n_chunks + 1), dtype=torch.bool, device=dev)
-        visit[:, :n_chunks], entered = _gated_visits(
-            t_near, t_far, nearest, best_t, outer
-        )
+        if cull:
+            visit[:, :n_chunks], entered = _gated_visits(
+                t_near, t_far, nearest, best_t, outer
+            )
+        else:
+            visit[:, :n_chunks] = True
         if visits is not None:
             visits[-1][2] = visit[:, :n_chunks]
         t_tri = torch.where(visit[:, tables.chunk_of], t_tri, INF)
         t_t, i_t = torch.min(t_tri, dim=1)
         if counts is not None:
-            if outer is None:
+            if cull and outer is None:
                 add("chunk_slabs", torch.full((b,), n_chunks, device=dev))
-            else:
+            elif cull:
                 # every run's box, and the chunk boxes of the runs entered
                 sizes = torch.bincount(
                     torch.arange(n_chunks, device=dev) // SUPER_CHUNKS)
@@ -680,6 +793,11 @@ def clustered_winner(o, d, scene: Scene, tables: KernelTables, counts=None,
             n_tris = scene.chunks.num_tris
             add("triangle_tests", weighted(visit[:, :n_chunks], n_tris))
             add("line_triangle_tests", weighted(t_near <= t_far, n_tris))
+    elif tables.geometry == "bvh" and not cull:
+        t_t, i_t = _all_triangles(o, d, scene)
+        if counts is not None:
+            add("triangle_tests", torch.full((b,), scene.triangles.count,
+                                             device=dev))
     elif tables.geometry == "bvh":
         inf = torch.full((b,), INF, dtype=torch.float32, device=dev)
         if counts is not None:
@@ -695,6 +813,256 @@ def clustered_winner(o, d, scene: Scene, tables: KernelTables, counts=None,
     # strict <: a sphere keeps an exact tie with a triangle
     better = t_t < best_t
     return torch.where(better, t_t, best_t), torch.where(better, s + i_t, best)
+
+
+def _all_triangles(o, d, scene: Scene):
+    """Every triangle against every ray in index order with the BVH's
+    test (``accel/bvh._triangle_t_one``) -> ``(t (B,), index (B,))``, +inf
+    without a hit; the first of equal nearest hits wins, as a strict < in
+    index order keeps. In runs of triangles, so that no (rays x triangles)
+    temporary passes ``MAX_PAIR_ELEMENTS``."""
+    b, n = o.shape[0], scene.triangles.count
+    t_best = torch.full((b,), INF, dtype=torch.float32, device=o.device)
+    i_best = torch.zeros((b,), dtype=torch.int64, device=o.device)
+    step = max(1, MAX_PAIR_ELEMENTS // max(b, 1))
+    for t0 in range(0, n, step):
+        idx = torch.arange(t0, min(t0 + step, n), device=o.device)
+        t, i = torch.min(_triangle_t_one(o[:, None, :], d[:, None, :], scene,
+                                         idx[None, :]), dim=1)
+        nearer = t < t_best
+        t_best = torch.where(nearer, t, t_best)
+        i_best = torch.where(nearer, t0 + i, i_best)
+    return t_best, i_best
+
+
+def winner_fetch(scene: Scene) -> bool:
+    """Whether the JAX package's kernel fetches a scene's winners by its
+    winner post-pass (``pack.py:605``: more than ``ONEHOT_MAX_SLOTS``
+    table slots, ``tpu_table_slots``), where its ``stub_fetch`` does
+    nothing."""
+    return tpu_table_slots(scene) > ONEHOT_MAX_SLOTS
+
+
+def probe_instantiation(scene: Scene, probe: str | None,
+                        cfg: RenderConfig) -> str | None:
+    """The profiling instantiation (one of ``PROBES``, or None for the
+    production one) that the knob setting ``probe`` (one of
+    ``PROBE_SETTINGS``) takes for ``scene`` under ``cfg``: ``"stubs"`` is
+    stub_intersect's; under the JAX package's winner fetch
+    (``winner_fetch``) stub_fetch is the production kernel, as the TPU
+    kernel's fetch returns before its stub (``megakernel.py:1382-1388``).
+
+    Raises NotImplementedError for stub_intersect (alone or in
+    ``"stubs"``) in two cases. Under the winner fetch: the TPU kernel's
+    winner fetch then reads the winner's cluster and encoded t from
+    scratch that only its closest hit writes (``best_clu_ref`` /
+    ``best_enc_ref``, set at ``megakernel.py:637-638``, read at
+    ``:1268-1269``), never written under the stub, so its result is
+    undefined. Under two phases (``cfg.mega_phases`` 2, exact or refill):
+    the stub gives the lanes waiting for their phase a hit too, and the
+    segment body, whose scatter is not masked by participation
+    (``megakernel.py:1556``), moves them and blends their throughput and
+    origin with the scatter's (``:1687-1700``), which a kernel that leaves
+    a waiting lane as it is does not reproduce."""
+    _check_probe(probe)
+    if probe is None or probe not in STUBS:
+        return probe
+    if winner_fetch(scene):
+        if probe == "stub_fetch":
+            return None
+        raise NotImplementedError(
+            "stub_intersect under the JAX package's winner fetch (more than "
+            f"{ONEHOT_MAX_SLOTS} table slots) has no defined result: the TPU "
+            "kernel's winner fetch reads scratch only its closest hit writes "
+            "(ray_tracing_extended_tpu/kernels/megakernel.py:637-638, "
+            ":1268-1269), and the stub skips it")
+    if probe == "stub_fetch":
+        return "stub_fetch"
+    if n_phases(cfg.mega_phases) > 1:
+        raise NotImplementedError(
+            "stub_intersect under two phases: the TPU kernel's stub hits the "
+            "lanes waiting for their phase too, and its segment body scatters "
+            "them and blends their throughput and origin "
+            "(ray_tracing_extended_tpu/kernels/megakernel.py:1556, "
+            ":1687-1700); this kernel leaves a waiting lane as it is")
+    return "stub_intersect"
+
+
+def tpu_slot_zero(scene: Scene) -> int | None:
+    """The scene index of the sphere in slot 0 of the JAX package's
+    ``pack_scene`` tables, or None where it is a padding slot (a scene
+    without a real sphere). Slot 0 is the first sub-cluster's first slot,
+    which holds a real sphere wherever there is one (``_cluster_slots``
+    fills every sub-cluster it makes from its start). Where the JAX
+    package keeps the hoist, that sub-cluster is the port's first cluster
+    (``sphere_tables``); where it drops it (``tpu_table_slots``), its
+    clustering of every real sphere is made here."""
+    radii = scene.spheres.radius.cpu().numpy()
+    real_s = np.nonzero(radii > 0)[0]
+    if not len(real_s):
+        return None
+    part = _sphere_part(scene)
+    n_hoist = part["n_hoist"]
+    n_reg = len(real_s) - n_hoist
+    if n_hoist and (_round_up(n_reg, CLUSTER) + CLUSTER) // SUB > SUPER_CLUSTERS:
+        centers = scene.spheres.center.cpu().numpy()
+        rr = radii[real_s][:, None]
+        slots, _ = _cluster_slots(centers[real_s] - rr, centers[real_s] + rr)
+        return int(real_s[slots[0]])
+    return int(part["sphere_orig"][n_hoist])
+
+
+def stub_row(scene: Scene, probe: str) -> np.ndarray:
+    """The stub row (``STUB_ROW`` f32, layout at ``STUB_ROW``) of the knob
+    setting ``probe`` (one of ``STUBS``) for ``scene``: what the TPU
+    kernel's segment body reads from a winner's fetch under it
+    (``megakernel.py:1382-1388``, ``:1454-1620``). stub_fetch (and
+    ``"stubs"``): the constant ``0.1 + 0.01 * i`` for the field at place i
+    of the scene's fetch fields (``kernels/pack.fetch_fields``), 0 for a
+    field the scene does not fetch; stub_intersect alone: the fields of
+    the sphere in the JAX tables' slot 0 (``tpu_slot_zero``; a padding
+    slot's centre 0 and radius -1, so r^2 1, and the material of the
+    scene's first sphere row). The JAX kernel reads some fields only for
+    some scenes, and the row follows it: the emission strength only for an
+    emissive scene (0 otherwise: no emission is added), the flag only where
+    a material has a flag (0 otherwise), is_sph only with triangles (1
+    otherwise). Made on the host once a scene and setting."""
+    cache = _scene_cache(scene)
+    key = ("stub_row", probe)
+    if key in cache:
+        return cache[key]
+    mats, tri = scene.materials, scene.triangles
+    host = {name: getattr(mats, name).cpu().numpy() for name in (
+        "colour", "emission_colour", "specular_colour", "emission_strength",
+        "smoothness", "specular_probability", "ior", "flag")}
+    feats = scene_features(host["flag"], host["emission_strength"],
+                           *(getattr(tri, f).cpu().numpy() for f in (
+                               "n", "normal_a", "normal_b", "normal_c")))
+    row = np.zeros(STUB_ROW, np.float32)
+    m = row[STUB_MAT:]
+    if probe == "stub_intersect":
+        s0 = tpu_slot_zero(scene)
+        sph = scene.spheres
+        if s0 is None:
+            centre, r = np.zeros(3, np.float32), np.float32(-1.0)
+            s0 = 0
+        else:
+            centre = sph.center[s0].cpu().numpy()
+            r = np.float32(sph.radius[s0].cpu())
+        mat = int(sph.mat_idx[s0]) if sph.count else 0
+        row[0:3], row[3] = centre, r * r
+        row[25] = 1.0
+        m[0:3], m[3:6] = host["colour"][mat], host["emission_colour"][mat]
+        m[6:9], m[9] = host["specular_colour"][mat], host["emission_strength"][mat]
+        m[10], m[11] = host["smoothness"][mat], host["specular_probability"][mat]
+        m[12], m[13] = host["ior"][mat], host["flag"][mat]
+    else:
+        value = {f: np.float32(0.1 + 0.01 * i)
+                 for i, f in enumerate(fetch_fields(feats))}
+
+        def get(*names):
+            return [value.get(n, np.float32(0.0)) for n in names]
+
+        def xyz(base):
+            return get(f"{base}_x", f"{base}_y", f"{base}_z")
+
+        row[0:4] = get("scx", "scy", "scz", "sr2")
+        for at, base in ((4, "pa"), (7, "eab"), (10, "eac"), (13, "gn"),
+                         (16, "na"), (19, "nb"), (22, "nc")):
+            row[at:at + 3] = xyz(base)
+        row[25] = get("is_sph")[0] if "tris" in feats else 1.0
+        m[9:14] = get("estr", "smooth", "sprob", "ior", "flag")
+        m[0:3] = get("col_r", "col_g", "col_b")
+        m[3:6] = get("em_r", "em_g", "em_b")
+        m[6:9] = get("spec_r", "spec_g", "spec_b")
+    row[26] = float("vnormals" in feats)
+    if "emissive" not in feats:
+        m[9] = 0.0
+    if not {"checker", "invisible", "dielectric"} & set(feats):
+        m[13] = 0.0
+    cache[key] = row
+    return row
+
+
+def stub_surface(o, d, row: torch.Tensor, is_sph: bool, vnormals: bool):
+    """The hit point and shading normal the TPU kernel's segment body
+    derives from a winner's fetched fields (``megakernel.py:1487-1530``),
+    for the stub row ``row`` (``stub_row``, on the rays' device): the
+    winner's distance recomputed from its fields (a sphere's
+    ``-b - sqrt(max(b^2 - cc, 0))`` in the ``o - c`` form, or a triangle's
+    ``dot(o - a, n) * (1 / det)``), then the sphere's normal at that point,
+    or the triangle's vertex normals interpolated there (with ``vnormals``;
+    else the one at a), normalised. The CUDA kernel's ``stub_surface`` runs
+    the same operations."""
+    sc = row[0:3]
+    oc = o - sc
+    b = vm.dot(oc, d)
+    cc = vm.dot(oc, oc) - row[3]
+    t = -b - vm.sqrt(torch.clamp(b * b - cc, min=0.0))
+    if not is_sph:
+        ao = o - row[4:7]
+        gn = row[13:16].expand_as(d)
+        det = -vm.dot(d, gn)
+        inv_det = 1.0 / torch.where(det == 0.0, torch.ones_like(det), det)
+        t = vm.dot(ao, gn) * inv_det
+    point = o + d * t[:, None]
+    if is_sph:
+        return point, vm.normalize(point - sc)
+    if not vnormals:
+        return point, vm.normalize(row[16:19].expand_as(d))
+    dao = vm.cross(ao, d)
+    u = vm.dot(row[10:13].expand_as(d), dao) * inv_det
+    v = -vm.dot(row[7:10].expand_as(d), dao) * inv_det
+    w = 1.0 - u - v
+    raw = (row[16:19] * w[:, None] + row[19:22] * u[:, None]
+           + row[22:25] * v[:, None])
+    return point, vm.normalize(raw)
+
+
+def stub_intersector(intersect_fn, row: np.ndarray, intersect: bool, device):
+    """``intersect_fn`` under a stub knob, with the stub row ``row``
+    (``stub_row``): with ``intersect`` (stub_intersect, the TPU kernel's
+    ``t, code = 2, 0``, ``megakernel.py:2030-2031``) every ray hits and no
+    closest hit is computed; else (stub_fetch) the closest hit decides only
+    whether a ray hits. A hit's point, normal and material are the stub
+    row's (``stub_surface``; ``HitRecord.material``)."""
+    r = torch.from_numpy(row).to(device)
+    c = STUB_MAT
+    mat = Materials(
+        colour=r[None, c:c + 3], emission_colour=r[None, c + 3:c + 6],
+        specular_colour=r[None, c + 6:c + 9],
+        emission_strength=r[c + 9:c + 10], smoothness=r[c + 10:c + 11],
+        specular_probability=r[c + 11:c + 12], ior=r[c + 12:c + 13],
+        flag=r[c + 13:c + 14].to(torch.int32))
+    is_sph, vnormals = bool(row[25] > 0.5), bool(row[26])
+
+    def fn(o, d, scene):
+        b = o.shape[0]
+        zeros = torch.zeros((b,), dtype=torch.int64, device=o.device)
+        if intersect:
+            hit = torch.ones((b,), dtype=torch.bool, device=o.device)
+            t, index = torch.full((b,), 2.0, device=o.device), zeros
+        else:
+            h = intersect_fn(o, d, scene)
+            hit, t, index = h.hit, h.t, h.index
+        point, normal = stub_surface(o, d, r, is_sph, vnormals)
+        return HitRecord(hit=hit, t=t, point=point, normal=normal,
+                         mat_idx=zeros, index=index, material=mat.take(zeros))
+
+    return fn
+
+
+def emissive_copy(scene: Scene, strength: float = 0.5) -> Scene:
+    """``scene`` with every material emitting its own colour at
+    ``strength``: a stub_intersect frame of a scene whose slot 0 emits
+    nothing is black wherever no ray reaches the sky, which holds a
+    kernel to nothing; of this copy it is lit, and depends on the slot's
+    material and on every segment's throughput. A new scene object, so its
+    tables are its own."""
+    mats = scene.materials
+    return dataclasses.replace(scene, materials=dataclasses.replace(
+        mats, emission_colour=mats.colour.clone(),
+        emission_strength=torch.full_like(mats.emission_strength, strength)))
 
 
 def _round_up(x: int, m: int) -> int:
@@ -853,17 +1221,29 @@ def render_frames_plain(
     affordable at large sizes. ``intersect_fn`` is the closest-hit
     function (``ops/trace.trace_segment``); by default the one
     ``plain_intersector`` picks for ``cfg.intersector`` and ``camera``
-    (the kernel's visit order). ``probe``, one of
-    ``PROBES``, sets that profiling knob (``ops/trace.dup_intersect`` on
-    the closest-hit function, or ``ops/trace.fetch_again``); the image,
-    maps and histogram are those without it.
+    (the kernel's visit order). ``probe``, one of ``PROBE_SETTINGS``, sets
+    that profiling knob: ``dup_intersect`` (``ops/trace.dup_intersect`` on
+    the closest-hit function), ``dup_fetch`` (``ops/trace.fetch_again``)
+    and ``no_cull`` (``plain_intersector(..., cull=False)``; it takes no
+    ``intersect_fn``) give the image, maps and histogram without the knob;
+    the stubs wrap the closest-hit function (``stub_intersector``) where
+    ``probe_instantiation`` does not take the production kernel (and raise
+    where it raises).
     """
     _check_frames(n_frames, accum)
-    _check_probe(probe)
+    inst = probe_instantiation(scene, probe, cfg)
+    if probe == "no_cull" and intersect_fn is not None:
+        raise ValueError("no_cull takes the clustered scan without culls: "
+                         "pass no intersect_fn")
     if intersect_fn is None:
-        intersect_fn = plain_intersector(scene, camera, cfg)
+        intersect_fn = plain_intersector(scene, camera, cfg,
+                                         cull=probe != "no_cull")
     if probe == "dup_intersect":
         intersect_fn = dup_intersect(intersect_fn)
+    elif inst in ("stub_intersect", "stub_fetch"):
+        intersect_fn = stub_intersector(intersect_fn, stub_row(scene, probe),
+                                        inst == "stub_intersect",
+                                        scene.device)
     dup_fetch = probe == "dup_fetch"
     y0, y1 = (0, cfg.height) if rows is None else rows
     if not 0 <= y0 < y1 <= cfg.height:
@@ -1942,8 +2322,9 @@ def _check_frames(n_frames: int, accum) -> None:
 
 
 def _check_probe(probe) -> None:
-    if probe is not None and probe not in PROBES:
-        raise ValueError(f"probe must be None or one of {PROBES}, got {probe!r}")
+    if probe is not None and probe not in PROBE_SETTINGS:
+        raise ValueError(
+            f"probe must be None or one of {PROBE_SETTINGS}, got {probe!r}")
 
 
 # --------------------------------- kernel -----------------------------------
@@ -1972,14 +2353,32 @@ def _bind(lib) -> None:
 
 
 def _bind_probes(lib) -> None:
-    lib.rtx_render_probe.argtypes = [_CI] + _RENDER_ARGTYPES
+    lib.rtx_render_probe.argtypes = [_CI, _VP, _CI] + _RENDER_ARGTYPES
     lib.rtx_render_probe.restype = _CI
+
+
+def probe_library(probe: str, fast_scatter: bool, tables: str) -> CudaLibrary:
+    """The probe library of a knob (one of ``PROBES``), sampler and route:
+    ``csrc/megakernel.cu`` with ``-DRTX_PROBES`` and its Probe value,
+    sampler and Tables value, its twelve instantiations (``variant``'s
+    render_kernel, render_adaptive and the ``kKnobs`` one with its
+    render_listed twin, for each geometry). Not built until its first
+    launch."""
+    scatter = "fast" if fast_scatter else "boxmuller"
+    return CudaLibrary(
+        "megakernel.cu", f"megakernel_{probe}_{scatter}_{tables}", _bind_probes,
+        flags=NVCC_FLAGS + (
+            "-DRTX_PROBES", f"-DRTX_PROBE={1 + PROBES.index(probe)}",
+            f"-DRTX_FAST_SCATTER={int(fast_scatter)}",
+            f"-DRTX_TABLES={TABLES.index(tables)}"))
 
 
 class PathTraceKernel:
     """Builds, loads and launches ``csrc/megakernel.cu``: the production
     library (both routes), and at the first launch with a profiling knob
-    the probe library (the same source with ``-DRTX_PROBES``).
+    that knob's library for the launch's sampler and route
+    (``probe_library``; ``probe_libraries``, by ``(probe, fast_scatter,
+    tables)``).
 
     ``variant_launches`` counts the kernel launches this object made, by
     instantiation (``variant``, which names the route; a ``kKnobs`` one's
@@ -1990,9 +2389,9 @@ class PathTraceKernel:
     def __init__(self):
         self.variant_launches: collections.Counter = collections.Counter()
         self.library = CudaLibrary("megakernel.cu", "megakernel", _bind)
-        self.probe_library = CudaLibrary(
-            "megakernel.cu", "megakernel_probes", _bind_probes,
-            flags=NVCC_FLAGS + ("-DRTX_PROBES",))
+        self.probe_libraries = {
+            (p, f, t): probe_library(p, f, t)
+            for p in PROBES for f in (False, True) for t in TABLES}
 
     @property
     def build_info(self) -> BuildInfo | None:
@@ -2129,26 +2528,18 @@ class PathTraceKernel:
         them (``geometry_tables``); the camera's visit order is made on the
         device (``visit_tables``).
 
-        ``probe``, one of ``PROBES``, launches that profiling instantiation
-        from the probe library, built at first use; with the Box-Muller
-        sampler only (fast scatter raises) and staged tables. A failing
-        build or launch raises: there is no fall back to the production
-        kernel, nor from one route to the other."""
+        ``probe``, one of ``PROBE_SETTINGS``, launches the profiling
+        instantiation ``probe_instantiation`` picks, from its knob's library
+        for the launch's sampler and route (``probe_library``), built at
+        first use; under a stub its stub row (``stub_row``, kept on the
+        device per scene). A failing build or launch raises: there is no
+        fall back to the production kernel, nor from one route to the
+        other."""
         _check_frames(n_frames, accum)
-        _check_probe(probe)
+        inst = probe_instantiation(scene, probe, cfg)
         if tables is not None and tables not in TABLES:
             raise ValueError(f"tables must be one of {TABLES}, got {tables!r}")
-        if probe is not None and cfg.fast_scatter:
-            raise NotImplementedError(
-                "the probe library compiles the profiling instantiations "
-                "with the Box-Muller sampler only: fast_scatter=False"
-            )
         knobs = knobbed(scene, cfg)
-        if probe is not None and knobs:
-            raise NotImplementedError(
-                "the probe library compiles refill's profiling "
-                "instantiations with one pixel a lane and one phase"
-            )
         y0, y1 = band_rows(scene, cfg, rows)
         dev = scene.device
         if dev.type != "cuda":
@@ -2168,9 +2559,6 @@ class PathTraceKernel:
             raise ValueError(
                 f"camera on {camera.position.device}, scene on {dev}"
             )
-        library = self.library if probe is None else self.probe_library
-        render = (library.lib.rtx_render if probe is None else functools.partial(
-            library.lib.rtx_render_probe, 1 + PROBES.index(probe)))
         geom = geometry(scene, cfg)
         tab = scene_tables(scene, camera, cfg)
         n_sph = tab.spheres.shape[0]
@@ -2180,11 +2568,18 @@ class PathTraceKernel:
         n_sph_supers = 0 if tab.sph_supers is None else tab.sph_supers.shape[0]
         code = GEOMETRIES.index(geom)
         route = tables or table_route(tab, cfg)
-        if probe is not None and route != "staged":
-            raise NotImplementedError(
-                "the probe library compiles the profiling instantiations "
-                "with staged tables only: a scene within MAX_SHARED_BYTES"
-            )
+        if inst is None:
+            library = self.library
+            render = library.lib.rtx_render
+        else:
+            library = self.probe_libraries[(inst, cfg.fast_scatter, route)]
+            stub = None
+            if inst in ("stub_intersect", "stub_fetch"):
+                stub = _stub_on_device(scene, probe)
+            render = functools.partial(
+                library.lib.rtx_render_probe, 1 + PROBES.index(inst),
+                None if stub is None else stub.data_ptr(),
+                0 if tab.tri_rows is None else tab.tri_rows.shape[0])
 
         out = torch.empty((h, w, 3), dtype=torch.float32, device=dev)
         segs = torch.empty((h, w), dtype=torch.int32, device=dev)
@@ -2219,7 +2614,7 @@ class PathTraceKernel:
             )
             library.check(rc, "megakernel")
             self.variant_launches[variant(
-                geom, cfg.adaptive_spp, cfg.fast_scatter, probe, route, knobs
+                geom, cfg.adaptive_spp, cfg.fast_scatter, inst, route, knobs
             )] += 1
 
         with torch.cuda.device(dev):
@@ -2280,6 +2675,16 @@ class PathTraceKernel:
             if phase_one is not None:
                 events[3].record()
         return out, segs.sum(dtype=torch.int64), segs, hist
+
+
+def _stub_on_device(scene: Scene, probe: str) -> torch.Tensor:
+    """``stub_row(scene, probe)`` on the scene's device, copied there once
+    a scene and setting."""
+    cache = _scene_cache(scene)
+    key = ("stub_row_device", probe)
+    if key not in cache:
+        cache[key] = torch.from_numpy(stub_row(scene, probe)).to(scene.device)
+    return cache[key]
 
 
 @dataclasses.dataclass
@@ -2722,10 +3127,11 @@ def render_frames_mega(
     hold ``y1 - y0`` rows, and they equal those rows of the whole frame's
     bit for bit (the multi-GPU split, ``parallel/sharding.py``).
 
-    ``probe``, one of ``PROBES``, sets that profiling knob: on the card the
-    probe library's instantiation (``PathTraceKernel.launch``), on the CPU
-    the plain version's (``render_frames_plain``); the outputs are those
-    without it. ``phase_one``, a dict, gains refill's first phase
+    ``probe``, one of ``PROBE_SETTINGS``, sets that profiling knob: on the
+    card its probe library's instantiation (``PathTraceKernel.launch``), on
+    the CPU the plain version's (``render_frames_plain``); the outputs are
+    those without it but for the stubs, which change the rays' paths
+    (``stub_row``). ``phase_one``, a dict, gains refill's first phase
     (``render_frames_plain``; on the card also the launches' events,
     ``PathTraceKernel.launch``). ``pair_costs``, a (y1 - y0, W) cost map
     (a launch's per-pixel segments), pairs a refill lane's pixels by cost
@@ -2750,36 +3156,86 @@ def render_frames_mega(
     raise ValueError(f"no render path for device {dev}")
 
 
+def probe_setting(use_cull: bool = True, stub_fetch: bool = False,
+                  stub_intersect: bool = False, dup_intersect: bool = False,
+                  dup_fetch: bool = False) -> str | None:
+    """The knob setting (one of ``PROBE_SETTINGS``, or None) of the JAX
+    package's ``render_frame_mega`` knobs. One knob at a time, or the two
+    stubs together; ``use_cull=False`` beside stub_intersect changes
+    nothing (no scan runs). Any other pair raises ValueError."""
+    on = [name for name, set_ in (
+        ("no_cull", not use_cull), ("stub_fetch", stub_fetch),
+        ("stub_intersect", stub_intersect), ("dup_intersect", dup_intersect),
+        ("dup_fetch", dup_fetch)) if set_]
+    if stub_intersect and "no_cull" in on:
+        on.remove("no_cull")
+    if set(on) == {"stub_fetch", "stub_intersect"}:
+        return "stubs"
+    if len(on) > 1:
+        raise ValueError(
+            f"set at most one profiling knob, or the two stubs together: {on}")
+    return on[0] if on else None
+
+
 def render_frame_mega(
     scene: Scene,
     camera: Camera,
     cfg: RenderConfig,
     frame,
+    use_cull: bool = True,
     stub_fetch: bool = False,
     stub_intersect: bool = False,
     dup_intersect: bool = False,
     dup_fetch: bool = False,
+    y0: int = 0,
+    band_height: int | None = None,
+    collect_stats: bool = False,
+    segs_map: bool = False,
 ):
     """One frame through the path-trace kernel (on the CPU its plain
-    version) -> ``(image (H, W, 3) f32, total segments)``: the JAX package's
-    ``render_frame_mega`` (``megakernel.py:2285``) with its profiling
-    knobs. ``dup_intersect`` runs each segment's closest hit twice,
-    ``dup_fetch`` its winner's fetch; the image and total are those without
-    the knob (``render_frames_mega(..., probe=)``). No caller sets both, and
-    both raise. ``stub_fetch`` and ``stub_intersect`` raise
-    NotImplementedError (ROADMAP.md "Not ported")."""
-    if stub_fetch or stub_intersect:
-        raise NotImplementedError(
-            "stub_fetch and stub_intersect are not ported (ROADMAP.md, "
-            "\"Not ported\"): stub_fetch returns constants from the TPU "
-            "kernel's fetch table, which the port does not have, and both "
-            "change the rays' paths; tools/profile_mega.py uses dup_intersect "
-            "and dup_fetch"
-        )
-    if dup_intersect and dup_fetch:
-        raise ValueError("set at most one of dup_intersect and dup_fetch")
-    probe = ("dup_intersect" if dup_intersect
-             else "dup_fetch" if dup_fetch else None)
-    img, total, _, _ = render_frames_mega(scene, camera, cfg, frame,
-                                          probe=probe)
+    version): the JAX package's ``render_frame_mega``
+    (``megakernel.py:2285-2330``) with its arguments but ``interpret``.
+
+    The profiling knobs (``probe_setting``; ``render_frames_mega(...,
+    probe=)``): ``use_cull=False`` (no gate), ``dup_intersect`` and
+    ``dup_fetch`` give the image and counts without the knob;
+    ``stub_intersect`` and ``stub_fetch`` change the rays' paths
+    (``stub_row``; under the JAX package's winner fetch stub_fetch changes
+    nothing and stub_intersect raises NotImplementedError,
+    ``probe_instantiation``).
+
+    ``y0`` and ``band_height`` render the band of rows ``y0 .. y0 +
+    band_height - 1`` (``band_rows``' rule, with refill whole tiles); rows
+    past the frame, which the JAX kernel's edge tiles fill by re-rendering
+    their clamped border pixel, repeat the frame's last row, and count in
+    the per-pixel map but not in the total.
+
+    Returns ``(image (bh, W, 3) f32, total segments)``; with
+    ``collect_stats`` also the JAX package's ``counts``, (hist_rows,) int32
+    with hist_rows = max_bounce + 1 rounded up to 8: rows ``[0,
+    max_bounce]`` the bounce histogram (real pixels only, as this port
+    counts), the rows above zeros (there the TPU kernel keeps its
+    sub-cluster visit counts, which this kernel does not make); else with
+    ``segs_map`` the per-pixel segments (bh, W) int32."""
+    probe = probe_setting(use_cull, stub_fetch, stub_intersect,
+                          dup_intersect, dup_fetch)
+    bh = cfg.height - y0 if band_height is None else band_height
+    if not 0 <= y0 < cfg.height or bh < 1:
+        raise ValueError(f"band y0={y0}, band_height={band_height} outside "
+                         f"0..{cfg.height}")
+    rows = (y0, min(y0 + bh, cfg.height))
+    img, total, seg_map, hist = render_frames_mega(
+        scene, camera, cfg, frame, collect_stats=collect_stats,
+        rows=None if rows == (0, cfg.height) else rows, probe=probe)
+    extra = y0 + bh - rows[1]
+    if extra > 0:
+        img = torch.cat([img, img[-1:].expand(extra, -1, -1)])
+        seg_map = torch.cat([seg_map, seg_map[-1:].expand(extra, -1)])
+    if collect_stats:
+        counts = torch.zeros(_round_up(cfg.max_bounce + 1, 8),
+                             dtype=torch.int32, device=hist.device)
+        counts[:cfg.max_bounce + 1] = hist
+        return img, total, counts
+    if segs_map:
+        return img, total, seg_map
     return img, total

@@ -25,7 +25,10 @@ mechanisms the CUDA kernel has no use for: the triangle sub-clusters (the
 kernel gates triangles by the scene's chunks or walks its BVH), the fetch
 tables (``fetch_tab``, ``fetch_tab2``, ``sph_attr``, ``tri_attr``: operands
 of the one-hot and winner fetches; a CUDA thread reads its winner's row by
-index) and ``features`` (code specialisation at trace time). The JAX
+index) and ``features`` (code specialisation at trace time), but for the
+rule that names the fields its one-hot fetch reads (``scene_features``,
+``fetch_fields``): the profiling knob ``stub_fetch`` returns a constant a
+field by its place in that list. The JAX
 package drops the hoist when it would leave the regular spheres in more
 than one super-cluster, because only its flat sub loop can skip the
 trailing hoisted block; the port tests the hoisted spheres before either
@@ -41,6 +44,7 @@ import dataclasses
 import numpy as np
 
 from ..accel.bvh import _morton3
+from ..models.geometry import FLAG_CHECKER, FLAG_DIELECTRIC, FLAG_INVISIBLE_LIGHT
 
 # Sphere slots are laid out in blocks of this many (the JAX package's
 # lane-wide cluster): the regular spheres pad up to one, the hoisted block
@@ -297,3 +301,62 @@ def pack_spheres(centers: np.ndarray, radii: np.ndarray) -> SpherePack:
         n_sphere_subs_visit=int(nss if nss_visit is None else nss_visit),
         n_sphere_subs=int(nss),
     )
+
+
+def scene_features(flags: np.ndarray, emission_strength: np.ndarray,
+                   tri_n: np.ndarray, normal_a: np.ndarray,
+                   normal_b: np.ndarray, normal_c: np.ndarray) -> tuple:
+    """The JAX package's ``PackedScene.features`` that decide its fetch
+    fields (``pack_scene``, ``kernels/pack.py:489-517``), from a scene's
+    material flags and emission strengths and its triangles' geometric and
+    vertex normals: ``"tris"`` where a triangle is real (a nonzero
+    geometric normal), ``"vnormals"`` where a real one's three vertex
+    normals differ, then ``"dielectric"``, ``"checker"``, ``"invisible"``
+    for a material of that flag, ``"emissive"`` for an emission strength
+    above 0. (``"env"`` and ``"sun"`` decide no field and are left out.)"""
+    feats = []
+    real = (np.asarray(tri_n) ** 2).sum(axis=1) > 0
+    if real.any():
+        feats.append("tris")
+        na, nb, nc = (np.asarray(x)[real] for x in (normal_a, normal_b,
+                                                      normal_c))
+        if not (np.array_equal(na, nb) and np.array_equal(nb, nc)):
+            feats.append("vnormals")
+    flags = np.asarray(flags)
+    for flag, name in ((FLAG_DIELECTRIC, "dielectric"),
+                       (FLAG_CHECKER, "checker"),
+                       (FLAG_INVISIBLE_LIGHT, "invisible")):
+        if (flags == flag).any():
+            feats.append(name)
+    if (np.asarray(emission_strength) > 0).any():
+        feats.append("emissive")
+    return tuple(feats)
+
+
+def fetch_fields(features) -> tuple:
+    """The fields of the JAX package's one-hot fetch for a scene of
+    ``features``, in its order (``pack_scene``'s ``fetch_fields``,
+    ``kernels/pack.py:623-646``): what a segment's winner fetch reads."""
+    fields = [
+        "col_r", "col_g", "col_b",
+        "spec_r", "spec_g", "spec_b",
+        "smooth", "sprob",
+        "scx", "scy", "scz", "sr2",
+    ]
+    if "emissive" in features or "checker" in features:
+        fields += ["em_r", "em_g", "em_b"]
+    if "emissive" in features:
+        fields += ["estr"]
+    if {"checker", "invisible", "dielectric"} & set(features):
+        fields += ["flag"]
+    if "dielectric" in features:
+        fields += ["ior"]
+    if "tris" in features:
+        fields += ["is_sph"]
+        bases = ["pa", "gn", "na"]
+        if "vnormals" in features:
+            bases += ["nb", "nc"]
+            bases += ["eab", "eac"]
+        for base in bases:
+            fields += [f"{base}_x", f"{base}_y", f"{base}_z"]
+    return tuple(fields)

@@ -16,7 +16,7 @@ import dataclasses
 
 import torch
 
-from ..models.geometry import Scene, Spheres, Triangles
+from ..models.geometry import Materials, Scene, Spheres, Triangles
 from . import vecmath as vm
 
 INF = float("inf")
@@ -39,6 +39,10 @@ class HitRecord:
     # count and a triangle's from there on (the profiling knob dup_fetch
     # reads its rows again, ops/trace.py)
     index: torch.Tensor
+    # the hit's material as its values, in place of ``mat_idx``'s row of
+    # the scene's table (the profiling knobs stub_intersect and stub_fetch,
+    # kernels/megakernel.py stub_intersector); None: ``mat_idx``'s row
+    material: Materials | None = None
 
 
 def _pair_dots(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

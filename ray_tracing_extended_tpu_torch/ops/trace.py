@@ -108,7 +108,8 @@ def trace_segment(
     d_live = torch.where(alive[..., None], d, parked_dir)
     hit = intersect_fn(o_live, d_live, scene)
     did_hit = hit.hit & alive
-    mat = scene.materials.take(hit.mat_idx)
+    mat = (scene.materials.take(hit.mat_idx) if hit.material is None
+           else hit.material)
 
     base_colour = checker_colour(mat, hit.point)
     if dup_fetch:

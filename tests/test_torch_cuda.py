@@ -1273,37 +1273,45 @@ def test_lane_pass_kernel_equals_plain(cuda):
     assert mk.KERNEL.variant_launches[mk.LANE_PASS] == before + calls
 
 
-# ptxas -v of the production instantiations on the staged route (registers,
-# spill store bytes, spill load bytes; chip_smoke.py's PTXAS_WHOLE_FRAME_KERNEL
-# by tools/scan_ab.py's entry names: geometry, scatter)
-PTXAS_PINS = {
-    "render_kernel<0,0>": [72, 0, 0], "render_kernel<1,0>": [64, 36, 48],
-    "render_kernel<2,0>": [64, 4, 4], "render_kernel<0,1>": [64, 20, 28],
-    "render_kernel<1,1>": [64, 36, 48], "render_kernel<2,1>": [64, 16, 20],
-    "render_adaptive<0,0>": [72, 0, 0], "render_adaptive<1,0>": [64, 36, 56],
-    "render_adaptive<2,0>": [64, 4, 8], "render_adaptive<0,1>": [72, 0, 0],
-    "render_adaptive<1,1>": [64, 36, 56], "render_adaptive<2,1>": [64, 4, 8],
-}
+def _production_ptxas(log):
+    """``tools/scan_ab.py``'s ``ptxas -v`` of the production library, by
+    ``mk.variant`` name as ``mk.PTXAS_PRODUCTION`` keys it (scan_ab's entry
+    names give geometry, scatter, the global route, the lane knobs)."""
+    from ray_tracing_extended_tpu_torch.tools import scan_ab
+
+    out = {}
+    for key, value in scan_ab._ptxas(log).items():
+        m = re.fullmatch(r"(render_\w+)<(\d),(\d)((?:,\w+)*)>", key)
+        kernel, flags = m.group(1), m.group(4).split(",")[1:]
+        name = mk.variant(mk.GEOMETRIES[int(m.group(2))],
+                          kernel != "render_kernel", m.group(3) == "1",
+                          tables="global" if "global" in flags else "staged",
+                          knobs="knobs" in flags or kernel == "render_listed")
+        if kernel == "render_listed":
+            name = name.replace("render_adaptive", "render_listed")
+        out[name] = tuple(value)
+    return out
 
 
 def test_default_instantiations_keep_their_ptxas_pins(cuda):
     """The lane list lives in the kKnobs instantiations only: every staged
     production instantiation, the default refill's among them, keeps its
     pinned ``ptxas -v``."""
-    from ray_tracing_extended_tpu_torch.tools import scan_ab
-
-    got = scan_ab._ptxas(mk.KERNEL.build().log)
-    assert {k: got[k] for k in PTXAS_PINS} == PTXAS_PINS
+    got = _production_ptxas(mk.KERNEL.build().log)
+    assert {v: got[v] for v in mk.VARIANTS} == {
+        v: mk.PTXAS_PRODUCTION[v] for v in mk.VARIANTS}
 
 
 def test_refill_knobs_refusals(cuda):
-    """The profiling instantiations take no lane knob, and the kernel's
+    """The profiling instantiations take the lane knobs (their ``kKnobs``
+    instantiation renders its production twin's frame), and the kernel's
     rule refuses a pixel count a lane that does not divide its tile's rows
     of 128 (tiles of 16: two rows)."""
     scene, cam, cfg = presets.three_sphere_scene(width=64, height=32, spp=1)
     cfg = dataclasses.replace(cfg, adaptive_spp=True, mega_pixels_per_lane=2)
-    with pytest.raises(NotImplementedError, match="one pixel a lane"):
-        mk.render_frames_mega(scene, cam, cfg, 1, probe="dup_intersect")
+    ref = mk.render_frames_mega(scene, cam, cfg, 1)
+    out = mk.render_frames_mega(scene, cam, cfg, 1, probe="dup_intersect")
+    assert torch.equal(out[0], ref[0]) and torch.equal(out[2], ref[2])
     with pytest.raises(ValueError, match="must divide the tile's 2 rows"):
         mk.render_frames_mega(scene, cam, dataclasses.replace(
             cfg, mega_tile_size=16, mega_pixels_per_lane=4), 1)
@@ -1516,10 +1524,10 @@ def test_debug_mode_on_the_card(cuda):
 @pytest.mark.parametrize("adaptive", [False, True], ids=["exact", "refill"])
 @pytest.mark.parametrize("name", ["rtiow", "cornell", "chess", "mesh"])
 def test_dup_instantiations_equal_their_twins(cuda, name, adaptive):
-    """Each profiling instantiation of the probe library (dup_intersect,
-    dup_fetch) renders its production twin's image, per-pixel segments and
-    total bit for bit, in a frame and in a K = 4 fold; each launch is
-    counted under its own name."""
+    """Each profiling instantiation that keeps the image (dup_intersect,
+    dup_fetch, no_cull) renders its production twin's image, per-pixel
+    segments and total bit for bit, in a frame and in a K = 4 fold; each
+    launch is counted under its own name."""
     if name == "rtiow":
         scene, cam, cfg = presets.rtiow_final_scene(width=96, height=54, spp=4)
     else:
@@ -1530,7 +1538,7 @@ def test_dup_instantiations_equal_their_twins(cuda, name, adaptive):
     ref = (mk.render_frames_mega(scene, cam, cfg, 3),
            mk.render_frames_mega(scene, cam, cfg, 1, 4, accum=acc0))
     mk.KERNEL.reset_counts()
-    for probe in mk.PROBES:
+    for probe in SAME_IMAGE:
         out = (mk.render_frames_mega(scene, cam, cfg, 3, probe=probe),
                mk.render_frames_mega(scene, cam, cfg, 1, 4, accum=acc0,
                                      probe=probe))
@@ -1541,7 +1549,7 @@ def test_dup_instantiations_equal_their_twins(cuda, name, adaptive):
     geom = mk.geometry(scene, cfg)
     assert dict(mk.KERNEL.variant_launches) == {
         mk.variant(geom, adaptive, probe=p): 2 * mk.launches_per_call(cfg)
-        for p in mk.PROBES}
+        for p in SAME_IMAGE}
 
 
 @pytest.mark.parametrize("probe", ["dup_intersect", "dup_fetch"])
@@ -1562,15 +1570,30 @@ def test_dup_instantiations_match_plain_with_the_knob(cuda, probe):
 
 
 def test_profiling_refuses_fast_scatter_and_stubs(cuda):
-    """The probe library holds the Box-Muller instantiations only; the TPU
-    kernel's stubs are not ported."""
+    """What the profiling knobs refuse: nothing but stub_intersect under
+    the JAX package's winner fetch (the 70k mesh), whose result is
+    undefined there, and under two phases, where the JAX kernel's stub
+    moves the waiting lanes; fast scatter and the stubs elsewhere launch
+    their instantiations, and stub_fetch under the winner fetch is the
+    production frame."""
     scene, cam, cfg = presets.three_sphere_scene(width=16, height=8, spp=1)
-    with pytest.raises(NotImplementedError, match="Box-Muller"):
-        mk.render_frames_mega(
-            scene, cam, dataclasses.replace(cfg, fast_scatter=True), 0,
-            probe="dup_fetch")
-    with pytest.raises(NotImplementedError, match="Not ported"):
+    fast = dataclasses.replace(cfg, fast_scatter=True)
+    for probe in mk.PROBE_SETTINGS:
+        img = mk.render_frames_mega(scene, cam, fast, 0, probe=probe)[0]
+        assert bool(torch.isfinite(img).all()), probe
+    two = dataclasses.replace(fast, adaptive_spp=True, mega_phases=2)
+    for probe in ("stub_intersect", "stubs"):
+        with pytest.raises(NotImplementedError, match="1687-1700"):
+            mk.render_frames_mega(scene, cam, two, 0, probe=probe)
+    scene, cam, cfg = _triangle_scene("mesh", width=32, height=18)
+    assert mk.winner_fetch(scene)
+    with pytest.raises(NotImplementedError, match="637-638"):
         mk.render_frame_mega(scene, cam, cfg, 0, stub_intersect=True)
+    ref = mk.render_frames_mega(scene, cam, cfg, 0, collect_stats=True)
+    out = mk.render_frames_mega(scene, cam, cfg, 0, collect_stats=True,
+                                probe="stub_fetch")
+    for a, b in zip(out, ref):
+        assert torch.equal(a, b)
 
 
 def test_profile_mega_tool_on_the_card(cuda, capsys):
@@ -1584,3 +1607,126 @@ def test_profile_mega_tool_on_the_card(cuda, capsys):
         assert [ln.split()[0] for ln in out[1:4]] == [
             "full", "dup_intersect", "dup_fetch"]
         assert out[4].startswith("intersect ~ ")
+
+
+# the knobs whose image is the production one
+SAME_IMAGE = ("dup_intersect", "dup_fetch", "no_cull")
+# each mode of the probe instantiations: exact, refill, refill under the
+# lane knobs (two pixels a lane, two phases)
+PROBE_MODES = {"exact": {}, "refill": dict(adaptive_spp=True),
+               "knobs": dict(adaptive_spp=True, mega_pixels_per_lane=2,
+                             mega_phases=2)}
+
+
+def _probe_scene(name):
+    """RTIOW (kSpheres), Cornell (kChunks), the mesh with 4,000 triangles
+    (kBvh, within the one-hot fetch), small, without defocus."""
+    if name == "rtiow":
+        scene, cam, cfg = presets.rtiow_final_scene(width=96, height=64,
+                                                    spp=4)
+    elif name == "cornell":
+        scene, cam, cfg = presets.cornell_box_scene(width=64, height=64,
+                                                    spp=2)
+    else:
+        scene, cam, cfg = presets.mesh_scene(width=64, height=64, spp=2,
+                                             target_tris=4000)
+    return scene, cam.replace(defocus_strength=0.0), dataclasses.replace(
+        cfg, mega_tile_size=32)
+
+
+PROBE_CASES = [(n, m, f) for n in ("rtiow", "cornell", "mesh")
+               for m in PROBE_MODES for f in (False, True)]
+
+
+def _stub_cfg(probe, cfg):
+    """stub_intersect (alone or in "stubs") raises under two phases
+    (``mk.probe_instantiation``): its lane-knob case takes one."""
+    if probe in ("stub_intersect", "stubs") and cfg.mega_phases == 2:
+        return dataclasses.replace(cfg, mega_phases=1)
+    return cfg
+
+
+def _stub_gates(k, p, probe):
+    """A stub's frame against the plain version's with the same stub:
+    bench.py's mb1 gate (median per-pixel relative difference under 2e-3,
+    channel means within 5e-3) where the frame is lit, and the per-pixel
+    segments equal on at least 99% of pixels, their totals within 0.5%."""
+    if float(p[0].abs().max()) == 0.0:
+        # a black frame (stub_intersect's slot 0 emits nothing and no ray
+        # misses): no channel mean to divide by
+        assert float(k[0].abs().max()) == 0.0, probe
+    else:
+        _, median, channel = _gates(k[0], p[0])
+        assert median < 2e-3 and channel < 5e-3, (probe, median, channel)
+    k_map, p_map = k[2].cpu(), p[2].cpu()
+    assert float((k_map == p_map).double().mean()) >= 0.99, probe
+    assert abs(int(k_map.sum()) - int(p_map.sum())) <= 5e-3 * int(p_map.sum())
+
+
+@pytest.mark.parametrize("name, mode, fast", PROBE_CASES,
+                         ids=[f"{n}-{m}-{'fast' if f else 'bm'}"
+                              for n, m, f in PROBE_CASES])
+def test_probe_instantiations_against_plain_and_twins(cuda, name, mode,
+                                                     fast):
+    """Every profiling instantiation of a geometry, mode and sampler, on
+    both routes: dup_intersect, dup_fetch and no_cull bit for bit their
+    production twin (image, per-pixel segments, histogram); the stubs held
+    to the plain version with the same stub (``_stub_gates``), and
+    stub_intersect also on the scene's emissive copy
+    (``mk.emissive_copy``), whose frame is lit; the global route bit for
+    bit the staged one; each launch counted under its own name. Under the
+    lane knobs stub_intersect takes one phase."""
+    scene, cam, cfg = _probe_scene(name)
+    cfg = dataclasses.replace(cfg, fast_scatter=fast, **PROBE_MODES[mode])
+    geom = mk.geometry(scene, cfg)
+    ref = mk.render_frames_mega(scene, cam, cfg, 3, collect_stats=True)
+    mk.KERNEL.reset_counts()
+    for probe in mk.PROBE_SETTINGS:
+        pcfg = _stub_cfg(probe, cfg)
+        out = {t: mk.render_frames_mega(scene, cam, pcfg, 3,
+                                        collect_stats=True, probe=probe,
+                                        tables=t)
+               for t in mk.TABLES}
+        for a, b in zip(out["global"], out["staged"]):
+            assert torch.equal(a, b), probe
+        if probe in SAME_IMAGE:
+            for a, b in zip(out["staged"], ref):
+                assert torch.equal(a, b), probe
+            continue
+        p = mk.render_frames_plain(scene, cam, pcfg, 3, probe=probe)
+        _stub_gates(out["staged"], p, probe)
+    lit = mk.emissive_copy(scene)
+    pcfg = _stub_cfg("stub_intersect", cfg)
+    k = mk.render_frames_mega(lit, cam, pcfg, 3, probe="stub_intersect")
+    p = mk.render_frames_plain(lit, cam, pcfg, 3, probe="stub_intersect")
+    assert float(p[0].mean()) > 0.0
+    _stub_gates(k, p, "stub_intersect")
+    # a call's kernel launches: refill's two phases (under the knobs phase
+    # 2 over the lane list counts under the kKnobs name), beside them under
+    # the knobs a lane pass; "stubs" launches stub_intersect's
+    # instantiation, and so does the emissive copy's call
+    knobs = mode == "knobs"
+    per_call = 2 if cfg.adaptive_spp else 1
+    want = {mk.variant(geom, cfg.adaptive_spp, fast, p, t, knobs):
+            per_call * (2 if p == "stub_intersect" else 1)
+            for p in mk.PROBES for t in mk.TABLES}
+    want[mk.variant(geom, cfg.adaptive_spp, fast, "stub_intersect",
+                    "staged", knobs)] += per_call
+    if knobs:
+        want[mk.LANE_PASS] = len(mk.PROBE_SETTINGS) * len(mk.TABLES) + 1
+    assert dict(mk.KERNEL.variant_launches) == want
+
+
+def test_production_ptxas_unchanged_by_the_probes(cuda):
+    """The probe libraries are the same source with -DRTX_PROBES: the
+    production library's 48 instantiations (both routes, the lane knobs'
+    and their render_listed twins) keep the ``ptxas -v`` that a build
+    without the probes' code gave (``mk.PTXAS_PRODUCTION``), and each
+    probe library compiles only its twelve
+    instantiations of the path-trace kernels (beside the lane pass's four,
+    which every build of the source holds)."""
+    assert _production_ptxas(mk.KERNEL.build().log) == mk.PTXAS_PRODUCTION
+    lib = mk.KERNEL.probe_libraries[("no_cull", True, "global")]
+    entries = [e for e in re.findall(r"Compiling entry function '(\w+)'",
+                                     lib.build().log) if "render_" in e]
+    assert len(entries) == 12 and all("ProbeE5" in e for e in entries)

@@ -148,8 +148,8 @@ def test_variant_names_the_route():
     assert mk.variant("bvh", True, True, tables="global") == (
         "render_adaptive<kBvh, kFastScatter, kGlobal>")
     assert mk.variant("chunks", tables="staged") == "render_kernel<kChunks>"
-    with pytest.raises(ValueError):
-        mk.variant("spheres", probe="dup_fetch", tables="global")
+    assert mk.variant("spheres", probe="dup_fetch", tables="global") == (
+        "render_kernel<kSpheres, kBoxMuller, kDupFetch, kGlobal>")
     with pytest.raises(ValueError):
         mk.variant("spheres", tables="shared")
 

@@ -1,5 +1,6 @@
 """The profiling knobs ``dup_intersect`` and ``dup_fetch`` and the port's
-``tools/profile_mega.py`` on the CPU.
+``tools/profile_mega.py`` on the CPU (the other knobs:
+``tests/test_torch_knobs.py``).
 
 The knobs do one part of a segment's work twice and fold the second result
 so that it cannot change anything: on the port's plain path the image, the
@@ -129,16 +130,32 @@ def test_knobs_match_tpu_kernel_interpret(preset):
         _tight(a, b)
 
 
-def test_unported_and_conflicting_knobs_raise():
+def test_unported_and_conflicting_knobs_raise(monkeypatch):
+    """Every knob is ported: the stubs render (their frames differ from the
+    production one), two knobs at once raise but the two stubs, an unknown
+    probe raises, and so does stub_intersect (alone or with stub_fetch)
+    under two phases, which the JAX kernel's stub gives a result this
+    kernel does not reproduce, and under the JAX package's winner fetch
+    (forced here), whose result is undefined (``probe_instantiation``)."""
     scene, cam, cfg = _scene("three_sphere", width=8, height=8)
-    for stub in ("stub_fetch", "stub_intersect"):
-        with pytest.raises(NotImplementedError, match="Not ported"):
-            tmk.render_frame_mega(scene, cam, cfg, 0, **{stub: True})
+    base = tmk.render_frame_mega(scene, cam, cfg, 0)[0]
+    for knob in ({"stub_fetch": True}, {"stub_intersect": True},
+                 {"stub_fetch": True, "stub_intersect": True}):
+        img, total = tmk.render_frame_mega(scene, cam, cfg, 0, **knob)
+        assert img.shape == base.shape and int(total) > 0
+        assert not torch.equal(img, base), knob
     with pytest.raises(ValueError, match="at most one"):
         tmk.render_frame_mega(scene, cam, cfg, 0, dup_intersect=True,
                               dup_fetch=True)
     with pytest.raises(ValueError, match="probe"):
         tmk.render_frames_mega(scene, cam, cfg, 0, probe="dup_shading")
+    two = dataclasses.replace(cfg, mega_phases=2)
+    for probe in ("stub_intersect", "stubs"):
+        with pytest.raises(NotImplementedError, match="1687-1700"):
+            tmk.render_frames_mega(scene, cam, two, 0, probe=probe)
+    monkeypatch.setattr(tmk, "ONEHOT_MAX_SLOTS", 0)
+    with pytest.raises(NotImplementedError, match="637-638"):
+        tmk.render_frame_mega(scene, cam, cfg, 0, stub_intersect=True)
 
 
 def test_variant_names():
@@ -146,7 +163,11 @@ def test_variant_names():
         "render_kernel<kSpheres, kBoxMuller, kDupIntersect>")
     assert tmk.variant("bvh", True, probe="dup_fetch") == (
         "render_adaptive<kBvh, kBoxMuller, kDupFetch>")
-    assert len(set(tmk.PROBE_VARIANTS)) == 12
+    assert tmk.variant("chunks", True, True, "no_cull", "global", True) == (
+        "render_adaptive<kChunks, kFastScatter, kNoCull, kGlobal, kKnobs>")
+    # each production instantiation under each of the five knobs
+    assert len(set(tmk.PROBE_VARIANTS)) == 5 * len(
+        tmk.VARIANTS + tmk.GLOBAL_VARIANTS + tmk.KNOB_VARIANTS) == 180
     assert not set(tmk.PROBE_VARIANTS) & set(tmk.VARIANTS)
 
 
@@ -176,6 +197,38 @@ def test_decompose_arithmetic():
         "within_spread"]
 
 
+def test_decompose_stubs_arithmetic():
+    """The stub form from the medians: intersect ~ full - stub_intersect,
+    fetch ~ full - stub_fetch, other ~ stubs, each with its share of full;
+    ``report`` prints the stub variants, the stub form and what the culls
+    save after the dup form."""
+    full = [10.0, 10.4, 10.2]  # median 10.2
+    s = pm.decompose_stubs(full, [2.0, 2.2, 2.1], [6.0, 6.2, 6.1],
+                           [1.5, 1.6, 1.7])
+    assert s["intersect"]["ms"] == pytest.approx(10.2 - 2.1)
+    assert s["fetch"]["ms"] == pytest.approx(10.2 - 6.1)
+    assert s["other"]["ms"] == pytest.approx(1.6)
+    assert s["other"]["share"] == pytest.approx(1.6 / 10.2)
+    split = pm.decompose(full, [13.0, 13.1, 13.2], [10.5, 10.6, 10.7])
+    culls = {"no_cull": dict(median=30.0, min=29.0, max=31.0), "ms": 19.8,
+             "share": 19.8 / 10.2}
+    segs = {"full": 9, "dup_intersect": 9, "dup_fetch": 9,
+            "stub_intersect": 7, "stub_fetch": 5, "stubs": 6, "no_cull": 9}
+    lines = pm.report(split, segs, 4, s, culls)
+    assert [ln.split()[0] for ln in lines] == [
+        "full", "dup_intersect", "dup_fetch", "intersect", "stub_intersect",
+        "stub_fetch", "stubs", "stub", "no_cull", "culls"]
+    assert "segs=5 in 4 frames" in lines[5]
+    assert lines[7] == ("stub form: intersect ~ 8.100 ms (79%), fetch ~ "
+                        "4.100 ms (40%), other ~ 1.600 ms (16%)")
+    assert lines[9] == "culls save ~ 19.800 ms (194%)"
+    # under the winner fetch: stub_fetch alone, the others not run
+    winner = pm.report(split, dict(segs, stub_intersect="why"), 4,
+                       {"stub_fetch": s["stub_fetch"]})
+    assert winner[4] == "stub_intersect not run: why"
+    assert len(winner) == 7
+
+
 def test_tool_rehearses_on_the_cpu(capsys):
     """``main`` with ``--device cpu`` runs the whole tool through the plain
     path and prints the header, the three variants and the split."""
@@ -190,6 +243,18 @@ def test_tool_rehearses_on_the_cpu(capsys):
     segs = {ln.split("segs=")[1] for ln in out[1:4]}
     assert len(segs) == 1
     assert out[4].startswith("intersect ~ ") and ", other ~ " in out[4]
+    assert [ln.split()[0] for ln in out[5:11]] == [
+        "stub_intersect", "stub_fetch", "stubs", "stub", "no_cull", "culls"]
+    # the lane knobs paired, fast scatter, the global route: the header
+    # names them
+    assert pm.main(["--device", "cpu", "--width", "32", "--height", "32",
+                    "--spp", "1", "--max-bounce", "1", "--reps", "2",
+                    "--frames", "1", "--adaptive-spp", "--fast-scatter",
+                    "--pixels-per-lane", "2", "--paired",
+                    "--tables", "global"]) == 0
+    head = capsys.readouterr().out.splitlines()[0]
+    assert ("refill, fast scatter, 2 pixels a lane, paired, global tables"
+            in head)
     with pytest.raises(SystemExit, match="--scene"):
         pm.main(["--scene", "preset:nothing", "--device", "cpu"])
     if not torch.cuda.is_available():  # the tool measures the card or nothing
