@@ -1,0 +1,21 @@
+"""``launch_host_ms_per_frame``: the host's time in the launch wrapper,
+the program's ``wrapper.launch`` spans (``render_frames_mega``'s dispatch:
+the tables' lookup and the kernel's launch) inside the traced window, over
+its frames."""
+
+import trace_events
+
+SPAN = "wrapper.launch"
+
+
+def read(ctx):
+    data = ctx["trace"]
+    # a trace without the card's render kernels has no frame to split
+    if data is None or not trace_events.render_kernels(data):
+        return None
+    spans = [(s, e) for s, e, n in trace_events._clip(data["host"],
+                                                      data["window"])
+             if n == SPAN]
+    if not spans:
+        return None
+    return sum(e - s for s, e in spans) / 1e3 / ctx["frames"]

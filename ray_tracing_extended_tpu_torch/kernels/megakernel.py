@@ -94,6 +94,16 @@ from ..ops.intersect import (
 )
 from ..ops.trace import dup_intersect, trace, trace_segment
 from ..utils.config import RenderConfig
+from ..utils.profiling import (
+    REFILL_LANE_PASS,
+    REFILL_PHASE1,
+    REFILL_PHASE2,
+    WRAPPER_LAUNCH,
+    WRAPPER_TABLE_BUILD,
+    WRAPPER_TABLES,
+    WRAPPER_VISIT_BUILD,
+    annotate,
+)
 from .build import NVCC_FLAGS, BuildInfo, CudaLibrary
 from .pack import (
     CLUSTER,
@@ -1236,8 +1246,10 @@ def render_frames_plain(
         raise ValueError("no_cull takes the clustered scan without culls: "
                          "pass no intersect_fn")
     if intersect_fn is None:
-        intersect_fn = plain_intersector(scene, camera, cfg,
-                                         cull=probe != "no_cull")
+        # the plain version's counterpart of the launch's scene_tables
+        with annotate(WRAPPER_TABLES):
+            intersect_fn = plain_intersector(scene, camera, cfg,
+                                             cull=probe != "no_cull")
     if probe == "dup_intersect":
         intersect_fn = dup_intersect(intersect_fn)
     elif inst in ("stub_intersect", "stub_fetch"):
@@ -2652,15 +2664,18 @@ class PathTraceKernel:
                 events = [torch.cuda.Event(enable_timing=True)
                           for _ in range(5)]
                 events[0].record()
-            run(accum, mid, 1, scratch, tile_max, ts, slots, ppl, phases,
-                last_image=out if ppl > 1 else None)
+            with annotate(REFILL_PHASE1):
+                run(accum, mid, 1, scratch, tile_max, ts, slots, ppl, phases,
+                    last_image=out if ppl > 1 else None)
             if phase_one is not None:
                 events[1].record()
             resume = slots
             if ppl > 1:
-                resume = torch.empty_like(slots)
-                self.lane_pass(slots, resume, tile_max, lane_list, w,
-                               cfg.height, ts, ppl, phases, (y0, y1), perm)
+                with annotate(REFILL_LANE_PASS):
+                    resume = torch.empty_like(slots)
+                    self.lane_pass(slots, resume, tile_max, lane_list, w,
+                                   cfg.height, ts, ppl, phases, (y0, y1),
+                                   perm)
             if phase_one is not None:
                 events[4].record()
                 phase_one.update(segs=segs.clone(), tile_max=tile_max.clone(),
@@ -2670,8 +2685,9 @@ class PathTraceKernel:
                     phase_one.update(resume=resume.clone(),
                                      lane_list=lane_list.clone())
                 events[2].record()
-            run(mid, out, 2, scratch, tile_max, ts, resume, ppl, phases,
-                lane_list=lane_list)
+            with annotate(REFILL_PHASE2):
+                run(mid, out, 2, scratch, tile_max, ts, resume, ppl, phases,
+                    lane_list=lane_list)
             if phase_one is not None:
                 events[3].record()
         return out, segs.sum(dtype=torch.int64), segs, hist
@@ -2923,7 +2939,14 @@ def geometry_tables(scene: Scene, geom: str) -> KernelTables:
     cache = _scene_cache(scene)
     if geom in cache:
         return cache[geom]
+    with annotate(WRAPPER_TABLE_BUILD):
+        tab = _build_geometry_tables(scene, geom)
+    cache[geom] = tab
+    return tab
 
+
+def _build_geometry_tables(scene: Scene, geom: str) -> KernelTables:
+    """``geometry_tables``' build, counted in ``TABLE_BUILDS``."""
     t0 = time.perf_counter()
     dev = scene.device
     mat = scene.materials
@@ -3000,7 +3023,6 @@ def geometry_tables(scene: Scene, geom: str) -> KernelTables:
             bvh_node_table(bvh, tab.bvh_sentinel)).to(dev)
         tab.bvh_leaves = bvh.leaf_prims.to(torch.int32).contiguous()
         tab.bvh_node_count = bvh.left.shape[0]
-    cache[geom] = tab
     TABLE_BUILDS.builds += 1
     TABLE_BUILDS.seconds += time.perf_counter() - t0
     TABLE_BUILDS.cluster_seconds += tab.cluster_seconds
@@ -3065,7 +3087,8 @@ def visit_tables(scene: Scene, geom: str, camera: Camera) -> KernelTables:
     if (kept is not None and kept[0] is tab and kept[1] is pos
             and kept[2] == pos._version):
         return kept[3]
-    out = dataclasses.replace(tab, **front_to_back(tab, pos))
+    with annotate(WRAPPER_VISIT_BUILD):
+        out = dataclasses.replace(tab, **front_to_back(tab, pos))
     cache[("visit", geom)] = (tab, pos, pos._version, out)
     return out
 
@@ -3075,20 +3098,21 @@ def scene_tables(scene: Scene, camera: Camera, cfg: RenderConfig) -> KernelTable
     ``geometry(scene, cfg)``: the scene's part from ``geometry_tables`` with
     its clusters in the camera's visit order (``visit_tables``), the
     camera's and the environment's parameters made anew."""
-    env = scene.env
-    params = torch.cat(
-        [
-            camera.position, camera.rotation.reshape(-1),
-            camera_params(camera, cfg.width, cfg.height),
-            env.enabled.reshape(1), env.ground_colour,
-            env.sky_colour_horizon, env.sky_colour_zenith,
-            env.sun_focus.reshape(1), env.sun_intensity.reshape(1),
-            env.sun_dir,
-        ]
-    ).to(torch.float32)
-    return dataclasses.replace(
-        visit_tables(scene, geometry(scene, cfg), camera), params=params
-    )
+    with annotate(WRAPPER_TABLES):
+        env = scene.env
+        params = torch.cat(
+            [
+                camera.position, camera.rotation.reshape(-1),
+                camera_params(camera, cfg.width, cfg.height),
+                env.enabled.reshape(1), env.ground_colour,
+                env.sky_colour_horizon, env.sky_colour_zenith,
+                env.sun_focus.reshape(1), env.sun_intensity.reshape(1),
+                env.sun_dir,
+            ]
+        ).to(torch.float32)
+        return dataclasses.replace(
+            visit_tables(scene, geometry(scene, cfg), camera), params=params
+        )
 
 
 KERNEL = PathTraceKernel()
@@ -3142,17 +3166,19 @@ def render_frames_mega(
         band_rows(scene, cfg, rows)  # the kernel's rule, checked there too
         if tables is not None and tables not in TABLES:
             raise ValueError(f"tables must be one of {TABLES}, got {tables!r}")
-        return render_frames_plain(
-            scene, camera, cfg, frame0, n_frames, accum, collect_stats,
-            rows=rows, probe=probe, phase_one=phase_one,
-            pair_costs=pair_costs,
-        )
+        with annotate(WRAPPER_LAUNCH):
+            return render_frames_plain(
+                scene, camera, cfg, frame0, n_frames, accum, collect_stats,
+                rows=rows, probe=probe, phase_one=phase_one,
+                pair_costs=pair_costs,
+            )
     if dev.type == "cuda":
-        return KERNEL.launch(
-            scene, camera, cfg, frame0, n_frames, accum, collect_stats,
-            rows=rows, probe=probe, tables=tables, phase_one=phase_one,
-            pair_costs=pair_costs,
-        )
+        with annotate(WRAPPER_LAUNCH):
+            return KERNEL.launch(
+                scene, camera, cfg, frame0, n_frames, accum, collect_stats,
+                rows=rows, probe=probe, tables=tables, phase_one=phase_one,
+                pair_costs=pair_costs,
+            )
     raise ValueError(f"no render path for device {dev}")
 
 

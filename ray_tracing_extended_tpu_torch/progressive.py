@@ -7,8 +7,11 @@ Counterpart of ``ray_tracing_extended_tpu/progressive.py``
 frames): render on the scene's device, or over a mesh of devices
 (``parallel/sharding.py``), fold into the running average with the
 reference's 1/(frame + 1) weight, optionally checkpoint (atomically) and
-emit one JSONL metrics line. The host waits for the device once a frame or
-chunk, when it reads the segment count.
+emit one JSONL metrics line. The host waits for the device when it reads
+a frame's or chunk's segment count; with a metrics logger a single frame
+waits twice more, to read back its bounce histogram and its running
+variance. Under a profiler each step's parts are named spans
+(``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -27,7 +30,17 @@ from .render import render_frame_with_stats, render_frames_and_accumulate
 from .utils import checkpoint as ckpt
 from .utils.config import RenderConfig
 from .utils.metrics import FrameMetrics, MetricsLogger
-from .utils.profiling import check_launch
+from .utils.profiling import (
+    DRIVER_CHECKPOINT,
+    DRIVER_FOLD,
+    DRIVER_LOG,
+    DRIVER_RESUME,
+    DRIVER_STATS,
+    DRIVER_STEP,
+    DRIVER_WAIT,
+    annotate,
+    check_launch,
+)
 
 
 def _layout(scene: Scene):
@@ -137,21 +150,23 @@ def render_progressive(
                         device=dev)
     fingerprint = None
     if checkpoint_path is not None:
-        # the whole camera path and animation are part of the fingerprint
-        fingerprint = ckpt.state_hash(
-            scene, cameras if cameras is not None else camera, cfg
-        )
-        if scenes is not None:
-            hs = hashlib.sha256()
-            for sc in scenes:
-                hs.update(ckpt.hash_tree(sc).encode())
-            fingerprint += ":scenes:" + hs.hexdigest()[:16]
-        if reset_on_move:
-            # run-relative weights are another accumulation scheme
-            fingerprint += ":reset_on_move"
-        if resume and os.path.exists(checkpoint_path):
-            accum_np, start_frame = ckpt.load(checkpoint_path, fingerprint)
-            accum = torch.from_numpy(accum_np).to(dev)
+        with annotate(DRIVER_RESUME):
+            # the whole camera path and animation are part of the
+            # fingerprint
+            fingerprint = ckpt.state_hash(
+                scene, cameras if cameras is not None else camera, cfg
+            )
+            if scenes is not None:
+                hs = hashlib.sha256()
+                for sc in scenes:
+                    hs.update(ckpt.hash_tree(sc).encode())
+                fingerprint += ":scenes:" + hs.hexdigest()[:16]
+            if reset_on_move:
+                # run-relative weights are another accumulation scheme
+                fingerprint += ":reset_on_move"
+            if resume and os.path.exists(checkpoint_path):
+                accum_np, start_frame = ckpt.load(checkpoint_path, fingerprint)
+                accum = torch.from_numpy(accum_np).to(dev)
     end = start_frame + frames
     for name, seq in (("cameras", cameras), ("scenes", scenes)):
         if seq is not None and len(seq) < end:
@@ -161,7 +176,8 @@ def render_progressive(
             )
 
     def save(accum, frame):
-        ckpt.save(checkpoint_path, accum, frame, fingerprint)
+        with annotate(DRIVER_CHECKPOINT):
+            ckpt.save(checkpoint_path, accum, frame, fingerprint)
 
     if batch > 1:
         # each chunk's per-pixel counts pair the next one's refill lanes by
@@ -169,24 +185,28 @@ def render_progressive(
         cmap = None
         f = start_frame
         while f < end:
-            k = min(batch, end - f)
-            t0 = time.perf_counter()
-            accum, segs, cmap = render_frames_and_accumulate(
-                scene, camera, cfg, accum, f, k, pair_costs=cmap,
-                segs_map=True
-            )
-            segs = int(segs)  # one host sync per chunk
-            wall = time.perf_counter() - t0
-            f += k
-            if metrics is not None:
-                metrics.log(FrameMetrics(
-                    frame=f - 1, wall_s=wall, rays=segs,
-                    pixels=cfg.num_pixels, spp=cfg.spp * k,
-                    extra={"batched_frames": k},
-                ))
-            if (checkpoint_path is not None and checkpoint_every
-                    and f // checkpoint_every > (f - k) // checkpoint_every):
-                save(accum, f)
+            with annotate(DRIVER_STEP):
+                k = min(batch, end - f)
+                t0 = time.perf_counter()
+                accum, segs, cmap = render_frames_and_accumulate(
+                    scene, camera, cfg, accum, f, k, pair_costs=cmap,
+                    segs_map=True
+                )
+                with annotate(DRIVER_WAIT):
+                    segs = int(segs)  # one host sync per chunk
+                wall = time.perf_counter() - t0
+                f += k
+                if metrics is not None:
+                    with annotate(DRIVER_LOG):
+                        metrics.log(FrameMetrics(
+                            frame=f - 1, wall_s=wall, rays=segs,
+                            pixels=cfg.num_pixels, spp=cfg.spp * k,
+                            extra={"batched_frames": k},
+                        ))
+                if (checkpoint_path is not None and checkpoint_every
+                        and f // checkpoint_every
+                        > (f - k) // checkpoint_every):
+                    save(accum, f)
         if checkpoint_path is not None:
             save(accum, end)
         return accum
@@ -203,44 +223,54 @@ def render_progressive(
     want_stats = metrics is not None
     m2 = torch.zeros_like(accum) if want_stats else None
     for f in range(start_frame, end):
-        cam = cameras[f] if cameras is not None else camera
-        sc = scenes[f] if scenes is not None else scene
-        if reset_on_move and f > start_frame and not _same_cam(cameras[f - 1], cam):
-            seg0 = f
-            if want_stats:
-                m2 = torch.zeros_like(accum)
-        t0 = time.perf_counter()
-        out = render_frame_with_stats(sc, cam, cfg, f, bounce_stats=want_stats)
-        cur, segs = out[0], out[1]
-        prev = accum
-        # reset_on_move folds with run-relative weights (a fresh render of
-        # the run); otherwise the reference's global 1/(f + 1)
-        wf = (f - seg0) if reset_on_move else f
-        accum = accumulate(accum, cur, wf, clamp=cfg.clamp_accumulate)
-        check_launch(f, 1, {"accumulator": accum})
-        # Welford step, skipped on a weight-1 restart: M2 is 0 at n = 1,
-        # and the stale prev would corrupt the restarted signal
-        if want_stats and not (reset_on_move and f == seg0):
-            m2 = m2 + (cur - prev) * (cur - accum)
-        segs = int(segs)  # waits for the frame
-        wall = time.perf_counter() - t0
-        if metrics is not None:
-            counts = out[2].cpu().tolist()
-            paths = max(int(counts[0]), 1)
-            extra = {"alive_frac": [round(c / paths, 4) for c in counts]}
-            # frames covered by m2: since the last camera move (reset mode)
-            # or since this invocation started
-            n = (f - max(seg0, start_frame) + 1) if reset_on_move else (
-                f - start_frame + 1)
-            if n >= 2:
-                extra["accum_var"] = float(m2.mean()) / (n * (n - 1))
-            metrics.log(FrameMetrics(
-                frame=f, wall_s=wall, rays=segs, pixels=cfg.num_pixels,
-                spp=cfg.spp, extra=extra,
-            ))
-        if (checkpoint_path is not None and checkpoint_every
-                and (f + 1) % checkpoint_every == 0):
-            save(accum, f + 1)
+        with annotate(DRIVER_STEP):
+            cam = cameras[f] if cameras is not None else camera
+            sc = scenes[f] if scenes is not None else scene
+            if (reset_on_move and f > start_frame
+                    and not _same_cam(cameras[f - 1], cam)):
+                seg0 = f
+                if want_stats:
+                    m2 = torch.zeros_like(accum)
+            t0 = time.perf_counter()
+            out = render_frame_with_stats(sc, cam, cfg, f,
+                                          bounce_stats=want_stats)
+            cur, segs = out[0], out[1]
+            with annotate(DRIVER_FOLD):
+                prev = accum
+                # reset_on_move folds with run-relative weights (a fresh
+                # render of the run); otherwise the reference's global
+                # 1/(f + 1)
+                wf = (f - seg0) if reset_on_move else f
+                accum = accumulate(accum, cur, wf, clamp=cfg.clamp_accumulate)
+                check_launch(f, 1, {"accumulator": accum})
+                # Welford step, skipped on a weight-1 restart: M2 is 0 at
+                # n = 1, and the stale prev would corrupt the restarted
+                # signal
+                if want_stats and not (reset_on_move and f == seg0):
+                    m2 = m2 + (cur - prev) * (cur - accum)
+            with annotate(DRIVER_WAIT):
+                segs = int(segs)  # waits for the frame
+            wall = time.perf_counter() - t0
+            if metrics is not None:
+                with annotate(DRIVER_STATS):
+                    counts = out[2].cpu().tolist()
+                    paths = max(int(counts[0]), 1)
+                    extra = {"alive_frac": [round(c / paths, 4)
+                                            for c in counts]}
+                    # frames covered by m2: since the last camera move
+                    # (reset mode) or since this invocation started
+                    n = ((f - max(seg0, start_frame) + 1) if reset_on_move
+                         else (f - start_frame + 1))
+                    if n >= 2:
+                        extra["accum_var"] = float(m2.mean()) / (n * (n - 1))
+                with annotate(DRIVER_LOG):
+                    metrics.log(FrameMetrics(
+                        frame=f, wall_s=wall, rays=segs,
+                        pixels=cfg.num_pixels, spp=cfg.spp, extra=extra,
+                    ))
+            if (checkpoint_path is not None and checkpoint_every
+                    and (f + 1) % checkpoint_every == 0):
+                save(accum, f + 1)
 
     if checkpoint_path is not None:
         save(accum, end)
@@ -292,14 +322,15 @@ def _render_progressive_sharded(
     accum = torch.zeros((cfg.height, cfg.width, 3), dtype=torch.float32)
     fingerprint = None
     if checkpoint_path is not None:
-        fingerprint = ckpt.state_hash(
-            scene, cameras if cameras is not None else camera, cfg
-        )
-        if reset_on_move:
-            fingerprint += ":reset_on_move"
-        if resume and os.path.exists(checkpoint_path):
-            accum_np, start = ckpt.load(checkpoint_path, fingerprint)
-            accum = torch.from_numpy(accum_np)
+        with annotate(DRIVER_RESUME):
+            fingerprint = ckpt.state_hash(
+                scene, cameras if cameras is not None else camera, cfg
+            )
+            if reset_on_move:
+                fingerprint += ":reset_on_move"
+            if resume and os.path.exists(checkpoint_path):
+                accum_np, start = ckpt.load(checkpoint_path, fingerprint)
+                accum = torch.from_numpy(accum_np)
     end = start + frames
     if cameras is not None and len(cameras) < end:
         raise ValueError(
@@ -312,8 +343,10 @@ def _render_progressive_sharded(
     shape = dict(mesh.shape)
 
     def save(bands, step):
-        ckpt.save(checkpoint_path, sharding.mega_bands_to_image(bands, cfg),
-                  step, fingerprint)
+        with annotate(DRIVER_CHECKPOINT):
+            ckpt.save(checkpoint_path,
+                      sharding.mega_bands_to_image(bands, cfg), step,
+                      fingerprint)
 
     if batch > 1:
         # chained cost maps as on one device, from a zeros map, as the JAX
@@ -322,25 +355,29 @@ def _render_progressive_sharded(
                 for b in bands]
         s = start
         while s < end:
-            k = min(batch, end - s)
-            t0 = time.perf_counter()
-            bands, segs, cmap = sharding.render_frames_mega_sharded(
-                scene, camera, cfg, s, bands, k, mesh, pair_costs=cmap
-            )
-            for band, (y0, _) in zip(bands, rows):
-                check_launch(s, k, {"accumulator": band}, row0=y0)
-            segs = int(segs)  # one host sync per chunk
-            wall = time.perf_counter() - t0
-            s += k
-            if metrics is not None:
-                metrics.log(FrameMetrics(
-                    frame=s - 1, wall_s=wall, rays=segs,
-                    pixels=cfg.num_pixels, spp=cfg.spp * k,
-                    extra={"batched_frames": k, "mesh": shape},
-                ))
-            if (checkpoint_path is not None and checkpoint_every
-                    and s // checkpoint_every > (s - k) // checkpoint_every):
-                save(bands, s)
+            with annotate(DRIVER_STEP):
+                k = min(batch, end - s)
+                t0 = time.perf_counter()
+                bands, segs, cmap = sharding.render_frames_mega_sharded(
+                    scene, camera, cfg, s, bands, k, mesh, pair_costs=cmap
+                )
+                for band, (y0, _) in zip(bands, rows):
+                    check_launch(s, k, {"accumulator": band}, row0=y0)
+                with annotate(DRIVER_WAIT):
+                    segs = int(segs)  # one host sync per chunk
+                wall = time.perf_counter() - t0
+                s += k
+                if metrics is not None:
+                    with annotate(DRIVER_LOG):
+                        metrics.log(FrameMetrics(
+                            frame=s - 1, wall_s=wall, rays=segs,
+                            pixels=cfg.num_pixels, spp=cfg.spp * k,
+                            extra={"batched_frames": k, "mesh": shape},
+                        ))
+                if (checkpoint_path is not None and checkpoint_every
+                        and s // checkpoint_every
+                        > (s - k) // checkpoint_every):
+                    save(bands, s)
         if checkpoint_path is not None:
             save(bands, end)
         return sharding.mega_bands_to_image(bands, cfg)
@@ -350,29 +387,35 @@ def _render_progressive_sharded(
         while seg0 > 0 and _same_cam(cameras[seg0 - 1], cameras[seg0]):
             seg0 -= 1
     for s in range(start, end):
-        cam = cameras[s] if cameras is not None else camera
-        if reset_on_move and s > start and not _same_cam(cameras[s - 1], cam):
-            seg0 = s
-        t0 = time.perf_counter()
-        images, segs = sharding.render_frame_mega_bands(
-            scene, cam, cfg, s * spp_size, mesh
-        )
-        ws = (s - seg0) if reset_on_move else s
-        bands = [accumulate(acc, img, ws, clamp=cfg.clamp_accumulate)
-                 for acc, img in zip(bands, images)]
-        for band, img, (y0, _) in zip(bands, images, rows):
-            check_launch(s * spp_size, spp_size,
-                         {"image": img, "accumulator": band}, row0=y0)
-        segs = int(segs)  # one host sync per step
-        wall = time.perf_counter() - t0
-        if metrics is not None:
-            metrics.log(FrameMetrics(
-                frame=s, wall_s=wall, rays=segs, pixels=cfg.num_pixels,
-                spp=cfg.spp * spp_size, extra={"mesh": shape},
-            ))
-        if (checkpoint_path is not None and checkpoint_every
-                and (s + 1) % checkpoint_every == 0):
-            save(bands, s + 1)
+        with annotate(DRIVER_STEP):
+            cam = cameras[s] if cameras is not None else camera
+            if (reset_on_move and s > start
+                    and not _same_cam(cameras[s - 1], cam)):
+                seg0 = s
+            t0 = time.perf_counter()
+            images, segs = sharding.render_frame_mega_bands(
+                scene, cam, cfg, s * spp_size, mesh
+            )
+            with annotate(DRIVER_FOLD):
+                ws = (s - seg0) if reset_on_move else s
+                bands = [accumulate(acc, img, ws, clamp=cfg.clamp_accumulate)
+                         for acc, img in zip(bands, images)]
+                for band, img, (y0, _) in zip(bands, images, rows):
+                    check_launch(s * spp_size, spp_size,
+                                 {"image": img, "accumulator": band}, row0=y0)
+            with annotate(DRIVER_WAIT):
+                segs = int(segs)  # one host sync per step
+            wall = time.perf_counter() - t0
+            if metrics is not None:
+                with annotate(DRIVER_LOG):
+                    metrics.log(FrameMetrics(
+                        frame=s, wall_s=wall, rays=segs,
+                        pixels=cfg.num_pixels, spp=cfg.spp * spp_size,
+                        extra={"mesh": shape},
+                    ))
+            if (checkpoint_path is not None and checkpoint_every
+                    and (s + 1) % checkpoint_every == 0):
+                save(bands, s + 1)
     if checkpoint_path is not None:
         save(bands, end)
     return sharding.mega_bands_to_image(bands, cfg)

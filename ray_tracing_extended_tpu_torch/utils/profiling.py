@@ -7,6 +7,39 @@ there is a card, CUDA activity) and writes a Chrome trace into ``logdir``
 ``debug_mode()`` checks every launch's outputs for NaN and Inf, and can
 synchronise after each launch (``check_launch``, called by ``render.py``
 and ``progressive.py``).
+
+The program's spans, opened through ``annotate`` at its layers'
+boundaries, are named ``<layer>.<part>`` by the constants below. A span
+is a ``torch.profiler.record_function`` while a profiler records, so it
+lands in the Chrome trace as a ``user_annotation`` event on the clock of
+the card's kernels and copies; with no profiler running ``annotate``
+returns one shared context that does nothing (about a tenth of a
+``record_function``'s cost). A span never synchronises the device and
+reads nothing back. Spans nest by time on the host thread; a frame's (or
+a K-frame chunk's) spans lie inside its ``driver.step``:
+
+- ``driver.resume``: a ``render_progressive`` call's checkpoint
+  fingerprint, load and copy to the device (with a checkpoint path);
+- ``driver.step``: one frame, chunk or mesh step of its loop, from the
+  loop's top through its metrics line and checkpoint;
+- ``driver.fold``: a per-frame step's fold into the average, its launch
+  check and the running variance's update;
+- ``driver.wait``: the read of the step's segment count, which waits for
+  its device work;
+- ``driver.stats``: with a metrics logger, a frame's bounce histogram and
+  variance read back (two more waits) and the line's extras;
+- ``driver.log``: the metrics line;
+- ``driver.checkpoint``: a checkpoint written;
+- ``wrapper.launch``: ``render_frames_mega``'s dispatch, the host side of
+  a launch (the plain version's whole render on the CPU), one a band;
+- ``wrapper.tables``: the launch's tables looked up (the camera's and the
+  environment's parameters, the visit order);
+- ``wrapper.table_build``, ``wrapper.visit_build``: a scene's tables, and
+  a camera's visit order, built on a cache miss;
+- ``refill.phase1``, ``refill.lane_pass``, ``refill.phase2``: the launches
+  of an adaptive-refill call on the card (the lane pass only with more
+  than one pixel a lane), so that a trace tells refill's two
+  ``render_adaptive`` launches apart.
 """
 
 from __future__ import annotations
@@ -16,6 +49,28 @@ import dataclasses
 import os
 
 import torch
+
+DRIVER_RESUME = "driver.resume"
+DRIVER_STEP = "driver.step"
+DRIVER_FOLD = "driver.fold"
+DRIVER_WAIT = "driver.wait"
+DRIVER_STATS = "driver.stats"
+DRIVER_LOG = "driver.log"
+DRIVER_CHECKPOINT = "driver.checkpoint"
+WRAPPER_LAUNCH = "wrapper.launch"
+WRAPPER_TABLES = "wrapper.tables"
+WRAPPER_TABLE_BUILD = "wrapper.table_build"
+WRAPPER_VISIT_BUILD = "wrapper.visit_build"
+REFILL_PHASE1 = "refill.phase1"
+REFILL_LANE_PASS = "refill.lane_pass"
+REFILL_PHASE2 = "refill.phase2"
+SPANS = (DRIVER_RESUME, DRIVER_STEP, DRIVER_FOLD, DRIVER_WAIT, DRIVER_STATS,
+         DRIVER_LOG, DRIVER_CHECKPOINT, WRAPPER_LAUNCH, WRAPPER_TABLES,
+         WRAPPER_TABLE_BUILD, WRAPPER_VISIT_BUILD, REFILL_PHASE1,
+         REFILL_LANE_PASS, REFILL_PHASE2)
+
+# what ``annotate`` returns while no profiler records
+NO_SPAN = contextlib.nullcontext()
 
 
 @contextlib.contextmanager
@@ -105,5 +160,9 @@ def check_launch(frame0, n_frames: int, outputs: dict, row0: int = 0) -> None:
 
 
 def annotate(name: str):
-    """Named profiler span for host-side phases."""
-    return torch.profiler.record_function(name)
+    """A named span (one of ``SPANS``): ``with annotate(DRIVER_STEP): ...``.
+    A ``torch.profiler.record_function`` while a profiler records, else
+    ``NO_SPAN``."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return NO_SPAN
