@@ -156,11 +156,37 @@
 //   loads a chunk: a chunk behind the origin, or beyond the best hit so
 //   far (spheres are tested first), is skipped. The reference's gate
 //   (RayTracing.shader:177-187 at :279-281) passes every chunk the ray's
-//   line meets. A scene of more than one run of 32 chunks gets a second
-//   level, the TPU kernel's super-cluster: one box over each run, behind
-//   the same test, and a run that fails it is skipped whole (Chess, 440
-//   chunks in 14 runs, 1280x720, 3 spp, 15 bounces: 5.1 ms a frame with
-//   it, 7.7 without, on an NVIDIA H100 80GB HBM3 at 700 W). The TPU kernel
+//   line meets. Above the chunks, box levels sized for the warp, built
+//   from the chunk count (kernels/megakernel.py super_levels, F =
+//   SUPER_CHUNKS = super_size): past F chunks one box over each run of F
+//   consecutive chunks, past F * F also one box over each run of F of
+//   those, each box the exact union of its members' boxes (a chunk without
+//   triangles takes no part). The gates run top down behind the same
+//   test, and a run whose box fails is skipped whole (the TPU kernel's
+//   super-cluster is one such level over runs of 32). One level of runs
+//   of 32 took Chess (440 chunks, 1280x720, 3 spp, 15 bounces) from 7.7 to
+//   5.1 ms a frame on an NVIDIA H100 80GB HBM3 at 700 W; but a ray that
+//   enters a run of 32 tests all 32 chunk boxes: Chess's segments made
+//   141 box tests against 27 triangle tests (the plain version's count of
+//   a 96x54 frame). Two levels of F = 6 (74 and 13 boxes on Chess) make
+//   59 and took Chess from 4.112 to 2.633 ms a frame exact, 8.340 to 5.330
+//   with refill (tools/scan_ab.py, 10 turns; one level of runs of 6, 8 or
+//   16: 2.885, 2.924, 3.131; two of 7 or 8: 2.681, 2.843); two of F = 4
+//   (110 and 28 boxes) make 62, but a warp pays the union of its lanes'
+//   tests, and smaller runs shrink it: 0.990x F = 6's frame exact, 0.973x
+//   with refill, and 1.021x its samples a second on the benchmark's
+//   chess.batch cell (1920x1080; F = 5 1.02x slower, PERF.md). All on an
+//   NVIDIA H100 80GB HBM3 at 700 W. The loops' extra state raised the
+//   kChunks spills (PTXAS_PRODUCTION) and cost less than the boxes saved.
+//   The levels change no result, bit for bit, by construction: the chunks
+//   keep their order, so every gate sees the best t it saw without them,
+//   and a box holds each member's box, so its slab interval holds the
+//   member's (lo - o and its product by inv_d are monotone under
+//   rounding; an axis that is NaN for the member is NaN or +-inf for the
+//   box, and neither rejects): a box's gate passes wherever a member's
+//   would, and no level culls a chunk that the chunk's own gate would
+//   pass. The winners, images and segment counts are those of the scan
+//   without levels. The TPU kernel
 //   votes a triangle sub-cluster in or out for its tile and tests it
 //   across the tile's rays (megakernel.py:1333-1365); the chunk
 //   instantiations do so on a warp, as the sphere ones do with clusters
@@ -541,10 +567,13 @@ struct Triangles {
   const int* __restrict__ mat;  // material index a triangle
   const float4* chunks;  // two float4s a chunk
   int n_chunks;
-  // two float4s (box min, box max) over each run of super_size chunks;
-  // n_supers == 0: no second level
+  // the box levels, two float4s (box min, box max) a box: over each run of
+  // super_size chunks (n_supers == 0: no box level), and over each run of
+  // super_size of those (n_tops == 0: one level at most)
   const float4* supers;
   int n_supers, super_size;
+  const float4* tops;
+  int n_tops;
   const float4* __restrict__ nodes;  // kNodeRow4 float4s a row
   const int4* __restrict__ leaves;  // kLeafWidth indices a leaf
   int n_nodes;  // the BVH's nodes
@@ -688,42 +717,55 @@ __device__ __forceinline__ void scan_chunk_warp(Triangles<kTab> tri,
   }
 }
 
+// The gate of box k of a level's rows (two float4s a box).
+template <Tables kTab>
+__device__ __forceinline__ bool level_gate(const float4* rows, int k, Vec3 o,
+                                           Vec3 inv_d, float best_t) {
+  return box_gate(table_load<kTab>(rows + 2 * k),
+                  table_load<kTab>(rows + 2 * k + 1), o, inv_d, best_t);
+}
+
 // Closest triangle of the chunks that pass the gate, in index order, each
 // lane on its own; a strictly nearer hit wins, so the lower index wins a
 // tie and a triangle never takes a tie from a sphere (tested before). With
-// a second level, a run of chunks is entered only if the box over it
-// passes the same gate.
+// box levels, a run of chunks is entered only if the box over it passes
+// the same gate, and with two a run of those boxes only if the top box
+// over it does.
 template <Tables kTab>
 __device__ __forceinline__ void closest_triangle(Triangles<kTab> tri, Vec3 o,
                                                  Vec3 d, Vec3 inv_d,
                                                  float& best_t,
                                                  int& best_tri) {
-  const int n_outer = tri.n_supers > 0 ? tri.n_supers : 1;
-  for (int s = 0; s < n_outer; ++s) {
-    int c = 0, c_end = tri.n_chunks;
-    if (tri.n_supers > 0) {
-      if (!box_gate(table_load<kTab>(tri.supers + 2 * s),
-                    table_load<kTab>(tri.supers + 2 * s + 1), o, inv_d,
-                    best_t)) {
-        continue;
-      }
-      c = tri.super_size * s;
-      c_end = min(c + tri.super_size, tri.n_chunks);
+  const int n_tops = tri.n_tops > 0 ? tri.n_tops : 1;
+  for (int g = 0; g < n_tops; ++g) {
+    int s = 0, s_end = tri.n_supers > 0 ? tri.n_supers : 1;
+    if (tri.n_tops > 0) {
+      if (!level_gate<kTab>(tri.tops, g, o, inv_d, best_t)) continue;
+      s = tri.super_size * g;
+      s_end = min(s + tri.super_size, tri.n_supers);
     }
-    for (; c < c_end; ++c) {
-      const float4 lo = table_load<kTab>(tri.chunks + 2 * c);
-      const float4 hi = table_load<kTab>(tri.chunks + 2 * c + 1);
-      if (!box_gate(lo, hi, o, inv_d, best_t)) continue;
-      const int first = __float_as_int(lo.w);
-      const int end = first + __float_as_int(hi.w);
-      for (int i = first; i < end; ++i) {
-        float t;
-        if (chunk_triangle_hit(__ldg(tri.rows + kTri4 * i),
-                               __ldg(tri.rows + kTri4 * i + 1),
-                               __ldg(tri.rows + kTri4 * i + 2), o, d, t) &&
-            t < best_t) {
-          best_t = t;
-          best_tri = i;
+    for (; s < s_end; ++s) {
+      int c = 0, c_end = tri.n_chunks;
+      if (tri.n_supers > 0) {
+        if (!level_gate<kTab>(tri.supers, s, o, inv_d, best_t)) continue;
+        c = tri.super_size * s;
+        c_end = min(c + tri.super_size, tri.n_chunks);
+      }
+      for (; c < c_end; ++c) {
+        const float4 lo = table_load<kTab>(tri.chunks + 2 * c);
+        const float4 hi = table_load<kTab>(tri.chunks + 2 * c + 1);
+        if (!box_gate(lo, hi, o, inv_d, best_t)) continue;
+        const int first = __float_as_int(lo.w);
+        const int end = first + __float_as_int(hi.w);
+        for (int i = first; i < end; ++i) {
+          float t;
+          if (chunk_triangle_hit(__ldg(tri.rows + kTri4 * i),
+                                 __ldg(tri.rows + kTri4 * i + 1),
+                                 __ldg(tri.rows + kTri4 * i + 2), o, d, t) &&
+              t < best_t) {
+            best_t = t;
+            best_tri = i;
+          }
         }
       }
     }
@@ -732,17 +774,19 @@ __device__ __forceinline__ void closest_triangle(Triangles<kTab> tri, Vec3 o,
 
 // The chunk geometry's closest triangle, run by every lane of the warp
 // (`live` lanes hold a ray; the others cast false in every vote and take
-// part in the shuffles): the chunks in index order, each behind the ballot
-// of its gate, with a second level each run of chunks behind the gate of
-// the box over it (a lane whose run box failed casts false for the run's
-// chunks), scan_chunk_warp for a chunk that any lane entered. A lane's
-// best is updated before the next gate, so each gate sees the best t of
-// the per-lane scan: a lane tests the chunks, and the triangles, that a
-// lane alone would. In a scene none of whose chunks could go across the
-// warp (tri.warp_scan: Cornell's six chunks of two triangles), the votes
-// would only cost: each live lane scans alone (closest_triangle). Cornell
-// 512x512, K = 4, ran 7-15% slower with the votes (tools/scan_ab.py on an
-// NVIDIA H100 80GB HBM3 at 700 W, PERF.md).
+// part in the shuffles): the levels top down in index order. A top box's
+// gate is each live lane's own, and the warp enters its run of boxes if
+// any lane passed (__any_sync); so a box over a run of chunks; then each
+// chunk of an entered run behind the ballot of its gate, scan_chunk_warp
+// for a chunk that any lane entered. A lane whose box failed at a level
+// casts false beneath it. A lane's best is updated before the next gate,
+// so each gate sees the best t of the per-lane scan: a lane tests the
+// boxes, chunks and triangles that a lane alone would. In a scene none of
+// whose chunks could go across the warp (tri.warp_scan: Cornell's six
+// chunks of two triangles), the votes would only cost: each live lane
+// scans alone (closest_triangle). Cornell 512x512, K = 4, ran 7-15% slower
+// with the votes (tools/scan_ab.py on an NVIDIA H100 80GB HBM3 at 700 W,
+// PERF.md).
 template <Tables kTab>
 __device__ __forceinline__ void closest_triangle_warp(Triangles<kTab> tri,
                                                       bool live, Vec3 o,
@@ -753,26 +797,35 @@ __device__ __forceinline__ void closest_triangle_warp(Triangles<kTab> tri,
     if (live) closest_triangle(tri, o, d, inv_d, best_t, best_tri);
     return;
   }
-  const int n_outer = tri.n_supers > 0 ? tri.n_supers : 1;
-  for (int s = 0; s < n_outer; ++s) {
-    int c = 0, c_end = tri.n_chunks;
-    bool entered = live;
-    if (tri.n_supers > 0) {
-      entered = live && box_gate(table_load<kTab>(tri.supers + 2 * s),
-                                 table_load<kTab>(tri.supers + 2 * s + 1), o,
-                                 inv_d, best_t);
-      if (!__any_sync(kFullMask, entered)) continue;
-      c = tri.super_size * s;
-      c_end = min(c + tri.super_size, tri.n_chunks);
+  const int n_tops = tri.n_tops > 0 ? tri.n_tops : 1;
+  for (int g = 0; g < n_tops; ++g) {
+    int s = 0, s_end = tri.n_supers > 0 ? tri.n_supers : 1;
+    bool in_top = live;
+    if (tri.n_tops > 0) {
+      in_top = live && level_gate<kTab>(tri.tops, g, o, inv_d, best_t);
+      if (!__any_sync(kFullMask, in_top)) continue;
+      s = tri.super_size * g;
+      s_end = min(s + tri.super_size, tri.n_supers);
     }
-    for (; c < c_end; ++c) {
-      const float4 lo = table_load<kTab>(tri.chunks + 2 * c);
-      const float4 hi = table_load<kTab>(tri.chunks + 2 * c + 1);
-      const unsigned m = __ballot_sync(
-          kFullMask, entered && box_gate(lo, hi, o, inv_d, best_t));
-      if (m != 0u) {
-        scan_chunk_warp(tri, m, __float_as_int(lo.w), __float_as_int(hi.w), o,
-                        d, best_t, best_tri);
+    for (; s < s_end; ++s) {
+      int c = 0, c_end = tri.n_chunks;
+      bool entered = in_top;
+      if (tri.n_supers > 0) {
+        entered =
+            in_top && level_gate<kTab>(tri.supers, s, o, inv_d, best_t);
+        if (!__any_sync(kFullMask, entered)) continue;
+        c = tri.super_size * s;
+        c_end = min(c + tri.super_size, tri.n_chunks);
+      }
+      for (; c < c_end; ++c) {
+        const float4 lo = table_load<kTab>(tri.chunks + 2 * c);
+        const float4 hi = table_load<kTab>(tri.chunks + 2 * c + 1);
+        const unsigned m = __ballot_sync(
+            kFullMask, entered && box_gate(lo, hi, o, inv_d, best_t));
+        if (m != 0u) {
+          scan_chunk_warp(tri, m, __float_as_int(lo.w), __float_as_int(hi.w),
+                          o, d, best_t, best_tri);
+        }
       }
     }
   }
@@ -1515,8 +1568,11 @@ struct Args {
   const int* __restrict__ tri_mat;
   const float4* __restrict__ chunks;  // two float4s a chunk
   int n_chunks;
-  const float4* __restrict__ supers;  // two float4s a run of chunks
-  int n_supers, super_size;
+  // the chunk scan's box levels: two float4s a box, the n_supers over
+  // runs of super_size chunks, then the n_tops over runs of super_size of
+  // those
+  const float4* __restrict__ supers;
+  int n_supers, super_size, n_tops;
   const float4* __restrict__ bvh_nodes;
   const int4* __restrict__ bvh_leaves;
   int n_nodes;
@@ -1561,16 +1617,17 @@ struct Args {
 #endif
 };
 
-// Dynamic shared memory, in bytes. kStaged: the float4 tables first (super
-// boxes, chunks, sphere clusters, spheres), then the parameters, the
-// spheres' scene and material indices and the block's bounce histogram.
-// kGlobal: the parameters and the histogram only.
+// Dynamic shared memory, in bytes. kStaged: the float4 tables first (the
+// boxes of both chunk levels, chunks, sphere clusters, spheres), then the
+// parameters, the spheres' scene and material indices and the block's
+// bounce histogram. kGlobal: the parameters and the histogram only.
+// n_boxes counts the boxes of both levels.
 size_t shared_bytes(Tables tables, int n_sph, int n_clusters, int n_chunks,
-                    int n_supers, int max_bounce) {
+                    int n_boxes, int max_bounce) {
   if (tables == kGlobal) {
     return 4 * (kParams + static_cast<size_t>(max_bounce) + 1);
   }
-  const size_t float4s = 2 * (static_cast<size_t>(n_supers) + n_chunks +
+  const size_t float4s = 2 * (static_cast<size_t>(n_boxes) + n_chunks +
                               n_clusters) + n_sph;
   return 16 * float4s +
          4 * (kParams + 2 * static_cast<size_t>(n_sph) + max_bounce + 1);
@@ -1587,8 +1644,8 @@ struct Staged {
 
 // Every thread of the block takes part: stages the tables (kStaged) or only
 // the parameters (kGlobal, whose tables stay where Args points), zeroes the
-// histogram and waits for the block. rtx_render passes n_chunks and
-// n_supers as 0 unless the geometry is kChunks.
+// histogram and waits for the block. rtx_render passes n_chunks, n_supers
+// and n_tops as 0 unless the geometry is kChunks.
 template <Tables kTab>
 __device__ __forceinline__ Staged<kTab> stage_scene(float4* smem4,
                                                     const Args& a) {
@@ -1605,15 +1662,18 @@ __device__ __forceinline__ Staged<kTab> stage_scene(float4* smem4,
              a.n_clusters, a.sph_supers, a.n_sph_supers},
             s_hist,
             {a.tri_rows, a.tri_normals, a.tri_mat, a.chunks, a.n_chunks,
-             a.supers, a.n_supers, a.super_size, a.bvh_nodes, a.bvh_leaves,
-             a.n_nodes, a.chunk_warp_scan
+             a.supers, a.n_supers, a.super_size, a.supers + 2 * a.n_supers,
+             a.n_tops, a.bvh_nodes, a.bvh_leaves, a.n_nodes,
+             a.chunk_warp_scan
 #ifdef RTX_PROBES
              , a.n_tris
 #endif
             }};
   }
+  // the two box levels, one after the other as in Args
+  const int n_boxes = a.n_supers + a.n_tops;
   float4* supers = smem4;
-  float4* chunks = supers + 2 * a.n_supers;
+  float4* chunks = supers + 2 * n_boxes;
   float4* clusters = chunks + 2 * a.n_chunks;
   float4* rows = clusters + 2 * a.n_clusters;
   float* p = reinterpret_cast<float*>(rows + a.n_sph);
@@ -1621,7 +1681,7 @@ __device__ __forceinline__ Staged<kTab> stage_scene(float4* smem4,
   int* mat = orig + a.n_sph;
   int* s_hist = mat + a.n_sph;
 
-  for (int i = tid; i < 2 * a.n_supers; i += n_threads) supers[i] = a.supers[i];
+  for (int i = tid; i < 2 * n_boxes; i += n_threads) supers[i] = a.supers[i];
   for (int i = tid; i < 2 * a.n_chunks; i += n_threads) chunks[i] = a.chunks[i];
   for (int i = tid; i < 2 * a.n_clusters; i += n_threads) {
     clusters[i] = a.clusters[i];
@@ -1639,8 +1699,8 @@ __device__ __forceinline__ Staged<kTab> stage_scene(float4* smem4,
            a.n_sph_supers},
           s_hist,
           {a.tri_rows, a.tri_normals, a.tri_mat, chunks, a.n_chunks, supers,
-           a.n_supers, a.super_size, a.bvh_nodes, a.bvh_leaves, a.n_nodes,
-           a.chunk_warp_scan
+           a.n_supers, a.super_size, supers + 2 * a.n_supers, a.n_tops,
+           a.bvh_nodes, a.bvh_leaves, a.n_nodes, a.chunk_warp_scan
 #ifdef RTX_PROBES
            , a.n_tris
 #endif
@@ -2281,7 +2341,7 @@ cudaError_t allow_shared(Kernel kernel, size_t smem) {
 cudaError_t launch(Kernel kernel, Tables tables, const Args& a,
                    cudaStream_t stream) {
   const size_t smem = shared_bytes(tables, a.n_sph, a.n_clusters, a.n_chunks,
-                                   a.n_supers, a.max_bounce);
+                                   a.n_supers + a.n_tops, a.max_bounce);
   const cudaError_t err = allow_shared(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 block(kBlockX, kBlockY);
@@ -2301,8 +2361,8 @@ cudaError_t launch(Kernel kernel, Tables tables, const Args& a,
 }  // namespace
 
 // A launch's dynamic shared memory; `geometry` is a Geometry value,
-// `tables` a Tables value. The chunk table and its second level are staged
-// by kChunks only.
+// `tables` a Tables value, n_supers the boxes of both chunk levels. The
+// chunk table and its boxes are staged by kChunks only.
 extern "C" size_t rtx_shared_bytes(int geometry, int tables, int n_sph,
                                    int n_clusters, int n_chunks, int n_supers,
                                    int max_bounce) {
@@ -2336,8 +2396,11 @@ extern "C" int rtx_occupancy(int geometry, int tables, int adaptive,
 // scene without spheres), the clusters in visit order, and with
 // n_sph_supers > 0 a super row over each run of them (read in global memory
 // on both routes). kChunks and kBvh need the triangle tables
-// (tri_rows 16-byte aligned), kChunks the chunk table and, with n_supers
-// > 0, a box over each run of super_size chunks; kBvh the node table
+// (tri_rows 16-byte aligned), kChunks the chunk table and its n_supers
+// boxes: over each run of super_size chunks where there are more than
+// super_size chunks, then, where those boxes are more than super_size,
+// over each run of super_size of them (any other count is refused); kBvh
+// the node table
 // (64-byte aligned rows), the leaf rows and the BVH's node count (the
 // traversal's pop cap is 4 x nodes); the pointers a geometry does not read
 // may be null. `adaptive` picks render_adaptive over render_kernel,
@@ -2355,8 +2418,8 @@ extern "C" int rtx_occupancy(int geometry, int tables, int adaptive,
 // image without extra samples, and phase 2 takes the lane pass's
 // lane_list and runs over it; both null otherwise. Exact spp passes 0
 // and nulls there. Returns cudaGetLastError() after the launch,
-// cudaErrorInvalidValue without one for rows or refill arguments outside
-// those rules.
+// cudaErrorInvalidValue without one for rows, box rows or refill
+// arguments outside those rules.
 //
 // A probe library's entry is rtx_render_probe(probe, stub, n_tris,
 // geometry, ...): the same arguments after its Probe value, the stub row
@@ -2422,6 +2485,19 @@ extern "C" int rtx_render(
 #endif
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool by_chunks = geometry == kChunks;
+  // the box levels, whose counts follow from the chunk count
+  // (kernels/megakernel.py super_levels)
+  int n_runs = 0, n_tops = 0;
+  if (by_chunks && n_supers > 0) {
+    if (super_size <= 0 || n_chunks <= super_size) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    n_runs = (n_chunks + super_size - 1) / super_size;
+    if (n_runs > super_size) n_tops = (n_runs + super_size - 1) / super_size;
+    if (n_supers != n_runs + n_tops) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
   const Args a = {
       static_cast<const float4*>(sph),
       static_cast<const int*>(sph_orig),
@@ -2438,8 +2514,9 @@ extern "C" int rtx_render(
       static_cast<const float4*>(chunks),
       by_chunks ? n_chunks : 0,
       static_cast<const float4*>(supers),
-      by_chunks ? n_supers : 0,
+      n_runs,
       super_size,
+      n_tops,
       static_cast<const float4*>(bvh_nodes),
       static_cast<const int4*>(bvh_leaves),
       geometry == kBvh ? n_nodes : 0,

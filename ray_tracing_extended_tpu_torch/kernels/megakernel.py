@@ -135,9 +135,10 @@ BLOCK_X = 16
 BLOCK_Y = 8
 WARP = 32
 
-# The chunk scan's second level: one box over each run of this many chunks
-# (the TPU kernel's super-cluster of 32 sub-clusters).
-SUPER_CHUNKS = 32
+# The chunk scan's box levels (``super_levels``): one box over each run of
+# this many chunks in index order, and past this many squared one box over
+# each run of this many of those; chosen on the card (csrc/megakernel.cu).
+SUPER_CHUNKS = 4
 
 # The source's kWarpScanMax: in the kSpheres instantiations a cluster visit
 # whose gate ballot holds fewer live lanes runs the warp-cooperative scan (a
@@ -273,55 +274,59 @@ VARIANT_BVH = variant("bvh")
 # under a minimum of 8 blocks an SM (before it (64, 24, 32)),
 # render_adaptive's since refill runs in two launches (before them kSpheres
 # fast (64, 20, 28), kBvh (64, 4, 4), kBvh fast (64, 16, 24)), the lane
-# knobs' since phase 2 runs over the lane list.
+# knobs' since phase 2 runs over the lane list, and all sixteen kChunks
+# values since the chunk scan walks two box levels (before them 64/36/48
+# render_kernel staged, 64/28/44 global, 64/36/56 render_adaptive, 64/40/76
+# kKnobs, 64/32/36 render_listed; the A/B on the card measured the levels
+# with these spills, PERF.md).
 PTXAS_PRODUCTION = {
     "render_kernel<kSpheres>": (72, 0, 0),
-    "render_kernel<kChunks>": (64, 36, 48),
+    "render_kernel<kChunks>": (64, 40, 56),
     "render_kernel<kBvh>": (64, 4, 4),
     "render_kernel<kSpheres, kFastScatter>": (64, 20, 28),
-    "render_kernel<kChunks, kFastScatter>": (64, 36, 48),
+    "render_kernel<kChunks, kFastScatter>": (64, 40, 56),
     "render_kernel<kBvh, kFastScatter>": (64, 16, 20),
     "render_adaptive<kSpheres>": (72, 0, 0),
-    "render_adaptive<kChunks>": (64, 36, 56),
+    "render_adaptive<kChunks>": (64, 56, 96),
     "render_adaptive<kBvh>": (64, 4, 8),
     "render_adaptive<kSpheres, kFastScatter>": (72, 0, 0),
-    "render_adaptive<kChunks, kFastScatter>": (64, 36, 56),
+    "render_adaptive<kChunks, kFastScatter>": (64, 56, 96),
     "render_adaptive<kBvh, kFastScatter>": (64, 4, 8),
     "render_kernel<kSpheres, kBoxMuller, kGlobal>": (64, 16, 24),
-    "render_kernel<kChunks, kBoxMuller, kGlobal>": (64, 28, 44),
+    "render_kernel<kChunks, kBoxMuller, kGlobal>": (64, 40, 56),
     "render_kernel<kBvh, kBoxMuller, kGlobal>": (64, 8, 8),
     "render_kernel<kSpheres, kFastScatter, kGlobal>": (64, 16, 24),
-    "render_kernel<kChunks, kFastScatter, kGlobal>": (64, 28, 44),
+    "render_kernel<kChunks, kFastScatter, kGlobal>": (64, 40, 56),
     "render_kernel<kBvh, kFastScatter, kGlobal>": (64, 16, 24),
     "render_adaptive<kSpheres, kBoxMuller, kGlobal>": (64, 36, 64),
-    "render_adaptive<kChunks, kBoxMuller, kGlobal>": (64, 36, 56),
+    "render_adaptive<kChunks, kBoxMuller, kGlobal>": (64, 56, 96),
     "render_adaptive<kBvh, kBoxMuller, kGlobal>": (64, 4, 8),
     "render_adaptive<kSpheres, kFastScatter, kGlobal>": (64, 36, 64),
-    "render_adaptive<kChunks, kFastScatter, kGlobal>": (64, 36, 56),
+    "render_adaptive<kChunks, kFastScatter, kGlobal>": (64, 56, 96),
     "render_adaptive<kBvh, kFastScatter, kGlobal>": (64, 12, 16),
     "render_adaptive<kSpheres, kBoxMuller, kKnobs>": (72, 8, 20),
-    "render_adaptive<kChunks, kBoxMuller, kKnobs>": (64, 40, 76),
+    "render_adaptive<kChunks, kBoxMuller, kKnobs>": (64, 68, 120),
     "render_adaptive<kBvh, kBoxMuller, kKnobs>": (64, 4, 8),
     "render_adaptive<kSpheres, kFastScatter, kKnobs>": (72, 4, 8),
-    "render_adaptive<kChunks, kFastScatter, kKnobs>": (64, 40, 76),
+    "render_adaptive<kChunks, kFastScatter, kKnobs>": (64, 68, 120),
     "render_adaptive<kBvh, kFastScatter, kKnobs>": (64, 4, 8),
     "render_adaptive<kSpheres, kBoxMuller, kGlobal, kKnobs>": (64, 36, 88),
-    "render_adaptive<kChunks, kBoxMuller, kGlobal, kKnobs>": (64, 40, 76),
+    "render_adaptive<kChunks, kBoxMuller, kGlobal, kKnobs>": (64, 68, 120),
     "render_adaptive<kBvh, kBoxMuller, kGlobal, kKnobs>": (64, 20, 56),
     "render_adaptive<kSpheres, kFastScatter, kGlobal, kKnobs>": (64, 36, 88),
-    "render_adaptive<kChunks, kFastScatter, kGlobal, kKnobs>": (64, 40, 76),
+    "render_adaptive<kChunks, kFastScatter, kGlobal, kKnobs>": (64, 68, 120),
     "render_adaptive<kBvh, kFastScatter, kGlobal, kKnobs>": (64, 20, 56),
     "render_listed<kSpheres, kBoxMuller, kKnobs>": (72, 0, 0),
-    "render_listed<kChunks, kBoxMuller, kKnobs>": (64, 32, 36),
+    "render_listed<kChunks, kBoxMuller, kKnobs>": (64, 56, 60),
     "render_listed<kBvh, kBoxMuller, kKnobs>": (64, 4, 4),
     "render_listed<kSpheres, kFastScatter, kKnobs>": (72, 4, 4),
-    "render_listed<kChunks, kFastScatter, kKnobs>": (64, 32, 36),
+    "render_listed<kChunks, kFastScatter, kKnobs>": (64, 56, 60),
     "render_listed<kBvh, kFastScatter, kKnobs>": (64, 16, 16),
     "render_listed<kSpheres, kBoxMuller, kGlobal, kKnobs>": (64, 32, 56),
-    "render_listed<kChunks, kBoxMuller, kGlobal, kKnobs>": (64, 32, 36),
+    "render_listed<kChunks, kBoxMuller, kGlobal, kKnobs>": (64, 56, 60),
     "render_listed<kBvh, kBoxMuller, kGlobal, kKnobs>": (64, 16, 16),
     "render_listed<kSpheres, kFastScatter, kGlobal, kKnobs>": (64, 32, 56),
-    "render_listed<kChunks, kFastScatter, kGlobal, kKnobs>": (64, 32, 36),
+    "render_listed<kChunks, kFastScatter, kGlobal, kKnobs>": (64, 56, 60),
     "render_listed<kBvh, kFastScatter, kGlobal, kKnobs>": (64, 16, 16),
 }
 
@@ -484,10 +489,10 @@ def launch_shared_bytes(tab: KernelTables, max_bounce: int,
     """A launch's dynamic shared memory for tables ``tab`` on the route
     ``tables``, in bytes (the source's ``shared_bytes``, which
     ``PathTraceKernel.shared_bytes`` asks): staged, 16 bytes a float4 row
-    (a sphere; two a cluster, a chunk of a chunk scan, a box over a run of
-    chunks) and 4 bytes a parameter, a sphere's scene index, its material
-    index and a bounce of the histogram; global, the parameters and the
-    histogram only."""
+    (a sphere; two a cluster, a chunk of a chunk scan, a box of either of
+    its levels) and 4 bytes a parameter, a sphere's scene index, its
+    material index and a bounce of the histogram; global, the parameters
+    and the histogram only."""
     if tables not in TABLES:
         raise ValueError(f"tables must be one of {TABLES}, got {tables!r}")
     words = N_PARAMS + max_bounce + 1
@@ -548,18 +553,20 @@ def _slab_interval(o, inv_d, bmin, bmax):
     return t_near, t_far
 
 
-def _gated_visits(t_near, t_far, nearest, best0, outer=None):
+def _gated_visits(t_near, t_far, nearest, best0, outer=()):
     """Which boxes a scan in table order visits behind the t-bounded slab
     test: box k iff ``t_far >= 0 and t_near <= min(t_far, best)``, where
     ``best`` is the nearest hit so far: ``best0`` (B,) before the first
     box, then the least of it and ``nearest`` (B, K, the nearest hit among
-    a box's members, +inf for none) of the boxes visited. -> ``(visit (B,
-    K) bool, None)``. With ``outer = (t_near, t_far, starts)``, the
-    intervals (B, R) of a box over each of R consecutive runs of boxes and
-    the (R,) int64 index of each run's first box (0 first, ascending), a
-    run is entered only if its outer box passes the same test, with
-    ``best`` as it is at its first box: -> ``(visit, entered (B, R)
-    bool)``.
+    a box's members, +inf for none) of the boxes visited. ``outer`` lists
+    levels of boxes above them, innermost first, each ``(t_near, t_far,
+    starts)``: the intervals (B, R) of a box over each of R consecutive runs
+    of the level below (the boxes themselves for the first) and the (R,)
+    int64 index there of each run's first member (0 first, ascending). A
+    run is entered only if its box passes the same test, with ``best`` as
+    it is at the run's first box, and its own run, a level up, was entered.
+    -> ``(visit (B, K) bool, entered)``: ``entered`` lists, a level of
+    ``outer`` each, which of its boxes each ray entered (B, R).
 
     Computed without a loop over boxes. A box skipped for ``t_near > best``
     holds, as a rule, nothing nearer than ``best``; then ``best`` before
@@ -572,14 +579,21 @@ def _gated_visits(t_near, t_far, nearest, best0, outer=None):
     minimum and the ray is scanned again, until none is left: a pass or
     two over a few rays."""
     n = t_near.shape[1]
+    dev = t_near.device
     line = (t_far >= 0.0) & (t_near <= t_far)
-    if outer is not None:
-        o_near, o_far, starts = outer
-        run_of = torch.zeros(n, dtype=torch.int64, device=t_near.device)
+    # per level: each member's run (``run_of``), the first box of each run
+    # (``first``), and each box's run at that level (``above``)
+    run_ofs, firsts, o_lines = [], [], []
+    first, above = torch.arange(n, device=dev), torch.arange(n, device=dev)
+    for o_near, o_far, starts in outer:
+        run_of = torch.zeros(first.shape[0], dtype=torch.int64, device=dev)
         run_of[starts[1:]] = 1
         run_of = run_of.cumsum(0)
-        o_line = (o_far >= 0.0) & (o_near <= o_far)
-        line = line & o_line[:, run_of]
+        first, above = first[starts], run_of[above]
+        run_ofs.append(run_of)
+        firsts.append(first)
+        o_lines.append((o_far >= 0.0) & (o_near <= o_far))
+        line = line & o_lines[-1][:, above]
 
     def scan(rows, unseen):
         """One pass over the rays ``rows`` (all of them for None), the
@@ -595,10 +609,14 @@ def _gated_visits(t_near, t_far, nearest, best0, outer=None):
             torch.cat([of(best0)[:, None], reach[:, :-1]], dim=1), dim=1
         ).values
         visit = ln & (tn <= before)
-        entered = None
-        if outer is not None:
-            entered = of(o_line) & (of(o_near) <= before[:, starts])
-            visit &= entered[:, run_of]
+        entered = [None] * len(outer)
+        for lev in reversed(range(len(outer))):
+            e = of(o_lines[lev]) & (of(outer[lev][0]) <= before[:, firsts[lev]])
+            if lev + 1 < len(outer):
+                e &= entered[lev + 1][:, run_ofs[lev + 1]]
+            entered[lev] = e
+        if outer:
+            visit &= entered[0][:, run_ofs[0]]
         return visit, entered, counted & ~visit & (m < before)
 
     visit, entered, wrong = scan(None, None)
@@ -613,8 +631,8 @@ def _gated_visits(t_near, t_far, nearest, best0, outer=None):
             unseen[has, wrong[has].to(torch.int8).argmax(dim=1)] = True
             v, e, wrong = scan(rows, unseen)
         visit[rows] = v
-        if entered is not None:
-            entered[rows] = e
+        for lev, e_lev in enumerate(e):
+            entered[lev][rows] = e_lev
     return visit, entered
 
 
@@ -686,19 +704,24 @@ def clustered_winner(o, d, scene: Scene, tables: KernelTables, counts=None,
     only which near-ties a box's entry culls). Then the triangles, by
     ``tables.geometry``: each chunk
     in index order behind the same test (spheres first, so the best hit is
-    often finite already), a strictly nearer triangle winning and the lower
-    index a tie; or through the triangle BVH (``accel/bvh._traverse``, from
-    +inf, its winner taken if strictly nearer).
+    often finite already), a run of chunks entered only if each box above
+    it (``chunk_box_levels``) passes the test, a strictly nearer triangle
+    winning and the lower index a tie; or through the triangle BVH
+    (``accel/bvh._traverse``, from +inf, its winner taken if strictly
+    nearer).
 
     ``counts``, a dict, if given, gains what the scan does for the rays
     that are live (the plain path parks dead lanes at 1e9): ``segments``,
     ``cluster_slabs`` (with supers, every super box and the cluster boxes
     of the supers entered; ``super_slabs`` the former), ``sphere_tests``,
-    ``chunk_slabs``,
-    ``triangle_tests``, beside them ``line_triangle_tests`` (the triangles
-    of every chunk whose box the ray's line meets: what the reference's
-    gate, without the bound, would test), and for the BVH ``_traverse``'s
-    counts (with the parked lanes' root tests, ``parked`` of them: each
+    ``chunk_slabs`` (every box test of the chunk scan, at every level of
+    ``chunk_box_levels``: each box of the top level, and beneath it the
+    boxes of the runs entered; ``super_slabs`` those above the chunks, and
+    ``super_slabs_1``, ``super_slabs_2`` those of each level, the first the
+    one over the chunks), ``triangle_tests``, beside them
+    ``line_triangle_tests`` (the triangles of every chunk whose box the
+    ray's line meets: what the reference's gate, without the bound, would
+    test), and for the BVH ``_traverse``'s counts (with the parked lanes' root tests, ``parked`` of them: each
     one slab, one pop, one pop reject and ``ROOT_BYTES``).
 
     ``visits``, a list, if given, gains one entry a call: ``(live (B,)
@@ -743,12 +766,13 @@ def clustered_winner(o, d, scene: Scene, tables: KernelTables, counts=None,
         su = None
     elif n_clusters:
         t_near, t_far = _slab_interval(o, inv_d, cl[:, 0:3], cl[:, 4:7])
-        outer = None
+        outer = []
         if su is not None:
-            outer = (*_slab_interval(o, inv_d, su[:, 0:3], su[:, 4:7]),
-                     _int_column(su, 3).to(torch.int64))
+            outer = [(*_slab_interval(o, inv_d, su[:, 0:3], su[:, 4:7]),
+                      _int_column(su, 3).to(torch.int64))]
         visit, entered = _gated_visits(t_near, t_far, nearest[:, row_of],
                                        nearest[:, n_clusters], outer)
+        entered = entered[0] if outer else None
         tested[:, row_of] = visit
     if visits is not None:
         visits.append([o[:, 0] < 1e8, tested[:, row_of], None])
@@ -776,30 +800,39 @@ def clustered_winner(o, d, scene: Scene, tables: KernelTables, counts=None,
             t_tri = ray_triangles_t(o, d, scene.triangles)
         nearest = _group_min(t_tri, tables.chunk_members)
         t_near, t_far = _slab_interval(o, inv_d, ch[:, 0:3], ch[:, 4:7])
-        outer = None
-        if tables.supers is not None and cull:
-            su = tables.supers
-            outer = (*_slab_interval(o, inv_d, su[:, 0:3], su[:, 4:7]),
-                     torch.arange(0, n_chunks, SUPER_CHUNKS, device=dev))
+        # the box levels over the chunks, innermost first: each level's
+        # boxes, and the size and first index of each one's run beneath
+        levels = []
+        below = n_chunks
+        for rows in (chunk_box_levels(tables.supers, n_chunks) if cull else ()):
+            members = torch.arange(below, device=dev)
+            levels.append((rows, torch.bincount(members // SUPER_CHUNKS),
+                           members[::SUPER_CHUNKS]))
+            below = rows.shape[0]
         visit = torch.zeros((b, n_chunks + 1), dtype=torch.bool, device=dev)
         if cull:
             visit[:, :n_chunks], entered = _gated_visits(
-                t_near, t_far, nearest, best_t, outer
-            )
+                t_near, t_far, nearest, best_t,
+                [(*_slab_interval(o, inv_d, rows[:, 0:3], rows[:, 4:7]),
+                  starts) for rows, _, starts in levels])
         else:
             visit[:, :n_chunks] = True
         if visits is not None:
             visits[-1][2] = visit[:, :n_chunks]
         t_tri = torch.where(visit[:, tables.chunk_of], t_tri, INF)
         t_t, i_t = torch.min(t_tri, dim=1)
+        if counts is not None and cull:
+            # the box tests of each level, the chunks' first: every box of
+            # the top one, and beneath it the runs of the boxes entered
+            tests = [weighted(entered[lev], sizes)
+                     for lev, (_, sizes, _) in enumerate(levels)]
+            tests.append(torch.full((b,), below, device=dev))
+            add("chunk_slabs", sum(tests))
+            for lev, per_ray in enumerate(tests[1:], 1):
+                add(f"super_slabs_{lev}", per_ray)
+            if levels:
+                add("super_slabs", sum(tests[1:]))
         if counts is not None:
-            if cull and outer is None:
-                add("chunk_slabs", torch.full((b,), n_chunks, device=dev))
-            elif cull:
-                # every run's box, and the chunk boxes of the runs entered
-                sizes = torch.bincount(
-                    torch.arange(n_chunks, device=dev) // SUPER_CHUNKS)
-                add("chunk_slabs", su.shape[0] + weighted(entered, sizes))
             n_tris = scene.chunks.num_tris
             add("triangle_tests", weighted(visit[:, :n_chunks], n_tris))
             add("line_triangle_tests", weighted(t_near <= t_far, n_tris))
@@ -2749,8 +2782,10 @@ class KernelTables:
     chunk_of: torch.Tensor | None = None
     # (C, M) int64: each chunk's triangles, filled up with T
     chunk_members: torch.Tensor | None = None
-    # (R, 8) f32: box min, 0, box max, 0 over each run of SUPER_CHUNKS
-    # chunks; None for a scene of at most one run
+    # (R, 8) f32: box min, 0, box max, 0, the chunk scan's box levels
+    # (``super_levels``) one after the other: over each run of SUPER_CHUNKS
+    # chunks, then over each run of SUPER_CHUNKS of those; None for a scene
+    # of at most SUPER_CHUNKS chunks
     supers: torch.Tensor | None = None
     # (1 + internal nodes, 16) f32: ``bvh_node_table``
     bvh_nodes: torch.Tensor | None = None
@@ -2989,21 +3024,24 @@ def _build_geometry_tables(scene: Scene, geom: str) -> KernelTables:
              _int_bits(ch.num_tris)],
             dim=1,
         ).contiguous()
-        n_runs = -(-first.shape[0] // SUPER_CHUNKS)
-        if n_runs > 1:
-            # a chunk without triangles takes no part in its run's box
-            pad = n_runs * SUPER_CHUNKS - first.shape[0]
-            real = (ch.num_tris > 0)[:, None]
-            lo = F.pad(torch.where(real, ch.bounds_min, INF), (0, 0, 0, pad),
-                       value=INF)
-            hi = F.pad(torch.where(real, ch.bounds_max, -INF), (0, 0, 0, pad),
-                       value=-INF)
+        # each box the exact union of its members' boxes; a chunk without
+        # triangles takes no part
+        real = (ch.num_tris > 0)[:, None]
+        lo = torch.where(real, ch.bounds_min, INF)
+        hi = torch.where(real, ch.bounds_max, -INF)
+        levels = []
+        for n_runs in super_levels(first.shape[0]):
+            if not n_runs:
+                break
+            pad = n_runs * SUPER_CHUNKS - lo.shape[0]
+            lo = F.pad(lo, (0, 0, 0, pad), value=INF).reshape(
+                n_runs, SUPER_CHUNKS, 3).amin(dim=1)
+            hi = F.pad(hi, (0, 0, 0, pad), value=-INF).reshape(
+                n_runs, SUPER_CHUNKS, 3).amax(dim=1)
             zero = torch.zeros((n_runs, 1), dtype=torch.float32, device=dev)
-            tab.supers = torch.cat(
-                [lo.reshape(n_runs, SUPER_CHUNKS, 3).amin(dim=1), zero,
-                 hi.reshape(n_runs, SUPER_CHUNKS, 3).amax(dim=1), zero],
-                dim=1,
-            ).contiguous()
+            levels.append(torch.cat([lo, zero, hi, zero], dim=1))
+        if levels:
+            tab.supers = torch.cat(levels).contiguous()
         tab.chunk_warp_scan = chunk_scan_across_warp(ends - first)
         chunk_of = np.searchsorted(ends, np.arange(tri.count), side="right")
         tab.chunk_of = torch.from_numpy(chunk_of).to(dev)
@@ -3027,6 +3065,30 @@ def _build_geometry_tables(scene: Scene, geom: str) -> KernelTables:
     TABLE_BUILDS.seconds += time.perf_counter() - t0
     TABLE_BUILDS.cluster_seconds += tab.cluster_seconds
     return tab
+
+
+def super_levels(n_chunks: int) -> tuple[int, int]:
+    """The boxes of the chunk scan's two levels over ``n_chunks`` chunks in
+    index order -> ``(boxes over runs of SUPER_CHUNKS chunks, boxes over
+    runs of SUPER_CHUNKS of those)``: none for at most SUPER_CHUNKS chunks,
+    the first level alone for at most SUPER_CHUNKS squared, both past it.
+    The source derives the same split from the chunk count and refuses
+    box rows of another count."""
+    f = SUPER_CHUNKS
+    runs = -(-n_chunks // f) if n_chunks > f else 0
+    return runs, -(-runs // f) if runs > f else 0
+
+
+def chunk_box_levels(supers: torch.Tensor | None, n_chunks: int) -> list:
+    """``KernelTables.supers`` of a scene of ``n_chunks`` chunks split into
+    its levels, the one over the chunks first: a list of (R, 8) row
+    tensors, empty without boxes."""
+    out, at = [], 0
+    for n in super_levels(n_chunks) if supers is not None else ():
+        if n:
+            out.append(supers[at:at + n])
+            at += n
+    return out
 
 
 def _boxdist2(pos: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor):

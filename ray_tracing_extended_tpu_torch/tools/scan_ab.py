@@ -27,8 +27,10 @@ this file's tree, built through the measured tree's presets: ``wide14k``,
 exact and refill with the Box-Muller scatter; and ``rtiow_global``, RTIOW
 as above with its tables forced onto the global route
 (``render_frames_mega(..., tables="global")``), in the four modes.
-``--super-chunks N`` sets the chunk scan's run length (a value above the
-chunk count switches its second level off) on a tree that has one.
+``--super-chunks N`` sets the chunk scan's run length on a tree that has
+one: on a tree with ``super_levels`` the F of both box levels (the depth
+still follows from the chunk count; a value at or above it switches the
+levels off), on an older tree the one level's.
 
 A refill line also holds the samples a pixel started in a stats frame
 (``started_samples_per_pixel``: its bounce histogram's first bin over the
@@ -315,7 +317,7 @@ def main(argv=None) -> int:
 
     if args.super_chunks is not None:
         if not hasattr(mk, "SUPER_CHUNKS"):
-            raise SystemExit("this tree's chunk scan has no second level")
+            raise SystemExit("this tree's chunk scan has no box level")
         mk.SUPER_CHUNKS = args.super_chunks
 
     lines = []

@@ -257,6 +257,27 @@ def test_cuda_refuses_what_the_kernel_does_not_do(cuda):
         rtt.render_frame(scene, cam.to("cpu"), cfg, 0)
 
 
+def test_kernel_refuses_box_levels_off_the_rule(cuda):
+    """The chunk scan's box levels follow from the chunk count
+    (``mk.super_levels``): a launch whose box rows hold the first level
+    alone, where the rule asks for two, is refused, and the scene renders
+    again once its rows are whole."""
+    from chunk_scenes import tile_scene
+
+    scene, cam, cfg = tile_scene(mk.SUPER_CHUNKS ** 2 + 1, device=cuda,
+                                 width=32, height=16)
+    tab = mk.geometry_tables(scene, "chunks")
+    whole = tab.supers
+    ref = mk.render_frames_mega(scene, cam, cfg, 3)[0]
+    tab.supers = whole[:mk.super_levels(scene.chunks.num_tris.shape[0])[0]]
+    try:
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            mk.render_frames_mega(scene, cam, cfg, 3)
+    finally:
+        tab.supers = whole
+    assert torch.equal(mk.render_frames_mega(scene, cam, cfg, 3)[0], ref)
+
+
 @pytest.mark.parametrize("fast", [False, True])
 @pytest.mark.parametrize("adaptive", [False, True])
 @pytest.mark.parametrize("name", ["rtiow", "cornell", "chess", "mesh"])
@@ -1012,13 +1033,19 @@ def _off_tile_scene(name, cuda):
     """A scene at 250x134 (no multiple of the 16x2 warp or the 16x8 block:
     the last column of blocks holds 10 columns, the last row 6 rows), 2
     spp, 4 bounces: RTIOW and the 14,401-sphere wide scene (kSpheres),
-    Chess (its shipped camera and defocus) and Cornell (kChunks)."""
+    Chess (its shipped camera and defocus), Cornell and ``tiles``, a scene
+    of SUPER_CHUNKS squared + 1 chunks, the fewest with two box levels
+    (``tests/chunk_scenes.py``; kChunks)."""
     from ray_tracing_extended_tpu_torch.models.wide_scenes import (
         HALF_PAST_LIMIT,
         wide_sphere_scene,
     )
 
     small = dict(width=250, height=134, spp=2, max_bounce=4)
+    if name == "tiles":
+        from chunk_scenes import tile_scene
+
+        return tile_scene(mk.SUPER_CHUNKS ** 2 + 1, device=cuda, **small)
     if name == "rtiow":
         return presets.rtiow_final_scene(device=cuda, **small)
     if name == "wide":
@@ -1317,7 +1344,7 @@ def test_refill_knobs_refusals(cuda):
             cfg, mega_tile_size=16, mega_pixels_per_lane=4), 1)
 
 
-CHUNK_BAND_MODES = [(n, a, f, t) for n in ("chess", "cornell")
+CHUNK_BAND_MODES = [(n, a, f, t) for n in ("chess", "cornell", "tiles")
                     for a in (False, True) for f in (False, True)
                     for t in mk.TABLES]
 
@@ -1332,10 +1359,16 @@ def test_chunk_scan_bands_equal_plain_bit_for_bit(cuda, name, adaptive, fast,
     function, which the plain version computes (its kernel test forms): on
     a band of a 250x134 frame whose edges cut warps (exact: rows 37-100;
     refill on tiles of 32: rows 32-95), Chess (its shipped camera, 440
-    chunks in runs of 32) and Cornell (six chunks of two triangles), each
-    kChunks instantiation's frame, segment map and histogram, and a K = 3
-    fold from a seeded accumulator, bit for bit the plain version's."""
+    chunks under two box levels), Cornell (six chunks of two triangles, no
+    box level) and ``tiles`` (SUPER_CHUNKS squared + 1 chunks: two levels,
+    the top one over a run of one box), each kChunks instantiation's frame,
+    segment map and histogram, and a K = 3 fold from a seeded accumulator,
+    bit for bit the plain version's."""
     scene, cam, cfg = _off_tile_scene(name, cuda)
+    n_chunks = scene.chunks.num_tris.shape[0]
+    assert [len(x) for x in mk.chunk_box_levels(
+        mk.geometry_tables(scene, "chunks").supers, n_chunks)] == [
+            k for k in mk.super_levels(n_chunks) if k]
     cfg = dataclasses.replace(cfg, adaptive_spp=adaptive, fast_scatter=fast,
                               mega_tile_size=32 if adaptive else None)
     assert mk.geometry(scene, cfg) == "chunks"

@@ -418,38 +418,49 @@ def test_clustered_hit_matches_bruteforce(name, kind):
         assert 0 < counts["triangle_tests"] <= by_line
 
 
-def _visits_one_by_one(t_near, t_far, nearest, best0, outer=None):
+def _visits_one_by_one(t_near, t_far, nearest, best0, outer=()):
     """``_gated_visits`` as the kernel runs it: a loop over the boxes of one
-    ray at a time."""
+    ray at a time, a level's box gated at its run's first box, top down."""
     t_near, t_far, nearest = (x.tolist() for x in (t_near, t_far, nearest))
     n_rays, n = len(t_near), len(t_near[0])
     visit = np.zeros((n_rays, n), bool)
-    entered = None
-    if outer is not None:
-        o_near, o_far = outer[0].tolist(), outer[1].tolist()
-        starts = outer[2].tolist()
-        run_of = np.searchsorted(starts, np.arange(n), side="right") - 1
-        entered = np.zeros((n_rays, len(o_near[0])), bool)
+    # each box's run at each level, and the first box of each run
+    box_of, first_of = [], []
+    run, first = np.arange(n), np.arange(n)
+    for _, _, starts in outer:
+        starts = starts.numpy()
+        up = np.searchsorted(starts, np.arange(len(first)), side="right") - 1
+        run, first = up[run], first[starts]
+        box_of.append(run)
+        first_of.append(first)
+    gates = [(o_near.tolist(), o_far.tolist()) for o_near, o_far, _ in outer]
+    entered = [np.zeros((n_rays, len(f)), bool) for f in first_of]
     for r in range(n_rays):
         best = float(best0[r])
         for k in range(n):
-            if outer is not None:
-                run = run_of[k]
-                if k == starts[run]:
-                    entered[r, run] = (o_far[r][run] >= 0.0 and o_near[r][run]
-                                       <= min(o_far[r][run], best))
-                if not entered[r, run]:
-                    continue
+            inside = True
+            for lev in reversed(range(len(outer))):
+                box = box_of[lev][k]
+                if k == first_of[lev][box]:
+                    o_near, o_far = (g[r][box] for g in gates[lev])
+                    entered[lev][r, box] = inside and (
+                        o_far >= 0.0 and o_near <= min(o_far, best))
+                inside = entered[lev][r, box]
+            if not inside:
+                continue
             if t_far[r][k] >= 0.0 and t_near[r][k] <= min(t_far[r][k], best):
                 visit[r, k] = True
                 best = min(best, nearest[r][k])
     return visit, entered
 
 
-# The outer runs' first boxes: runs of 32, 32 and 6 boxes, the chunk scan's
-# layout; and 32, 6 and 32, a sphere scan's short last run of clusters
-# where a camera's visit order can put it
-OUTER_STARTS = {True: [0, 32, 64], "short_run_inside": [0, 32, 38]}
+# The outer levels' runs, innermost first, by the index of each run's first
+# member: runs of 32, 32 and 6 boxes, the chunk scan's old layout; 32, 6 and
+# 32, a sphere scan's short last run of clusters where a camera's visit
+# order can put it; and two levels, runs of 8 boxes (the last of 6) under
+# runs of 4, 4 and 1 of those, the chunk scan's levels
+OUTER_STARTS = {True: [[0, 32, 64]], "short_run_inside": [[0, 32, 38]],
+                "three_levels": [list(range(0, 70, 8)), [0, 4, 8]]}
 
 
 @pytest.mark.parametrize("with_outer", [False, *OUTER_STARTS])
@@ -458,10 +469,9 @@ def test_gated_visits_match_a_loop_over_boxes(with_outer):
     the kernel runs, on random slab intervals: boxes behind the origin,
     empty intervals, boxes without a hit, and members that rounding puts
     before their box's entry (the rays that take the loop); with outer
-    boxes over the runs of ``OUTER_STARTS``."""
+    boxes over the runs of ``OUTER_STARTS``, one level or two."""
     rs = np.random.RandomState(13)
     n_rays, n = 300, 70
-    starts = np.array(OUTER_STARTS.get(with_outer, [0]))
     t_near = rs.uniform(-2.0, 6.0, (n_rays, n)).astype(np.float32)
     t_far = (t_near + rs.uniform(-0.5, 3.0, (n_rays, n))).astype(np.float32)
     inside = rs.uniform(0.0, 1.0, (n_rays, n)).astype(np.float32)
@@ -472,24 +482,181 @@ def test_gated_visits_match_a_loop_over_boxes(with_outer):
     nearest = np.where(early, t_near - 1e-3, nearest).astype(np.float32)
     best0 = np.where(rs.rand(n_rays) < 0.5, np.inf,
                      rs.uniform(0.0, 6.0, n_rays)).astype(np.float32)
-    outer = None
-    if with_outer:
-        o_near = np.minimum.reduceat(t_near, starts, axis=1)
-        o_far = np.maximum.reduceat(t_far, starts, axis=1)
+    outer = []
+    below_near, below_far = t_near, t_far
+    for starts in OUTER_STARTS.get(with_outer, []):
+        starts = np.array(starts)
+        o_near = np.minimum.reduceat(below_near, starts, axis=1)
+        o_far = np.maximum.reduceat(below_far, starts, axis=1)
+        below_near, below_far = o_near, o_far.copy()
         # some runs culled whole
         o_far[rs.rand(n_rays, len(starts)) < 0.2] = -1.0
-        outer = (torch.from_numpy(o_near), torch.from_numpy(o_far),
-                 torch.from_numpy(starts))
+        outer.append((torch.from_numpy(o_near), torch.from_numpy(o_far),
+                      torch.from_numpy(starts)))
     args = [torch.from_numpy(x) for x in (t_near, t_far, nearest, best0)]
     visit, entered = tmk._gated_visits(*args, outer)
     want, want_entered = _visits_one_by_one(*args, outer)
     assert np.array_equal(visit.numpy(), want)
     assert 0.05 < want.mean() < 0.95
-    if with_outer:
-        assert np.array_equal(entered.numpy(), want_entered)
-        assert 0.05 < want_entered.mean() < 0.95
+    assert len(entered) == len(want_entered) == len(outer)
+    for got, w in zip(entered, want_entered):
+        assert np.array_equal(got.numpy(), w)
+        assert 0.05 < w.mean() < 0.95
+
+
+def _tile_scene(n_chunks):
+    from chunk_scenes import tile_scene
+
+    return tile_scene(n_chunks, device="cpu", width=32, height=18)
+
+
+def _camera_rays(cam, width, height, frame=3):
+    """One camera ray a pixel of a ``width`` x ``height`` grid -> (o, d)."""
+    pix = torch.arange(width * height)
+    fp = tcam.focus_points(cam, pix % width, pix // width, width, height)
+    _, o, d = tcam.generate_rays(trng.seed(pix, frame), cam, fp, width)
+    return o, d
+
+
+def _with_empty_chunks(scene):
+    """``scene`` with chunks of no triangles among its chunks: one first,
+    one inside a run, and a whole run of SUPER_CHUNKS (the fourth), each
+    with a box far from everything, which no level may take in."""
+    f = tmk.SUPER_CHUNKS
+    ch = scene.chunks
+    n = ch.num_tris.shape[0]
+    order = [None, *range(0, 2), None, *range(2, 3 * f - 2), *[None] * f,
+             *range(3 * f - 2, n)]
+    assert order[3 * f:4 * f] == [None] * f
+    first = ch.first_tri.tolist() + [int(ch.first_tri[-1] + ch.num_tris[-1])]
+    cols = {k: [] for k in ("first_tri", "num_tris", "bounds_min",
+                            "bounds_max", "mat_idx")}
+    at = 0
+    for i in order:
+        real = i is not None
+        cols["first_tri"].append(first[i] if real else first[at])
+        cols["num_tris"].append(int(ch.num_tris[i]) if real else 0)
+        cols["bounds_min"].append(ch.bounds_min[i] if real
+                                  else torch.full((3,), -500.0))
+        cols["bounds_max"].append(ch.bounds_max[i] if real
+                                  else torch.full((3,), 500.0))
+        cols["mat_idx"].append(int(ch.mat_idx[i]) if real else 0)
+        at = i + 1 if real else at
+    chunks = type(ch)(
+        first_tri=torch.tensor(cols["first_tri"], dtype=torch.int32),
+        num_tris=torch.tensor(cols["num_tris"], dtype=torch.int32),
+        bounds_min=torch.stack(cols["bounds_min"]),
+        bounds_max=torch.stack(cols["bounds_max"]),
+        mat_idx=torch.tensor(cols["mat_idx"], dtype=torch.int32))
+    return dataclasses.replace(scene, chunks=chunks)
+
+
+@pytest.mark.parametrize("name", ["chess", "tiles_with_empty_chunks"])
+def test_chunk_box_levels_are_exact_unions(name):
+    """Each box of each level of the chunk scan is the exact union of its
+    members' boxes, the chunks' for the level over them and that level's
+    boxes for the top one: the least corner and the greatest, bit for bit,
+    a chunk without triangles taking no part (a run of nothing but them
+    has an empty box, +inf to -inf)."""
+    f = tmk.SUPER_CHUNKS
+    if name == "chess":
+        scene = _clustered_scene("chess")[0]
     else:
-        assert entered is None
+        scene = _with_empty_chunks(_tile_scene(f * f + f + 3)[0])
+    n = scene.chunks.num_tris.shape[0]
+    tab = tmk.geometry_tables(scene, "chunks")
+    levels = tmk.chunk_box_levels(tab.supers, n)
+    assert len(levels) == 2 and [len(x) for x in levels] == [
+        k for k in tmk.super_levels(n) if k]
+    real = scene.chunks.num_tris.numpy() > 0
+    lo = np.where(real[:, None], scene.chunks.bounds_min.numpy(), np.inf)
+    hi = np.where(real[:, None], scene.chunks.bounds_max.numpy(), -np.inf)
+    for rows in levels:
+        rows = rows.numpy()
+        starts = np.arange(0, len(lo), f)
+        lo = np.minimum.reduceat(lo, starts, axis=0)
+        hi = np.maximum.reduceat(hi, starts, axis=0)
+        assert np.array_equal(rows[:, 0:3], lo)
+        assert np.array_equal(rows[:, 4:7], hi)
+        assert not rows[:, [3, 7]].any()
+    if name != "chess":
+        assert not real.all()
+        assert np.isposinf(levels[0][3, 0:3].numpy()).all()
+        assert np.isneginf(levels[0][3, 4:7].numpy()).all()
+    assert tmk.launch_shared_bytes(tab, 15) - tmk.launch_shared_bytes(
+        dataclasses.replace(tab, supers=None), 15) == 32 * sum(
+            len(x) for x in levels)
+
+
+# chunk counts where the depth changes, of F = SUPER_CHUNKS
+DEPTH_CASES = {"1": lambda f: 1, "F": lambda f: f, "F+1": lambda f: f + 1,
+               "F^2": lambda f: f * f, "F^2+1": lambda f: f * f + 1}
+
+
+@pytest.mark.parametrize("case", DEPTH_CASES)
+def test_box_levels_follow_the_chunk_count(case):
+    """The depth of the chunk scan's box levels follows from the chunk
+    count alone: none for at most F = SUPER_CHUNKS chunks, one level for at
+    most F squared, two past it. The tables hold those boxes, and the plain
+    version, on camera rays, tests each level's boxes (every box of the
+    top level) and picks the winners of the scan without boxes."""
+    f = tmk.SUPER_CHUNKS
+    n = DEPTH_CASES[case](f)
+    want = {1: (0, 0), f: (0, 0), f + 1: (2, 0), f * f: (f, 0),
+            f * f + 1: (f + 1, 2)}[n]
+    assert tmk.super_levels(n) == want
+    scene, cam, cfg = _tile_scene(n)
+    assert scene.chunks.num_tris.shape[0] == n
+    tab = tmk.geometry_tables(scene, "chunks")
+    levels = tmk.chunk_box_levels(tab.supers, n)
+    assert [len(x) for x in levels] == [k for k in want if k]
+    assert (tab.supers is None) == (want == (0, 0))
+    o, d = _camera_rays(cam, 32, 18)
+    counts, flat = {}, {}
+    t, i = tmk.clustered_winner(o, d, scene, tab, counts)
+    t_f, i_f = tmk.clustered_winner(
+        o, d, scene, dataclasses.replace(tab, supers=None), flat)
+    assert torch.equal(t, t_f) and torch.equal(i, i_f)
+    assert bool(torch.isfinite(t).any())
+    segs = counts["segments"]
+    assert counts["triangle_tests"] == flat["triangle_tests"]
+    assert flat["chunk_slabs"] == n * segs
+    tops = [k for k in want if k][-1:] or [n]
+    assert counts.get(f"super_slabs_{len(levels)}", counts["chunk_slabs"]) \
+        == tops[0] * segs
+    assert counts.get("super_slabs", 0) == sum(
+        counts[f"super_slabs_{k}"] for k in range(1, len(levels) + 1))
+    assert counts["chunk_slabs"] > counts.get("super_slabs", 0)
+
+
+def test_chess_box_levels_keep_the_winners_and_cut_the_box_tests(monkeypatch):
+    """Chess's camera rays on a 64x36 grid: the chunk scan with its box
+    levels picks the winners, t and index, of the scan without them and
+    tests the same triangles, and tests fewer boxes a segment than one
+    level over runs of 32 chunks (the scan before the levels were sized for
+    the warp), counted here on the same rays."""
+    scene, cam, cfg = _clustered_scene("chess")
+    o, d = _camera_rays(cam, 64, 36)
+    tab = tmk.geometry_tables(scene, "chunks")
+    counts, flat = {}, {}
+    t, i = tmk.clustered_winner(o, d, scene, tab, counts)
+    t_f, i_f = tmk.clustered_winner(
+        o, d, scene, dataclasses.replace(tab, supers=None), flat)
+    assert torch.equal(t, t_f) and torch.equal(i, i_f)
+    assert int((i >= scene.spheres.count).sum()) > 1000
+    monkeypatch.setattr(tmk, "SUPER_CHUNKS", 32)
+    runs32 = tmk._build_geometry_tables(scene, "chunks")
+    assert runs32.supers.shape[0] == 14
+    old = {}
+    t_o, i_o = tmk.clustered_winner(o, d, scene, runs32, old)
+    monkeypatch.undo()
+    assert torch.equal(t, t_o) and torch.equal(i, i_o)
+    assert counts["triangle_tests"] == flat["triangle_tests"] \
+        == old["triangle_tests"]
+    assert old["super_slabs_1"] == 14 * old["segments"]
+    assert counts["chunk_slabs"] < 0.7 * old["chunk_slabs"]
+    assert counts["super_slabs"] == counts["super_slabs_1"] + counts[
+        "super_slabs_2"]
 
 
 def test_lower_index_wins_a_tie():
