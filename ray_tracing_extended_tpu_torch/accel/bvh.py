@@ -12,7 +12,9 @@ fixed-width rows whose unused slots point at the scene's first padding
 (never-hit) primitive. As in the JAX package, the build runs natively
 (``utils/native.py``, C++ through ctypes: the same arrays bit for bit,
 about 100x faster) unless ``RTE_NATIVE=0`` or no ``g++`` leaves it to
-NumPy; ``LBVH_BUILDS`` records each build's route and host seconds.
+NumPy; ``LBVH_BUILDS`` records each build's route, host seconds and the
+tree it gave (``tree_stats``: nodes, leaves, depth and its surface-area
+cost).
 
 The traversal visits the nodes and primitives that the JAX package's
 ``_traverse`` visits, in its order, for each ray: at an internal node
@@ -50,6 +52,11 @@ from ..utils import native
 LEAF_WIDTH = 4
 STACK_DEPTH = 48  # fits any split-balanced tree of < 2^47 prims
 
+# FP32 operations of a traversal's steps, for a tree's surface-area cost
+# (``tree_stats``): the root's box test, both child boxes of an internal
+# node, and one triangle test.
+SAH_ROOT_OPS, SAH_NODE_OPS, SAH_TRIANGLE_OPS = 12, 24, 34
+
 # Bytes the kernel reads for a traversal (csrc/megakernel.cu, its node
 # table): the root's box and reference, both children's boxes and
 # references an internal node (one 64-byte row), a leaf's row of slots,
@@ -73,11 +80,11 @@ def _morton3(x: np.ndarray) -> np.ndarray:
     )
 
 
-def _assert_traversable(left: np.ndarray, right: np.ndarray) -> None:
+def _assert_traversable(left: np.ndarray, right: np.ndarray) -> int:
     """The traversal's stack is fixed (pushes clamp to its last slot), so a
     deeper tree would silently drop subtrees. Depth can exceed the Morton
     split's bound for long runs of equal codes, so the actual tree is
-    measured."""
+    measured -> its depth in levels (a lone root is 1)."""
     n = len(left)
     depth = np.zeros(n, np.int32)
     stack = [0]
@@ -100,6 +107,35 @@ def _assert_traversable(left: np.ndarray, right: np.ndarray) -> None:
             f"stack ({STACK_DEPTH}); rebuild with a larger leaf_width or "
             "raise STACK_DEPTH"
         )
+    return max_depth + 1
+
+
+def _box_area(bmin: np.ndarray, bmax: np.ndarray) -> np.ndarray:
+    e = (np.asarray(bmax, np.float64) - np.asarray(bmin, np.float64))
+    return 2.0 * (e[:, 0] * e[:, 1] + e[:, 1] * e[:, 2] + e[:, 2] * e[:, 0])
+
+
+def tree_stats(bvh: BVH, sentinel: int) -> dict:
+    """What tree a build gave: ``nodes``, ``leaves``, ``depth`` (levels, a
+    lone root 1) and ``sah_ops``, its surface-area cost in FP32 operations
+    for a ray through the root's box: ``SAH_ROOT_OPS`` for the root,
+    ``SAH_NODE_OPS`` for each internal node (both child boxes) and
+    ``SAH_TRIANGLE_OPS`` for each real primitive of a leaf (its slots
+    below ``sentinel``), each term weighted by the node's box area over the
+    root's (a root of no area weighs every node 1)."""
+    left = bvh.left.numpy()
+    right = bvh.right.numpy()
+    leaf_row = bvh.leaf_row.numpy()
+    area = _box_area(bvh.bounds_min.numpy(), bvh.bounds_max.numpy())
+    weight = area / area[0] if area[0] > 0 else np.ones_like(area)
+    real = (bvh.leaf_prims.numpy() < sentinel).sum(axis=1)
+    internal = leaf_row < 0
+    leaf_real = real[leaf_row[~internal]]
+    sah = (SAH_ROOT_OPS * weight[0]
+           + SAH_NODE_OPS * weight[internal].sum()
+           + SAH_TRIANGLE_OPS * (weight[~internal] * leaf_real).sum())
+    return dict(nodes=len(left), leaves=int((~internal).sum()),
+                depth=_assert_traversable(left, right), sah_ops=float(sah))
 
 
 def _clz64(x: int) -> int:
@@ -109,22 +145,28 @@ def _clz64(x: int) -> int:
 @dataclasses.dataclass
 class LbvhBuilds:
     """Every ``build_lbvh`` call: its route (``"native"`` or ``"numpy"``),
-    its primitives and its host seconds (the library's first-use compile
-    not included)."""
+    its primitives, its host seconds (the library's first-use compile
+    not included) and the tree it gave (``tree_stats``)."""
 
     routes: list = dataclasses.field(default_factory=list)
     prims: list = dataclasses.field(default_factory=list)
     seconds: list = dataclasses.field(default_factory=list)
+    nodes: list = dataclasses.field(default_factory=list)
+    leaves: list = dataclasses.field(default_factory=list)
+    depth: list = dataclasses.field(default_factory=list)
+    sah_ops: list = dataclasses.field(default_factory=list)
 
-    def record(self, route: str, prims: int, seconds: float) -> None:
+    def record(self, route: str, prims: int, seconds: float,
+               stats: dict) -> None:
         self.routes.append(route)
         self.prims.append(prims)
         self.seconds.append(seconds)
+        for key in ("nodes", "leaves", "depth", "sah_ops"):
+            getattr(self, key).append(stats[key])
 
     def reset(self) -> None:
-        self.routes.clear()
-        self.prims.clear()
-        self.seconds.clear()
+        for f in dataclasses.fields(self):
+            getattr(self, f.name).clear()
 
 
 LBVH_BUILDS = LbvhBuilds()
@@ -132,7 +174,6 @@ LBVH_BUILDS = LbvhBuilds()
 
 def _bvh(bounds_min, bounds_max, left, right, leaf_row, leaf_prims,
          sentinel: int) -> BVH:
-    _assert_traversable(left, right)
     # every slot the traversal gathers must be a real primitive index or
     # the sentinel: the kernel reads its rows unchecked
     if not (leaf_prims.min() >= 0 and leaf_prims.max() <= sentinel):
@@ -169,7 +210,8 @@ def build_lbvh(
         bvh = _bvh(*native.lbvh_build(prim_bmin, prim_bmax, order,
                                       codes[order], leaf_width, sentinel),
                    sentinel)
-        LBVH_BUILDS.record("native", p, time.perf_counter() - t0)
+        seconds = time.perf_counter() - t0
+        LBVH_BUILDS.record("native", p, seconds, tree_stats(bvh, sentinel))
         return bvh
 
     lo = centroid.min(axis=0)
@@ -234,7 +276,8 @@ def build_lbvh(
     bvh = _bvh(np.stack(bounds_min), np.stack(bounds_max),
                np.array(left, np.int32), np.array(right, np.int32),
                np.array(leaf_row, np.int32), np.stack(leaf_prims), sentinel)
-    LBVH_BUILDS.record("numpy", p, time.perf_counter() - t0)
+    seconds = time.perf_counter() - t0
+    LBVH_BUILDS.record("numpy", p, seconds, tree_stats(bvh, sentinel))
     return bvh
 
 

@@ -31,6 +31,7 @@ import torch
 from ..accel.bvh import build_lbvh
 from ..accel.chunks import MAX_TRIS_PER_CHUNK, create_chunks
 from ..utils.device import DEFAULT_DEVICE, resolve_device
+from ..utils.profiling import SCENE_BVH_BUILD, annotate
 from .geometry import (
     FLAG_DIELECTRIC,
     FLAG_NONE,
@@ -332,11 +333,14 @@ class SceneBuilder:
 
         tri_bvh = sphere_bvh = None
         if build_bvh in ("tri", "both") and t:
-            tri_bvh = build_lbvh(pos[:t].min(axis=1), pos[:t].max(axis=1),
-                                 sentinel=t)
+            with annotate(SCENE_BVH_BUILD):
+                tri_bvh = build_lbvh(pos[:t].min(axis=1),
+                                     pos[:t].max(axis=1), sentinel=t)
         if build_bvh in ("sphere", "both") and s:
-            sphere_bvh = build_lbvh(centers[:s] - radii[:s, None],
-                                    centers[:s] + radii[:s, None], sentinel=s)
+            with annotate(SCENE_BVH_BUILD):
+                sphere_bvh = build_lbvh(centers[:s] - radii[:s, None],
+                                        centers[:s] + radii[:s, None],
+                                        sentinel=s)
 
         return Scene(
             spheres=Spheres(center=_t(centers), radius=_t(radii), mat_idx=_t(smat)),

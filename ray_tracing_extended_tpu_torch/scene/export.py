@@ -60,21 +60,15 @@ def _material_dict(mat) -> dict:
     return d
 
 
-def export_unity_scene(unity_path, out_json) -> dict:
-    """Write ``out_json`` (+ sibling ``.npz`` when the scene has meshes)
-    mirroring ``unity_path``. Returns the JSON spec written."""
-    unity_path = Path(unity_path)
+def write_mirror(spec: dict, out_json, comment: str) -> dict:
+    """Write ``out_json`` (+ sibling ``.npz`` when ``spec`` has triangle
+    groups) from a scene spec in ``unity_scene_spec``'s form (``env``,
+    ``cfg_kw``, ``spheres``, ``camera``, ``tri_groups``). Returns the JSON
+    spec written."""
     out_json = Path(out_json)
-    spec = unity_scene_spec(unity_path)
-
     env = spec["env"]
     out = {
-        "comment": (
-            f"Mirror of the reference scene '{unity_path.name}' "
-            "(generated by ray_tracing_extended_tpu_torch.scene.export; "
-            "triangles are world-baked localChunks, "
-            "RayTracedMesh.cs:42-51)"
-        ),
+        "comment": comment,
         "settings": {
             "maxBounceCount": int(spec["cfg_kw"].get("max_bounce", 4)),
             "numRaysPerPixel": int(spec["cfg_kw"].get("spp", 2)),
@@ -126,6 +120,18 @@ def export_unity_scene(unity_path, out_json) -> dict:
         np.savez_compressed(npz_path, **arrays)
     out_json.write_text(json.dumps(out, indent=1) + "\n")
     return out
+
+
+def export_unity_scene(unity_path, out_json) -> dict:
+    """Write ``out_json`` (+ sibling ``.npz`` when the scene has meshes)
+    mirroring ``unity_path``. Returns the JSON spec written."""
+    unity_path = Path(unity_path)
+    return write_mirror(
+        unity_scene_spec(unity_path), out_json,
+        f"Mirror of the reference scene '{unity_path.name}' "
+        "(generated by ray_tracing_extended_tpu_torch.scene.export; "
+        "triangles are world-baked localChunks, "
+        "RayTracedMesh.cs:42-51)")
 
 
 def export_reference_scenes(scenes_dir, out_dir) -> list[Path]:

@@ -80,9 +80,9 @@ def _unfilter(raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
     return out
 
 
-def load_png(path) -> np.ndarray:
-    """Read an 8-bit RGB or RGBA PNG back to linear float (sRGB decode),
-    (H, W, 3) f32 with row 0 at the bottom."""
+def read_png_rgb8(path) -> np.ndarray:
+    """The 8-bit values of an RGB or RGBA PNG without interlacing, (H, W,
+    3) uint8 with row 0 at the top, as stored."""
     with open(path, "rb") as f:
         blob = f.read()
     if blob[:8] != _SIGNATURE:
@@ -105,9 +105,14 @@ def load_png(path) -> np.ndarray:
             f"{path}: only 8-bit RGB/RGBA non-interlaced PNGs are read"
         )
     channels = 3 if colour_type == 2 else 4
-    pixels = _unfilter(zlib.decompress(b"".join(idat)), h, w * channels,
-                       channels).reshape(h, w, channels)[..., :3]
-    srgb = pixels[::-1].astype(np.float32) / 255.0
+    return _unfilter(zlib.decompress(b"".join(idat)), h, w * channels,
+                     channels).reshape(h, w, channels)[..., :3]
+
+
+def load_png(path) -> np.ndarray:
+    """Read an 8-bit RGB or RGBA PNG back to linear float (sRGB decode),
+    (H, W, 3) f32 with row 0 at the bottom."""
+    srgb = read_png_rgb8(path)[::-1].astype(np.float32) / 255.0
     lin = np.where(
         srgb <= 0.04045, srgb / 12.92, ((srgb + 0.055) / 1.055) ** 2.4
     )

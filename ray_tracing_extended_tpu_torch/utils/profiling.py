@@ -39,7 +39,9 @@ a K-frame chunk's) spans lie inside its ``driver.step``:
 - ``refill.phase1``, ``refill.lane_pass``, ``refill.phase2``: the launches
   of an adaptive-refill call on the card (the lane pass only with more
   than one pixel a lane), so that a trace tells refill's two
-  ``render_adaptive`` launches apart.
+  ``render_adaptive`` launches apart;
+- ``scene.bvh_build``: one LBVH build in ``SceneBuilder.build`` (the
+  tree it gave is in ``accel/bvh.LBVH_BUILDS``).
 """
 
 from __future__ import annotations
@@ -64,10 +66,11 @@ WRAPPER_VISIT_BUILD = "wrapper.visit_build"
 REFILL_PHASE1 = "refill.phase1"
 REFILL_LANE_PASS = "refill.lane_pass"
 REFILL_PHASE2 = "refill.phase2"
+SCENE_BVH_BUILD = "scene.bvh_build"
 SPANS = (DRIVER_RESUME, DRIVER_STEP, DRIVER_FOLD, DRIVER_WAIT, DRIVER_STATS,
          DRIVER_LOG, DRIVER_CHECKPOINT, WRAPPER_LAUNCH, WRAPPER_TABLES,
          WRAPPER_TABLE_BUILD, WRAPPER_VISIT_BUILD, REFILL_PHASE1,
-         REFILL_LANE_PASS, REFILL_PHASE2)
+         REFILL_LANE_PASS, REFILL_PHASE2, SCENE_BVH_BUILD)
 
 # what ``annotate`` returns while no profiler records
 NO_SPAN = contextlib.nullcontext()
