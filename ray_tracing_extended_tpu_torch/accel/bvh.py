@@ -1,20 +1,32 @@
-"""LBVH: the Morton-sorted binary BVH build (host, NumPy) and the masked
-stack traversal (PyTorch), the plain version of the CUDA kernel's BVH
-geometry (``csrc/megakernel.cu`` ``closest_triangle_bvh``).
+"""The triangle BVH's builds (host) and the masked stack traversal
+(PyTorch), the plain version of the CUDA kernel's BVH geometry
+(``csrc/megakernel.cu`` ``closest_triangle_bvh``).
 
-Mirrors ``ray_tracing_extended_tpu/accel/bvh.py``, whose NumPy build it
-copies line for line, so both packages build identical arrays. Primitive
-centroids are quantized to a 2^10 grid and interleaved into 30-bit Morton
-codes; primitives are sorted by code; the tree is built top-down by
-splitting each range at the highest differing Morton bit (median fallback
-for equal codes), leaves holding up to ``leaf_width`` primitives in
-fixed-width rows whose unused slots point at the scene's first padding
-(never-hit) primitive. As in the JAX package, the build runs natively
-(``utils/native.py``, C++ through ctypes: the same arrays bit for bit,
-about 100x faster) unless ``RTE_NATIVE=0`` or no ``g++`` leaves it to
-NumPy; ``LBVH_BUILDS`` records each build's route, host seconds and the
-tree it gave (``tree_stats``: nodes, leaves, depth and its surface-area
-cost).
+Two builds give the same ``BVH`` arrays: root 0, a node's two children
+made together and the left subtree numbered first, fixed-width leaf rows
+whose real slots come first and whose unused slots point at the scene's
+first padding (never-hit) primitive, ``leaf_row`` -1 at internal nodes.
+
+``build_sah_bvh``, the scene's triangle tree: top down, the split of
+least ``A_left * N_left + A_right * N_right`` over 32 centroid bins on
+each axis (the surface-area heuristic), halves by index where every
+centroid falls in one bin, leaves of at most ``leaf_width``. A tree
+deeper than the traversal's stack is not kept: the LBVH over the same
+boxes is built instead.
+
+``build_lbvh``, the LBVH that ``ray_tracing_extended_tpu/accel/bvh.py``
+builds, copied line for line, so both packages build identical arrays:
+primitive centroids are quantized to a 2^10 grid and interleaved into
+30-bit Morton codes; primitives are sorted by code; the tree is built top
+down by splitting each range at the highest differing Morton bit (median
+fallback for equal codes). The scene's sphere tree (the plain path's) and
+the SAH build's fallback.
+
+Both run natively (``utils/native.py``, C++ through ctypes: the same
+arrays bit for bit, 50-100x faster) unless ``RTE_NATIVE=0`` or no
+``g++`` leaves them to NumPy; ``LBVH_BUILDS`` records each tree a build
+keeps: its route, host seconds and the tree (``tree_stats``: nodes,
+leaves, depth and its surface-area cost).
 
 The traversal visits the nodes and primitives that the JAX package's
 ``_traverse`` visits, in its order, for each ray: at an internal node
@@ -51,6 +63,7 @@ from ..utils import native
 
 LEAF_WIDTH = 4
 STACK_DEPTH = 48  # fits any split-balanced tree of < 2^47 prims
+SAH_BINS = 32  # centroid bins on each axis of a binned-SAH split
 
 # FP32 operations of a traversal's steps, for a tree's surface-area cost
 # (``tree_stats``): the root's box test, both child boxes of an internal
@@ -80,34 +93,31 @@ def _morton3(x: np.ndarray) -> np.ndarray:
     )
 
 
+def _tree_depth(left: np.ndarray, right: np.ndarray) -> int:
+    """The tree's depth in levels (a lone root is 1), a level at a time."""
+    levels = 0
+    frontier = np.zeros(1, np.int64)
+    while frontier.size:
+        levels += 1
+        children = np.concatenate([left[frontier], right[frontier]])
+        frontier = children[children >= 0]
+    return levels
+
+
 def _assert_traversable(left: np.ndarray, right: np.ndarray) -> int:
     """The traversal's stack is fixed (pushes clamp to its last slot), so a
     deeper tree would silently drop subtrees. Depth can exceed the Morton
     split's bound for long runs of equal codes, so the actual tree is
     measured -> its depth in levels (a lone root is 1)."""
-    n = len(left)
-    depth = np.zeros(n, np.int32)
-    stack = [0]
-    max_depth = 0
-    while stack:
-        node = stack.pop()
-        d = depth[node]
-        max_depth = max(max_depth, int(d))
-        l, r = int(left[node]), int(right[node])
-        if l >= 0:
-            depth[l] = d + 1
-            stack.append(l)
-        if r >= 0:
-            depth[r] = d + 1
-            stack.append(r)
+    depth = _tree_depth(left, right)
     # traversal pushes at most one node per level beyond the current one
-    if max_depth + 1 > STACK_DEPTH:
+    if depth > STACK_DEPTH:
         raise ValueError(
-            f"LBVH depth {max_depth + 1} exceeds the device traversal "
+            f"LBVH depth {depth} exceeds the device traversal "
             f"stack ({STACK_DEPTH}); rebuild with a larger leaf_width or "
             "raise STACK_DEPTH"
         )
-    return max_depth + 1
+    return depth
 
 
 def _box_area(bmin: np.ndarray, bmax: np.ndarray) -> np.ndarray:
@@ -144,9 +154,11 @@ def _clz64(x: int) -> int:
 
 @dataclasses.dataclass
 class LbvhBuilds:
-    """Every ``build_lbvh`` call: its route (``"native"`` or ``"numpy"``),
-    its primitives, its host seconds (the library's first-use compile
-    not included) and the tree it gave (``tree_stats``)."""
+    """Every tree a build keeps: its route (``"sah-native"`` or
+    ``"sah-numpy"`` for ``build_sah_bvh``, ``"native"`` or ``"numpy"`` for
+    ``build_lbvh``, the SAH build's fallback included), its primitives,
+    its host seconds (the library's first-use compile not included) and
+    the tree (``tree_stats``)."""
 
     routes: list = dataclasses.field(default_factory=list)
     prims: list = dataclasses.field(default_factory=list)
@@ -278,6 +290,121 @@ def build_lbvh(
                np.array(leaf_row, np.int32), np.stack(leaf_prims), sentinel)
     seconds = time.perf_counter() - t0
     LBVH_BUILDS.record("numpy", p, seconds, tree_stats(bvh, sentinel))
+    return bvh
+
+
+def _sah_split(cent: np.ndarray, bmin: np.ndarray, bmax: np.ndarray):
+    """The binned-SAH split of one node's primitives (centroids ``cent``
+    in float64, boxes ``bmin``, ``bmax`` in float32) -> a mask of those
+    that go left, or None where every centroid falls in one bin.
+
+    On each axis of positive centroid extent, centroid c falls in bin
+    ``min(int((c - lo) / extent * SAH_BINS), SAH_BINS - 1)``; the split
+    after bin i sends bins 0..i left. Its cost, in float64 and in this
+    order, is ``area(left box) * n_left + area(right box) * n_right``;
+    the least cost wins, the first axis and then the first bin on a tie."""
+    n = len(cent)
+    c_lo = cent.min(axis=0)
+    extent = cent.max(axis=0) - c_lo
+    best_cost, best = np.inf, None
+    for axis in range(3):
+        if not extent[axis] > 0.0:
+            continue
+        bins = np.minimum(
+            ((cent[:, axis] - c_lo[axis]) / extent[axis] * SAH_BINS
+             ).astype(np.int64), SAH_BINS - 1)
+        lo = np.full((SAH_BINS, 3), np.inf, np.float32)
+        hi = np.full((SAH_BINS, 3), -np.inf, np.float32)
+        np.minimum.at(lo, bins, bmin)
+        np.maximum.at(hi, bins, bmax)
+        # the split after bin i: bins 0..i on the left, i+1.. on the right
+        n_left = np.cumsum(np.bincount(bins, minlength=SAH_BINS))[:-1]
+        n_right = n - n_left
+        a_left = _box_area(np.minimum.accumulate(lo)[:-1],
+                           np.maximum.accumulate(hi)[:-1])
+        a_right = _box_area(np.minimum.accumulate(lo[::-1])[::-1][1:],
+                            np.maximum.accumulate(hi[::-1])[::-1][1:])
+        with np.errstate(invalid="ignore"):  # empty sides: inf * 0
+            cost = np.where((n_left > 0) & (n_right > 0),
+                            a_left * n_left + a_right * n_right, np.inf)
+        i = int(np.argmin(cost))
+        if cost[i] < best_cost:
+            best_cost, best = cost[i], bins <= i
+    return best
+
+
+def _sah_build_numpy(prim_bmin, prim_bmax, leaf_width: int, sentinel: int):
+    """``build_sah_bvh``'s arrays in NumPy: ``(bounds_min, bounds_max,
+    left, right, leaf_row, leaf_prims)``."""
+    cent = (prim_bmin.astype(np.float64) + prim_bmax.astype(np.float64)) * 0.5
+    bounds_min, bounds_max = [], []
+    left, right, leaf_row = [], [], []
+    leaf_prims: list[np.ndarray] = []
+
+    def new_node():
+        bounds_min.append(None)
+        bounds_max.append(None)
+        left.append(-1)
+        right.append(-1)
+        leaf_row.append(-1)
+        return len(left) - 1
+
+    # an explicit work stack, not recursion; a node's primitives keep
+    # their index order
+    work = [(new_node(), np.arange(len(cent), dtype=np.int32))]
+    while work:
+        node, idx = work.pop()
+        bounds_min[node] = prim_bmin[idx].min(axis=0)
+        bounds_max[node] = prim_bmax[idx].max(axis=0)
+        if len(idx) <= leaf_width:
+            leaf_row[node] = len(leaf_prims)
+            slots = np.full(leaf_width, sentinel, np.int32)
+            slots[: len(idx)] = idx
+            leaf_prims.append(slots)
+            continue
+        go_left = _sah_split(cent[idx], prim_bmin[idx], prim_bmax[idx])
+        if go_left is None:  # halves by index
+            go_left = np.arange(len(idx)) < len(idx) // 2
+        l_node = new_node()
+        r_node = new_node()
+        left[node] = l_node
+        right[node] = r_node
+        # the left subtree is numbered first
+        work.append((r_node, idx[~go_left]))
+        work.append((l_node, idx[go_left]))
+    return (np.stack(bounds_min), np.stack(bounds_max),
+            np.array(left, np.int32), np.array(right, np.int32),
+            np.array(leaf_row, np.int32), np.stack(leaf_prims))
+
+
+def build_sah_bvh(
+    prim_bmin: np.ndarray,
+    prim_bmax: np.ndarray,
+    sentinel: int,
+    leaf_width: int = LEAF_WIDTH,
+) -> BVH:
+    """A binned-SAH BVH over primitive AABBs, as CPU tensors, in the
+    arrays ``build_lbvh`` gives (``sentinel`` pads the leaves the same
+    way). Built natively where ``utils/native`` has its library, else in
+    NumPy: the same arrays. Where the tree is deeper than the traversal's
+    stack (``STACK_DEPTH``) it is not kept: the LBVH over the same boxes
+    is returned, and recorded as its own build."""
+    prim_bmin = np.asarray(prim_bmin, np.float32)
+    prim_bmax = np.asarray(prim_bmax, np.float32)
+    p = prim_bmin.shape[0]
+    lib = native.NATIVE.library()  # its first-use compile is not timed
+    t0 = time.perf_counter()
+    if lib is not None:
+        route = "sah-native"
+        arrays = native.sah_build(prim_bmin, prim_bmax, leaf_width, sentinel)
+    else:
+        route = "sah-numpy"
+        arrays = _sah_build_numpy(prim_bmin, prim_bmax, leaf_width, sentinel)
+    bvh = _bvh(*arrays, sentinel)
+    seconds = time.perf_counter() - t0
+    if _tree_depth(arrays[2], arrays[3]) > STACK_DEPTH:
+        return build_lbvh(prim_bmin, prim_bmax, sentinel, leaf_width)
+    LBVH_BUILDS.record(route, p, seconds, tree_stats(bvh, sentinel))
     return bvh
 
 

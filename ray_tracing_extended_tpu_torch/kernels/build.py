@@ -37,8 +37,9 @@ NVCC_FLAGS = (
 )
 # Flags of the host geometry library: the JAX package's own (its
 # utils/native.py), with no -march=native and no -ffast-math, so the
-# Morton quantisation rounds as NumPy does.
-GXX_FLAGS = ("-O3", "-shared", "-fPIC")
+# Morton quantisation rounds as NumPy does; -ffp-contract=off keeps the
+# SAH build's float64 multiply-adds separately rounded, as NumPy's are.
+GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-ffp-contract=off")
 
 
 def find_nvcc() -> str:

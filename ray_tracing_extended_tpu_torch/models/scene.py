@@ -15,8 +15,8 @@ puts them on ``device`` (the card unless the caller asks for the CPU):
 
 Meshes added with ``add_mesh`` are octree-chunked once in local space
 (``accel/chunks.py``) and re-posed per build, as in the JAX package.
-``build(build_bvh=...)`` adds LBVHs over the triangles and / or spheres
-(``accel/bvh.py``). The TPU kernel's packed tables and the content hash
+``build(build_bvh=...)`` adds BVHs over the triangles (binned SAH) and / or
+spheres (the LBVH) (``accel/bvh.py``). The TPU kernel's packed tables and the content hash
 are not part of the port.
 """
 
@@ -28,7 +28,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from ..accel.bvh import build_lbvh
+from ..accel.bvh import build_lbvh, build_sah_bvh
 from ..accel.chunks import MAX_TRIS_PER_CHUNK, create_chunks
 from ..utils.device import DEFAULT_DEVICE, resolve_device
 from ..utils.profiling import SCENE_BVH_BUILD, annotate
@@ -258,11 +258,15 @@ class SceneBuilder:
         """Flatten into a ``Scene`` on ``device`` (default the card; raises
         where CUDA is not available unless ``device="cpu"``).
 
-        ``build_bvh`` is None, ``"tri"``, ``"sphere"`` or ``"both"``: an
-        LBVH over the real triangles and / or spheres, its leaves padded
-        with the first padding primitive (never hit), as in the JAX
-        package. On the card a triangle BVH takes the kernel's BVH
-        instantiation; without one the triangles are scanned by chunk."""
+        ``build_bvh`` is None, ``"tri"``, ``"sphere"`` or ``"both"``: a BVH
+        over the real triangles and / or spheres, its leaves padded with
+        the first padding primitive (never hit): the spheres' the JAX
+        package's LBVH, the triangles' a binned-SAH tree
+        (``build_sah_bvh``; the LBVH where that tree would be deeper than
+        the traversal's stack). On the card a triangle BVH takes the
+        kernel's BVH instantiation; without one the triangles are scanned
+        by chunk. The triangle tree is built last, so the last entry of
+        ``LBVH_BUILDS`` is the tree the kernel traverses."""
         dev = resolve_device(device)
         if build_bvh not in (None, "tri", "sphere", "both"):
             raise ValueError(f"unknown build_bvh {build_bvh!r}")
@@ -332,15 +336,15 @@ class SceneBuilder:
             raise ValueError(f"material index out of range [0, {n_mats})")
 
         tri_bvh = sphere_bvh = None
-        if build_bvh in ("tri", "both") and t:
-            with annotate(SCENE_BVH_BUILD):
-                tri_bvh = build_lbvh(pos[:t].min(axis=1),
-                                     pos[:t].max(axis=1), sentinel=t)
         if build_bvh in ("sphere", "both") and s:
             with annotate(SCENE_BVH_BUILD):
                 sphere_bvh = build_lbvh(centers[:s] - radii[:s, None],
                                         centers[:s] + radii[:s, None],
                                         sentinel=s)
+        if build_bvh in ("tri", "both") and t:
+            with annotate(SCENE_BVH_BUILD):
+                tri_bvh = build_sah_bvh(pos[:t].min(axis=1),
+                                        pos[:t].max(axis=1), sentinel=t)
 
         return Scene(
             spheres=Spheres(center=_t(centers), radius=_t(radii), mat_idx=_t(smat)),

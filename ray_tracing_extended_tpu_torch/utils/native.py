@@ -1,13 +1,16 @@
-"""The native host build of the LBVH: Morton codes, a u64 radix argsort and
-the recursive build over the sorted primitives, in C++ through ctypes.
+"""The native host builds of the BVH: Morton codes, a u64 radix argsort and
+the recursive LBVH build over the sorted primitives, and the binned-SAH
+build, in C++ through ctypes.
 
 Counterpart of ``ray_tracing_extended_tpu/utils/native.py``, with the same
 functions (``available``, ``morton_codes``, ``argsort_u64``,
 ``lbvh_build``) over the port's own copy of the source,
-``csrc/geometry.cpp``. It is built at first use with ``g++ -O3 -shared
--fPIC`` (the JAX package's flags) into ``build/`` by ``kernels/build.py``.
-``accel/bvh.build_lbvh`` builds the same arrays through it as through its
-NumPy code, bit for bit (``tests/test_torch_native.py``).
+``csrc/geometry.cpp``, and one of its own, ``sah_build``. It is built at
+first use with ``g++ -O3 -shared -fPIC -ffp-contract=off`` (the JAX
+package's flags, multiply-adds unfused) into ``build/`` by
+``kernels/build.py``. ``accel/bvh.build_lbvh`` and ``build_sah_bvh``
+build the same arrays through it as through their NumPy code, bit for bit
+(``tests/test_torch_native.py``).
 
 Unlike the JAX module it has no silent fallback: a compiler that is there
 and fails raises, with its output. Only ``RTE_NATIVE=0`` (the JAX
@@ -41,6 +44,12 @@ def _bind(lib) -> None:
     lib.rtx_lbvh_build.restype = ctypes.c_int
     lib.rtx_lbvh_build.argtypes = [
         f32p, f32p, ctypes.c_int, i32p, u64p, ctypes.c_int, ctypes.c_int,
+        f32p, f32p, i32p, i32p, i32p, i32p,
+        ctypes.POINTER(ctypes.c_int),
+    ]
+    lib.rtx_sah_build.restype = ctypes.c_int
+    lib.rtx_sah_build.argtypes = [
+        f32p, f32p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         f32p, f32p, i32p, i32p, i32p, i32p,
         ctypes.POINTER(ctypes.c_int),
     ]
@@ -138,6 +147,42 @@ def lbvh_build(prim_bmin, prim_bmax, order, sorted_codes, leaf_width,
     n_leaves = ctypes.c_int(0)
     n_nodes = lib.rtx_lbvh_build(
         bmin, bmax, n, order, codes, leaf_width, sentinel,
+        node_bmin, node_bmax, left, right, leaf_row, leaf_prims,
+        ctypes.byref(n_leaves),
+    )
+    nl = n_leaves.value
+    return (
+        node_bmin[:n_nodes].copy(),
+        node_bmax[:n_nodes].copy(),
+        left[:n_nodes].copy(),
+        right[:n_nodes].copy(),
+        leaf_row[:n_nodes].copy(),
+        leaf_prims[:nl].copy(),
+    )
+
+
+def sah_build(prim_bmin, prim_bmax, leaf_width, sentinel):
+    """The binned-SAH build -> ``(node_bmin, node_bmax, left, right,
+    leaf_row, leaf_prims)``, NumPy arrays trimmed to the built nodes and
+    leaves, or None on the NumPy route."""
+    lib = NATIVE.library()
+    if lib is None:
+        return None
+    bmin = np.ascontiguousarray(prim_bmin, np.float32)
+    bmax = np.ascontiguousarray(prim_bmax, np.float32)
+    n = len(bmin)
+    if bmin.shape != (n, 3) or bmax.shape != (n, 3) or n < 1:
+        raise ValueError(f"sah_build: boxes {bmin.shape} and {bmax.shape}")
+    cap = 2 * n
+    node_bmin = np.empty((cap, 3), np.float32)
+    node_bmax = np.empty((cap, 3), np.float32)
+    left = np.empty(cap, np.int32)
+    right = np.empty(cap, np.int32)
+    leaf_row = np.empty(cap, np.int32)
+    leaf_prims = np.empty((n, leaf_width), np.int32)
+    n_leaves = ctypes.c_int(0)
+    n_nodes = lib.rtx_sah_build(
+        bmin, bmax, n, leaf_width, sentinel,
         node_bmin, node_bmax, left, right, leaf_row, leaf_prims,
         ctypes.byref(n_leaves),
     )

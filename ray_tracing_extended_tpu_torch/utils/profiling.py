@@ -40,7 +40,7 @@ a K-frame chunk's) spans lie inside its ``driver.step``:
   of an adaptive-refill call on the card (the lane pass only with more
   than one pixel a lane), so that a trace tells refill's two
   ``render_adaptive`` launches apart;
-- ``scene.bvh_build``: one LBVH build in ``SceneBuilder.build`` (the
+- ``scene.bvh_build``: one BVH build in ``SceneBuilder.build`` (the
   tree it gave is in ``accel/bvh.LBVH_BUILDS``).
 """
 

@@ -1,8 +1,11 @@
 """The port's big-mesh path on the CPU against the JAX package: the LBVH
 build, the BVH closest hit, ``mesh_scene`` through the renderer and the
-loaders' BVH rule.
+loaders' BVH rule; and the port's own binned-SAH build, the scene's
+triangle tree.
 
-The build is host numpy code on both sides and is held bit for bit. The
+The LBVH build is host numpy code on both sides and is held bit for bit; a
+scene's triangle tree is the SAH build over the boxes whose LBVH is the
+JAX package's (``tests/scene_bvhs.py``). The
 traversal and its triangle test follow the JAX package's op for op, so on
 random rays the hit flags and material rows agree exactly. Distances agree
 within 1e-3 relative, not bit for bit: XLA's CPU backend contracts
@@ -39,12 +42,23 @@ from ray_tracing_extended_tpu_torch.models import presets as tpresets
 from ray_tracing_extended_tpu_torch.models import scene as tscene
 from ray_tracing_extended_tpu_torch.ops.intersect import closest_hit_bruteforce
 from ray_tracing_extended_tpu_torch.scene import procedural as tproc
+from ray_tracing_extended_tpu_torch.scene.json_scene import (
+    load_json_scene as t_load,
+)
 from ray_tracing_extended_tpu_torch.utils import checkpoint as tckpt
+from scene_bvhs import (
+    BOX_SETS,
+    assert_scene_tri_bvh,
+    dog_boxes,
+    record_tri_boxes,
+)
 
 BVH_FIELDS = ("bounds_min", "bounds_max", "left", "right", "leaf_row",
               "leaf_prims")
 SMALL_MESH = dict(width=48, height=27, target_tris=4000)
-SCENES = pathlib.Path(rtt.__file__).resolve().parent.parent / "scenes"
+ROOT = pathlib.Path(rtt.__file__).resolve().parent.parent
+SCENES = ROOT / "scenes"
+DOG = ROOT / "benchmark" / "scenes" / "dmc-dog-skin.json"
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -129,9 +143,12 @@ def _mixed_scene(mod, bvh, **build):
 
 
 @pytest.mark.parametrize("bvh", ["tri", "sphere", "both"])
-def test_scene_build_bvh_matches_jax(bvh):
-    """``build(build_bvh=...)`` gives the JAX package's BVHs, and interop
-    carries them across."""
+def test_scene_build_bvh_matches_jax(monkeypatch, bvh):
+    """``build(build_bvh=...)`` gives the JAX package's sphere BVH; over
+    the triangle boxes it passed, the port's LBVH is the JAX package's
+    triangle tree and the scene's is ``build_sah_bvh``'s; interop carries
+    the JAX package's trees across."""
+    boxes = record_tri_boxes(monkeypatch)
     j = _mixed_scene(jscene, bvh)
     t = _mixed_scene(tscene, bvh, device="cpu")
     via = scene_from_arrays(j, device="cpu")
@@ -139,7 +156,10 @@ def test_scene_build_bvh_matches_jax(bvh):
         jb, tb = getattr(j, name), getattr(t, name)
         assert (jb is None) == (tb is None) == (getattr(via, name) is None)
         if jb is not None:
-            _assert_same_bvh(jb, tb)
+            if name == "tri_bvh":
+                assert_scene_tri_bvh(tb, jb, boxes)
+            else:
+                _assert_same_bvh(jb, tb)
             _assert_same_bvh(jb, getattr(via, name))
     assert t.has_tri_bvh == (bvh != "sphere")
     # the BVHs derive from the scene: the checkpoint fingerprint skips them
@@ -478,30 +498,54 @@ def test_traversal_equals_the_pop_retest_algorithm():
         old_counts["slabs"], old_counts["prims"])
 
 
-def test_traversal_counts_on_the_mesh_frame():
-    """The counts behind the GPU smoke run's BVH bound, on mesh_scene at
-    160x90 (stats frame 8, 1 spp, 4 bounces: 26,340 live segments): within
-    1% of what the pop-retest traversal counts there (pops 20.87, pop
-    rejects 0.961, internal nodes 18.22, leaves 1.69, slab tests 37.44,
-    triangles 5.31 a live segment; a parked dead lane's root test is no
-    work), and the bytes read by the node table's layout."""
-    scene, cam, cfg = tpresets.mesh_scene(width=160, height=90, device="cpu")
+def _assert_mesh_frame_counts(scene, cam, cfg, want):
+    """Stats frame 8's traversal counts a live segment within 1% of
+    ``want``, and the bytes read by the node table's layout."""
     counts = {}
     tmk.render_frames_plain(scene, cam, cfg, 8,
                             intersect_fn=tmk.plain_intersector(
                                 scene, cam, cfg, counts))
     n, parked = counts["segments"], counts["parked"]
     assert n == 26_340
-    for key, want in (("pops", 20.87), ("pop_rejects", 0.961),
-                      ("internal", 18.22), ("leaves", 1.69), ("slabs", 37.44),
-                      ("prims", 5.31)):
+    for key, value in want.items():
         got = (counts[key] - (parked if key in ("pops", "pop_rejects", "slabs")
                               else 0)) / n
-        assert abs(got - want) <= 0.01 * want, (key, got)
+        assert abs(got - value) <= 0.01 * value, (key, got)
     assert counts["fetched_bytes"] == (
         (n + parked) * tbvh.ROOT_BYTES + counts["internal"] * tbvh.NODE_ROW_BYTES
         + counts["leaves"] * tbvh.LEAF_ROW_BYTES
         + counts["prims"] * tbvh.PRIM_ROW_BYTES)
+
+
+def test_traversal_counts_on_the_mesh_frame():
+    """The counts behind the GPU smoke run's BVH bound, on mesh_scene at
+    160x90 (stats frame 8, 1 spp, 4 bounces: 26,340 live segments) through
+    its binned-SAH tree: within 1% of what the plain traversal counts there
+    (pops 16.92, pop rejects 0.889, internal nodes 14.51, leaves 1.516,
+    slab tests 30.03, triangles 5.049 a live segment; a parked dead lane's
+    root test is no work), and the bytes read by the node table's layout.
+    The LBVH's are the next test's."""
+    scene, cam, cfg = tpresets.mesh_scene(width=160, height=90, device="cpu")
+    _assert_mesh_frame_counts(scene, cam, cfg, dict(
+        pops=16.92, pop_rejects=0.889, internal=14.51, leaves=1.516,
+        slabs=30.03, prims=5.049))
+
+
+def test_traversal_counts_on_the_mesh_frame_through_the_lbvh(monkeypatch):
+    """The same frame through the LBVH over the same boxes, the tree the
+    scene held before the SAH build: within 1% of what the pop-retest
+    traversal counts there (pops 20.87, pop rejects 0.961, internal nodes
+    18.22, leaves 1.69, slab tests 37.44, triangles 5.31 a live segment),
+    and the same 26,340 segments: the tree moves the work, not the
+    paths."""
+    boxes = record_tri_boxes(monkeypatch)
+    scene, cam, cfg = tpresets.mesh_scene(width=160, height=90, device="cpu")
+    bmin, bmax, sentinel = boxes[-1]
+    lbvh = dataclasses.replace(
+        scene, tri_bvh=tbvh.build_lbvh(bmin, bmax, sentinel=sentinel))
+    _assert_mesh_frame_counts(lbvh, cam, cfg, dict(
+        pops=20.87, pop_rejects=0.961, internal=18.22, leaves=1.69,
+        slabs=37.44, prims=5.31))
 
 
 def _mesh(**kw):
@@ -511,12 +555,15 @@ def _mesh(**kw):
     return js, jc, ts, tc, cfg
 
 
-def test_mesh_scene_identical():
+def test_mesh_scene_identical(monkeypatch):
+    """The same scene arrays as the JAX package's; the triangle tree is
+    the SAH build over the boxes whose LBVH is the JAX package's."""
+    boxes = record_tri_boxes(monkeypatch)
     js, jc, ts, tc, cfg = _mesh()
     assert ts.triangles.count == js.triangles.pos_a.shape[0] == 4096
     assert int(ts.chunks.num_tris.sum()) == 3968  # 31 rings x 64 x 2
     assert ts.has_tri_bvh and ts.sphere_bvh is None
-    _assert_same_bvh(js.tri_bvh, ts.tri_bvh)
+    assert_scene_tri_bvh(ts.tri_bvh, js.tri_bvh, boxes)
     for name in ("pos_a", "edge_ab", "edge_ac", "normal_a", "n", "mat_idx"):
         assert np.array_equal(np.asarray(getattr(js.triangles, name)),
                               getattr(ts.triangles, name).numpy()), name
@@ -583,9 +630,11 @@ def test_mesh_scene_bvh_equals_scan():
     assert tmk.plain_block_size(cfg, ts, 48 * 27) == 48 * 27 // 256 * 256 + 256
 
 
-def test_json_scene_big_obj_gets_a_bvh(tmp_path):
+def test_json_scene_big_obj_gets_a_bvh(tmp_path, monkeypatch):
     """A JSON scene whose OBJ has more than 4096 faces gets a triangle BVH,
-    as in the JAX package (the shipped mirrors stay under the rule)."""
+    as in the JAX package (the shipped mirrors stay under the rule): the
+    SAH tree over the boxes whose LBVH is the JAX package's."""
+    boxes = record_tri_boxes(monkeypatch)
     v, f = jproc.trefoil_knot_mesh(5000)
     lines = [f"v {x:.6f} {y:.6f} {z:.6f}" for x, y, z in v]
     lines += [f"f {a + 1} {b + 1} {c + 1}" for a, b, c in f]
@@ -597,7 +646,7 @@ def test_json_scene_big_obj_gets_a_bvh(tmp_path):
     js, jc, cfg = j_load(spec, overrides=small)
     ts, tc, tcfg = rtt.load_json_scene(spec, overrides=small, device="cpu")
     assert js.tri_bvh is not None and ts.has_tri_bvh
-    _assert_same_bvh(js.tri_bvh, ts.tri_bvh)
+    assert_scene_tri_bvh(ts.tri_bvh, js.tri_bvh, boxes)
     a = rte.render_frame(js, jc, cfg, jnp.uint32(1))
     b = rtt.render_frame(ts, tc, tcfg, 1)
     _tight(np.asarray(a), b.numpy())
@@ -619,3 +668,162 @@ def test_rtiow_sphere_bvh_matches_xla():
     a = rte.render_frame(js, jc, cfg, jnp.uint32(2))
     b = rtt.render_frame(ts, camera_from_arrays(jc, device="cpu"), tcfg, 2)
     assert (np.abs(np.asarray(a) - b.numpy()).max(axis=-1) < 1e-3).mean() > 0.98
+
+
+# ---- the binned-SAH build, the scene's triangle tree ----------------------
+
+def _sah_tree(case):
+    bmin, bmax = BOX_SETS[case]()
+    n = len(bmin)
+    return tbvh.build_sah_bvh(bmin, bmax, sentinel=n), bmin, bmax, n
+
+
+@pytest.mark.parametrize("case", sorted(BOX_SETS))
+def test_sah_tree_holds_every_primitive_once(case):
+    """Each primitive in exactly one leaf slot; a leaf's real slots first,
+    then the sentinel; ``leaf_row`` -1 exactly at internal nodes; and the
+    numbering ``build_lbvh``'s: root 0, a node's two children made
+    together when it is taken from the work stack, the left subtree
+    first, the leaf rows in that order."""
+    bvh, _, _, n = _sah_tree(case)
+    left, right, leaf_row, prims = (getattr(bvh, f).numpy() for f in (
+        "left", "right", "leaf_row", "leaf_prims"))
+    real = prims < n
+    assert np.array_equal(np.sort(prims[real]), np.arange(n))
+    assert (prims[~real] == n).all()
+    assert np.array_equal(real, np.arange(tbvh.LEAF_WIDTH)
+                          < real.sum(axis=1)[:, None])
+    assert real.sum(axis=1).min() >= 1
+    assert np.array_equal(leaf_row < 0, left >= 0)
+    assert np.array_equal(left < 0, right < 0)
+    next_node, next_row, work = 1, 0, [0]
+    while work:
+        k = work.pop()
+        if left[k] < 0:
+            assert leaf_row[k] == next_row
+            next_row += 1
+            continue
+        assert (left[k], right[k]) == (next_node, next_node + 1)
+        next_node += 2
+        work += [int(right[k]), int(left[k])]
+    assert (next_node, next_row) == (len(left), len(prims))
+
+
+@pytest.mark.parametrize("case", sorted(BOX_SETS))
+def test_sah_tree_boxes_hold_their_children(case):
+    """Every internal node's box is the union of its children's, every
+    leaf's the union of its primitives' boxes, so a box holds all below
+    it."""
+    bvh, bmin, bmax, n = _sah_tree(case)
+    lo, hi, left, right, leaf_row, prims = (getattr(bvh, f).numpy() for f in (
+        "bounds_min", "bounds_max", "left", "right", "leaf_row",
+        "leaf_prims"))
+    inner = np.nonzero(left >= 0)[0]
+    assert np.array_equal(lo[inner], np.minimum(lo[left[inner]],
+                                                lo[right[inner]]))
+    assert np.array_equal(hi[inner], np.maximum(hi[left[inner]],
+                                                hi[right[inner]]))
+    leaves = np.nonzero(left < 0)[0]
+    slots = prims[leaf_row[leaves]]
+    real = slots < n
+    pad_lo = np.where(real[..., None], bmin[np.minimum(slots, n - 1)], np.inf)
+    pad_hi = np.where(real[..., None], bmax[np.minimum(slots, n - 1)], -np.inf)
+    assert np.array_equal(lo[leaves], pad_lo.min(axis=1))
+    assert np.array_equal(hi[leaves], pad_hi.max(axis=1))
+
+
+@pytest.mark.parametrize("case", sorted(BOX_SETS))
+def test_sah_tree_fits_the_stack_and_is_recorded(case):
+    """The tree's depth is within the traversal's stack, and
+    ``LBVH_BUILDS`` records it, on the native route, as ``tree_stats``
+    reads it."""
+    tbvh.LBVH_BUILDS.reset()
+    bvh, _, _, n = _sah_tree(case)
+    stats = tbvh.tree_stats(bvh, n)
+    assert stats["depth"] <= tbvh.STACK_DEPTH
+    builds = tbvh.LBVH_BUILDS
+    assert builds.routes == ["sah-native"] and builds.prims == [n]
+    assert [builds.nodes[0], builds.leaves[0], builds.depth[0],
+            builds.sah_ops[0]] == [stats[k] for k in (
+                "nodes", "leaves", "depth", "sah_ops")]
+    tbvh.LBVH_BUILDS.reset()
+
+
+def _scan_winner(o, d, scene, block=64):
+    """The closest triangle of every ray by testing all of them in index
+    order (strict <, so the first of exact ties), in the traversal's
+    direct triangle form -> (t, index)."""
+    n = int(scene.chunks.num_tris.sum())
+    idx = torch.arange(n)[None]
+    ts, ids = [], []
+    for s in range(0, o.shape[0], block):
+        t = tbvh._triangle_t_one(o[s:s + block, None], d[s:s + block, None],
+                                 scene, idx)
+        best_t, best_i = torch.min(t, dim=1)
+        ts.append(best_t)
+        ids.append(torch.where(torch.isfinite(best_t), best_i, 0))
+    return torch.cat(ts), torch.cat(ids)
+
+
+def _sah_winner(o, d, scene):
+    inf = torch.full((o.shape[0],), float("inf"))
+    zero = torch.zeros(o.shape[0], dtype=torch.int64)
+    return tbvh._traverse(
+        o, d, scene.tri_bvh,
+        lambda o_, d_, idx: tbvh._triangle_t_one(o_, d_, scene, idx),
+        inf, zero)
+
+
+def test_sah_closest_hit_equals_the_scan_on_the_mixed_scene():
+    """Through the mixed scene's SAH tree, the plain traversal's closest
+    triangle (t bit for bit and its index) is the scan's on 512 seeded
+    rays."""
+    ts = _mixed_scene(tscene, "tri", device="cpu")
+    assert tbvh.tree_stats(ts.tri_bvh, int(ts.chunks.num_tris.sum()))[
+        "nodes"] > 1
+    o, d = (torch.from_numpy(x) for x in _rays(seed=2))
+    t, i = _sah_winner(o, d, ts)
+    t_scan, i_scan = _scan_winner(o, d, ts)
+    assert 0.2 < float(torch.isfinite(t).double().mean()) < 0.95
+    assert torch.equal(t.view(torch.int32), t_scan.view(torch.int32))
+    assert torch.equal(i, i_scan)
+
+
+def test_sah_closest_hit_equals_the_scan_on_the_dog():
+    """The dog's scene at 48x27, 1 spp, 2 bounces: every ray the plain
+    path traces through the SAH tree meets the triangle the scan of all
+    33,902 meets, at the same t bit for bit."""
+    scene, cam, cfg = t_load(DOG, overrides=dict(
+        width=48, height=27, spp=1, max_bounce=2), device="cpu")
+    assert tmk.geometry(scene, cfg) == "bvh"
+    rays = []
+
+    def tracing(o, d, sc):
+        rays.append((o, d))
+        return tbvh.closest_hit_bvh(o, d, sc)
+
+    tmk.render_frames_plain(scene, cam, cfg, 7, intersect_fn=tracing)
+    o = torch.cat([r[0] for r in rays])
+    d = torch.cat([r[1] for r in rays])
+    assert o.shape[0] >= 48 * 27 * 2
+    t, i = _sah_winner(o, d, scene)
+    t_scan, i_scan = _scan_winner(o, d, scene)
+    assert 0.05 < float(torch.isfinite(t).double().mean()) < 0.95
+    assert torch.equal(t.view(torch.int32), t_scan.view(torch.int32))
+    assert torch.equal(i, i_scan)
+
+
+def test_sah_tree_costs_less_than_the_lbvh_on_the_dog():
+    """Over the dog's 33,902 triangle boxes: the SAH tree's surface-area
+    cost (``tree_stats`` ``sah_ops``) is 145.04 FP32 operations a ray
+    through the root (21,025 nodes, 19 levels), the LBVH's 239.56 (23,541
+    nodes, 29 levels): the floor's 20 m boxes no longer widen the top of
+    the tree."""
+    bmin, bmax = dog_boxes()
+    n = len(bmin)
+    sah = tbvh.tree_stats(tbvh.build_sah_bvh(bmin, bmax, sentinel=n), n)
+    lbvh = tbvh.tree_stats(tbvh.build_lbvh(bmin, bmax, sentinel=n), n)
+    assert (sah["nodes"], sah["depth"]) == (21_025, 19)
+    assert (lbvh["nodes"], lbvh["depth"]) == (23_541, 29)
+    assert sah["sah_ops"] == pytest.approx(145.04, abs=0.01)
+    assert lbvh["sah_ops"] == pytest.approx(239.56, abs=0.01)

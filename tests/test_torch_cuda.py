@@ -590,6 +590,52 @@ def test_bvh_kernel_equals_chunk_scan(cuda):
     assert int(a_segs) == int(b_segs) and torch.equal(a_map, b_map)
 
 
+def _bvh_scene(monkeypatch, name, **small):
+    """The knot mesh (``mesh_scene``, 4,000 triangles) or the dog's skin on
+    its floor (the benchmark's mirror, 33,902 triangles) at a small size,
+    on the host: ``(scene, camera, config)`` with the scene's SAH tree, and
+    the LBVH over the boxes its build passed."""
+    from ray_tracing_extended_tpu_torch.accel import bvh
+    from ray_tracing_extended_tpu_torch.models import scene as mscene
+
+    calls, build = [], mscene.build_sah_bvh
+
+    def recording(bmin, bmax, sentinel):
+        calls.append((bmin, bmax, sentinel))
+        return build(bmin, bmax, sentinel=sentinel)
+
+    monkeypatch.setattr(mscene, "build_sah_bvh", recording)
+    if name == "knot":
+        out = presets.mesh_scene(target_tris=4000, device="cpu", **small)
+    else:
+        out = rtt.load_json_scene(
+            SCENES.parent / "benchmark" / "scenes" / "dmc-dog-skin.json",
+            overrides=small, device="cpu")
+    (bmin, bmax, sentinel), = calls
+    return out, bvh.build_lbvh(bmin, bmax, sentinel=sentinel)
+
+
+@pytest.mark.parametrize("name", ["knot", "dog"])
+def test_bvh_kernel_through_the_sah_tree_and_the_lbvh(cuda, monkeypatch,
+                                                      name):
+    """``render_kernel<kBvh>`` on the knot and on the dog at 160x90, 2 spp,
+    4 bounces, through the scene's binned-SAH tree and through the LBVH
+    over the same boxes: the same image, per-pixel segment map and segment
+    total, bit for bit (the trees change the order of the tests, not the
+    closest hit)."""
+    (scene, cam, cfg), lbvh = _bvh_scene(monkeypatch, name, width=160,
+                                         height=90, spp=2, max_bounce=4)
+    assert mk.geometry(scene, cfg) == "bvh"
+    assert lbvh.left.shape != scene.tri_bvh.left.shape
+    other = dataclasses.replace(scene, tri_bvh=lbvh)
+    a, a_segs, a_map, _ = mk.render_frames_mega(scene.to(cuda), cam.to(cuda),
+                                                cfg, 3)
+    b, b_segs, b_map, _ = mk.render_frames_mega(other.to(cuda), cam.to(cuda),
+                                                cfg, 3)
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert torch.equal(a_map, b_map) and int(a_segs) == int(b_segs) > 0
+
+
 @pytest.mark.parametrize("fast", [False, True])
 @pytest.mark.parametrize("adaptive", [False, True])
 def test_bvh_kernel_equals_plain_bit_for_bit(cuda, adaptive, fast):
@@ -1440,8 +1486,9 @@ def test_pairblock_kernel_matches_plain(cuda, variant):
 
 # ---- the scene entry: native LBVH, FBX and Unity scenes, compare, debug ----
 def test_mesh_scene_builds_its_lbvh_natively(cuda):
-    """The card machine's host builds the LBVH natively (nvcc needs a host
-    g++ too), the same arrays as the NumPy build."""
+    """The card machine's host builds the scene's triangle tree (the
+    binned-SAH build) natively (nvcc needs a host g++ too), the same
+    arrays as the NumPy build."""
     import os
 
     from ray_tracing_extended_tpu_torch.accel.bvh import LBVH_BUILDS
@@ -1453,7 +1500,7 @@ def test_mesh_scene_builds_its_lbvh_natively(cuda):
         plain = presets.mesh_scene(target_tris=4000, device=cuda)[0].tri_bvh
     finally:
         del os.environ["RTE_NATIVE"]
-    assert LBVH_BUILDS.routes == ["native", "numpy"]
+    assert LBVH_BUILDS.routes == ["sah-native", "sah-numpy"]
     for f in ("bounds_min", "bounds_max", "left", "right", "leaf_row",
               "leaf_prims"):
         assert torch.equal(getattr(built, f), getattr(plain, f)), f

@@ -28,6 +28,7 @@ from ray_tracing_extended_tpu_torch.ops.camera import Camera
 from ray_tracing_extended_tpu_torch.scene import fbx as tfbx
 from ray_tracing_extended_tpu_torch.scene.procedural import trefoil_knot_mesh
 from ray_tracing_extended_tpu_torch.scene.unity import load_unity_scene
+from scene_bvhs import assert_scene_tri_bvh, record_tri_boxes
 from scene_writers import demo_unity_scene, write_mesh_fbx
 
 QUAD = np.array([[0, 0, 0], [1, 0, 0], [1, 1, 0], [0, 1, 0], [0.5, 0.5, 1]],
@@ -45,15 +46,20 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-def _assert_same_scene(port, jax_scene):
-    """Every array of the port's scene, its BVHs included, equals the JAX
-    package's (handed over by ``interop.scene_from_arrays``)."""
+def _assert_same_scene(port, jax_scene, tri_boxes=None):
+    """Every array of the port's scene, its sphere BVH included, equals the
+    JAX package's (handed over by ``interop.scene_from_arrays``); a
+    triangle BVH is the SAH tree over the boxes ``tri_boxes`` recorded,
+    whose LBVH is the JAX package's tree (``tests/scene_bvhs.py``)."""
     ref = scene_from_arrays(jax_scene, device="cpu")
     for part in ("spheres", "triangles", "chunks", "materials", "env",
                  "tri_bvh", "sphere_bvh"):
         a, b = getattr(port, part), getattr(ref, part)
         assert (a is None) == (b is None), part
         if a is None:
+            continue
+        if part == "tri_bvh":
+            assert_scene_tri_bvh(a, jax_scene.tri_bvh, tri_boxes)
             continue
         for f in dataclasses.fields(a):
             x, y = getattr(a, f.name), getattr(b, f.name)
@@ -193,9 +199,10 @@ def _knot_fbx(path, tris):
 
 
 @pytest.mark.parametrize("tris", [600, 5000], ids=["chunks", "bvh"])
-def test_json_scene_fbx_mesh_matches_jax(tmp_path, tris):
+def test_json_scene_fbx_mesh_matches_jax(tmp_path, monkeypatch, tris):
     """A JSON scene whose mesh is an FBX file: the same scene on both
     packages (over 4,096 faces with a triangle BVH, as for an OBJ)."""
+    boxes = record_tri_boxes(monkeypatch)
     faces = _knot_fbx(tmp_path / "knot.fbx", tris)
     spec = {
         "settings": {"maxBounceCount": 3, "numRaysPerPixel": 1,
@@ -212,7 +219,7 @@ def test_json_scene_fbx_mesh_matches_jax(tmp_path, tris):
     p.write_text(json.dumps(spec))
     js, jc, jcfg = j_json(p)
     ts, tc, tcfg = rtt.load_json_scene(p, device="cpu")
-    _assert_same_scene(ts, js)
+    _assert_same_scene(ts, js, boxes)
     _assert_same_camera(tc, jc)
     assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
     assert tmk.geometry(ts, tcfg) == ("bvh" if faces > 4096 else "chunks")
@@ -392,6 +399,7 @@ def test_load_unity_scene_bvh_rule_matches_jax(monkeypatch, tris):
     from ray_tracing_extended_tpu_torch.models.scene import Material
     from ray_tracing_extended_tpu_torch.scene import unity as tunity
 
+    boxes = record_tri_boxes(monkeypatch)
     rs = np.random.RandomState(3)
     tp = rs.uniform(-1, 1, (tris, 3, 3)).astype(np.float32)
     tn = np.tile(np.float32([0, 0, 1]), (tris, 3, 1))
@@ -406,7 +414,7 @@ def test_load_unity_scene_bvh_rule_matches_jax(monkeypatch, tris):
                         spec(Environment.disabled(), Material()))
     js, _, jcfg = junity.load_unity_scene("x.unity")
     ts, _, tcfg = tunity.load_unity_scene("x.unity", device="cpu")
-    _assert_same_scene(ts, js)
+    _assert_same_scene(ts, js, boxes)
     assert (ts.tri_bvh is not None) == (tris > 16384)
     assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
 

@@ -1,9 +1,11 @@
-"""The port's native LBVH build (``utils/native.py``, ``csrc/geometry.cpp``)
-against its NumPy build and the JAX package's ``build_lbvh``: Morton codes,
-the u64 argsort and every BVH array bit for bit, on random boxes, on
-degenerate extents (a flat axis, all centroids equal) and on the 70,016
-triangles of ``mesh_scene``; the route each build took; a compiler that
-fails raises.
+"""The port's native BVH builds (``utils/native.py``, ``csrc/geometry.cpp``)
+against their NumPy builds: the LBVH also against the JAX package's
+``build_lbvh`` (Morton codes, the u64 argsort and every BVH array bit for
+bit, on random boxes, on degenerate extents (a flat axis, all centroids
+equal) and on the 70,016 triangles of ``mesh_scene``), the binned-SAH
+build on random boxes, the knot, the dog, equal centroids and a few huge
+boxes among small ones, and its fallback to the LBVH; the route each build
+took; a compiler that fails raises.
 """
 
 import numpy as np
@@ -12,11 +14,14 @@ import torch
 
 from ray_tracing_extended_tpu.accel.bvh import build_lbvh as j_build_lbvh
 from ray_tracing_extended_tpu_torch.accel import bvh as tbvh
-from ray_tracing_extended_tpu_torch.models import scene as tscene
 from ray_tracing_extended_tpu_torch.models.presets import mesh_scene
 from ray_tracing_extended_tpu_torch.utils import native
-
-FIELDS = ("bounds_min", "bounds_max", "left", "right", "leaf_row", "leaf_prims")
+from scene_bvhs import (
+    BOX_SETS,
+    assert_same_bvh,
+    dog_boxes,
+    record_tri_boxes,
+)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -42,20 +47,12 @@ def native_route():
     tbvh.LBVH_BUILDS.reset()
 
 
-def _numpy_build(monkeypatch, bmin, bmax, sentinel):
+def _numpy_build(monkeypatch, bmin, bmax, sentinel, build=None):
     monkeypatch.setenv("RTE_NATIVE", "0")
     try:
-        return tbvh.build_lbvh(bmin, bmax, sentinel=sentinel)
+        return (build or tbvh.build_lbvh)(bmin, bmax, sentinel=sentinel)
     finally:
         monkeypatch.delenv("RTE_NATIVE")
-
-
-def _assert_same_bvh(a, b):
-    """Two BVHs (port tensors or JAX arrays) equal in dtype, shape, value."""
-    for f in FIELDS:
-        x, y = np.asarray(getattr(a, f)), np.asarray(getattr(b, f))
-        assert x.dtype == y.dtype and x.shape == y.shape, f
-        np.testing.assert_array_equal(x, y, err_msg=f)
 
 
 def _boxes(case: str, n: int = 3000):
@@ -97,30 +94,29 @@ def test_lbvh_native_matches_numpy_and_jax(native_route, monkeypatch, case):
     plain = _numpy_build(monkeypatch, bmin, bmax, n)
     assert tbvh.LBVH_BUILDS.routes == ["native", "numpy"]
     assert tbvh.LBVH_BUILDS.prims == [n, n]
-    _assert_same_bvh(built, plain)
-    _assert_same_bvh(built, j_build_lbvh(bmin, bmax, sentinel=n))
+    assert_same_bvh(built, plain)
+    assert_same_bvh(built, j_build_lbvh(bmin, bmax, sentinel=n))
 
 
 def test_mesh_scene_lbvh_native_matches_numpy_and_jax(native_route,
                                                       monkeypatch):
-    """The 70,016-triangle knot: ``mesh_scene`` builds its BVH natively,
-    equal to the NumPy build and to the JAX package's of the same boxes
-    (those ``SceneBuilder.build`` passed)."""
-    calls = []
-
-    def recording(bmin, bmax, sentinel):
-        calls.append((bmin, bmax, sentinel))
-        return tbvh.build_lbvh(bmin, bmax, sentinel=sentinel)
-
-    monkeypatch.setattr(tscene, "build_lbvh", recording)
+    """The 70,016-triangle knot: ``mesh_scene`` builds its SAH tree
+    natively, equal to the NumPy SAH build of the same boxes (those
+    ``SceneBuilder.build`` passed); over them the native LBVH equals the
+    NumPy build and the JAX package's."""
+    calls = record_tri_boxes(monkeypatch)
     scene, _, _ = mesh_scene(device="cpu")
     (bmin, bmax, n), = calls
     assert n == 70016 and bmin.shape == (n, 3)
-    assert tbvh.LBVH_BUILDS.routes == ["native"]
+    assert tbvh.LBVH_BUILDS.routes == ["sah-native"]
     assert tbvh.LBVH_BUILDS.prims == [n]
-    _assert_same_bvh(scene.tri_bvh, _numpy_build(monkeypatch, bmin, bmax, n))
-    _assert_same_bvh(scene.tri_bvh, j_build_lbvh(bmin, bmax, sentinel=n))
-    assert tbvh.LBVH_BUILDS.routes == ["native", "numpy"]
+    assert_same_bvh(scene.tri_bvh, _numpy_build(monkeypatch, bmin, bmax, n,
+                                                 tbvh.build_sah_bvh))
+    built = tbvh.build_lbvh(bmin, bmax, sentinel=n)
+    assert_same_bvh(built, _numpy_build(monkeypatch, bmin, bmax, n))
+    assert_same_bvh(built, j_build_lbvh(bmin, bmax, sentinel=n))
+    assert tbvh.LBVH_BUILDS.routes == ["sah-native", "sah-numpy", "native",
+                                       "numpy"]
 
 
 def test_native_build_speed(native_route):
@@ -163,3 +159,62 @@ def test_failing_compiler_raises(native_route, monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match=r"(?s)g\+\+ failed .*error"):
         tbvh.build_lbvh(bmin, bmax, sentinel=500)
     assert tbvh.LBVH_BUILDS.routes == []
+
+
+# ---- the binned-SAH build ---------------------------------------------------
+
+@pytest.mark.parametrize("case", sorted(BOX_SETS))
+def test_sah_native_matches_numpy(native_route, monkeypatch, case):
+    """The native SAH build and the NumPy one: every array bit for bit
+    (the float32 boxes by their bits), each build recorded on its
+    route."""
+    bmin, bmax = BOX_SETS[case]()
+    n = len(bmin)
+    built = tbvh.build_sah_bvh(bmin, bmax, sentinel=n)
+    plain = _numpy_build(monkeypatch, bmin, bmax, n, tbvh.build_sah_bvh)
+    assert tbvh.LBVH_BUILDS.routes == ["sah-native", "sah-numpy"]
+    assert tbvh.LBVH_BUILDS.prims == [n, n]
+    assert_same_bvh(built, plain)
+    for f in ("bounds_min", "bounds_max"):
+        assert torch.equal(getattr(built, f).view(torch.int32),
+                           getattr(plain, f).view(torch.int32)), f
+
+
+def _deep_boxes(n=126):
+    """Boxes at x = 2^k: each SAH split peels off the farthest few, so the
+    tree is 28 levels deep; the LBVH's Morton grid puts most in one cell
+    and splits them by index, 16 levels."""
+    x = np.float32(2.0) ** np.arange(n, dtype=np.float32)
+    bmin = np.stack([x, np.zeros(n), np.zeros(n)], axis=1).astype(np.float32)
+    return bmin, bmin + np.float32(0.5)
+
+
+@pytest.mark.parametrize("route", ["native", "numpy"])
+def test_sah_tree_past_the_stack_falls_back_to_the_lbvh(native_route,
+                                                        monkeypatch, route):
+    """Where the SAH tree would be deeper than the traversal's stack, the
+    build keeps the LBVH over the same boxes, and records that build, on
+    its route, alone (the stack set to 20 levels here: the SAH tree has
+    28, the LBVH 16)."""
+    bmin, bmax = _deep_boxes()
+    n = len(bmin)
+    assert tbvh.tree_stats(tbvh.build_sah_bvh(bmin, bmax, sentinel=n),
+                           n)["depth"] == 28
+    monkeypatch.setattr(tbvh, "STACK_DEPTH", 20)
+    if route == "numpy":
+        monkeypatch.setenv("RTE_NATIVE", "0")
+    tbvh.LBVH_BUILDS.reset()
+    kept = tbvh.build_sah_bvh(bmin, bmax, sentinel=n)
+    assert tbvh.LBVH_BUILDS.routes == [route]
+    assert tbvh.LBVH_BUILDS.depth == [16]
+    assert_same_bvh(kept, tbvh.build_lbvh(bmin, bmax, sentinel=n))
+
+
+def test_dog_sah_build_speed(native_route):
+    """The dog's 33,902 boxes build natively in well under the scene's
+    budget of 0.2 s (0.06 s on one core of an x86-64 host, where the
+    NumPy route takes 3.2 s)."""
+    bmin, bmax = dog_boxes()
+    tbvh.build_sah_bvh(bmin, bmax, sentinel=len(bmin))
+    assert tbvh.LBVH_BUILDS.routes == ["sah-native"]
+    assert tbvh.LBVH_BUILDS.seconds[0] < 0.5, tbvh.LBVH_BUILDS
